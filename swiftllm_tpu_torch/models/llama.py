@@ -1,0 +1,345 @@
+"""Llama-family forward pass for the PyTorch port, at tp = dp = 1.
+
+A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
+
+- The step consumes ONE flat token batch, decode tokens and prefill chunks
+  mixed (SARATHI), described by a ``StepBatch`` that ``unpack_step_batch``
+  rebuilds on the device from the packed i32 buffer of
+  ``worker/batch_builder.pack_step_batch``.
+- The paged KV cache is ``[L, S, W]``: S flat slots ((pages + 1) * page_size,
+  the +1 a garbage page that padding tokens write into) and W = 2*n_kv*hd
+  lanes laid out ``[K_all ‖ V_all]``.
+- A Python loop over layers replaces ``lax.scan``. Where JAX donates the
+  cache and the feedback buffer to the step, this port updates both IN PLACE.
+- Attention goes through the hand-written CUDA kernels of
+  ``ops/paged_attention.py`` (``use_kernels``, the config's ``use_pallas``),
+  or through ``_ragged_paged_attention_torch``, the port of the JAX package's
+  gather-based reference. Projections, norms, RoPE, SiLU*mul, the embedding
+  gather and the argmax are plain PyTorch, as the JAX package leaves them to
+  XLA.
+
+Numerics round where the JAX package rounds: RMSNorm casts back to the
+activation dtype BEFORE the weight multiply, SiLU runs in f32 and is cast
+back, and the logits are a product in the activation dtype cast to f32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from swiftllm_tpu_torch.config import LlamaModelConfig
+from swiftllm_tpu_torch.models.sampling import exact_greedy
+from swiftllm_tpu_torch.ops import paged_attention as pa
+
+
+@dataclasses.dataclass
+class StepBatch:
+    """One step's flat token batch, padded to bucket sizes (T tokens, B rows,
+    Pg pages per row). The batch builder fills it with numpy arrays on the
+    host; ``unpack_step_batch`` rebuilds it as tensors on the device."""
+
+    token_ids: Any          # i32[T]   flat new tokens (pad 0)
+    positions: Any          # i32[T]   position of each token in its sequence
+    kv_slots: Any           # i32[T]   cache slot each token's KV goes to
+                            #          (pad -> the garbage page)
+    q_starts: Any           # i32[B]   first flat token of each row (pad T)
+    q_lens: Any             # i32[B]   tokens fed for each row this step
+    seq_lens: Any           # i32[B]   KV length of each row AFTER this step
+    page_table: Any         # i32[B,P] page ids per row (pad 0)
+    sample_mask: Any        # bool[B]  row produces a sampled token
+    temperature: Any = 0.0  # f32[B]
+    top_p: Any = 1.0        # f32[B]
+    top_k: Any = 0          # i32[B]
+    seeds: Any = 0          # u32[B] (i32 bits on the device)
+    feedback_read: Any = -1   # i32[T] feedback slot to read the token from
+    feedback_write: Any = 0   # i32[B] feedback slot for row b's sample
+    lora_ids: Any = 0         # i32[T]
+    decode_row: Any = False   # bool[B] row is decode-kind (n_tokens == 1)
+    kv_slots_scatter: Any = 0  # i32[T] real slot for prefill-kind tokens;
+                               #        the builder gives decode-kind and pad
+                               #        tokens the garbage slot, and
+                               #        unpack_step_batch gives them -1,
+                               #        which store_kv drops
+
+
+def unpack_step_batch(flat: torch.Tensor, T: int, B: int, Pg: int, *,
+                      page_size: int, garbage_slot: int) -> StepBatch:
+    """Inverse of ``worker.batch_builder.pack_step_batch``: slice the packed
+    i32 buffer and derive the per-token fields (positions, slots, feedback
+    reads, LoRA ids) from the row fields and the page table, on the buffer's
+    device. The float fields are bit-casts (``view``), not conversions."""
+    off = 0
+
+    def take(n):
+        nonlocal off
+        out = flat[off:off + n]
+        off += n
+        return out
+
+    token_ids = take(T)
+    q_starts = take(B)
+    q_lens = take(B)
+    seq_lens = take(B)
+    sample_mask = take(B) != 0
+    temperature = take(B).view(torch.float32)
+    top_p = take(B).view(torch.float32)
+    top_k = take(B)
+    seeds = take(B)
+    feedback_write = take(B)
+    decode_row = take(B) != 0
+    frd_row = take(B)
+    lora_row = take(B)
+    page_table = take(B * Pg).view(B, Pg)
+
+    # Row of token t: q_starts ascend (pad rows at T), so the owning row is
+    # the last start <= t. Alignment gaps and pad tokens come out invalid.
+    t_iota = torch.arange(T, dtype=torch.int32, device=flat.device)
+    row = (torch.searchsorted(q_starts, t_iota, right=True) - 1).clamp(0, B - 1)
+    start = q_starts[row]
+    qlen = q_lens[row]
+    o = t_iota - start
+    valid = (o >= 0) & (o < qlen)
+    pos = torch.where(valid, seq_lens[row] - qlen + o, 0)
+    pidx = (pos // page_size).clamp(0, Pg - 1)
+    slot = page_table[row, pidx] * page_size + pos % page_size
+    kv_slots = torch.where(valid, slot, garbage_slot)
+    # Only prefill-kind tokens are scattered (the decode kernel writes its
+    # rows' KV itself). The JAX package points the rest at the garbage slot;
+    # -1 makes store_kv skip them instead of writing the garbage page.
+    kv_slots_scatter = torch.where(valid & ~decode_row[row], slot, -1)
+    feedback_read = torch.where(valid & (o == qlen - 1), frd_row[row], -1)
+    lora_ids = torch.where(valid, lora_row[row], 0)
+
+    return StepBatch(token_ids=token_ids, positions=pos, kv_slots=kv_slots,
+                     q_starts=q_starts, q_lens=q_lens, seq_lens=seq_lens,
+                     page_table=page_table, sample_mask=sample_mask,
+                     temperature=temperature, top_p=top_p, top_k=top_k,
+                     seeds=seeds, feedback_read=feedback_read,
+                     feedback_write=feedback_write, decode_row=decode_row,
+                     kv_slots_scatter=kv_slots_scatter, lora_ids=lora_ids)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def compute_inv_freq(cfg: LlamaModelConfig) -> np.ndarray:
+    """Rotary inverse frequencies with Llama-3 / linear scaling applied
+    (HF semantics): "linear" divides by the factor, "llama3" smooths between
+    a low and a high frequency band."""
+    hd = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
+    scaling = cfg.rope_scaling
+    if scaling is None:
+        pass
+    elif isinstance(scaling, (int, float)):
+        inv_freq = inv_freq / float(scaling)
+    elif isinstance(scaling, dict):
+        rope_type = scaling.get("rope_type", scaling.get("type", "default"))
+        if rope_type == "linear":
+            inv_freq = inv_freq / float(scaling["factor"])
+        elif rope_type == "llama3":
+            factor = float(scaling["factor"])
+            low = float(scaling["low_freq_factor"])
+            high = float(scaling["high_freq_factor"])
+            orig = float(scaling["original_max_position_embeddings"])
+            wavelen = 2 * np.pi / inv_freq
+            low_wl = orig / low
+            high_wl = orig / high
+            smooth = (orig / wavelen - low) / (high - low)
+            inv_freq = np.where(
+                wavelen > low_wl, inv_freq / factor,
+                np.where(wavelen < high_wl, inv_freq,
+                         (1 - smooth) / factor * inv_freq + smooth * inv_freq))
+        elif rope_type != "default":
+            raise NotImplementedError(f"rope_scaling type {rope_type!r}")
+    return inv_freq.astype(np.float32)
+
+
+def rope_tables(positions: torch.Tensor, inv_freq: torch.Tensor, dtype):
+    """cos/sin [T, 1, hd/2] in ``dtype``, computed once per step."""
+    angles = positions.float()[:, None] * inv_freq[None, :]
+    return (torch.cos(angles).to(dtype)[:, None, :],
+            torch.sin(angles).to(dtype)[:, None, :])
+
+
+def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
+    """Half-split (rotate_half) rotary embedding, HF convention.
+    x: [T, n_heads, head_dim]; tables: (cos, sin) from rope_tables."""
+    cos, sin = tables
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """HF LlamaRMSNorm: f32 variance, cast back BEFORE the weight multiply."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+# ---------------------------------------------------------------------------
+# Attention over the paged cache: the plain, gather-based path
+# ---------------------------------------------------------------------------
+
+def _ragged_paged_attention_torch(q, cache_l, batch: StepBatch, *,
+                                  page_size: int, sm_scale: float,
+                                  q_bucket: int):
+    """Gather-based attention, the port of the JAX package's
+    ``_ragged_paged_attention_jnp``: every row attends over its own paged KV.
+
+    q [T, n_q, hd]; cache_l [S, 2, n_kv, hd] (one layer). It materialises the
+    gathered KV of every row ([B, Pg*page_size, ...]), so it serves the CPU
+    and ``use_pallas=False``; the kernels implement the same contract."""
+    T, n_q, hd = q.shape
+    B, Pg = batch.page_table.shape
+    S, n_kv = cache_l.shape[0], cache_l.shape[2]
+    group = n_q // n_kv
+    K = Pg * page_size
+    dev = q.device
+
+    slot_ids = (batch.page_table[:, :, None].long() * page_size
+                + torch.arange(page_size, device=dev)[None, None, :]
+                ).reshape(B, K).clamp(0, S - 1)      # JAX clamps the gather
+    kv = cache_l[slot_ids].to(q.dtype)               # [B, K, 2, n_kv, hd]
+    k, v = kv[:, :, 0], kv[:, :, 1]
+
+    # Dense query view [B, Q] of flat-token indices (pad -> zero row at T).
+    q_iota = torch.arange(q_bucket, device=dev)
+    q_tok = torch.where(q_iota[None, :] < batch.q_lens[:, None],
+                        batch.q_starts[:, None] + q_iota[None, :],
+                        T).clamp(0, T)
+    q_pad = torch.cat([q, q.new_zeros(1, n_q, hd)])
+    qd = q_pad[q_tok].reshape(B, q_bucket, n_kv, group, hd)
+    q_pos = torch.cat([batch.positions,
+                       batch.positions.new_zeros(1)])[q_tok]     # [B, Q]
+
+    scores = torch.einsum("bqngd,bknd->bngqk", qd.float(), k.float()) * sm_scale
+    key_pos = torch.arange(K, device=dev)
+    valid = ((key_pos[None, None, :] <= q_pos[:, :, None])
+             & (key_pos[None, None, :] < batch.seq_lens[:, None, None]))
+    scores = torch.where(valid[:, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngqk,bknd->bqngd", probs, v.float())
+    out = out.reshape(B, q_bucket, n_q, hd).to(q.dtype)
+
+    o_flat = q.new_zeros(T + 1, n_q, hd)
+    o_flat[q_tok] = out
+    return o_flat[:T]
+
+
+def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
+                         page_size: int, sm_scale: float, use_kernels: bool,
+                         q_bucket: int):
+    """Store this layer's fresh K‖V (kv_new [T, W], in the cache dtype) into
+    the cache [L, S, W] IN PLACE and run attention; returns [T, n_q, hd].
+
+    Kernels: decode buckets run the decode kernel, which writes its rows' KV
+    itself. Mixed buckets keep the JAX order: the decode kernel on the
+    decode-kind rows (packed first, flat token == row), then ``store_kv`` of
+    the prefill-kind spans and the prefill kernel on them; tokens below
+    n_dec take the decode output, the rest the prefill output."""
+    T = q.shape[0]
+    if use_kernels and q_bucket == 1:
+        return pa.paged_decode_attention(
+            q, cache, kv_new, batch.page_table, batch.q_lens, batch.seq_lens,
+            batch.kv_slots, layer, page_size=page_size, sm_scale=sm_scale)
+    if use_kernels:
+        q_lens_dec = torch.where(batch.decode_row, batch.q_lens, 0)
+        q_lens_pre = torch.where(batch.decode_row, 0, batch.q_lens)
+        dec_out = pa.paged_decode_attention(
+            q, cache, kv_new, batch.page_table, q_lens_dec, batch.seq_lens,
+            batch.kv_slots, layer, page_size=page_size, sm_scale=sm_scale)
+        pa.store_kv(cache, kv_new, batch.kv_slots_scatter, layer)
+        pre_out = pa.paged_prefill_attention(
+            q, cache, batch.page_table, batch.q_starts, q_lens_pre,
+            batch.seq_lens, layer, page_size=page_size, sm_scale=sm_scale,
+            q_bucket=q_bucket)
+        n_dec = batch.decode_row.sum()
+        tok = torch.arange(T, device=q.device)[:, None, None]
+        return torch.where(tok < n_dec, dec_out, pre_out)
+    # Plain path: scatter every token, then attend. The builder never emits
+    # an out-of-range slot; one would be redirected to the garbage page
+    # (JAX drops it), never written elsewhere.
+    S, W = cache.shape[1], cache.shape[2]
+    in_range = (batch.kv_slots >= 0) & (batch.kv_slots < S)
+    slots = torch.where(in_range, batch.kv_slots, S - page_size).long()
+    cache[layer, slots] = kv_new
+    hd = q.shape[2]
+    cache_l = cache[layer].view(S, 2, W // (2 * hd), hd)
+    return _ragged_paged_attention_torch(q, cache_l, batch, page_size=page_size,
+                                         sm_scale=sm_scale, q_bucket=q_bucket)
+
+
+def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
+                  batch: StepBatch, *, cfg: LlamaModelConfig, page_size: int,
+                  q_bucket: int, use_kernels: bool,
+                  return_logits: bool = False):
+    """One step: embedding, the layers, the final norm, the greedy head and
+    the feedback write. ``kv_cache`` [L, S, W] and ``feedback`` i32[F] are
+    updated IN PLACE (JAX donates them and returns new arrays).
+
+    Returns (tokens i32[B], logits f32[B, V] or None)."""
+    T = batch.token_ids.shape[0]
+    hd = cfg.head_dim
+    sm_scale = 1.0 / math.sqrt(hd)
+    eps = cfg.rms_norm_eps
+
+    # Device-fed tokens: step N reads step N-1's samples (clamped gather).
+    f_len = feedback.shape[0]
+    fed = feedback[batch.feedback_read.clamp(0, f_len - 1)]
+    token_ids = torch.where(batch.feedback_read >= 0, fed, batch.token_ids)
+
+    embed = params["embed"]
+    vocab = embed.shape[0]
+    in_range = (token_ids >= 0) & (token_ids < vocab)
+    x = embed[token_ids.clamp(0, vocab - 1)]
+    x = torch.where(in_range[:, None], x, torch.zeros_like(x))       # [T, D]
+
+    rope_cs = rope_tables(batch.positions, params["inv_freq"], x.dtype)
+    layers = params["layers"]
+    for layer in range(kv_cache.shape[0]):
+        w = {name: t[layer] for name, t in layers.items()}
+        h = rms_norm(x, w["attn_norm"], eps)
+        q_flat = F.linear(h, w["wq"])
+        k_flat = F.linear(h, w["wk"])
+        v_flat = F.linear(h, w["wv"])
+        if "bq" in w:   # Qwen2-style q/k/v bias
+            q_flat = q_flat + w["bq"].to(q_flat.dtype)
+            k_flat = k_flat + w["bk"].to(k_flat.dtype)
+            v_flat = v_flat + w["bv"].to(v_flat.dtype)
+        q = apply_rope(q_flat.view(T, -1, hd), rope_cs)
+        k = apply_rope(k_flat.view(T, -1, hd), rope_cs)
+        kv_new = torch.cat([k.reshape(T, -1), v_flat], dim=1).to(kv_cache.dtype)
+        attn = _attention_and_store(
+            q, kv_new, kv_cache, layer, batch, page_size=page_size,
+            sm_scale=sm_scale, use_kernels=use_kernels, q_bucket=q_bucket)
+        x = x + F.linear(attn.reshape(T, -1), w["wo"])
+
+        h = rms_norm(x, w["ffn_norm"], eps)
+        gate = F.silu(F.linear(h, w["w_gate"]).float()).to(x.dtype)
+        x = x + F.linear(gate * F.linear(h, w["w_up"]), w["w_down"])
+
+    x = rms_norm(x, params["final_norm"], eps)
+
+    # Greedy head over each row's last fed token (pad rows -> the zero row).
+    last_tok = torch.where(batch.q_lens > 0,
+                           batch.q_starts + batch.q_lens - 1, T).clamp(0, T)
+    x_pad = torch.cat([x, x.new_zeros(1, x.shape[1])])
+    h_last = x_pad[last_tok]                                         # [B, D]
+    logits = (h_last @ params["lm_head"].to(h_last.dtype).T).float()  # [B, V]
+    tokens = exact_greedy(logits)
+
+    # Publish samples to the feedback buffer. Pad rows target the garbage
+    # slot (the last); an out-of-range slot is redirected there too, where
+    # JAX would drop the write.
+    fw = batch.feedback_write
+    fw = torch.where((fw >= 0) & (fw < f_len), fw, f_len - 1).long()
+    feedback[fw] = tokens
+    return tokens, (logits if return_logits else None)

@@ -1,0 +1,255 @@
+// Ragged causal paged attention for multi-token (prefill and chunked-prefill)
+// rows.
+//
+// Replaces: swiftllm_tpu/ops/paged_attention.py:_tiles_kernel (the
+// q_bucket > 1 branch of ragged_paged_attention). Its fused span write is the
+// separate store_kv launch (store_kv.cu), queued before this one.
+//
+// What it computes: row b's q_lens[b] queries are flat tokens q_starts[b] ..
+// q_starts[b]+q_lens[b]-1 and the last positions of a seq_lens[b]-long
+// sequence whose keys live in pages page_table[b]; query i sees keys
+// 0 .. seq_len-q_len+i (causal within the tail), with GQA and an f32 online
+// softmax. Tokens of no row are left as the caller allocated them.
+//
+// What bounds it on the H100: for a long prefill, operations (4*HD flops per
+// query-key pair and head, against K/V bytes that every query tile re-reads);
+// for a short chunk over a long history, bytes.
+//
+// What this simple design does about it: one block per (row, q tile, kv head)
+// holds 64 query rows (64/GROUP tokens times the GROUP query heads of the kv
+// head) in shared memory, so every K/V tile it stages serves all of them, and
+// walks the row's keys in tiles of 32 up to the causal bound of its last
+// query. Scores and P.V run on the CUDA cores in f32 (each thread owns 4 rows
+// by 4 keys of the scores and 4 rows by HD/8 dims of the output); moving them
+// to wgmma with TMA-fed tiles is the later step to the tensor-core bound.
+
+#include "common.cuh"
+
+namespace swiftllm {
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kRows = 64;   // query rows (token x head) per block
+constexpr int kTK = 32;     // keys per tile
+constexpr int kPad = 8;     // bf16 of padding per shared row: spreads banks
+constexpr int kRPT = 4;     // rows per thread (kRows / 16)
+constexpr int kKPT = 4;     // keys per thread (kTK / 8)
+
+template <int HD, int GROUP>
+__global__ void __launch_bounds__(kThreads)
+paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
+                     const int* __restrict__ page_table,
+                     const int* __restrict__ q_starts,
+                     const int* __restrict__ q_lens,
+                     const int* __restrict__ seq_lens, bf16* __restrict__ out,
+                     int Pg, int n_kv, int S, int layer, int page_size,
+                     float sm_scale) {
+  constexpr int TQ = kRows / GROUP;  // query tokens per block
+  constexpr int DPT = HD / 8;        // output dims per thread
+  constexpr int VPR = HD / 8;        // 16-byte vectors per head row
+  const int b = blockIdx.x;
+  const int tile = blockIdx.y;
+  const int h = blockIdx.z;
+  const int q_len = q_lens[b];
+  const int seq_len = seq_lens[b];
+  if (q_len <= 0 || seq_len <= 0 || tile * TQ >= q_len) return;
+  const int n_q = n_kv * GROUP;
+  const int KH = n_kv * HD;
+  const int W = 2 * KH;
+  const int tok0 = q_starts[b] + tile * TQ;            // flat token of query 0
+  const int first_pos = seq_len - q_len + tile * TQ;   // its position
+  const int n_tok = min(TQ, q_len - tile * TQ);
+  const int kv_end = first_pos + n_tok;                // keys [0, kv_end)
+  const int64_t layer_off = static_cast<int64_t>(layer) * S * W;
+  const int* pt = page_table + static_cast<int64_t>(b) * Pg;
+  const int n_pages = S / page_size;
+
+  __shared__ __align__(16) bf16 Qs[kRows][HD + kPad];
+  __shared__ __align__(16) bf16 Ks[kTK][HD + kPad];
+  __shared__ __align__(16) bf16 Vs[kTK][HD + kPad];
+  __shared__ float Ps[kRows][kTK + 1];
+
+  const int tid = threadIdx.x;
+  const int tr = tid / 8;
+  const int tk = tid % 8;
+
+  // Query rows r = g*TQ + qi: token qi of the tile, query head h*GROUP + g.
+  for (int i = tid; i < kRows * VPR; i += kThreads) {
+    const int r = i / VPR;
+    const int c = (i % VPR) * 8;
+    const int g = r / TQ;
+    const int qi = r % TQ;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (qi < n_tok)
+      v = *reinterpret_cast<const uint4*>(
+          q + (static_cast<int64_t>(tok0 + qi) * n_q + h * GROUP + g) * HD + c);
+    *reinterpret_cast<uint4*>(&Qs[r][c]) = v;
+  }
+
+  int qpos[kRPT];
+  bool row_ok[kRPT];
+  float m[kRPT], l[kRPT], acc[kRPT][DPT];
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int qi = (tr + 16 * i) % TQ;
+    qpos[i] = first_pos + qi;
+    row_ok[i] = qi < n_tok;
+    m[i] = kNegBig;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < kv_end; k0 += kTK) {
+    __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
+    // Stage keys k0 .. k0+kTK-1 of this kv head; keys past the causal bound
+    // of the last query are zero-filled, never read from the cache.
+    for (int i = tid; i < kTK * VPR; i += kThreads) {
+      const int kk = i / VPR;
+      const int c = (i % VPR) * 8;
+      const int pos = k0 + kk;
+      uint4 kv = make_uint4(0, 0, 0, 0);
+      uint4 vv = make_uint4(0, 0, 0, 0);
+      if (pos < kv_end) {
+        const bf16* row =
+            cache + layer_off + slot_of(pt, pos, Pg, page_size, n_pages) * W;
+        kv = *reinterpret_cast<const uint4*>(row + h * HD + c);
+        vv = *reinterpret_cast<const uint4*>(row + KH + h * HD + c);
+      }
+      *reinterpret_cast<uint4*>(&Ks[kk][c]) = kv;
+      *reinterpret_cast<uint4*>(&Vs[kk][c]) = vv;
+    }
+    __syncthreads();
+
+    float s[kRPT][kKPT];
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+      for (int j = 0; j < kKPT; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 2) {
+      float2 qv[kRPT], kv[kKPT];
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i)
+        qv[i] = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&Qs[tr + 16 * i][d]));
+#pragma unroll
+      for (int j = 0; j < kKPT; ++j)
+        kv[j] = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&Ks[tk + 8 * j][d]));
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+        for (int j = 0; j < kKPT; ++j)
+          s[i][j] += qv[i].x * kv[j].x + qv[i].y * kv[j].y;
+    }
+
+    // Online softmax. A masked key gets probability exactly 0 (not the exp
+    // of a large negative), and its V row is either real cache data of this
+    // sequence or the zero fill above.
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i) {
+      bool valid[kKPT];
+      float tmax = kNegBig;
+#pragma unroll
+      for (int j = 0; j < kKPT; ++j) {
+        valid[j] = row_ok[i] && (k0 + tk + 8 * j) <= qpos[i];
+        s[i][j] *= sm_scale;
+        if (valid[j]) tmax = fmaxf(tmax, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float mn = fmaxf(m[i], tmax);
+      const float c = expf(m[i] - mn);
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKPT; ++j) {
+        const float p = valid[j] ? expf(s[i][j] - mn) : 0.f;
+        Ps[tr + 16 * i][tk + 8 * j] = p;
+        rsum += p;
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+      l[i] = l[i] * c + rsum;
+      m[i] = mn;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) acc[i][j] *= c;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int k = 0; k < kTK; ++k) {
+      float p[kRPT];
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i) p[i] = Ps[tr + 16 * i][k];
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const float v = __bfloat162float(Vs[k][tk + 8 * j]);
+#pragma unroll
+        for (int i = 0; i < kRPT; ++i) acc[i][j] += p[i] * v;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    if (!row_ok[i]) continue;
+    const int r = tr + 16 * i;
+    const int g = r / TQ;
+    const int qi = r % TQ;
+    bf16* o = out + (static_cast<int64_t>(tok0 + qi) * n_q + h * GROUP + g) * HD;
+    const float inv = 1.f / l[i];  // l > 0: key 0 is visible to every query
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) o[tk + 8 * j] = __float2bfloat16(acc[i][j] * inv);
+  }
+}
+
+template <int HD, int GROUP>
+void launch(const void* q, const void* cache, const void* pt,
+            const void* q_starts, const void* q_lens, const void* seq_lens,
+            void* out, int B, int n_tiles, int Pg, int n_kv, int S, int layer,
+            int page_size, float sm_scale, cudaStream_t stream) {
+  paged_prefill_kernel<HD, GROUP><<<dim3(B, n_tiles, n_kv), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(cache),
+      static_cast<const int*>(pt), static_cast<const int*>(q_starts),
+      static_cast<const int*>(q_lens), static_cast<const int*>(seq_lens),
+      static_cast<bf16*>(out), Pg, n_kv, S, layer, page_size, sm_scale);
+}
+
+}  // namespace
+}  // namespace swiftllm
+
+// C entry, bound with ctypes. q_bucket bounds every row's q_len; it sets the
+// grid's tile axis. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a head_dim / GQA group it has no instance for.
+extern "C" int paged_prefill_attention(const void* q, const void* cache,
+                                       const void* page_table,
+                                       const void* q_starts, const void* q_lens,
+                                       const void* seq_lens, void* out, int B,
+                                       int q_bucket, int Pg, int n_q, int n_kv,
+                                       int hd, int S, int layer, int page_size,
+                                       float sm_scale, void* stream) {
+  using namespace swiftllm;
+  const int group = n_q / n_kv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SWIFTLLM_PREFILL_CASE(HD_, G_)                                         \
+  if (hd == HD_ && group == G_) {                                              \
+    const int tq = kRows / G_;                                                 \
+    launch<HD_, G_>(q, cache, page_table, q_starts, q_lens, seq_lens, out, B,  \
+                    (q_bucket + tq - 1) / tq, Pg, n_kv, S, layer, page_size,   \
+                    sm_scale, st);                                             \
+    return static_cast<int>(cudaGetLastError());                               \
+  }
+  SWIFTLLM_PREFILL_CASE(64, 1)
+  SWIFTLLM_PREFILL_CASE(64, 2)
+  SWIFTLLM_PREFILL_CASE(64, 4)
+  SWIFTLLM_PREFILL_CASE(64, 8)
+  SWIFTLLM_PREFILL_CASE(128, 1)
+  SWIFTLLM_PREFILL_CASE(128, 2)
+  SWIFTLLM_PREFILL_CASE(128, 4)
+  SWIFTLLM_PREFILL_CASE(128, 8)
+#undef SWIFTLLM_PREFILL_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}

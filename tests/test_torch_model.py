@@ -1,0 +1,127 @@
+"""The port's LlamaModel end to end against the JAX package's, on a tiny
+random HF Llama checkpoint built locally (no download), which the port loads
+through its own safetensors getter.
+
+Greedy tokens must be equal, exactly: f32 on both sides, whole prompts and
+chunked prefill, both port attention paths. The JAX side is
+``LlamaModel(use_pallas=False)``; HF ``generate`` is the golden for both.
+"""
+
+import pytest
+
+import tests.conftest  # noqa: F401  (forces the JAX CPU backend)
+
+from swiftllm_tpu_torch.config import EngineConfig
+from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
+from swiftllm_tpu_torch.server.structs import RawRequest, Request
+from swiftllm_tpu_torch.worker.model import LlamaModel
+from tests.test_llama_golden import (PROMPTS, hf_greedy, make_model,  # noqa: F401
+                                     run_ours, tiny_ckpt)
+
+
+def make_port_model(path, use_pallas):
+    ec = EngineConfig(model_path=path, dtype="float32", block_size=4,
+                      max_blocks_per_seq=16, max_tokens_in_batch=64,
+                      num_hbm_blocks=32, prefill_chunk_size=8,
+                      preemption_mode="recompute", use_pallas=use_pallas)
+    m = LlamaModel(ec, device="cpu")
+    m.load_weights()
+    m.init_kvcache_and_swap()
+    return m
+
+
+def run_port(m, prompts, n_steps, chunked=False, chunk=4):
+    """``run_ours`` of tests/test_llama_golden.py with the port's classes."""
+    reqs = []
+    for i, p in enumerate(prompts):
+        r = Request(RawRequest("", n_steps))
+        r.set_prompt_token_ids(list(p))
+        r.seq_id = i
+        reqs.append(r)
+
+    def apply(tokens, rows):
+        for i, s in enumerate(rows):
+            if s is None:
+                continue
+            if s.samples_token:
+                s.request.output_token_ids.append(int(tokens[i]))
+            s.request.num_cached_tokens += s.n_tokens
+
+    if chunked:
+        while any(r.is_prefill_stage() for r in reqs):
+            sched = [ScheduledSeq(r, min(chunk, r.num_uncached_tokens()))
+                     for r in reqs if r.num_uncached_tokens() > 0]
+            apply(*m.forward(sched))
+    else:
+        apply(*m.forward([ScheduledSeq(r, r.prompt_len) for r in reqs]))
+    while any(not r.is_finished() for r in reqs):
+        apply(*m.forward([ScheduledSeq(r, 1) for r in reqs if not r.is_finished()]))
+    return [r.output_token_ids for r in reqs]
+
+
+@pytest.fixture(scope="module")
+def jax_tokens(tiny_ckpt):  # noqa: F811
+    path, hf_model, _ = tiny_ckpt
+    m = make_model(path)
+    want = {"whole": run_ours(m, PROMPTS, 6)}
+    m = make_model(path)
+    want["chunked"] = run_ours(m, PROMPTS, 6, chunked=True, chunk=4)
+    for p, o in zip(PROMPTS, want["whole"]):
+        assert o == hf_greedy(hf_model, p, 6)
+    return want
+
+
+@pytest.mark.parametrize("mode", ["whole", "chunked"])
+@pytest.mark.parametrize("use_pallas", [True, False],
+                         ids=["kernel_plain", "gather_reference"])
+def test_greedy_tokens_match_jax(tiny_ckpt, jax_tokens, mode, use_pallas):  # noqa: F811
+    path, _, _ = tiny_ckpt
+    got = run_port(make_port_model(path, use_pallas), PROMPTS, 6,
+                   chunked=mode == "chunked", chunk=4)
+    assert got == jax_tokens[mode]
+
+
+REFUSED = {
+    "logprobs": (dict(enable_logprobs=True), {}),
+    "swap": (dict(preemption_mode="swap", num_cpu_blocks=8), {}),
+    "prefix_caching": (dict(enable_prefix_caching=True), {}),
+    "multi_step": (dict(multi_step_decode=4), {}),
+    "spec_decode": (dict(enable_spec_decode=True), {}),
+    "quant": (dict(quant="int8"), {}),
+    "kv_quant": (dict(kv_quant="fp8", block_size=32), {}),
+    "sliding_window": ({}, dict(sliding_window=64)),
+    "lora": (dict(lora_paths="dummy:a"), {}),
+    "tensor_parallel": (dict(tp_size=2), {}),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSED))
+def test_unported_features_refused(name):
+    """Every feature this slice does not run raises NotImplementedError at
+    model construction, naming the ROADMAP item that brings it."""
+    from swiftllm_tpu_torch.config import LlamaModelConfig
+    ec_kw, mc_kw = REFUSED[name]
+    mc = LlamaModelConfig(num_layers=1, num_q_heads=2, num_kv_heads=1,
+                          hidden_size=16, head_dim=8, ffn_inter_dim=32,
+                          vocab_size=32, max_position_embeddings=64,
+                          rms_norm_eps=1e-5, **mc_kw)
+    ec = EngineConfig(**dict(dict(use_dummy=True, preemption_mode="recompute"),
+                             **ec_kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        LlamaModel(ec, mc, device="cpu")
+
+
+def test_default_device_needs_a_gpu():
+    """The model runs on the card unless the caller asks for the CPU: with
+    no GPU, the default device raises instead of falling back."""
+    import torch
+
+    from swiftllm_tpu_torch.config import LlamaModelConfig
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    mc = LlamaModelConfig(num_layers=1, num_q_heads=2, num_kv_heads=1,
+                          hidden_size=16, head_dim=8, ffn_inter_dim=32,
+                          vocab_size=32, max_position_embeddings=64,
+                          rms_norm_eps=1e-5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaModel(EngineConfig(use_dummy=True, preemption_mode="recompute"), mc)
