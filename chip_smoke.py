@@ -7,11 +7,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. build the hand-written kernels from swiftllm_tpu_torch/ops/csrc;
   2. each kernel against its plain PyTorch version at Llama-3-8B width
      (and one case at Llama-3.2-1B width), with times and bounds, and one
-     planted fault (a decode row short of one page) that must fail;
-  3. one whole mixed step, kernels against plain versions, 8B width, 4 layers;
+     planted fault (a decode row short of one page) that must fail; the
+     INT4 dequant-matmul at the four 8B projection shapes and T = 1, 16,
+     128 and 256, with a planted fault (the nibbles unpacked interleaved)
+     that must fail;
+  3. one whole mixed step, kernels against plain versions, 8B width, 4
+     layers: in bf16, and with INT4 weights in a bucket of 256 tokens;
   4. the serving path: the port's Engine at full 8B width (32 layers, dummy
-     weights), 8 concurrent requests, launch counts of every kernel;
-  5. /generate over HTTP through the port's build_app;
+     weights), 8 concurrent requests, launch counts of every kernel, once in
+     bf16, once with INT4 and once with INT8 weights, each engine released
+     before the next one sizes its cache;
+  5. /generate over HTTP through the port's build_app (the bf16 engine);
 then one {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
@@ -21,6 +27,8 @@ ptxas report, the profiler table) go to chiprun_out/.
 from __future__ import annotations
 
 import asyncio
+import gc
+import itertools
 import json
 import math
 import socket
@@ -29,9 +37,13 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
+from swiftllm_tpu_torch.ops import build
+from swiftllm_tpu_torch.ops import int4_matmul as im
 from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.server.api_server import build_app
 from swiftllm_tpu_torch.server.engine import Engine
@@ -39,6 +51,8 @@ from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
 from swiftllm_tpu_torch.utils import cdiv
 from swiftllm_tpu_torch.worker.model import LlamaModel
+from swiftllm_tpu_torch.worker.quant import (nibbles, quantize_int4,
+                                             quantize_weight_torch)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
@@ -49,15 +63,24 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 # atol must stay well below them: check_planted_fault shows that a decode
 # kernel skipping one page of a long history fails at this tolerance.
 ATOL, RTOL = 2e-3, 1e-2
+# The INT4 kernel against its plain version: both accumulate in f32 and round
+# once to bf16, so rtol 1e-2 again covers an ulp or two. Outputs are O(1)
+# (median |y| about 0.8 for these inputs), so atol 1e-3 sits far below them;
+# the interleaved-nibble fault must fail at this tolerance.
+INT4_ATOL = 1e-3
 REPS = 20
+SLEEP_CYCLES = 20_000_000       # about 10 ms at the H100's clock
+L2_BYTES = 50 * 2**20           # H100 L2: timed weights cycle through more
 OUT_DIR = Path("chiprun_out")
 DEVICE = "cuda"
 
-SOURCE_OF = {n: f"swiftllm_tpu_torch/ops/csrc/{s}" for n, s in pa.SOURCES.items()}
+SOURCE_OF = {n: f"swiftllm_tpu_torch/ops/csrc/{src}"
+             for n, (src, _) in build.SOURCES.items()}
 REPLACES = {
     "paged_decode_attention": "swiftllm_tpu/ops/paged_attention.py:248",
     "store_kv": "swiftllm_tpu/ops/paged_attention.py:942",
     "paged_prefill_attention": "swiftllm_tpu/ops/paged_attention.py:843",
+    "int4_matmul": "swiftllm_tpu/ops/int4_matmul.py:61",
 }
 
 
@@ -66,12 +89,18 @@ def log(*a):
 
 
 def time_ms(fn, reps=REPS, warmup=3) -> float:
-    """Mean time of fn() on the card, from CUDA events around `reps` calls."""
+    """Mean time of fn() on the card, from CUDA events around `reps` calls.
+    A sleep kernel queued first holds the card while the host queues the
+    calls, so that a call whose host side outlasts its kernel (tens of µs
+    for a wrapper) does not leave the card idle inside the timed window.
+    A plain version that synchronises waits the sleep out before the first
+    call and is timed with its host side, as before."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
@@ -177,12 +206,12 @@ def _valid_tokens(case, kind):
     return torch.tensor(toks, device=case["q"].device)
 
 
-def _compare(got, want):
+def _compare(got, want, atol=ATOL):
     """(max |got - want|, median |want|, worst |got - want| over the
-    tolerance ATOL + RTOL |want|). They agree when the last is at most 1."""
+    tolerance atol + RTOL |want|). They agree when the last is at most 1."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
-    ratio = (d / (ATOL + RTOL * w.abs())).max().item()
+    ratio = (d / (atol + RTOL * w.abs())).max().item()
     if not bool(torch.isfinite(g).all()):
         ratio = math.inf
     return d.max().item(), w.abs().median().item(), ratio
@@ -369,6 +398,143 @@ def phase_kernels(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, INT4: the dequant-matmul against its plain version
+# ---------------------------------------------------------------------------
+
+# (N, K) of the 8B projections: wq and wo, wk and wv, w_gate and w_up, w_down.
+INT4_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096),
+               "w_gate/w_up": (14336, 4096), "w_down": (4096, 14336)}
+INT4_TABLE = ("w_gate/w_up", 128)      # the kernel table's row (PERF.md)
+
+
+def int4_interleaved_plain(x, q4, s, layer):
+    """The planted fault: the plain product with the nibbles unpacked
+    INTERLEAVED (byte j -> columns 2j, 2j+1), the layout most W4A16 code
+    assumes, instead of split-half."""
+    lo, hi = nibbles(q4[layer])
+    w = torch.stack([lo, hi], dim=-1).reshape(q4.shape[1], -1).float()
+    return (x.float() @ w.T * s[layer]).to(x.dtype)
+
+
+def _int4_stack(gen, N, K, L, device):
+    """L layers of N(0, 0.02) weights drawn in f32 on the card and quantized
+    there, one layer at a time."""
+    qs = [quantize_weight_torch(torch.randn(N, K, generator=gen, device=device)
+                                * 0.02, "int4") for _ in range(L)]
+    return (torch.stack([q["q4"] for q in qs]), torch.stack([q["s"] for q in qs]))
+
+
+def _int4_timings(gen, x, N, K, device):
+    """Kernel, plain and library times at one shape. The kernel and the
+    library call each cycle through more weight bytes than L2 holds, as a
+    step meets each layer's weights cold. Library: F.linear on the weight
+    dequantized to bf16 beforehand (the dequantization is not timed)."""
+    T = x.shape[0]
+    L4 = max(2, math.ceil(2 * L2_BYTES / (N * K // 2)))
+    q4 = torch.randint(-128, 128, (L4, N, K // 2), generator=gen,
+                       device=device, dtype=torch.int8)
+    s = torch.rand(L4, N, generator=gen, device=device) * 1e-2
+    it = itertools.count()
+    ms = time_ms(lambda: im.int4_proj_stacked(x, q4, s, next(it) % L4))
+    plain_ms = time_ms(lambda: im.int4_proj_stacked_plain(x, q4, s, next(it) % L4),
+                       reps=3)
+    Lb = max(2, math.ceil(2 * L2_BYTES / (N * K * 2)))
+    wb = torch.stack([(torch.cat(nibbles(q4[i]), dim=-1).float()
+                       * s[i][:, None]).to(torch.bfloat16) for i in range(Lb)])
+    library_ms = time_ms(lambda: F.linear(x, wb[next(it) % Lb]))
+    nbytes = T * K * 2 + N * K // 2 + N * 4 + T * N * 2
+    host = {"int4_matmul": lambda: im.int4_proj_stacked(x, q4, s, 0),
+            "F.linear": lambda: F.linear(x, wb[0])}
+    host_us = {k: _host_us(f) for k, f in host.items()}
+    del q4, wb
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 2 * T * N * K))),
+                host_us=host_us)
+
+
+def _host_us(fn, n=200) -> float:
+    """Host time of one call (µs): n calls queued without a synchronise (the
+    card's queue holds them), on the host's clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def phase_int4(device, smi) -> dict:
+    """int4_matmul against int4_proj_stacked_plain in bf16 at the 8B shapes,
+    T in {1, 16, 128, 256}, layers 0 and 3 of a 4-layer stack; the planted
+    interleaved-nibble fault must fail; times at T = 16 and 128."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    # The card's quantizer gives quantize_int4's bytes (the CPU tests hold
+    # it against the JAX package's; here, on the card, once).
+    w = torch.randn(1024, 4096, generator=gen, device=device) * 0.02
+    ref = quantize_int4(w.cpu().numpy())
+    got = quantize_weight_torch(w, "int4")
+    assert np.array_equal(got["q4"].cpu().numpy(), ref["q4"]), "q4 bytes differ"
+    assert np.array_equal(got["s"].cpu().numpy(), ref["s"]), "scales differ"
+    log("[int4] quantize_weight_torch on the card: the bytes and scales of "
+        "quantize_int4 (1024 x 4096)")
+    # Ragged edges: N off the 128-column tile, K/2 off the 32-byte chunk and
+    # (for K = 300) off the 16-byte vector loads, T off every row tile.
+    for N, K in ((200, 300), (1000, 4128)):
+        q4, s = _int4_stack(gen, N, K, 4, device)
+        for T in (3, 37, 200):
+            x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
+            for layer in (0, 3):
+                err = _compare(im.int4_proj_stacked(x, q4, s, layer),
+                               im.int4_proj_stacked_plain(x, q4, s, layer),
+                               atol=INT4_ATOL)
+                assert err[2] <= 1, f"int4_matmul N={N} K={K} T={T}: {err}"
+        log(f"[int4] ragged N {N}, K {K}: matches at T = 3, 37, 200")
+    row, table = None, []
+    for label, (N, K) in INT4_SHAPES.items():
+        q4, s = _int4_stack(gen, N, K, 4, device)
+        worst = (0.0, 0.0, 0.0)
+        for T in (1, 16, 128, 256):
+            x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
+            errs = [_compare(im.int4_proj_stacked(x, q4, s, layer),
+                             im.int4_proj_stacked_plain(x, q4, s, layer),
+                             atol=INT4_ATOL) for layer in (0, 3)]
+            assert max(e[2] for e in errs) <= 1, (
+                f"int4_matmul {label} T={T} disagrees: {errs}")
+            worst = max([worst] + errs, key=lambda e: e[2])
+            if T in (16, 128):
+                r = dict(max_abs_err=max(e[0] for e in errs),
+                         **_int4_timings(gen, x, N, K, device))
+                table.append((label, T, r))
+                if (label, T) == INT4_TABLE:
+                    row = {k: v for k, v in r.items() if k != "host_us"}
+        log(f"[int4] {label} (N {N}, K {K}): matches the plain version at T = "
+            f"1, 16, 128, 256, layers 0 and 3: max_abs_err {worst[0]:.3g}, "
+            f"median |want| {worst[1]:.3g}, worst {worst[2]:.3g} of the "
+            f"tolerance (atol {INT4_ATOL}, rtol {RTOL})")
+        if label == "w_gate/w_up":
+            x = torch.randn(128, K, generator=gen, device=device).to(torch.bfloat16)
+            err = _compare(im.int4_proj_stacked(x, q4, s, 3),
+                           int4_interleaved_plain(x, q4, s, 3), atol=INT4_ATOL)
+            log(f"[int4] planted fault (nibbles unpacked interleaved, T 128): "
+                f"max_abs_err {err[0]:.3g}, median |want| {err[1]:.3g}, worst "
+                f"{err[2]:.3g} of the tolerance")
+            assert err[2] > 1, "the tolerance lets an interleaved unpack pass"
+        del q4, s
+        torch.cuda.empty_cache()
+    log("[time] int4_matmul library_ms: F.linear on the weight dequantized to "
+        "bf16 beforehand (not timed); kernel and library cycle through more "
+        "weight bytes than L2 holds; host_us: the host's time to queue one "
+        "call of the wrapper and of F.linear")
+    for label, T, r in table:
+        log(f"[time] int4_matmul {label} T={T}: " + ", ".join(
+            f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
+            for a, b in r.items()) + f" ({smi})")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # Phases 3-5: the model, the engine, HTTP
 # ---------------------------------------------------------------------------
 
@@ -394,73 +560,130 @@ def _requests(specs):
     return sched
 
 
-def phase_step():
+def _randomize(params, g, quant):
+    """Unit norms and N(0, 0.02) weights from g, in place; a quantized weight
+    is drawn in f32 one layer at a time and quantized on the card."""
+    def fill(t):
+        if not isinstance(t, dict):
+            t.normal_(0.0, 0.02, generator=g)
+            return
+        q = t["q4"] if "q4" in t else t["q"]
+        K = q.shape[-1] * (2 if "q4" in t else 1)
+        for idx in (range(q.shape[0]) if q.dim() == 3 else [slice(None)]):
+            qd = quantize_weight_torch(torch.empty(
+                q.shape[-2], K, device=q.device).normal_(0.0, 0.02, generator=g), quant)
+            for k, v in qd.items():
+                t[k][idx].copy_(v)
+
+    for k, t in list(params["layers"].items()) + [
+            ("embed", params["embed"]), ("lm_head", params["lm_head"]),
+            ("final_norm", params["final_norm"])]:
+        if "norm" in k:
+            t.fill_(1.0)
+        else:
+            fill(t)
+
+
+def phase_step(quant="none"):
     """One mixed step at 8B width, 4 layers: kernels against plain versions on
     the same weights (std 0.02 from a seeded generator, unit norms) and the
     same random cache. Greedy tokens must agree on every row whose top-2
-    margin in the plain run exceeds twice the largest logit difference."""
+    margin in the plain run exceeds twice the largest logit difference. With
+    INT4 weights the step is 8 decode rows and a 128-token chunk, a bucket of
+    256 tokens, so the kernel run sends every projection through
+    int4_matmul and the plain run through quant.proj; a third run, the
+    attention kernels with int4_matmul's plain version, isolates the INT4
+    kernel, under the same rule."""
     mc = LlamaModelConfig(num_layers=4, **LLAMA3_8B)
-    ec = dict(model_path="", use_dummy=True, dtype="bfloat16",
+    ec = dict(model_path="", use_dummy=True, dtype="bfloat16", quant=quant,
               preemption_mode="recompute", num_hbm_blocks=1024,
               max_blocks_per_seq=128, max_batch_size=16)
-    specs = ([(40 + 97 * i, 40 + 97 * i, 1) for i in range(8)]
-             + [(512, 0, 512), (1600, 1024, 512), (812, 512, 300)])
-    logits, models = {}, {}
-    for use_kernels in (True, False):
+    specs = [(40 + 97 * i, 40 + 97 * i, 1) for i in range(8)]
+    specs += ([(512, 0, 512), (1600, 1024, 512), (812, 512, 300)]
+              if quant == "none" else [(812, 512, 128)])
+    # (run, use_pallas): the kernels; the plain versions; and, with INT4
+    # weights, the attention kernels with int4_matmul's plain version, which
+    # isolates the INT4 kernel (the same f32 sums, one rounding).
+    runs = [("kernels", True), ("plain", False)]
+    if quant == "int4":
+        runs.append(("int4 plain", True))
+    logits, models, launches = {}, {}, {}
+    for run, use_kernels in runs:
         m = LlamaModel(EngineConfig(**ec, use_pallas=use_kernels), mc,
                        device=DEVICE)
-        if use_kernels:
+        if run == "kernels":
             m.load_weights()
             g = torch.Generator(device=DEVICE).manual_seed(1234)
-            for k, t in list(m.params["layers"].items()) + [
-                    ("embed", m.params["embed"]), ("lm_head", m.params["lm_head"]),
-                    ("final_norm", m.params["final_norm"])]:
-                if "norm" in k:
-                    t.fill_(1.0)
-                else:
-                    t.normal_(0.0, 0.02, generator=g)
+            _randomize(m.params, g, quant)
             m.init_kvcache_and_swap()
             m.kv_cache.normal_(0.0, 1.0, generator=g)
             cache0 = m.kv_cache.clone()
         else:
-            m.params = models[True].params
+            m.params = models["kernels"].params
             m.init_kvcache_and_swap()
             m.kv_cache.copy_(cache0)
         for i, (_, cached, _) in enumerate(specs):
             if cached:
                 m.hbm_block_mgrs[0].allocate_for_seq(i, cached)
-        tokens, rows, lg = m.forward(_requests(specs), return_logits=True)
+        build.reset_launch_counts()
+        int4_kernel = im.int4_proj_stacked
+        if run == "int4 plain":
+            im.int4_proj_stacked = im.int4_proj_stacked_plain
+        try:
+            tokens, rows, lg = m.forward(_requests(specs), return_logits=True)
+        finally:
+            im.int4_proj_stacked = int4_kernel
+        torch.cuda.synchronize()
+        launches[run] = dict(build.launch_counts)
+        if quant == "int4":
+            want = 7 * mc.num_layers if run == "kernels" else 0
+            assert launches[run]["int4_matmul"] == want, (run, launches[run])
         live = [i for i, r in enumerate(rows) if r is not None]
-        logits[use_kernels] = torch.from_numpy(lg[live])
-        models[use_kernels] = m
-    a, b = logits[True], logits[False]
-    assert torch.isfinite(a).all() and torch.isfinite(b).all()
-    diff = (a - b).abs().max().item()
-    top2 = b.topk(2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    checked = margin > 2 * diff
-    agree = a.argmax(-1) == b.argmax(-1)
-    assert bool(agree[checked].all()), "greedy tokens differ on a clear-margin row"
-    log(f"[step] 8B width, 4 layers, mixed step of {len(specs)} rows: max "
-        f"|logit diff| {diff:.4g} (logit std {b.std().item():.4g}); greedy "
-        f"tokens agree on {int(agree.sum())}/{len(agree)} rows, "
-        f"{int(checked.sum())} rows with margin > 2x diff all agree")
+        logits[run] = torch.from_numpy(lg[live])
+        models[run] = m
+    a = logits["kernels"]
+    assert torch.isfinite(a).all()
+    for run, _ in runs[1:]:
+        b = logits[run]
+        assert torch.isfinite(b).all()
+        diff = (a - b).abs().max().item()
+        top2 = b.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        checked = margin > 2 * diff
+        agree = a.argmax(-1) == b.argmax(-1)
+        assert bool(agree[checked].all()), f"greedy tokens differ on a clear-margin row ({run})"
+        log(f"[step] 8B width, 4 layers, quant {quant}, mixed step of {len(specs)} "
+            f"rows ({models['kernels'].last_key.tokens} tokens; kernel launches "
+            f"{launches['kernels']}), kernels against {run}: max |logit diff| "
+            f"{diff:.4g} (logit std {b.std().item():.4g}); greedy tokens agree on "
+            f"{int(agree.sum())}/{len(agree)} rows, {int(checked.sum())} rows "
+            f"with margin > 2x diff all agree")
     del models, logits, cache0
     torch.cuda.empty_cache()
 
 
-async def phase_serve(smi: str):
-    """The serving path at full 8B width, then /generate over HTTP."""
+# Kernels each serving run must launch.
+SERVE_KERNELS = {"none": pa.KERNELS, "int4": pa.KERNELS + ("int4_matmul",),
+                 "int8": pa.KERNELS}
+
+
+async def serve_engine(quant: str, smi: str):
+    """The serving path at full 8B width with weights in `quant`: 8
+    concurrent requests, launch counts, pages back; the bf16 engine also
+    runs the profile and /generate over HTTP. The engine is released before
+    this returns, so that the next one sizes its cache on an empty card."""
     mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
     ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
-                      preemption_mode="recompute")
+                      preemption_mode="recompute", quant=quant)
     t0 = time.perf_counter()
     engine = Engine(ec, mc, device=DEVICE)
     await engine.initialize(tokenizer_backend="inline")
     mgr = engine.model.hbm_block_mgrs[0]
     free0 = mgr.num_free_blocks
-    log(f"[serve] engine up in {time.perf_counter() - t0:.1f} s: "
-        f"{engine.model.num_hbm_blocks} KV pages of {ec.block_size} tokens")
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.model.params))
+    log(f"[serve {quant}] engine up in {time.perf_counter() - t0:.1f} s: "
+        f"weights {weight_bytes / 1e9:.3f} GB, {engine.model.num_hbm_blocks} "
+        f"KV pages of {ec.block_size} tokens")
     loops = asyncio.create_task(engine.start_all_event_loops())
     prompt_lens = [17, 100, 250, 400, 600, 900, 1200, 1500]
     out_len = 32
@@ -476,34 +699,63 @@ async def phase_serve(smi: str):
         return t_sub, stamps, toks
 
     torch.cuda.synchronize()
-    pa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
     t_run = time.perf_counter()
     res = await asyncio.gather(*[one(i, n) for i, n in enumerate(prompt_lens)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
-    launches = dict(pa.launch_counts)
+    launches = dict(build.launch_counts)
     for (_, stamps, toks), n in zip(res, prompt_lens):
         assert len(toks) == out_len, f"prompt {n}: {len(toks)} tokens"
         assert all(0 <= t < mc.vocab_size for t in toks)
-    for k in pa.KERNELS:
-        assert launches[k] > 0, f"{k} never launched on the serving path"
+    for k in SERVE_KERNELS[quant]:
+        assert launches[k] > 0, f"{k} never launched on the {quant} serving path"
+    # The probe step sized the pool: the run's peak must fit the budget.
+    peak = torch.cuda.max_memory_allocated()
+    budget = torch.cuda.mem_get_info()[1] * ec.hbm_mem_utilization
+    assert peak <= budget, (peak, budget)
     ttft = sorted(st[0] - t for t, st, _ in res)
     # Decode rate: tokens streamed after the last request's first token, over
     # the time from then to the last token (all 8 rows decoding).
     first = max(st[0] for _, st, _ in res)
     last = max(st[-1] for _, st, _ in res)
     n_after = sum(1 for _, st, _ in res for x in st if x > first)
-    log(f"[serve] 8 requests, prompts {prompt_lens}, {out_len} tokens each, "
-        f"in {wall:.3f} s ({smi}); launches {launches}")
-    log(f"[serve] TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
+    log(f"[serve {quant}] 8 requests, prompts {prompt_lens}, {out_len} tokens "
+        f"each, in {wall:.3f} s ({smi}); launches {launches}; peak allocated "
+        f"{peak / 1e9:.2f} GB of a {budget / 1e9:.2f} GB budget")
+    log(f"[serve {quant}] TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
         f"{1e3 * ttft[-1]:.1f} ms; decode {n_after / (last - first):.1f} tok/s "
         f"({n_after} tokens after the last first token); output "
         f"{len(res) * out_len / wall:.1f} tok/s over the run; "
         f"{engine.stats.num_steps} steps ({smi})")
     await _pages_back(mgr, free0)
-    await _profile(engine, smi)
+    await _profile(engine, smi, quant)
+    if quant == "none":
+        await _http(engine, mgr, free0)
+    loops.cancel()
+    await asyncio.wait([loops])
+    assert loops.cancelled()
+    engine.model.params = engine.model.kv_cache = engine.model.token_feedback = None
+    del engine, mgr, loops
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    assert left < 2**30, f"{left / 1e9:.2f} GB still allocated after release"
+    return launches
 
-    # --- Phase 5: /generate over HTTP on 127.0.0.1 ---------------------------
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+async def _http(engine, mgr, free0):
+    """Phase 5: /generate over HTTP on 127.0.0.1, non-streaming and
+    streaming, through the port's build_app."""
     import aiohttp
     from aiohttp import web
     with socket.socket() as sock:
@@ -535,15 +787,20 @@ async def phase_serve(smi: str):
         await _pages_back(mgr, free0)
     finally:
         await runner.cleanup()
-        loops.cancel()
-    return launches
 
 
-async def _profile(engine, smi: str, n_req=8, prompt=64, out_len=24):
+async def phase_serve(smi: str) -> dict:
+    """Phases 4-5: the bf16, INT4 and INT8 engines, one after another."""
+    return {quant: await serve_engine(quant, smi)
+            for quant in ("none", "int4", "int8")}
+
+
+async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
+                   out_len=24):
     """Where a step's time goes: n_req short requests (so mostly decode
     steps) under torch.profiler. Prints the kernels with the most device
     time and the device's busy share of the wall time; the full table goes
-    to chiprun_out/profile.txt."""
+    to chiprun_out/profile_<quant>.txt."""
     from torch.profiler import ProfilerActivity, profile
     reqs = [RawRequest("", out_len, prompt_token_ids=[(3 * i + j) % 1000 + 1
                                                        for j in range(prompt)])
@@ -557,13 +814,13 @@ async def _profile(engine, smi: str, n_req=8, prompt=64, out_len=24):
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events) / 1e6
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
-    (OUT_DIR / "profile.txt").write_text(events.table(
+    (OUT_DIR / f"profile_{quant}.txt").write_text(events.table(
         sort_by="self_device_time_total", row_limit=40))
-    log(f"[profile] {n_req} requests, prompt {prompt}, {out_len} tokens each: "
+    log(f"[profile {quant}] {n_req} requests, prompt {prompt}, {out_len} tokens each: "
         f"wall {1e3 * wall:.1f} ms, device busy {1e3 * busy:.1f} ms "
         f"({100 * busy / wall:.1f}%) ({smi})")
     for e in top[:8]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+        log(f"[profile {quant}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
 
@@ -593,7 +850,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    reports = pa.build_kernels()
+    reports = build.build_kernels()
     log(f"[build] {len(reports)} kernels built in {time.perf_counter() - t0:.1f} s")
     (OUT_DIR / "ptxas.txt").write_text("\n".join(
         f"== {k}\n{v}" for k, v in reports.items()))
@@ -604,11 +861,17 @@ def main() -> int:
 
     results = phase_kernels("cuda")
     torch.cuda.empty_cache()
+    results["int4_matmul"] = phase_int4("cuda", smi)
     phase_step()
+    phase_step("int4")
     launches = asyncio.run(phase_serve(smi))
+    # Launches: the attention kernels' on the bf16 serving run (the path of
+    # the slice that brought them), int4_matmul's on the INT4 run.
     kernels = [dict(name=n, route="cuda", source=SOURCE_OF[n],
-                    replaces=REPLACES[n], launches=launches[n], **results[n])
-               for n in pa.KERNELS]
+                    replaces=REPLACES[n],
+                    launches=launches["int4" if n == "int4_matmul" else "none"][n],
+                    **results[n])
+               for n in build.KERNELS]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -135,8 +135,9 @@ class EngineConfig:
 
     # --- kernels ---
     use_pallas: bool = True            # the hand-written CUDA kernels for paged
-                                       # attention; False = the plain PyTorch
-                                       # gather reference (the name is the JAX
+                                       # attention and INT4 projections; False
+                                       # = the plain PyTorch gather reference
+                                       # and quant.proj (the name is the JAX
                                        # package's, kept so configs match)
 
     # --- compilation ---

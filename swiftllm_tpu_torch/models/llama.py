@@ -16,7 +16,10 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
   or through ``_ragged_paged_attention_torch``, the port of the JAX package's
   gather-based reference. Projections, norms, RoPE, SiLU*mul, the embedding
   gather and the argmax are plain PyTorch, as the JAX package leaves them to
-  XLA.
+  XLA, with one exception: with ``use_kernels``, the INT4 weights of buckets
+  of at most 256 tokens go through the INT4 kernel of
+  ``ops/int4_matmul.py``. Every other quantized weight (INT8, INT4 in the
+  prefill buckets, the quantized ``lm_head``) goes through ``quant.proj``.
 
 Numerics round where the JAX package rounds: RMSNorm casts back to the
 activation dtype BEFORE the weight multiply, SiLU runs in f32 and is cast
@@ -35,7 +38,9 @@ import torch.nn.functional as F
 
 from swiftllm_tpu_torch.config import LlamaModelConfig
 from swiftllm_tpu_torch.models.sampling import exact_greedy
+from swiftllm_tpu_torch.ops import int4_matmul
 from swiftllm_tpu_torch.ops import paged_attention as pa
+from swiftllm_tpu_torch.worker.quant import is_quantized, proj
 
 
 @dataclasses.dataclass
@@ -304,12 +309,25 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
     rope_cs = rope_tables(batch.positions, params["inv_freq"], x.dtype)
     layers = params["layers"]
+    # INT4 weights of decode-size buckets go through the INT4 kernel, which
+    # reads the stacked [L, N, K/2] array at the layer's offset (the JAX gate
+    # on T); every other projection through quant.proj.
+    int4_kernel = use_kernels and T <= int4_matmul.MAX_T
     for layer in range(kv_cache.shape[0]):
-        w = {name: t[layer] for name, t in layers.items()}
+        w = {name: (t[layer] if torch.is_tensor(t)
+                    else {k: v[layer] for k, v in t.items()})
+             for name, t in layers.items()}
+
+        def mproj(h_, name):
+            wt = layers[name]
+            if int4_kernel and is_quantized(wt) and "q4" in wt:
+                return int4_matmul.int4_proj_stacked(h_, wt["q4"], wt["s"], layer)
+            return proj(h_, w[name])
+
         h = rms_norm(x, w["attn_norm"], eps)
-        q_flat = F.linear(h, w["wq"])
-        k_flat = F.linear(h, w["wk"])
-        v_flat = F.linear(h, w["wv"])
+        q_flat = mproj(h, "wq")
+        k_flat = mproj(h, "wk")
+        v_flat = mproj(h, "wv")
         if "bq" in w:   # Qwen2-style q/k/v bias
             q_flat = q_flat + w["bq"].to(q_flat.dtype)
             k_flat = k_flat + w["bk"].to(k_flat.dtype)
@@ -320,11 +338,11 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
         attn = _attention_and_store(
             q, kv_new, kv_cache, layer, batch, page_size=page_size,
             sm_scale=sm_scale, use_kernels=use_kernels, q_bucket=q_bucket)
-        x = x + F.linear(attn.reshape(T, -1), w["wo"])
+        x = x + mproj(attn.reshape(T, -1), "wo")
 
         h = rms_norm(x, w["ffn_norm"], eps)
-        gate = F.silu(F.linear(h, w["w_gate"]).float()).to(x.dtype)
-        x = x + F.linear(gate * F.linear(h, w["w_up"]), w["w_down"])
+        gate = F.silu(mproj(h, "w_gate").float()).to(x.dtype)
+        x = x + mproj(gate * mproj(h, "w_up"), "w_down")
 
     x = rms_norm(x, params["final_norm"], eps)
 
@@ -333,7 +351,11 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                            batch.q_starts + batch.q_lens - 1, T).clamp(0, T)
     x_pad = torch.cat([x, x.new_zeros(1, x.shape[1])])
     h_last = x_pad[last_tok]                                         # [B, D]
-    logits = (h_last @ params["lm_head"].to(h_last.dtype).T).float()  # [B, V]
+    lm_head = params["lm_head"]
+    if is_quantized(lm_head):    # [V, D], the [out, in] layout proj takes
+        logits = proj(h_last, lm_head).float()                       # [B, V]
+    else:
+        logits = (h_last @ lm_head.to(h_last.dtype).T).float()       # [B, V]
     tokens = exact_greedy(logits)
 
     # Publish samples to the feedback buffer. Pad rows target the garbage

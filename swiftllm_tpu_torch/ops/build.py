@@ -1,0 +1,145 @@
+"""Build and bind the port's hand-written CUDA kernels, and count launches.
+
+Every kernel is one source in ``csrc/`` with a plain C entry of the same
+name. ``build_kernels`` compiles each missing one with ``nvcc`` for
+``sm_90a`` into ``_build/`` beside this file (one process per source, all
+started together), names the library by the hash of its source and
+``common.cuh``, and loads it with ``ctypes``. Nothing is built when a module
+is imported: the first launch builds its kernel, or a caller builds them all
+up front. The wrappers in ``paged_attention.py`` and ``int4_matmul.py`` launch
+through ``entry`` and report each launch with ``check_launch``, which adds
+one to ``launch_counts[name]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+CSRC_DIR = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# kernel (C entry) name -> (its source in csrc/, the entry's argument types)
+SOURCES = {
+    # q, cache, kv_new, page_table, q_lens, seq_lens, kv_slots, out,
+    # T, B, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
+    "paged_decode_attention": ("paged_decode.cu", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    # kv_new, cache, slots, T, row_bytes, S, layer, stream
+    "store_kv": ("store_kv.cu", [_P] * 3 + [_I] * 4 + [_P]),
+    # q, cache, page_table, q_starts, q_lens, seq_lens, out,
+    # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
+    "paged_prefill_attention": ("paged_prefill.cu", [_P] * 7 + [_I] * 9 + [_F, _P]),
+    # x, q4, s, y, workspace, T, N, K, layer, splits, stream
+    "int4_matmul": ("int4_matmul.cu", [_P] * 5 + [_I] * 5 + [_P]),
+}
+KERNELS = tuple(SOURCES)
+
+# Launches of each kernel since the last reset_launch_counts(). Only a
+# wrapper that launches its kernel adds to its count.
+launch_counts: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _lib_path(name: str) -> Path:
+    """Build output of one kernel, keyed by the hash of its sources."""
+    h = hashlib.sha256()
+    for f in (SOURCES[name][0], "common.cuh"):
+        h.update((CSRC_DIR / f).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): the "
+                           "port's kernels are built with nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build_kernels(names=KERNELS) -> dict[str, str]:
+    """Compile every missing kernel library, one ``nvcc`` per source, all
+    started together, and load them. Returns each newly built kernel's
+    ``-Xptxas -v`` report (registers, shared memory, spills)."""
+    reports = {}
+    with _build_lock:
+        todo = [n for n in names if n not in _libs]
+        procs = {}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for n in todo:
+            out = _lib_path(n)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-o", str(tmp),
+                   str(CSRC_DIR / SOURCES[n][0])]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
+        for n, (p, tmp, out) in procs.items():
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {SOURCES[n][0]}:\n{log}")
+            os.replace(tmp, out)
+            reports[n] = log
+        for n in todo:
+            lib = ctypes.CDLL(str(_lib_path(n)))
+            fn = getattr(lib, n)
+            fn.argtypes = SOURCES[n][1]
+            fn.restype = ctypes.c_int
+            _libs[n] = lib
+    return reports
+
+
+def entry(name: str):
+    """The C entry of kernel ``name``, built and loaded at first use."""
+    if name not in _libs:
+        build_kernels((name,))
+    return getattr(_libs[name], name)
+
+
+def check_launch(name: str, err: int, hint: str = "") -> None:
+    """Raise if the C entry reported a CUDA error; else count the launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}{hint}")
+    launch_counts[name] += 1
+
+
+def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the plain version's case).
+    Otherwise every tensor must be a contiguous, 16-byte-aligned CUDA tensor
+    on one device, or this raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what} takes all-CPU or all-CUDA tensors on one "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} kernels take contiguous, "
+                             "16-byte-aligned tensors")
+    return False
+
+
+def stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

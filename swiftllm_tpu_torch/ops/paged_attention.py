@@ -21,60 +21,21 @@ are laid out ``[K_all ‖ V_all]`` (the n_kv K heads, then the n_kv V heads).
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 On a CUDA tensor it launches its kernel or raises; it never falls back. The
-kernels are compiled with ``nvcc`` at first use (``build_kernels``) into
-``_build/`` beside this file, loaded with ``ctypes``, launched on
-``torch.cuda.current_stream()``, and never synchronise. Every launch adds one
-to ``launch_counts[name]``.
+kernels are built and bound by ``ops/build.py`` (``nvcc`` at first use,
+``ctypes``), launched on ``torch.cuda.current_stream()``, and never
+synchronise. Every launch adds one to ``build.launch_counts[name]``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 
-_HERE = Path(__file__).resolve().parent
-CSRC_DIR = _HERE / "csrc"
-BUILD_DIR = _HERE / "_build"
+from swiftllm_tpu_torch.ops import build
 
-# kernel (C entry) name -> its source in csrc/
-SOURCES = {
-    "paged_decode_attention": "paged_decode.cu",
-    "store_kv": "store_kv.cu",
-    "paged_prefill_attention": "paged_prefill.cu",
-}
-KERNELS = tuple(SOURCES)
+# The C entries of this module's kernels (sources in build.SOURCES).
+KERNELS = ("paged_decode_attention", "store_kv", "paged_prefill_attention")
 
-# Launches of each kernel since the last reset_launch_counts(). Only a
-# wrapper that launches its kernel adds to its count.
-launch_counts: dict[str, int] = dict.fromkeys(KERNELS, 0)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_ARGTYPES = {
-    # q, cache, kv_new, page_table, q_lens, seq_lens, kv_slots, out,
-    # T, B, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
-    "paged_decode_attention": [_P] * 8 + [_I] * 9 + [_F, _P],
-    # kv_new, cache, slots, T, row_bytes, S, layer, stream
-    "store_kv": [_P] * 3 + [_I] * 4 + [_P],
-    # q, cache, page_table, q_starts, q_lens, seq_lens, out,
-    # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
-    "paged_prefill_attention": [_P] * 7 + [_I] * 9 + [_F, _P],
-}
-
-_libs: dict[str, ctypes.CDLL] = {}
-_build_lock = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+_HINT = " (an unsupported head_dim / GQA group returns 1)"
 
 
 def max_pages_cap(page_size: int) -> int:
@@ -85,89 +46,8 @@ def max_pages_cap(page_size: int) -> int:
     return (2**31 - 1) // page_size
 
 
-# ---------------------------------------------------------------------------
-# Build and bind
-# ---------------------------------------------------------------------------
-
-def _lib_path(name: str) -> Path:
-    """Build output of one kernel, keyed by the hash of its sources."""
-    h = hashlib.sha256()
-    for f in (SOURCES[name], "common.cuh"):
-        h.update((CSRC_DIR / f).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): the "
-                           "paged-attention kernels are built with nvcc")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build_kernels(names=KERNELS) -> dict[str, str]:
-    """Compile every missing kernel library, one ``nvcc`` per source, all
-    started together, and load them. Returns each newly built kernel's
-    ``-Xptxas -v`` report (registers, shared memory, spills)."""
-    reports = {}
-    with _build_lock:
-        todo = [n for n in names if n not in _libs]
-        procs = {}
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        for n in todo:
-            out = _lib_path(n)
-            if out.exists():
-                continue
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(CSRC_DIR / SOURCES[n])]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp, out)
-        for n, (p, tmp, out) in procs.items():
-            log, _ = p.communicate()
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {SOURCES[n]}:\n{log}")
-            os.replace(tmp, out)
-            reports[n] = log
-        for n in todo:
-            lib = ctypes.CDLL(str(_lib_path(n)))
-            fn = getattr(lib, n)
-            fn.argtypes = _ARGTYPES[n]
-            fn.restype = ctypes.c_int
-            _libs[n] = lib
-    return reports
-
-
-def _entry(name: str):
-    if name not in _libs:
-        build_kernels((name,))
-    return getattr(_libs[name], name)
-
-
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
-                           "(an unsupported head_dim / GQA group returns 1)")
-    launch_counts[name] += 1
-
-
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU (the plain version's case).
-    Otherwise every tensor must be a contiguous, 16-byte-aligned CUDA tensor
-    on one device, or this raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"paged attention takes all-CPU or all-CUDA tensors "
-                         f"on one device, got {[str(t.device) for t in tensors]}")
-    for t in tensors:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("paged attention kernels take contiguous, "
-                             "16-byte-aligned tensors")
-    return False
+    return build.on_cpu("paged attention", *tensors)
 
 
 def _check_types(floats, ints) -> None:
@@ -177,10 +57,6 @@ def _check_types(floats, ints) -> None:
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"index tensors must be int32, got {t.dtype}")
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -291,12 +167,12 @@ def paged_decode_attention(q, cache, kv_new, page_table, q_lens, seq_lens,
                          f"{tuple(cache.shape)}, kv_new {tuple(kv_new.shape)}, "
                          f"page_table {tuple(page_table.shape)}")
     out = torch.empty_like(q)
-    err = _entry("paged_decode_attention")(
+    err = build.entry("paged_decode_attention")(
         q.data_ptr(), cache.data_ptr(), kv_new.data_ptr(),
         page_table.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         kv_slots.data_ptr(), out.data_ptr(), T, B, Pg, n_q, n_kv, hd, S,
-        int(layer), page_size, float(sm_scale), _stream())
-    _check_launch("paged_decode_attention", err)
+        int(layer), page_size, float(sm_scale), build.stream())
+    build.check_launch("paged_decode_attention", err, _HINT)
     return out
 
 
@@ -315,10 +191,10 @@ def store_kv(cache, kv_new, kv_slots, layer: int) -> None:
                          f"kv_slots {tuple(kv_slots.shape)}")
     if T == 0:
         return
-    err = _entry("store_kv")(kv_new.data_ptr(), cache.data_ptr(),
-                             kv_slots.data_ptr(), T, row_bytes,
-                             cache.shape[1], int(layer), _stream())
-    _check_launch("store_kv", err)
+    err = build.entry("store_kv")(kv_new.data_ptr(), cache.data_ptr(),
+                                  kv_slots.data_ptr(), T, row_bytes,
+                                  cache.shape[1], int(layer), build.stream())
+    build.check_launch("store_kv", err, _HINT)
 
 
 def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
@@ -339,10 +215,10 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
     if 2 * n_kv * hd != W:
         raise ValueError(f"cache lanes {W} != 2*n_kv*hd")
     out = torch.zeros_like(q)
-    err = _entry("paged_prefill_attention")(
+    err = build.entry("paged_prefill_attention")(
         q.data_ptr(), cache.data_ptr(), page_table.data_ptr(),
         q_starts.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), B, int(q_bucket), Pg, n_q, n_kv, hd, S, int(layer),
-        page_size, float(sm_scale), _stream())
-    _check_launch("paged_prefill_attention", err)
+        page_size, float(sm_scale), build.stream())
+    build.check_launch("paged_prefill_attention", err, _HINT)
     return out

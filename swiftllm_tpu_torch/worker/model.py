@@ -48,7 +48,6 @@ def _refuse_unsupported(ec: EngineConfig, mc: LlamaModelConfig) -> None:
         (ec.multi_step_decode > 1, "multi_step_decode > 1",
          "4 (multi-step decode)"),
         (ec.enable_spec_decode, "enable_spec_decode", "5 (spec decode)"),
-        (ec.quant != "none", f"quant={ec.quant!r}", "6 (weight quantization)"),
         (ec.kv_quant != "none", f"kv_quant={ec.kv_quant!r}", "7 (fp8 KV)"),
         (bool(mc.sliding_window), "a sliding window",
          "8 (families, sliding window and LoRA)"),
@@ -173,7 +172,11 @@ class LlamaModel:
         """KV pages that fit the device: run the worst-case bucket once on a
         probe cache, take its scratch as the rise of
         ``max_memory_allocated``, and give the cache what is left of
-        ``mem_get_info()``'s total times ``hbm_mem_utilization``."""
+        ``mem_get_info()``'s total times ``hbm_mem_utilization``. With
+        quantized weights the probe's bucket (over 256 tokens) runs
+        ``quant.proj``, so the scratch holds its bf16 copy of the largest
+        weight (or ``lm_head`` chunk), more than the INT4 kernel's split-K
+        workspace of a decode bucket needs."""
         cfg, mc = self.engine_config, self.model_config
         if cfg.num_hbm_blocks is not None:
             return cfg.num_hbm_blocks

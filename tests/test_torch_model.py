@@ -87,7 +87,6 @@ REFUSED = {
     "prefix_caching": (dict(enable_prefix_caching=True), {}),
     "multi_step": (dict(multi_step_decode=4), {}),
     "spec_decode": (dict(enable_spec_decode=True), {}),
-    "quant": (dict(quant="int8"), {}),
     "kv_quant": (dict(kv_quant="fp8", block_size=32), {}),
     "sliding_window": ({}, dict(sliding_window=64)),
     "lora": (dict(lora_paths="dummy:a"), {}),

@@ -1,0 +1,382 @@
+"""Weight-quantized serving in the PyTorch port against the JAX package, on
+the CPU: the quantizers, ``proj``, the INT4 kernel's plain version, one
+mixed step, a tiny HF checkpoint, and the engine.
+
+Inputs come from numpy with a seed and go through both packages. Tolerances,
+and why:
+- quantized bytes and scales: equal, byte for byte (the same f32 arithmetic
+  and round-half-to-even on both sides);
+- ``proj`` in f32: atol/rtol 1e-5 (products of at most 64 terms, only the
+  summation order differs); in bf16: rtol 2e-2 and atol 2e-2 of the output's
+  std, since each side rounds every half-product to bf16 (2^-8 relative)
+  before adding and scaling, and the sum of two rounded int4 halves can
+  cancel to a value much smaller than either half;
+- ``int4_proj_stacked_plain`` against the JAX kernel in interpret mode, f32:
+  rtol 1e-5, atol 1e-4 (sums of up to 768 products of O(10), another order);
+- a step's logits atol/rtol 1e-4, its written cache rows atol 1e-5, greedy
+  tokens and the feedback buffer exactly (as in tests/test_torch_llama.py);
+- greedy tokens of a checkpoint and of the engine: exactly;
+- the perplexity gate of tests/test_quant.py on the port, and the port's
+  quantized perplexity against the JAX package's: rtol 1e-5.
+"""
+
+import asyncio
+
+import numpy as np
+import pytest
+
+import tests.conftest  # noqa: F401  (forces the JAX CPU backend)
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from swiftllm_tpu.config import EngineConfig as JaxEngineConfig
+from swiftllm_tpu.config import LlamaModelConfig as JaxModelConfig
+from swiftllm_tpu.ops.int4_matmul import int4_proj_stacked as jax_int4_proj_stacked
+from swiftllm_tpu.server.engine import Engine as JaxEngine
+from swiftllm_tpu.server.structs import RawRequest as JaxRawRequest
+from swiftllm_tpu.worker import quant as jq
+from swiftllm_tpu.worker.model import LlamaModel as JaxLlamaModel
+from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
+from swiftllm_tpu_torch.ops import build
+from swiftllm_tpu_torch.ops import int4_matmul as im
+from swiftllm_tpu_torch.server.engine import Engine
+from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
+from swiftllm_tpu_torch.server.structs import RawRequest, Request
+from swiftllm_tpu_torch.worker import quant as tq
+from swiftllm_tpu_torch.worker.model import LlamaModel
+from swiftllm_tpu_torch.worker.weights import GEMM_KEYS, params_from_numpy
+from tests import test_torch_engine as te
+from tests import test_torch_llama as tl
+from tests.test_llama_golden import PROMPTS, make_model, run_ours, tiny_ckpt  # noqa: F401
+from tests.test_quant import _perplexity as jax_perplexity
+from tests.test_quant import real_tiny_ckpt  # noqa: F401
+from tests.test_torch_model import run_port
+
+QUANTS = ["int8", "int4"]
+KEY = {"int8": "q", "int4": "q4"}
+
+
+def weights(rng, *shape):
+    w = rng.standard_normal(shape).astype(np.float32)
+    w[..., 0, :] = 0.0            # an all-zero row: the 1e-12 scale floor
+    w[..., 1, :3] = [3.5, -3.5, 0.5]   # ties that round half to even
+    return w
+
+
+def quantize_tree(tree: dict, quant: str) -> dict:
+    """The projections and lm_head of an f32 tree, quantized by the JAX
+    package's numpy quantizer."""
+    tree = dict(tree, layers=dict(tree["layers"]))
+    for k in GEMM_KEYS:
+        tree["layers"][k] = jq.quantize_weight(tree["layers"][k], quant)
+    tree["lm_head"] = jq.quantize_weight(tree["lm_head"], quant)
+    return tree
+
+
+def scaled_quantized_tree(mc: dict, ec: dict, quant: str, seed: int) -> dict:
+    """tests/test_torch_llama.py's scaled dummy tree, quantized."""
+    m = JaxLlamaModel(JaxEngineConfig(**ec), JaxModelConfig(**mc))
+    m.load_weights()
+    return quantize_tree(tl.scaled_params(m.params, np.random.default_rng(seed)),
+                         quant)
+
+
+def put_tree(params, tree):
+    return jax.tree.map(lambda old, new: jax.device_put(new, old.sharding),
+                        params, tree)
+
+
+def assert_trees_equal(got: dict, want: dict, path=""):
+    assert set(got) == set(want), path
+    for k, w in want.items():
+        if isinstance(w, dict):
+            assert_trees_equal(got[k], w, f"{path}/{k}")
+        else:
+            g = got[k].numpy()
+            w = np.asarray(w)
+            assert g.dtype == w.dtype and g.shape == w.shape, f"{path}/{k}"
+            assert g.tobytes() == w.tobytes(), f"{path}/{k} differs"
+
+
+# --- (a) the quantizers -------------------------------------------------------
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_quantizers_byte_equal_jax(quant):
+    w = weights(np.random.default_rng(0), 3, 24, 64)
+    want = jq.quantize_weight(w, quant)
+    want_jax = jax.tree.map(np.asarray, jq.quantize_weight_jax(jnp.asarray(w), quant))
+    got_np = {"int8": tq.quantize_int8, "int4": tq.quantize_int4}[quant](w)
+    got_t = tq.quantize_weight_torch(torch.from_numpy(w), quant)
+    for k in (KEY[quant], "s"):
+        assert want[k].tobytes() == want_jax[k].tobytes()
+        assert got_np[k].dtype == want[k].dtype
+        assert got_np[k].tobytes() == want[k].tobytes(), k
+        assert got_t[k].numpy().tobytes() == want[k].tobytes(), k
+
+
+def test_unpack_int4_matches_jax():
+    q4 = jq.quantize_int4(weights(np.random.default_rng(1), 8, 32))["q4"]
+    want = np.asarray(jq._unpack_int4(jnp.asarray(q4)))
+    np.testing.assert_array_equal(tq._unpack_int4(torch.from_numpy(q4)).numpy(), want)
+    assert tq.out_features({"q4": torch.from_numpy(q4)}) == 8
+    assert tq.is_quantized({"q4": q4}) and not tq.is_quantized(torch.zeros(2))
+
+
+# --- (b) proj -----------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", QUANTS)
+def test_proj_matches_jax(quant, dtype):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((7, 64)).astype(np.float32)
+    qw = jq.quantize_weight(weights(rng, 48, 64), quant)
+    jd = getattr(jnp, dtype)
+    want = np.asarray(jq.proj(jnp.asarray(x, jd), jax.tree.map(jnp.asarray, qw)),
+                      np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tq.proj(xt, {k: torch.from_numpy(v) for k, v in qw.items()})
+    assert got.dtype == xt.dtype
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * want.std())
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_proj_chunks_output_rows(quant, monkeypatch):
+    """Dequantizing the weight in blocks of output rows changes no value."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
+    qw = {k: torch.from_numpy(v) for k, v in
+          jq.quantize_weight(weights(rng, 40, 64), quant).items()}
+    whole = tq.proj(x, qw)
+    monkeypatch.setattr(tq, "PROJ_CHUNK_ELEMS", 64 * 16)   # 16 rows a block
+    assert torch.equal(tq.proj(x, qw), whole)
+
+
+# --- (c) the INT4 kernel's plain version against the Pallas kernel ------------
+
+@pytest.mark.parametrize("T,N,K", [(16, 256, 512), (8, 128, 256), (5, 256, 256),
+                                   (64, 384, 768)])
+def test_int4_plain_matches_pallas(T, N, K):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    qw = jq.quantize_int4(rng.standard_normal((3, N, K)).astype(np.float32))
+    for layer in (0, 2):
+        want = np.asarray(jax_int4_proj_stacked(
+            jnp.asarray(x), jnp.asarray(qw["q4"]), jnp.asarray(qw["s"]),
+            jnp.int32(layer), interpret=True))
+        got = im.int4_proj_stacked_plain(torch.from_numpy(x),
+                                         torch.from_numpy(qw["q4"]),
+                                         torch.from_numpy(qw["s"]), layer)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_int4_plain_is_split_half_not_interleaved():
+    """The plain version reads the split-half layout: an interleaved unpack
+    of the same bytes gives another product (the fault chip_smoke.py plants
+    against the kernel)."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    w = rng.standard_normal((1, 32, 64)).astype(np.float32)
+    qw = jq.quantize_int4(w)
+    got = im.int4_proj_stacked_plain(x, torch.from_numpy(qw["q4"]),
+                                     torch.from_numpy(qw["s"]), 0)
+    deq = np.asarray(jq._unpack_int4(jnp.asarray(qw["q4"][0]))) * qw["s"][0][:, None]
+    np.testing.assert_allclose(got.numpy(), x.numpy() @ deq.T, rtol=1e-5, atol=1e-4)
+    lo, hi = tq.nibbles(torch.from_numpy(qw["q4"][0]))
+    inter = torch.stack([lo, hi], dim=-1).reshape(32, 64).float()
+    wrong = x @ (inter * torch.from_numpy(qw["s"][0])[:, None]).T
+    assert (wrong - got).abs().max() > got.abs().median()
+
+
+@pytest.mark.parametrize("T", [1, 16, 128, 256])
+@pytest.mark.parametrize("N,K", [(4096, 4096), (1024, 4096), (14336, 4096),
+                                 (4096, 14336)])
+def test_split_k_fills_the_card(T, N, K):
+    """At the 8B shapes every launch has at least one block per SM (or one
+    split per K chunk), and no split is empty."""
+    splits = im.split_k(T, N, K)
+    chunks = -(-(K // 2) // im._BKH)
+    per = -(-chunks // splits)
+    blocks = -(-T // 128) * -(-N // im._BN) * splits
+    assert blocks >= im.NUM_SMS or splits == chunks
+    assert (splits - 1) * per < chunks <= splits * per
+
+
+# --- (g) the wrapper ----------------------------------------------------------
+
+def test_int4_wrapper_cpu_plain_and_device_rules():
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((3, 32)).astype(np.float32))
+    qw = jq.quantize_int4(rng.standard_normal((2, 16, 32)).astype(np.float32))
+    q4, s = torch.from_numpy(qw["q4"]), torch.from_numpy(qw["s"])
+    build.reset_launch_counts()
+    got = im.int4_proj_stacked(x, q4, s, 1)
+    assert torch.equal(got, im.int4_proj_stacked_plain(x, q4, s, 1))
+    assert build.launch_counts["int4_matmul"] == 0
+    with pytest.raises(ValueError, match="all-CPU or all-CUDA"):
+        im.int4_proj_stacked(x.to("meta"), q4, s, 1)
+
+
+# --- (d) one mixed step -------------------------------------------------------
+
+@pytest.fixture(scope="module", params=QUANTS)
+def jax_quant_step(request):
+    quant = request.param
+    tree = scaled_quantized_tree(tl.MC, tl.EC, quant, seed=0)
+    rng = np.random.default_rng(1)
+    m = JaxLlamaModel(JaxEngineConfig(**dict(tl.EC, quant=quant)),
+                      JaxModelConfig(**tl.MC))
+    m.load_weights()
+    m.init_kvcache_and_swap()
+    m.params = put_tree(m.params, tree)
+    cache = rng.normal(size=m.kv_cache.shape).astype(np.float32)
+    feedback = rng.integers(0, 128, size=m.token_feedback.shape).astype(np.int32)
+    m.kv_cache = jax.device_put(cache, m.kv_cache.sharding)
+    m.token_feedback = jax.device_put(feedback, m.token_feedback.sharding)
+    tl.preallocate(m.hbm_block_mgrs[0])
+    tokens, rows, logits = m.forward(tl.schedule("jax"), return_logits=True)
+    return dict(quant=quant, tree=tree, cache=cache, feedback=feedback,
+                tokens=tokens, logits=logits, rows=[r is not None for r in rows],
+                cache_after=np.asarray(m.kv_cache),
+                feedback_after=np.asarray(m.token_feedback))
+
+
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernel_plain", "gather_reference"])
+def test_quantized_mixed_step_matches_jax(jax_quant_step, use_kernels):
+    ref = jax_quant_step
+    m = LlamaModel(EngineConfig(**dict(tl.EC, quant=ref["quant"],
+                                       use_pallas=use_kernels)),
+                   LlamaModelConfig(**tl.MC), device="cpu")
+    m.params = params_from_numpy(ref["tree"], "cpu")
+    assert m.params["layers"]["wq"][KEY[ref["quant"]]].dtype == torch.int8
+    m.init_kvcache_and_swap()
+    m.kv_cache.copy_(torch.from_numpy(ref["cache"]))
+    m.token_feedback.copy_(torch.from_numpy(ref["feedback"]))
+    tl.preallocate(m.hbm_block_mgrs[0])
+    tokens, rows, logits = m.forward(tl.schedule("torch"), return_logits=True)
+
+    live = np.asarray(ref["rows"])
+    assert [r is not None for r in rows] == ref["rows"]
+    np.testing.assert_allclose(logits[live], ref["logits"][live],
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(tokens[live], ref["tokens"][live])
+    np.testing.assert_array_equal(m.token_feedback.numpy()[:-1],
+                                  ref["feedback_after"][:-1])
+    ps = tl.EC["block_size"]
+    np.testing.assert_allclose(m.kv_cache.numpy()[:, :-ps],
+                               ref["cache_after"][:, :-ps], atol=1e-5, rtol=0)
+
+
+# --- (e) a tiny HF checkpoint -------------------------------------------------
+
+def port_ckpt_model(path, quant, use_pallas=True):
+    ec = EngineConfig(model_path=path, dtype="float32", block_size=4,
+                      max_blocks_per_seq=16, max_tokens_in_batch=64,
+                      num_hbm_blocks=32, prefill_chunk_size=8, quant=quant,
+                      preemption_mode="recompute", use_pallas=use_pallas)
+    m = LlamaModel(ec, device="cpu")
+    m.load_weights()
+    m.init_kvcache_and_swap()
+    return m
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_checkpoint_tree_byte_equal_jax(tiny_ckpt, quant):  # noqa: F811
+    path, _, cfg = tiny_ckpt
+    assert not cfg.tie_word_embeddings     # so lm_head is quantized too
+    want = jax.tree.map(np.asarray, jax.device_get(
+        make_model(path, quant=quant).params))
+    got = port_ckpt_model(path, quant).params
+    assert tq.is_quantized(got["lm_head"])
+    assert_trees_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def jax_int4_tokens(tiny_ckpt):  # noqa: F811
+    path = tiny_ckpt[0]
+    return {"whole": run_ours(make_model(path, quant="int4"), PROMPTS, 6),
+            "chunked": run_ours(make_model(path, quant="int4"), PROMPTS, 6,
+                                chunked=True, chunk=4)}
+
+
+@pytest.mark.parametrize("mode", ["whole", "chunked"])
+@pytest.mark.parametrize("use_pallas", [True, False],
+                         ids=["kernel_plain", "gather_reference"])
+def test_checkpoint_int4_greedy_matches_jax(tiny_ckpt, jax_int4_tokens, mode,  # noqa: F811
+                                            use_pallas):
+    got = run_port(port_ckpt_model(tiny_ckpt[0], "int4", use_pallas), PROMPTS,
+                   6, chunked=mode == "chunked", chunk=4)
+    assert got == jax_int4_tokens[mode]
+
+
+# --- (f) the engine -----------------------------------------------------------
+
+def test_engine_int4_tokens_match_jax():
+    ec = dict(te.EC, quant="int4")
+    tree = scaled_quantized_tree(te.MC, te.EC, "int4", seed=1)
+
+    async def jax_body():
+        e = JaxEngine(JaxEngineConfig(**ec), JaxModelConfig(**te.MC))
+        await e.initialize(tokenizer_backend="inline")
+        e.model.params = put_tree(e.model.params, tree)
+        return await te.serve(e, JaxRawRequest)
+
+    async def port_body():
+        e = Engine(EngineConfig(**dict(ec, use_pallas=True)),
+                   LlamaModelConfig(**te.MC), device="cpu")
+        await e.initialize(tokenizer_backend="inline")
+        e.model.params = params_from_numpy(tree, "cpu")
+        free0 = e.model.hbm_block_mgrs[0].num_free_blocks
+        got = await te.serve(e, RawRequest)
+        return got, free0, e.model.hbm_block_mgrs[0].num_free_blocks
+
+    want = asyncio.run(jax_body())
+    got, free0, free1 = asyncio.run(port_body())
+    assert got == want
+    assert all(len(t) == te.OUT_LEN for t in got)
+    assert free1 == free0 == te.EC["num_hbm_blocks"]
+
+
+# --- the perplexity gate of tests/test_quant.py -------------------------------
+
+def port_perplexity(path, quant, token_ids):
+    """tests/test_quant.py's stepwise next-token perplexity, on the port
+    (its kernel path: the INT4 kernel's plain version on the CPU)."""
+    ec = EngineConfig(model_path=path, dtype="float32", quant=quant,
+                      block_size=4, num_hbm_blocks=64, max_blocks_per_seq=32,
+                      max_tokens_in_batch=64, prefill_chunk_size=16,
+                      max_seqs_in_block_table=8, preemption_mode="recompute")
+    model = LlamaModel(ec, device="cpu")
+    model.load_weights()
+    model.init_kvcache_and_swap()
+    r = Request(RawRequest("", 1))
+    r.set_prompt_token_ids(token_ids[:1])
+    r.seq_id = 0
+    nll = 0.0
+    for t in range(1, len(token_ids)):
+        _, _, logits = model.forward([ScheduledSeq(r, 1)], return_logits=True)
+        lg = logits[0].astype(np.float64)
+        nll -= lg[token_ids[t]] - lg.max() - np.log(np.exp(lg - lg.max()).sum())
+        r.output_token_ids.append(token_ids[t])
+        r.num_cached_tokens += 1
+    return float(np.exp(nll / (len(token_ids) - 1)))
+
+
+@pytest.mark.parametrize("quant,max_rel", [("int8", 0.001), ("int4", 0.01)])
+def test_quant_perplexity_gate(real_tiny_ckpt, quant, max_rel):  # noqa: F811
+    """The JAX package's gate (quantization costs under 0.1% of perplexity
+    in INT8, 1% in INT4, on a random-init tiny checkpoint), on the port; and
+    the port's quantized perplexity equals the JAX package's within rtol
+    1e-5 (f32 sums in another order)."""
+    tokens = np.random.default_rng(0).integers(0, 128, 48).tolist()
+    base = port_perplexity(real_tiny_ckpt, "none", tokens)
+    q = port_perplexity(real_tiny_ckpt, quant, tokens)
+    assert abs(q - base) / base < max_rel, f"{quant}: ppl {base} -> {q}"
+    np.testing.assert_allclose(q, jax_perplexity(real_tiny_ckpt, quant, tokens),
+                               rtol=1e-5)
