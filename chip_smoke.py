@@ -8,20 +8,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. each kernel against its plain PyTorch version at Llama-3-8B width
      (and one case at Llama-3.2-1B width), with times and bounds, and one
      planted fault (a decode row short of one page) that must fail; the
-     INT4 dequant-matmul at the four 8B projection shapes and T = 1, 16,
-     128 and 256, with a planted fault (the nibbles unpacked interleaved)
-     that must fail;
-  3. one whole mixed step, kernels against plain versions, 8B width, 4
-     layers: in bf16, and with INT4 weights in a bucket of 256 tokens;
-  4. the serving path: the port's Engine at full 8B width (32 layers, dummy
-     weights), 8 concurrent requests, launch counts of every kernel, once in
-     bf16, once with INT4 and once with INT8 weights, each engine released
-     before the next one sizes its cache;
+     attention kernels' variants on the same cases (an fp8 cache, a sliding
+     window of 4096 and of 50, and both), each with its times and bounds,
+     with two more planted faults (the V scale left out, the window off by
+     one); the INT4 dequant-matmul at the four 8B projection shapes and
+     T = 1, 16, 128 and 256, with a planted fault (the nibbles unpacked
+     interleaved) that must fail;
+  3. one whole mixed step, kernels against plain versions, 4 layers: at 8B
+     width in bf16, with INT4 weights in a bucket of 256 tokens, with an fp8
+     KV cache, and with both; at Mistral-7B width with its window of 4096
+     and rows whose histories exceed it;
+  4. the serving path: the port's Engine at full width (32 layers, dummy
+     weights), 8 concurrent requests, launch counts of every kernel: 8B in
+     bf16, with INT4 and with INT8 weights, 8B with an fp8 KV cache (which
+     also serves one prompt of 16,500 tokens), and Mistral-7B-v0.1 width
+     with its sliding window (prompts of 5,000 and 8,192 tokens among the
+     8), each engine released before the next one sizes its cache;
   5. /generate over HTTP through the port's build_app (the bf16 engine);
 then one {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
-ptxas report, the profiler table) go to chiprun_out/.
+ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
+every line this script logs (chip_smoke.log).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
+from swiftllm_tpu_torch.models.llama import quantize_kv
 from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops import int4_matmul as im
 from swiftllm_tpu_torch.ops import paged_attention as pa
@@ -85,7 +94,11 @@ REPLACES = {
 
 
 def log(*a):
+    """Print a line, and keep it in chiprun_out/chip_smoke.log: a console
+    that shows only the end of a long output loses the first phases."""
     print(*a, flush=True)
+    with open(OUT_DIR / "chip_smoke.log", "a", encoding="utf-8") as f:
+        print(*a, file=f)
 
 
 def time_ms(fn, reps=REPS, warmup=3) -> float:
@@ -120,12 +133,20 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # Phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def fp8_rows(g, n, KH, device):
+    """n cache rows of N(0, 1) K and V values quantized as the model
+    quantizes them (e4m3 bytes, scale lanes last), drawn from g."""
+    kv = torch.randn(n, 2 * KH, generator=g, device=device)
+    return quantize_kv(kv[:, :KH], kv[:, KH:])
+
+
 def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
-               q_bucket=1):
+               q_bucket=1, fp8=False):
     """rows: list of (q_len, seq_len). Decode rows (q_len 1) first, packed so
     flat token b is row b; multi-token spans follow, aligned to 128 tokens as
     the batch builder aligns them. Pages are a random permutation of the pool
-    (scattered); the pool's last page is the garbage page, in no row."""
+    (scattered); the pool's last page is the garbage page, in no row. With
+    fp8 the cache and kv_new are quantized rows with their scale lanes."""
     W = 2 * n_kv * hd
     B = 1 << max(len(rows) - 1, 0).bit_length()
     n_pages_row = [cdiv(s, page_size) for _, s in rows]
@@ -164,10 +185,15 @@ def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
     scatter[:n_dec] = -1
     bf = dict(device=device, dtype=torch.bfloat16)
     g = torch.Generator(device=device).manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
+    q = torch.randn(T, n_q, hd, generator=g, **bf)
+    if fp8:
+        cache = fp8_rows(g, layers * S, W // 2, device).view(layers, S, -1)
+        kv_new = fp8_rows(g, T, W // 2, device)
+    else:
+        cache = torch.randn(layers, S, W, generator=g, **bf)
+        kv_new = torch.randn(T, W, generator=g, **bf)
     return dict(
-        q=torch.randn(T, n_q, hd, generator=g, **bf),
-        cache=torch.randn(layers, S, W, generator=g, **bf),
-        kv_new=torch.randn(T, W, generator=g, **bf),
+        q=q, cache=cache, kv_new=kv_new, n_kv=n_kv,
         page_table=pt.to(device), kv_slots=slots.to(device),
         q_starts=q_st.to(device), q_lens=q_lens.to(device),
         seq_lens=seq_lens.to(device), rows=rows, page_size=page_size,
@@ -177,19 +203,21 @@ def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
         scatter=scatter.to(device))
 
 
-def _decode(case, cache, impl):
+def _decode(case, cache, impl, window=0):
     return impl(case["q"], cache, case["kv_new"], case["page_table"],
                 case["dec_lens"],
                 case["seq_lens"], case["kv_slots"], case["layer"],
-                page_size=case["page_size"], sm_scale=case["sm_scale"])
+                n_kv=case["n_kv"], page_size=case["page_size"],
+                sm_scale=case["sm_scale"], window=window)
 
 
 def _store(case, cache, impl):
     impl(cache, case["kv_new"], case["scatter"], case["layer"])
 
 
-def _prefill(case, cache, impl):
-    kw = dict(page_size=case["page_size"], sm_scale=case["sm_scale"])
+def _prefill(case, cache, impl, window=0):
+    kw = dict(n_kv=case["n_kv"], page_size=case["page_size"],
+              sm_scale=case["sm_scale"], window=window)
     if impl is pa.paged_prefill_attention:
         kw["q_bucket"] = case["q_bucket"]
     return impl(case["q"], cache, case["page_table"], case["q_starts"],
@@ -219,63 +247,79 @@ def _compare(got, want, atol=ATOL):
 
 def _cache_equal(a, b, page_size):
     """Bit-identical caches, the garbage page (last page_size slots) excluded."""
-    return torch.equal(a[:, :-page_size].view(torch.int16),
-                       b[:, :-page_size].view(torch.int16))
+    bits = torch.uint8 if a.element_size() == 1 else torch.int16
+    return torch.equal(a[:, :-page_size].view(bits), b[:, :-page_size].view(bits))
 
 
-def _decode_costs(case):
+def _visible(pos: int, window: int) -> int:
+    """Keys the query at position pos sees: 0 .. pos, the last `window`."""
+    return min(pos + 1, window) if window else pos + 1
+
+
+def _decode_costs(case, window=0):
+    """Bytes and operations the decode rows need: the visible history keys'
+    rows read once (rows of the cache's own size: an fp8 row is its e4m3
+    bytes and the scale lanes), kv_new read and its slot written, q read,
+    out written for every token; 4*hd operations per query head and key."""
     hd, n_q = case["q"].shape[2], case["q"].shape[1]
-    W = case["kv_new"].shape[1]
+    row_bytes = case["kv_new"].shape[1] * case["kv_new"].element_size()
     rows = [(ql, sl) for ql, sl in case["rows"] if ql == 1]
     n = len(rows)
-    nbytes = 2 * (sum(sl - 1 for _, sl in rows) * W + 2 * n * W
-                  + n * n_q * hd + case["q"].shape[0] * n_q * hd)
-    flops = 4 * n_q * hd * sum(sl for _, sl in rows)
-    return nbytes, flops
+    keys = sum(_visible(sl - 1, window) for _, sl in rows)
+    nbytes = ((keys - n) * row_bytes + 2 * n * row_bytes
+              + 2 * (n * n_q * hd + case["q"].shape[0] * n_q * hd))
+    return nbytes, 4 * n_q * hd * keys
 
 
-def _prefill_costs(case):
+def _prefill_costs(case, window=0):
+    """As _decode_costs for the multi-token rows: the keys any query of the
+    row sees read once, q read, out written; operations per visible pair."""
     hd, n_q = case["q"].shape[2], case["q"].shape[1]
-    W = case["kv_new"].shape[1]
+    row_bytes = case["cache"].shape[2] * case["cache"].element_size()
     rows = [(ql, sl) for ql, sl in case["rows"] if ql > 1]
-    nbytes = 2 * (sum(sl for _, sl in rows) * W
-                  + sum(ql for ql, _ in rows) * n_q * hd
-                  + case["q"].shape[0] * n_q * hd)
-    flops = 4 * n_q * hd * sum(sum(range(sl - ql + 1, sl + 1)) for ql, sl in rows)
+    keys = sum(min(sl, ql + window - 1) if window else sl for ql, sl in rows)
+    nbytes = (keys * row_bytes
+              + 2 * (sum(ql for ql, _ in rows) * n_q * hd
+                     + case["q"].shape[0] * n_q * hd))
+    flops = 4 * n_q * hd * sum(_visible(pos, window) for ql, sl in rows
+                               for pos in range(sl - ql, sl))
     return nbytes, flops
 
 
-def _dense_kv(case, cache, kind):
-    """The rows' K and V gathered dense ([n, n_kv, K, hd]) with a visibility
-    mask [n, 1, Q, K], for the scaled_dot_product_attention yardstick."""
-    hd = case["q"].shape[2]
-    S, W = cache.shape[1], cache.shape[2]
-    n_kv, KH = W // (2 * hd), W // 2
+def _dense_kv(case, cache, kind, window=0):
+    """The rows' K and V gathered dense in bf16 ([n, n_kv, K, hd]; an fp8
+    cache dequantized) with a visibility mask [n, 1, Q, K] (a band under a
+    window), for the scaled_dot_product_attention yardstick."""
+    hd, n_kv = case["q"].shape[2], case["n_kv"]
+    S, KH = cache.shape[1], n_kv * hd
     rows = [(b, ql, sl) for b, (ql, sl) in enumerate(case["rows"])
             if (ql == 1) == (kind == "decode")]
     Kmax = max(sl for _, _, sl in rows)
     Qmax = max(ql for _, ql, _ in rows)
     n = len(rows)
     dev = case["q"].device
-    k = torch.zeros(n, n_kv, Kmax, hd, device=dev, dtype=cache.dtype)
+    k = torch.zeros(n, n_kv, Kmax, hd, device=dev, dtype=torch.bfloat16)
     v = torch.zeros_like(k)
-    qd = torch.zeros(n, case["q"].shape[1], Qmax, hd, device=dev, dtype=cache.dtype)
+    qd = torch.zeros(n, case["q"].shape[1], Qmax, hd, device=dev, dtype=torch.bfloat16)
     mask = torch.zeros(n, 1, Qmax, Kmax, device=dev, dtype=torch.bool)
     for i, (b, ql, sl) in enumerate(rows):
         slots = pa._row_slots(case["page_table"][b], sl, case["page_size"],
                               S // case["page_size"])
-        kv = cache[case["layer"], slots]
+        kv = pa.dequantize_kv(
+            pa.as_bytes(cache)[case["layer"], slots].view(cache.dtype), KH
+        ).to(torch.bfloat16)
         k[i, :, :sl] = kv[:, :KH].reshape(sl, n_kv, hd).transpose(0, 1)
         v[i, :, :sl] = kv[:, KH:].reshape(sl, n_kv, hd).transpose(0, 1)
         s = int(case["q_starts"][b])
         qd[i, :, :ql] = case["q"][s:s + ql].transpose(0, 1)
-        qpos = torch.arange(sl - ql, sl, device=dev)
-        mask[i, 0, :ql] = torch.arange(Kmax, device=dev)[None, :] <= qpos[:, None]
+        qpos = torch.arange(sl - ql, sl, device=dev)[:, None]
+        kpos = torch.arange(Kmax, device=dev)[None, :]
+        mask[i, 0, :ql] = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
         mask[i, 0, ql:, 0] = True   # pad queries see key 0: no all-masked rows
     return qd, k, v, mask
 
 
-def check_kernels(case, *, name, results):
+def check_kernels(case, *, name, results, window=0):
     """Run the case through kernels and plain versions; check outputs and the
     cache; time each kernel, its plain version and a library yardstick."""
     ps = case["page_size"]
@@ -285,8 +329,8 @@ def check_kernels(case, *, name, results):
     c_p = case["cache"].clone()
     out = {}
     if has_dec:
-        got = _decode(case, c_k, pa.paged_decode_attention)
-        want = _decode(case, c_p, pa.paged_decode_attention_plain)
+        got = _decode(case, c_k, pa.paged_decode_attention, window)
+        want = _decode(case, c_p, pa.paged_decode_attention_plain, window)
         idx = _valid_tokens(case, "decode")
         out["paged_decode_attention"] = _compare(got[idx], want[idx])
         if has_pre is False:
@@ -295,8 +339,8 @@ def check_kernels(case, *, name, results):
         _store(case, c_k, pa.store_kv)
         _store(case, c_p, pa.store_kv_plain)
         assert _cache_equal(c_k, c_p, ps), f"{name}: store_kv cache differs"
-        got = _prefill(case, c_k, pa.paged_prefill_attention)
-        want = _prefill(case, c_p, pa.paged_prefill_attention_plain)
+        got = _prefill(case, c_k, pa.paged_prefill_attention, window)
+        want = _prefill(case, c_p, pa.paged_prefill_attention_plain, window)
         idx = _valid_tokens(case, "prefill")
         out["paged_prefill_attention"] = _compare(got[idx], want[idx])
     assert _cache_equal(c_k, c_p, ps), f"{name}: cache after the writes differs"
@@ -311,38 +355,43 @@ def check_kernels(case, *, name, results):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if has_dec:
-        nbytes, flops = _decode_costs(case)
-        qd, k, v, mask = _dense_kv(case, c_k, "decode")    # gather NOT timed
+        nbytes, flops = _decode_costs(case, window)
+        qd, k, v, mask = _dense_kv(case, c_k, "decode", window)  # NOT timed
         results["paged_decode_attention"] = dict(
             max_abs_err=out["paged_decode_attention"][0],
-            ms=time_ms(lambda: _decode(case, c_k, pa.paged_decode_attention)),
-            plain_ms=time_ms(lambda: _decode(case, c_p, pa.paged_decode_attention_plain), reps=3),
+            ms=time_ms(lambda: _decode(case, c_k, pa.paged_decode_attention, window)),
+            plain_ms=time_ms(lambda: _decode(case, c_p, pa.paged_decode_attention_plain,
+                                             window), reps=3),
             library_ms=time_ms(lambda: sdpa(qd, k, v, attn_mask=mask, enable_gqa=True)),
             **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
     if has_pre:
         # The work store_kv must do: one read and one write of the row of
         # each prefill-kind token (decode-kind and pad tokens are dropped).
         n_tok = int(case["pre_lens"].sum())
-        W = case["kv_new"].shape[1]
+        row_bytes = case["kv_new"].shape[1] * case["kv_new"].element_size()
         keep = case["scatter"] >= 0                      # selection NOT timed
-        slots_l, rows_l = case["scatter"][keep].long(), case["kv_new"][keep]
+        slots_l = case["scatter"][keep].long()
+        rows_l = pa.as_bytes(case["kv_new"])[keep]
+        lib_cache = pa.as_bytes(c_k)[case["layer"]]
         results["store_kv"] = dict(
             max_abs_err=0.0,
             ms=time_ms(lambda: _store(case, c_k, pa.store_kv)),
             plain_ms=time_ms(lambda: _store(case, c_p, pa.store_kv_plain), reps=3),
-            library_ms=time_ms(lambda: c_k[case["layer"]].index_copy_(0, slots_l, rows_l)),
-            **dict(zip(("bound_ms", "bound_by"), bound(2 * 2 * n_tok * W, 0))))
-        nbytes, flops = _prefill_costs(case)
-        qd, k, v, mask = _dense_kv(case, c_k, "prefill")   # gather NOT timed
+            library_ms=time_ms(lambda: lib_cache.index_copy_(0, slots_l, rows_l)),
+            **dict(zip(("bound_ms", "bound_by"), bound(2 * n_tok * row_bytes, 0))))
+        nbytes, flops = _prefill_costs(case, window)
+        qd, k, v, mask = _dense_kv(case, c_k, "prefill", window)  # NOT timed
         results["paged_prefill_attention"] = dict(
             max_abs_err=out["paged_prefill_attention"][0],
-            ms=time_ms(lambda: _prefill(case, c_k, pa.paged_prefill_attention)),
-            plain_ms=time_ms(lambda: _prefill(case, c_p, pa.paged_prefill_attention_plain), reps=3),
+            ms=time_ms(lambda: _prefill(case, c_k, pa.paged_prefill_attention, window)),
+            plain_ms=time_ms(lambda: _prefill(case, c_p, pa.paged_prefill_attention_plain,
+                                              window), reps=3),
             library_ms=time_ms(lambda: sdpa(qd, k, v, attn_mask=mask, enable_gqa=True)),
             **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
     log("[time] library_ms: scaled_dot_product_attention on K/V gathered "
-        "dense beforehand (the gather is outside the timed region); "
-        "index_copy_ of the prefill-kind rows for store_kv")
+        "dense (and dequantized) beforehand, outside the timed region, with "
+        "a band mask under a window; index_copy_ of the prefill-kind rows "
+        "for store_kv")
     for k_, r in results.items():
         log(f"[time] {name} {k_}: " + ", ".join(
             f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
@@ -367,6 +416,58 @@ def check_planted_fault(case):
     assert ratio > 1, "the tolerance lets a decode kernel skip a page"
 
 
+def check_fault_v_scale(case):
+    """Planted fault, fp8: the V scale left out. The plain version runs on a
+    copy whose V-scale lanes (cache and kv_new) hold 1.0, so it weights the
+    stored V bytes as they are; the kernel on the true bytes must fail the
+    comparison with it."""
+    KH = case["n_kv"] * case["q"].shape[2]
+    bad = dict(case, cache=case["cache"].clone(), kv_new=case["kv_new"].clone())
+    pa.as_bytes(bad["cache"])[:, :, 2 * KH + 1] = 0x38       # 1.0 in e4m3
+    pa.as_bytes(bad["kv_new"])[:, 2 * KH + 1] = 0x38
+    got = _decode(case, case["cache"].clone(), pa.paged_decode_attention)
+    want = _decode(bad, bad["cache"], pa.paged_decode_attention_plain)
+    idx = _valid_tokens(case, "decode")
+    err, med, ratio = _compare(got[idx], want[idx])
+    log(f"[kernels] planted fault (fp8 decode, the V scale left out): "
+        f"max_abs_err {err:.3g}, median |want| {med:.3g}, worst {ratio:.3g} "
+        f"of the tolerance")
+    assert ratio > 1, "the tolerance lets a kernel leave the V scale out"
+
+
+def check_fault_window_edge(case, window):
+    """Planted fault: the window off by one (>= for >). The plain version
+    with a window of window + 1 sees one key more; the kernel with `window`
+    must fail the comparison with it on the rows longer than the window."""
+    got = _decode(case, case["cache"].clone(), pa.paged_decode_attention, window)
+    want = _decode(case, case["cache"].clone(), pa.paged_decode_attention_plain,
+                   window + 1)
+    idx = torch.tensor([b for b, (ql, sl) in enumerate(case["rows"])
+                        if ql == 1 and sl > window], device=got.device)
+    err, med, ratio = _compare(got[idx], want[idx])
+    log(f"[kernels] planted fault (decode, window {window} against "
+        f"{window + 1}, {len(idx)} rows longer than it): max_abs_err {err:.3g}, "
+        f"median |want| {med:.3g}, worst {ratio:.3g} of the tolerance")
+    assert ratio > 1, "the tolerance lets the window be off by one"
+
+
+def time_quantize(device, smi):
+    """The quantizing kv_new build (plain PyTorch ops, as the JAX package
+    leaves it to XLA) against the bf16 build, per layer at 8B width, in the
+    serving decode bucket (128 tokens) and the prefill bucket (2,048)."""
+    g = torch.Generator(device=device).manual_seed(9)
+    out = {}
+    for T in (128, 2048):
+        k = torch.randn(T, 1024, generator=g, device=device).to(torch.bfloat16)
+        v = torch.randn(T, 1024, generator=g, device=device).to(torch.bfloat16)
+        out[T] = time_ms(lambda: quantize_kv(k, v))
+        plain = time_ms(lambda: torch.cat([k, v], dim=1).to(torch.bfloat16))
+        log(f"[time] quantize_kv T={T} (8 kv heads of 128): {out[T]:.4f} ms a "
+            f"layer, {32 * out[T]:.3f} ms over 32 layers; the bf16 build "
+            f"{plain:.4f} ms a layer ({smi})")
+    return out
+
+
 def phase_kernels(device) -> dict:
     gen = torch.Generator().manual_seed(0)
     w8b = dict(n_q=32, n_kv=8, hd=128, page_size=16)
@@ -377,8 +478,9 @@ def phase_kernels(device) -> dict:
     check_planted_fault(dec)
     # Rows past 16Ki tokens: the range where the TPU decode kernel switches
     # to its staged page table; this kernel reads the table the same way.
-    check_kernels(paged_case(gen, device, rows=[(1, 20000), (1, 16385), (1, 1)],
-                             **w8b), name="decode 8B long rows", results=None)
+    long_rows = [(1, 20000), (1, 16385), (1, 1)]
+    check_kernels(paged_case(gen, device, rows=long_rows, **w8b),
+                  name="decode 8B long rows", results=None)
     mixed = ([(1, 40 + 97 * i) for i in range(8)]
              + [(512, 512), (512, 1536), (300, 812)])
     mres = {}
@@ -386,6 +488,32 @@ def phase_kernels(device) -> dict:
                   name="mixed 8B", results=mres)
     results["store_kv"] = mres["store_kv"]
     results["paged_prefill_attention"] = mres["paged_prefill_attention"]
+
+    # The variants, on the same cases: an fp8 cache, a window, and both. A
+    # window of 4096 reaches past every row of the 16-row and the mixed case
+    # (it must change nothing there) and skips pages of the long rows; a
+    # window of 50 cuts most rows of the first two. The last case has a
+    # chunk whose first query's window starts 1,393 keys into its history.
+    deep = [(1, 9000), (512, 6000)]
+    for fp8 in (False, True):
+        tag = "fp8 " if fp8 else ""
+        kw = dict(w8b, fp8=fp8)
+        for rows, label, qb, windows in (
+                ([(1, s) for s in seq], "decode 8B 16 rows", 1, (0, 50, 4096)),
+                (long_rows, "decode 8B long rows", 1, (0, 4096)),
+                (mixed, "mixed 8B", 512, (0, 50, 4096)),
+                (deep, "mixed 8B deep history", 512, (4096,))):
+            case = paged_case(gen, device, rows=rows, q_bucket=qb, **kw)
+            for window in windows:
+                if not fp8 and window == 0:
+                    continue            # the default mode, checked above
+                timed = not (window == 4096 and max(s for _, s in rows) <= 4096)
+                check_kernels(case, name=f"{tag}window {window} {label}",
+                              results={} if timed else None, window=window)
+            if label == "decode 8B 16 rows":
+                if fp8:
+                    check_fault_v_scale(case)
+                check_fault_window_edge(case, 50)
     w1b = dict(n_q=32, n_kv=8, hd=64, page_size=16)
     check_kernels(paged_case(gen, device, q_bucket=512, rows=(
         [(1, 1), (1, 333), (1, 1000)] + [(200, 200), (77, 589)]), **w1b),
@@ -542,16 +670,27 @@ LLAMA3_8B = dict(num_q_heads=32, num_kv_heads=8, hidden_size=4096, head_dim=128,
                  ffn_inter_dim=14336, vocab_size=128256,
                  max_position_embeddings=8192, rms_norm_eps=1e-5,
                  rope_theta=500000.0)
+# The same widths with the long context of meta-llama/Llama-3.1-8B's config:
+# the fp8-KV engine serves a prompt past 16Ki tokens.
+LLAMA31_8B = dict(LLAMA3_8B, max_position_embeddings=131072, rope_scaling=dict(
+    rope_type="llama3", factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+    original_max_position_embeddings=8192))
+# mistralai/Mistral-7B-v0.1's config.json.
+MISTRAL_7B = dict(num_q_heads=32, num_kv_heads=8, hidden_size=4096, head_dim=128,
+                  ffn_inter_dim=14336, vocab_size=32000,
+                  max_position_embeddings=32768, rms_norm_eps=1e-5,
+                  rope_theta=10000.0, sliding_window=4096)
 
 
-def _requests(specs):
+def _requests(specs, vocab):
     """(prompt_len, cached, n_tokens) -> port Requests scheduled for one step;
     cached tokens stand for a history already in the cache, with one output
     token to feed next when cached == prompt_len."""
+    top = min(120000, vocab - 1)
     sched = []
     for i, (plen, cached, n) in enumerate(specs):
         r = Request(RawRequest("", 4))
-        r.set_prompt_token_ids([(31 * i + 7 * j) % 120000 + 1 for j in range(plen)])
+        r.set_prompt_token_ids([(31 * i + 7 * j) % top + 1 for j in range(plen)])
         if cached == plen:
             r.output_token_ids = [17 + i]
         r.num_cached_tokens = cached
@@ -584,7 +723,7 @@ def _randomize(params, g, quant):
             fill(t)
 
 
-def phase_step(quant="none"):
+def phase_step(quant="none", kv_quant="none", mistral=False):
     """One mixed step at 8B width, 4 layers: kernels against plain versions on
     the same weights (std 0.02 from a seeded generator, unit norms) and the
     same random cache. Greedy tokens must agree on every row whose top-2
@@ -593,14 +732,24 @@ def phase_step(quant="none"):
     256 tokens, so the kernel run sends every projection through
     int4_matmul and the plain run through quant.proj; a third run, the
     attention kernels with int4_matmul's plain version, isolates the INT4
-    kernel, under the same rule."""
-    mc = LlamaModelConfig(num_layers=4, **LLAMA3_8B)
+    kernel, under the same rule. With kv_quant="fp8" the cache holds
+    quantized rows (pages of 32). With `mistral` the widths and the window
+    of 4096 are Mistral-7B-v0.1's, and three rows' histories exceed the
+    window: decode rows of 4,097 and 5,000 keys and a chunk after 5,488."""
+    mc = LlamaModelConfig(num_layers=4, **(MISTRAL_7B if mistral else LLAMA3_8B))
     ec = dict(model_path="", use_dummy=True, dtype="bfloat16", quant=quant,
+              kv_quant=kv_quant, block_size=32 if kv_quant == "fp8" else 16,
               preemption_mode="recompute", num_hbm_blocks=1024,
               max_blocks_per_seq=128, max_batch_size=16)
     specs = [(40 + 97 * i, 40 + 97 * i, 1) for i in range(8)]
     specs += ([(512, 0, 512), (1600, 1024, 512), (812, 512, 300)]
               if quant == "none" else [(812, 512, 128)])
+    if mistral:
+        ec.update(num_hbm_blocks=2048, max_blocks_per_seq=512, max_batch_size=8)
+        specs = [(n, n, 1) for n in (40, 500, 4096, 4999)]
+        specs += [(512, 0, 512), (6000, 5488, 512), (812, 512, 300)]
+    what = (f"{'Mistral-7B' if mistral else '8B'} width, 4 layers, quant {quant}, "
+            f"kv_quant {kv_quant}, window {mc.sliding_window or 0}")
     # (run, use_pallas): the kernels; the plain versions; and, with INT4
     # weights, the attention kernels with int4_matmul's plain version, which
     # isolates the INT4 kernel (the same f32 sums, one rounding).
@@ -616,7 +765,12 @@ def phase_step(quant="none"):
             g = torch.Generator(device=DEVICE).manual_seed(1234)
             _randomize(m.params, g, quant)
             m.init_kvcache_and_swap()
-            m.kv_cache.normal_(0.0, 1.0, generator=g)
+            if kv_quant == "fp8":
+                KH = mc.num_kv_heads * mc.head_dim
+                for layer in m.kv_cache:
+                    layer.copy_(fp8_rows(g, layer.shape[0], KH, DEVICE))
+            else:
+                m.kv_cache.normal_(0.0, 1.0, generator=g)
             cache0 = m.kv_cache.clone()
         else:
             m.params = models["kernels"].params
@@ -630,7 +784,8 @@ def phase_step(quant="none"):
         if run == "int4 plain":
             im.int4_proj_stacked = im.int4_proj_stacked_plain
         try:
-            tokens, rows, lg = m.forward(_requests(specs), return_logits=True)
+            tokens, rows, lg = m.forward(_requests(specs, mc.vocab_size),
+                                         return_logits=True)
         finally:
             im.int4_proj_stacked = int4_kernel
         torch.cuda.synchronize()
@@ -652,7 +807,7 @@ def phase_step(quant="none"):
         checked = margin > 2 * diff
         agree = a.argmax(-1) == b.argmax(-1)
         assert bool(agree[checked].all()), f"greedy tokens differ on a clear-margin row ({run})"
-        log(f"[step] 8B width, 4 layers, quant {quant}, mixed step of {len(specs)} "
+        log(f"[step] {what}, mixed step of {len(specs)} "
             f"rows ({models['kernels'].last_key.tokens} tokens; kernel launches "
             f"{launches['kernels']}), kernels against {run}: max |logit diff| "
             f"{diff:.4g} (logit std {b.std().item():.4g}); greedy tokens agree on "
@@ -662,38 +817,65 @@ def phase_step(quant="none"):
     torch.cuda.empty_cache()
 
 
-# Kernels each serving run must launch.
-SERVE_KERNELS = {"none": pa.KERNELS, "int4": pa.KERNELS + ("int4_matmul",),
-                 "int8": pa.KERNELS}
+PROMPT_LENS = [17, 100, 250, 400, 600, 900, 1200, 1500]
+# The serving runs, in order: name -> (model widths, engine options, the 8
+# prompts' lengths, the length of one more prompt served alone or None).
+# "none", "int4" and "int8" are the weight types of the earlier runs.
+SERVE_RUNS = {
+    "none": (LLAMA3_8B, {}, PROMPT_LENS, None),
+    "int4": (LLAMA3_8B, dict(quant="int4"), PROMPT_LENS, None),
+    "int8": (LLAMA3_8B, dict(quant="int8"), PROMPT_LENS, None),
+    # fp8 KV (pages of 32, which the fp8 cache needs) and a prompt past the
+    # 16,384 tokens at which the TPU decode kernel stages its page table.
+    "fp8kv": (LLAMA31_8B, dict(kv_quant="fp8", block_size=32), PROMPT_LENS, 16500),
+    # Prompts past the window of 4096: their chunked prefill and their decode
+    # steps both cross it.
+    "mistral": (MISTRAL_7B, {}, [17, 100, 250, 400, 600, 900, 5000, 8192], None),
+}
+LONG_OUT_LEN = 4
 
 
-async def serve_engine(quant: str, smi: str):
-    """The serving path at full 8B width with weights in `quant`: 8
-    concurrent requests, launch counts, pages back; the bf16 engine also
-    runs the profile and /generate over HTTP. The engine is released before
-    this returns, so that the next one sizes its cache on an empty card."""
-    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+def serve_kernels(name: str) -> tuple:
+    """Kernels the serving run `name` must launch."""
+    return pa.KERNELS + (("int4_matmul",) if name == "int4" else ())
+
+
+async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict):
+    """The serving path at full width, 32 layers, as SERVE_RUNS[name] sets
+    it: 8 concurrent requests, launch counts, pages back, the profile; the
+    bf16 engine also answers /generate over HTTP, and the fp8-KV engine
+    serves one long prompt more. The engine is released before this
+    returns, so that the next one sizes its cache on an empty card."""
+    widths, ec_kw, prompt_lens, long_prompt = SERVE_RUNS[name]
+    mc = LlamaModelConfig(num_layers=32, **widths)
     ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
-                      preemption_mode="recompute", quant=quant)
+                      preemption_mode="recompute", **ec_kw)
     t0 = time.perf_counter()
     engine = Engine(ec, mc, device=DEVICE)
     await engine.initialize(tokenizer_backend="inline")
     mgr = engine.model.hbm_block_mgrs[0]
     free0 = mgr.num_free_blocks
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.model.params))
-    log(f"[serve {quant}] engine up in {time.perf_counter() - t0:.1f} s: "
-        f"weights {weight_bytes / 1e9:.3f} GB, {engine.model.num_hbm_blocks} "
-        f"KV pages of {ec.block_size} tokens")
+    pages = engine.model.num_hbm_blocks
+    pools[name] = pages * ec.block_size
+    log(f"[serve {name}] engine up in {time.perf_counter() - t0:.1f} s: "
+        f"weights {weight_bytes / 1e9:.3f} GB, {pages} "
+        f"KV pages of {ec.block_size} tokens = {pools[name]} tokens, cache "
+        f"{engine.model.kv_cache.dtype} {tuple(engine.model.kv_cache.shape)}")
+    if name == "fp8kv":
+        log(f"[serve {name}] pool {pools[name]} tokens against the bf16 "
+            f"engine's {pools['none']}: {pools[name] / pools['none']:.4f} times "
+            f"({smi})")
     loops = asyncio.create_task(engine.start_all_event_loops())
-    prompt_lens = [17, 100, 250, 400, 600, 900, 1200, 1500]
     out_len = 32
+    top = min(128000, mc.vocab_size - 1)
 
-    async def one(i, n):
-        ids = [(13 * i + 5 * j) % 128000 + 1 for j in range(n)]
+    async def one(i, n, n_out=out_len):
+        ids = [(13 * i + 5 * j) % top + 1 for j in range(n)]
         t_sub = time.perf_counter()
         stamps, toks = [], []
         async for so in engine.add_request_and_stream(
-                RawRequest("", out_len, prompt_token_ids=ids)):
+                RawRequest("", n_out, prompt_token_ids=ids)):
             stamps.append(time.perf_counter())
             toks.append(so.token_id)
         return t_sub, stamps, toks
@@ -709,8 +891,8 @@ async def serve_engine(quant: str, smi: str):
     for (_, stamps, toks), n in zip(res, prompt_lens):
         assert len(toks) == out_len, f"prompt {n}: {len(toks)} tokens"
         assert all(0 <= t < mc.vocab_size for t in toks)
-    for k in SERVE_KERNELS[quant]:
-        assert launches[k] > 0, f"{k} never launched on the {quant} serving path"
+    for k in serve_kernels(name):
+        assert launches[k] > 0, f"{k} never launched on the {name} serving path"
     # The probe step sized the pool: the run's peak must fit the budget.
     peak = torch.cuda.max_memory_allocated()
     budget = torch.cuda.mem_get_info()[1] * ec.hbm_mem_utilization
@@ -721,17 +903,44 @@ async def serve_engine(quant: str, smi: str):
     first = max(st[0] for _, st, _ in res)
     last = max(st[-1] for _, st, _ in res)
     n_after = sum(1 for _, st, _ in res for x in st if x > first)
-    log(f"[serve {quant}] 8 requests, prompts {prompt_lens}, {out_len} tokens "
+    log(f"[serve {name}] 8 requests, prompts {prompt_lens}, {out_len} tokens "
         f"each, in {wall:.3f} s ({smi}); launches {launches}; peak allocated "
         f"{peak / 1e9:.2f} GB of a {budget / 1e9:.2f} GB budget")
-    log(f"[serve {quant}] TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
+    log(f"[serve {name}] TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
         f"{1e3 * ttft[-1]:.1f} ms; decode {n_after / (last - first):.1f} tok/s "
         f"({n_after} tokens after the last first token); output "
         f"{len(res) * out_len / wall:.1f} tok/s over the run; "
         f"{engine.stats.num_steps} steps ({smi})")
     await _pages_back(mgr, free0)
-    await _profile(engine, smi, quant)
-    if quant == "none":
+    if long_prompt:
+        # One request alone, its prompt prefilled in chunks of 512 over a
+        # history that passes 16,384 keys, then decode steps over all of it.
+        build.reset_launch_counts()
+        steps0 = engine.stats.num_steps
+        t_sub, stamps, toks = await one(len(prompt_lens), long_prompt, LONG_OUT_LEN)
+        torch.cuda.synchronize()
+        assert len(toks) == LONG_OUT_LEN, f"long prompt: {len(toks)} tokens"
+        assert all(0 <= t < mc.vocab_size for t in toks)
+        long_launches = dict(build.launch_counts)
+        for k in pa.KERNELS:
+            assert long_launches[k] > 0, f"{k} never launched for the long prompt"
+        log(f"[serve {name}] one request of {long_prompt} prompt tokens "
+            f"({cdiv(long_prompt, ec.block_size)} pages), {LONG_OUT_LEN} output "
+            f"tokens: TTFT {stamps[0] - t_sub:.3f} s, then "
+            f"{1e3 * (stamps[-1] - stamps[0]) / (LONG_OUT_LEN - 1):.1f} ms a "
+            f"token; {engine.stats.num_steps - steps0} steps; launches "
+            f"{long_launches} ({smi})")
+        await _pages_back(mgr, free0)
+        log(f"[serve {name}] the long request finished and its pages are back "
+            f"({mgr.num_free_blocks} free of {free0})")
+    busy_ms, prof_steps = await _profile(engine, smi, name)
+    if ec.kv_quant == "fp8":
+        q_ms = mc.num_layers * quantize_ms[128]
+        log(f"[profile {name}] the quantizing kv_new build: {q_ms:.3f} ms a "
+            f"decode step (32 layers at the 128-token bucket, timed alone) "
+            f"against {busy_ms / prof_steps:.3f} ms of device time a step in "
+            f"this profile ({prof_steps} steps): {100 * q_ms * prof_steps / busy_ms:.1f}%")
+    if name == "none":
         await _http(engine, mgr, free0)
     loops.cancel()
     await asyncio.wait([loops])
@@ -789,10 +998,11 @@ async def _http(engine, mgr, free0):
         await runner.cleanup()
 
 
-async def phase_serve(smi: str) -> dict:
-    """Phases 4-5: the bf16, INT4 and INT8 engines, one after another."""
-    return {quant: await serve_engine(quant, smi)
-            for quant in ("none", "int4", "int8")}
+async def phase_serve(smi: str, quantize_ms: dict) -> dict:
+    """Phases 4-5: the engines of SERVE_RUNS, one after another."""
+    pools = {}
+    return {name: await serve_engine(name, smi, pools, quantize_ms)
+            for name in SERVE_RUNS}
 
 
 async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
@@ -806,6 +1016,7 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
                                                        for j in range(prompt)])
             for i in range(n_req)]
     torch.cuda.synchronize()
+    steps0 = engine.stats.num_steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         await asyncio.gather(*[engine.add_request_and_wait(r) for r in reqs])
@@ -822,6 +1033,7 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
     for e in top[:8]:
         log(f"[profile {quant}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    return 1e3 * busy, engine.stats.num_steps - steps0
 
 
 async def _pages_back(mgr, free0, timeout=10.0):
@@ -839,6 +1051,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.log").write_text("")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -860,13 +1073,18 @@ def main() -> int:
                 log(f"[ptxas] {k}: {line.strip()}")
 
     results = phase_kernels("cuda")
+    quantize_ms = time_quantize("cuda", smi)
     torch.cuda.empty_cache()
     results["int4_matmul"] = phase_int4("cuda", smi)
     phase_step()
     phase_step("int4")
-    launches = asyncio.run(phase_serve(smi))
+    phase_step(kv_quant="fp8")
+    phase_step("int4", kv_quant="fp8")
+    phase_step(mistral=True)
+    launches = asyncio.run(phase_serve(smi, quantize_ms))
     # Launches: the attention kernels' on the bf16 serving run (the path of
-    # the slice that brought them), int4_matmul's on the INT4 run.
+    # the slice that brought them), int4_matmul's on the INT4 run; the fp8-KV
+    # and the windowed runs' counts are asserted and logged by their runs.
     kernels = [dict(name=n, route="cuda", source=SOURCE_OF[n],
                     replaces=REPLACES[n],
                     launches=launches["int4" if n == "int4_matmul" else "none"][n],

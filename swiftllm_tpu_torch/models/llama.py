@@ -8,7 +8,10 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
   ``worker/batch_builder.pack_step_batch``.
 - The paged KV cache is ``[L, S, W]``: S flat slots ((pages + 1) * page_size,
   the +1 a garbage page that padding tokens write into) and W = 2*n_kv*hd
-  lanes laid out ``[K_all ‖ V_all]``.
+  lanes laid out ``[K_all ‖ V_all]``. With ``kv_quant="fp8"`` the cache is
+  ``torch.float8_e4m3fn`` and each row ends in ``FP8_SCALE_LANES`` more lanes
+  that hold the token's power-of-two K and V scales (``quantize_kv``), byte
+  for byte the JAX package's layout.
 - A Python loop over layers replaces ``lax.scan``. Where JAX donates the
   cache and the feedback buffer to the step, this port updates both IN PLACE.
 - Attention goes through the hand-written CUDA kernels of
@@ -182,6 +185,45 @@ def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# fp8 KV: per-token power-of-two scales, kept in the cache row's last lanes
+# ---------------------------------------------------------------------------
+
+FP8_SCALE_LANES = pa.FP8_SCALE_LANES
+
+
+def fp8_scales(x_max: torch.Tensor) -> torch.Tensor:
+    """Per-token power-of-2 scale s = 2^e with |x|*s <= 224 (e4m3's largest
+    value is 448): e = floor(log2(224 / max(x_max, 1e-20))) clipped to
+    [-9, 8], the powers of two that e4m3 holds exactly (2^-9 is its smallest
+    subnormal), so the scale lanes lose nothing.
+
+    The JAX package takes the floor of a float32 ``log2`` of the rounded
+    quotient; this takes it exactly, from the exponent and mantissa of
+    x_max (x = m * 2^ex with m in [0.5, 1): 224 / m lies in (224, 448], at
+    or above 256 when m <= 0.875), so the CPU and the card give the same
+    bytes. The two differ only where the reference's ``log2`` rounds up
+    across an integer: x_max a few float32 ulps above 224 * 2^k, where the
+    reference's scale is twice this one and both keep |x|*s within 448."""
+    m, ex = torch.frexp(x_max.float().clamp(1e-20, torch.finfo(torch.float32).max))
+    e = torch.where(m <= 0.875, 8, 7) - ex
+    return torch.exp2(e.clamp(-9, 8).float())
+
+
+def quantize_kv(kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
+    """One step's K and V rows ([T, n_kv*hd] each, any float dtype) as fp8
+    cache rows [T, 2*n_kv*hd + FP8_SCALE_LANES]: each token's K and V times
+    its own scale (from the row's absmax), clipped to +-448 (e4m3fn has no
+    inf: an overflowing cast would give NaN), then the scale lanes (K scale,
+    V scale, zeros), all cast to e4m3 at once."""
+    kv = torch.stack([kf, vf], dim=1).float()                         # [T, 2, KH]
+    scales = fp8_scales(kv.abs().amax(dim=2))                         # [T, 2]
+    lanes = kv.new_zeros(kv.shape[0], FP8_SCALE_LANES)
+    lanes[:, :2] = scales
+    stored = (kv * scales[:, :, None]).clamp(-448.0, 448.0)
+    return torch.cat([stored.flatten(1), lanes], dim=1).to(pa.FP8)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """HF LlamaRMSNorm: f32 variance, cast back BEFORE the weight multiply."""
     x32 = x.float()
@@ -195,11 +237,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _ragged_paged_attention_torch(q, cache_l, batch: StepBatch, *,
                                   page_size: int, sm_scale: float,
-                                  q_bucket: int):
+                                  q_bucket: int, window: int = 0):
     """Gather-based attention, the port of the JAX package's
     ``_ragged_paged_attention_jnp``: every row attends over its own paged KV.
 
-    q [T, n_q, hd]; cache_l [S, 2, n_kv, hd] (one layer). It materialises the
+    q [T, n_q, hd]; cache_l [S, 2, n_kv, hd] (one layer, true values: an
+    fp8 cache comes un-scaled). With ``window`` only the last ``window``
+    positions are visible (key_pos in (q_pos - window, q_pos]). It materialises the
     gathered KV of every row ([B, Pg*page_size, ...]), so it serves the CPU
     and ``use_pallas=False``; the kernels implement the same contract."""
     T, n_q, hd = q.shape
@@ -229,6 +273,8 @@ def _ragged_paged_attention_torch(q, cache_l, batch: StepBatch, *,
     key_pos = torch.arange(K, device=dev)
     valid = ((key_pos[None, None, :] <= q_pos[:, :, None])
              & (key_pos[None, None, :] < batch.seq_lens[:, None, None]))
+    if window:
+        valid &= key_pos[None, None, :] > q_pos[:, :, None] - window
     scores = torch.where(valid[:, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngqk,bknd->bqngd", probs, v.float())
@@ -240,46 +286,51 @@ def _ragged_paged_attention_torch(q, cache_l, batch: StepBatch, *,
 
 
 def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
-                         page_size: int, sm_scale: float, use_kernels: bool,
-                         q_bucket: int):
-    """Store this layer's fresh K‖V (kv_new [T, W], in the cache dtype) into
-    the cache [L, S, W] IN PLACE and run attention; returns [T, n_q, hd].
+                         n_kv: int, page_size: int, sm_scale: float,
+                         use_kernels: bool, q_bucket: int, window: int = 0):
+    """Store this layer's fresh K‖V (kv_new [T, W], in the cache dtype, with
+    the scale lanes when the cache is fp8) into the cache [L, S, W] IN PLACE
+    and run attention; returns [T, n_q, hd].
 
     Kernels: decode buckets run the decode kernel, which writes its rows' KV
     itself. Mixed buckets keep the JAX order: the decode kernel on the
     decode-kind rows (packed first, flat token == row), then ``store_kv`` of
     the prefill-kind spans and the prefill kernel on them; tokens below
     n_dec take the decode output, the rest the prefill output."""
-    T = q.shape[0]
+    T, _, hd = q.shape
+    kw = dict(n_kv=n_kv, page_size=page_size, sm_scale=sm_scale, window=window)
     if use_kernels and q_bucket == 1:
         return pa.paged_decode_attention(
             q, cache, kv_new, batch.page_table, batch.q_lens, batch.seq_lens,
-            batch.kv_slots, layer, page_size=page_size, sm_scale=sm_scale)
+            batch.kv_slots, layer, **kw)
     if use_kernels:
         q_lens_dec = torch.where(batch.decode_row, batch.q_lens, 0)
         q_lens_pre = torch.where(batch.decode_row, 0, batch.q_lens)
         dec_out = pa.paged_decode_attention(
             q, cache, kv_new, batch.page_table, q_lens_dec, batch.seq_lens,
-            batch.kv_slots, layer, page_size=page_size, sm_scale=sm_scale)
+            batch.kv_slots, layer, **kw)
         pa.store_kv(cache, kv_new, batch.kv_slots_scatter, layer)
         pre_out = pa.paged_prefill_attention(
             q, cache, batch.page_table, batch.q_starts, q_lens_pre,
-            batch.seq_lens, layer, page_size=page_size, sm_scale=sm_scale,
-            q_bucket=q_bucket)
+            batch.seq_lens, layer, q_bucket=q_bucket, **kw)
         n_dec = batch.decode_row.sum()
         tok = torch.arange(T, device=q.device)[:, None, None]
         return torch.where(tok < n_dec, dec_out, pre_out)
     # Plain path: scatter every token, then attend. The builder never emits
     # an out-of-range slot; one would be redirected to the garbage page
-    # (JAX drops it), never written elsewhere.
-    S, W = cache.shape[1], cache.shape[2]
+    # (JAX drops it), never written elsewhere. An fp8 cache is un-scaled to
+    # a plain f32 view of the layer first.
+    S = cache.shape[1]
+    pa.scale_lanes(cache, n_kv, hd)
     in_range = (batch.kv_slots >= 0) & (batch.kv_slots < S)
     slots = torch.where(in_range, batch.kv_slots, S - page_size).long()
-    cache[layer, slots] = kv_new
-    hd = q.shape[2]
-    cache_l = cache[layer].view(S, 2, W // (2 * hd), hd)
-    return _ragged_paged_attention_torch(q, cache_l, batch, page_size=page_size,
-                                         sm_scale=sm_scale, q_bucket=q_bucket)
+    pa.as_bytes(cache)[layer, slots] = pa.as_bytes(kv_new)
+    cache_l = cache[layer]
+    if cache.dtype == pa.FP8:
+        cache_l = pa.dequantize_kv(cache_l, n_kv * hd)
+    return _ragged_paged_attention_torch(
+        q, cache_l.view(S, 2, n_kv, hd), batch, page_size=page_size,
+        sm_scale=sm_scale, q_bucket=q_bucket, window=window)
 
 
 def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
@@ -334,10 +385,14 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
             v_flat = v_flat + w["bv"].to(v_flat.dtype)
         q = apply_rope(q_flat.view(T, -1, hd), rope_cs)
         k = apply_rope(k_flat.view(T, -1, hd), rope_cs)
-        kv_new = torch.cat([k.reshape(T, -1), v_flat], dim=1).to(kv_cache.dtype)
+        if kv_cache.dtype == pa.FP8:
+            kv_new = quantize_kv(k.reshape(T, -1), v_flat)
+        else:
+            kv_new = torch.cat([k.reshape(T, -1), v_flat], dim=1).to(kv_cache.dtype)
         attn = _attention_and_store(
-            q, kv_new, kv_cache, layer, batch, page_size=page_size,
-            sm_scale=sm_scale, use_kernels=use_kernels, q_bucket=q_bucket)
+            q, kv_new, kv_cache, layer, batch, n_kv=cfg.num_kv_heads,
+            page_size=page_size, sm_scale=sm_scale, use_kernels=use_kernels,
+            q_bucket=q_bucket, window=cfg.sliding_window or 0)
         x = x + mproj(attn.reshape(T, -1), "wo")
 
         h = rms_norm(x, w["ffn_norm"], eps)

@@ -33,13 +33,15 @@ _F = ctypes.c_float
 # kernel (C entry) name -> (its source in csrc/, the entry's argument types)
 SOURCES = {
     # q, cache, kv_new, page_table, q_lens, seq_lens, kv_slots, out,
-    # T, B, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
-    "paged_decode_attention": ("paged_decode.cu", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    # T, B, Pg, n_q, n_kv, hd, S, layer, page_size, window, kv_fp8, sm_scale,
+    # stream
+    "paged_decode_attention": ("paged_decode.cu", [_P] * 8 + [_I] * 11 + [_F, _P]),
     # kv_new, cache, slots, T, row_bytes, S, layer, stream
     "store_kv": ("store_kv.cu", [_P] * 3 + [_I] * 4 + [_P]),
     # q, cache, page_table, q_starts, q_lens, seq_lens, out,
-    # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
-    "paged_prefill_attention": ("paged_prefill.cu", [_P] * 7 + [_I] * 9 + [_F, _P]),
+    # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, window, kv_fp8,
+    # sm_scale, stream
+    "paged_prefill_attention": ("paged_prefill.cu", [_P] * 7 + [_I] * 11 + [_F, _P]),
     # x, q4, s, y, workspace, T, N, K, layer, splits, stream
     "int4_matmul": ("int4_matmul.cu", [_P] * 5 + [_I] * 5 + [_P]),
 }

@@ -11,15 +11,31 @@
 // from kv_new[b]. Rows that are not valid decode rows, and tokens past the row
 // axis, get zeros.
 //
+// Two variants of the same body, as in the TPU kernel:
+// - An fp8 cache (the KV template parameter): rows of e4m3 bytes that end in
+//   128 scale lanes (common.cuh). The bytes are converted to f32 in
+//   registers; the score is (q . k_stored) * sm_scale / k_scale, and the
+//   probability meets V as p / v_scale, while l sums the unscaled p. The new
+//   token is read from kv_new as stored (quantized), un-scaled by its own
+//   lanes. Every lane of a key reads the key's two scale bytes from the tail
+//   of its row. The fused write copies bytes, the scale lanes with kv head 0.
+// - A sliding window (`window` > 0): the query at position seq_len-1 sees
+//   keys in (seq_len-1-window, seq_len-1]. The walk starts at the page that
+//   holds the first visible key, so pages wholly below the window are never
+//   read, and masks inside that page. A masked key is skipped, so a warp
+//   whose keys are all masked keeps m = kNegBig, l = 0, acc = 0 and merges
+//   with weight exp(kNegBig - M) = 0.
+//
 // What bounds it on the H100: bytes. Each key costs 2*HD*2 bytes of K and V
-// per kv head and 4*GROUP*HD flops, far below the ~295 flops/byte at which
-// the tensor cores would become the limit, so the kernel's job is to stream
-// the row's pages once at full memory rate.
+// per kv head in bf16 (half that in fp8) and 4*GROUP*HD flops, far below the
+// ~295 flops/byte at which the tensor cores would become the limit, so the
+// kernel's job is to stream the row's pages once at full memory rate.
 //
 // What this simple design does about it: one block per (row, kv head), so
 // every K/V byte is read exactly once and all GROUP query heads share it.
-// Each key is read by HD/8 lanes with 16-byte loads (a warp covers 2 keys at
-// head_dim 128, 4 at 64), eight warps stride over the keys, and each key
+// Each key is read by HD/8 lanes, eight elements each (16-byte loads in bf16,
+// 8-byte loads in fp8; a warp covers 2 keys at head_dim 128, 4 at 64), eight
+// warps stride over the keys, and each key
 // group keeps its own f32 online softmax; the partial states merge through
 // shuffles, then shared memory. Split-KV across blocks (for few rows with
 // long histories), cp.async/TMA pipelining and wgmma come later.
@@ -34,25 +50,26 @@ namespace swiftllm {
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kVec = 8;  // bf16 per 16-byte load
+constexpr int kVec = 8;  // cache elements per lane and key
 
-template <int HD, int GROUP>
+template <int HD, int GROUP, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ cache,
-                    const bf16* __restrict__ kv_new,
+paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
+                    const KV* __restrict__ kv_new,
                     const int* __restrict__ page_table,
                     const int* __restrict__ q_lens,
                     const int* __restrict__ seq_lens,
                     const int* __restrict__ kv_slots, bf16* __restrict__ out,
                     int B, int Pg, int n_kv, int S, int layer, int page_size,
-                    float sm_scale) {
+                    int window, float sm_scale) {
+  constexpr int SL = ScaleLanes<KV>::value;
   constexpr int LPK = HD / kVec;  // lanes per key
   constexpr int KPW = 32 / LPK;   // keys per warp per step
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int n_q = n_kv * GROUP;
   const int KH = n_kv * HD;
-  const int W = 2 * KH;
+  const int W = 2 * KH + SL;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -66,16 +83,21 @@ paged_decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ cache,
   }
   const int seq_len = seq_lens[b];
   const int64_t layer_off = static_cast<int64_t>(layer) * S * W;
-  const bf16* new_row = kv_new + static_cast<int64_t>(b) * W;
+  const KV* new_row = kv_new + static_cast<int64_t>(b) * W;
 
-  // 1. The fused write: this kv head's K and V lanes of the new token. An
-  //    out-of-range slot is dropped, as JAX drops an out-of-range scatter.
+  // 1. The fused write: this kv head's K and V lanes of the new token (and,
+  //    from kv head 0, the scale lanes). An out-of-range slot is dropped, as
+  //    JAX drops an out-of-range scatter.
   const int slot = kv_slots[b];
   if (slot >= 0 && slot < S) {
-    bf16* dst = cache + layer_off + static_cast<int64_t>(slot) * W;
+    KV* dst = cache + layer_off + static_cast<int64_t>(slot) * W;
     for (int i = tid; i < HD; i += blockDim.x) {
       dst[h * HD + i] = new_row[h * HD + i];
       dst[KH + h * HD + i] = new_row[KH + h * HD + i];
+    }
+    if constexpr (SL > 0) {
+      if (h == 0)
+        for (int i = tid; i < SL; i += blockDim.x) dst[2 * KH + i] = new_row[2 * KH + i];
     }
   }
 
@@ -96,20 +118,28 @@ paged_decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ cache,
     for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
   }
 
-  // 3. Online softmax over the keys. The loop bound is warp-uniform so every
-  //    lane reaches the shuffles; a key slot past seq_len is skipped, not
-  //    weighted by zero.
+  // 3. Online softmax over the keys lo .. seq_len-1 (lo > 0 only under a
+  //    window), from the start of lo's page. The loop bound is warp-uniform
+  //    so every lane reaches the shuffles; a key slot past seq_len or below
+  //    lo is skipped, not weighted by zero, and reads no cache row.
   const int* pt = page_table + static_cast<int64_t>(b) * Pg;
   const int n_pages = S / page_size;
-  for (int base = warp * KPW; base < seq_len; base += kWarps * KPW) {
+  const int lo = window > 0 ? max(seq_len - window, 0) : 0;
+  const int first = lo / page_size * page_size;
+  for (int base = first + warp * KPW; base < seq_len; base += kWarps * KPW) {
     const int pos = base + sub;
-    const bool active = pos < seq_len;
-    const bf16* row = new_row;
+    const bool active = pos >= lo && pos < seq_len;
+    const KV* row = new_row;
     if (active && pos < seq_len - 1)
       row = cache + layer_off + slot_of(pt, pos, Pg, page_size, n_pages) * W;
     float kf[kVec], vf[kVec];
     load8(row + h * HD + li * kVec, kf);
     load8(row + KH + h * HD + li * kVec, vf);
+    float inv_k = 1.f, inv_v = 1.f;
+    if constexpr (SL > 0) {
+      inv_k = inv_scale(row[2 * KH]);
+      inv_v = inv_scale(row[2 * KH + 1]);
+    }
     float s[GROUP];
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) {
@@ -126,12 +156,14 @@ paged_decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ cache,
     if (active) {
 #pragma unroll
       for (int g = 0; g < GROUP; ++g) {
-        const float mn = fmaxf(m[g], s[g]);
+        const float sc = s[g] * inv_k;
+        const float mn = fmaxf(m[g], sc);
         const float c = expf(m[g] - mn);
-        const float p = expf(s[g] - mn);
+        const float p = expf(sc - mn);
         l[g] = l[g] * c + p;
+        const float pv = p * inv_v;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[g][e] = acc[g][e] * c + p * vf[e];
+        for (int e = 0; e < kVec; ++e) acc[g][e] = acc[g][e] * c + pv * vf[e];
         m[g] = mn;
       }
     }
@@ -188,38 +220,47 @@ paged_decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ cache,
   }
 }
 
-template <int HD, int GROUP>
+template <int HD, int GROUP, typename KV>
 void launch(const void* q, void* cache, const void* kv_new, const void* pt,
             const void* q_lens, const void* seq_lens, const void* kv_slots,
             void* out, int T, int B, int Pg, int n_kv, int S, int layer,
-            int page_size, float sm_scale, cudaStream_t stream) {
-  paged_decode_kernel<HD, GROUP><<<dim3(T, n_kv), kWarps * 32, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<bf16*>(cache),
-      static_cast<const bf16*>(kv_new), static_cast<const int*>(pt),
+            int page_size, int window, float sm_scale, cudaStream_t stream) {
+  paged_decode_kernel<HD, GROUP, KV><<<dim3(T, n_kv), kWarps * 32, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<KV*>(cache),
+      static_cast<const KV*>(kv_new), static_cast<const int*>(pt),
       static_cast<const int*>(q_lens), static_cast<const int*>(seq_lens),
       static_cast<const int*>(kv_slots), static_cast<bf16*>(out), B, Pg, n_kv,
-      S, layer, page_size, sm_scale);
+      S, layer, page_size, window, sm_scale);
 }
 
 }  // namespace
 }  // namespace swiftllm
 
-// C entry, bound with ctypes. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a head_dim / GQA group it has no instance for.
+// C entry, bound with ctypes. kv_fp8 != 0: cache and kv_new are e4m3 rows
+// with the scale lanes; else bf16. window: 0 = full causal. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// head_dim / GQA group it has no instance for.
 extern "C" int paged_decode_attention(const void* q, void* cache,
                                       const void* kv_new, const void* page_table,
                                       const void* q_lens, const void* seq_lens,
                                       const void* kv_slots, void* out, int T,
                                       int B, int Pg, int n_q, int n_kv, int hd,
                                       int S, int layer, int page_size,
-                                      float sm_scale, void* stream) {
+                                      int window, int kv_fp8, float sm_scale,
+                                      void* stream) {
   using namespace swiftllm;
   const int group = n_q / n_kv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWIFTLLM_DECODE_CASE(HD_, G_)                                          \
   if (hd == HD_ && group == G_) {                                              \
-    launch<HD_, G_>(q, cache, kv_new, page_table, q_lens, seq_lens, kv_slots,  \
-                    out, T, B, Pg, n_kv, S, layer, page_size, sm_scale, st);   \
+    if (kv_fp8)                                                                \
+      launch<HD_, G_, fp8>(q, cache, kv_new, page_table, q_lens, seq_lens,     \
+                           kv_slots, out, T, B, Pg, n_kv, S, layer, page_size, \
+                           window, sm_scale, st);                              \
+    else                                                                       \
+      launch<HD_, G_, bf16>(q, cache, kv_new, page_table, q_lens, seq_lens,    \
+                            kv_slots, out, T, B, Pg, n_kv, S, layer,           \
+                            page_size, window, sm_scale, st);                  \
     return static_cast<int>(cudaGetLastError());                               \
   }
   SWIFTLLM_DECODE_CASE(64, 1)

@@ -11,6 +11,20 @@
 // 0 .. seq_len-q_len+i (causal within the tail), with GQA and an f32 online
 // softmax. Tokens of no row are left as the caller allocated them.
 //
+// Two variants of the same body, as in the TPU kernel:
+// - An fp8 cache (the KV template parameter): rows of e4m3 bytes that end in
+//   128 scale lanes (common.cuh). The bytes become bf16 on their way into
+//   shared memory (exact), and each staged key's two inverse scales go
+//   beside them: the score is (q . k_stored) * sm_scale / k_scale, the
+//   probability meets V as p / v_scale, and l sums the unscaled p.
+// - A sliding window (`window` > 0): query at position p sees keys in
+//   (p - window, p]. The walk starts at the key tile that holds the first
+//   key of the block's FIRST query's window (later queries' windows start
+//   later) and masks per query. A masked key has probability exactly 0, and
+//   a row whose keys of a tile are all masked keeps its m, l and acc (both m
+//   and the tile's maximum are the finite kNegBig then, so the rescale
+//   factor is exp(0) = 1 on an accumulator that is still 0).
+//
 // What bounds it on the H100: for a long prefill, operations (4*HD flops per
 // query-key pair and head, against K/V bytes that every query tile re-reads);
 // for a short chunk over a long history, bytes.
@@ -35,15 +49,16 @@ constexpr int kPad = 8;     // bf16 of padding per shared row: spreads banks
 constexpr int kRPT = 4;     // rows per thread (kRows / 16)
 constexpr int kKPT = 4;     // keys per thread (kTK / 8)
 
-template <int HD, int GROUP>
+template <int HD, int GROUP, typename KV>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
+paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
                      const int* __restrict__ page_table,
                      const int* __restrict__ q_starts,
                      const int* __restrict__ q_lens,
                      const int* __restrict__ seq_lens, bf16* __restrict__ out,
                      int Pg, int n_kv, int S, int layer, int page_size,
-                     float sm_scale) {
+                     int window, float sm_scale) {
+  constexpr int SL = ScaleLanes<KV>::value;
   constexpr int TQ = kRows / GROUP;  // query tokens per block
   constexpr int DPT = HD / 8;        // output dims per thread
   constexpr int VPR = HD / 8;        // 16-byte vectors per head row
@@ -55,7 +70,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
   if (q_len <= 0 || seq_len <= 0 || tile * TQ >= q_len) return;
   const int n_q = n_kv * GROUP;
   const int KH = n_kv * HD;
-  const int W = 2 * KH;
+  const int W = 2 * KH + SL;
   const int tok0 = q_starts[b] + tile * TQ;            // flat token of query 0
   const int first_pos = seq_len - q_len + tile * TQ;   // its position
   const int n_tok = min(TQ, q_len - tile * TQ);
@@ -68,6 +83,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
   __shared__ __align__(16) bf16 Ks[kTK][HD + kPad];
   __shared__ __align__(16) bf16 Vs[kTK][HD + kPad];
   __shared__ float Ps[kRows][kTK + 1];
+  __shared__ float inv_ks[kTK], inv_vs[kTK];  // 1 / scale of each staged key
 
   const int tid = threadIdx.x;
   const int tr = tid / 8;
@@ -100,7 +116,9 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < kv_end; k0 += kTK) {
+  // The first key tile any query of the block can see.
+  const int k_first = window > 0 ? max(first_pos - window + 1, 0) / kTK * kTK : 0;
+  for (int k0 = k_first; k0 < kv_end; k0 += kTK) {
     __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
     // Stage keys k0 .. k0+kTK-1 of this kv head; keys past the causal bound
     // of the last query are zero-filled, never read from the cache.
@@ -110,14 +128,23 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
       const int pos = k0 + kk;
       uint4 kv = make_uint4(0, 0, 0, 0);
       uint4 vv = make_uint4(0, 0, 0, 0);
+      float ik = 1.f, iv = 1.f;
       if (pos < kv_end) {
-        const bf16* row =
+        const KV* row =
             cache + layer_off + slot_of(pt, pos, Pg, page_size, n_pages) * W;
-        kv = *reinterpret_cast<const uint4*>(row + h * HD + c);
-        vv = *reinterpret_cast<const uint4*>(row + KH + h * HD + c);
+        kv = load8_bf16(row + h * HD + c);
+        vv = load8_bf16(row + KH + h * HD + c);
+        if constexpr (SL > 0) {
+          ik = inv_scale(row[2 * KH]);
+          iv = inv_scale(row[2 * KH + 1]);
+        }
       }
       *reinterpret_cast<uint4*>(&Ks[kk][c]) = kv;
       *reinterpret_cast<uint4*>(&Vs[kk][c]) = vv;
+      if (SL > 0 && c == 0) {
+        inv_ks[kk] = ik;
+        inv_vs[kk] = iv;
+      }
     }
     __syncthreads();
 
@@ -153,8 +180,11 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
       float tmax = kNegBig;
 #pragma unroll
       for (int j = 0; j < kKPT; ++j) {
-        valid[j] = row_ok[i] && (k0 + tk + 8 * j) <= qpos[i];
+        const int key = k0 + tk + 8 * j;
+        valid[j] = row_ok[i] && key <= qpos[i] &&
+                   (window <= 0 || key > qpos[i] - window);
         s[i][j] *= sm_scale;
+        if constexpr (SL > 0) s[i][j] *= inv_ks[tk + 8 * j];
         if (valid[j]) tmax = fmaxf(tmax, s[i][j]);
       }
 #pragma unroll
@@ -166,7 +196,10 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
 #pragma unroll
       for (int j = 0; j < kKPT; ++j) {
         const float p = valid[j] ? expf(s[i][j] - mn) : 0.f;
-        Ps[tr + 16 * i][tk + 8 * j] = p;
+        if constexpr (SL > 0)
+          Ps[tr + 16 * i][tk + 8 * j] = p * inv_vs[tk + 8 * j];
+        else
+          Ps[tr + 16 * i][tk + 8 * j] = p;
         rsum += p;
       }
 #pragma unroll
@@ -200,46 +233,56 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
     const int g = r / TQ;
     const int qi = r % TQ;
     bf16* o = out + (static_cast<int64_t>(tok0 + qi) * n_q + h * GROUP + g) * HD;
-    const float inv = 1.f / l[i];  // l > 0: key 0 is visible to every query
+    const float inv = 1.f / l[i];  // l > 0: every query sees its own key
 #pragma unroll
     for (int j = 0; j < DPT; ++j) o[tk + 8 * j] = __float2bfloat16(acc[i][j] * inv);
   }
 }
 
-template <int HD, int GROUP>
+template <int HD, int GROUP, typename KV>
 void launch(const void* q, const void* cache, const void* pt,
             const void* q_starts, const void* q_lens, const void* seq_lens,
             void* out, int B, int n_tiles, int Pg, int n_kv, int S, int layer,
-            int page_size, float sm_scale, cudaStream_t stream) {
-  paged_prefill_kernel<HD, GROUP><<<dim3(B, n_tiles, n_kv), kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(cache),
-      static_cast<const int*>(pt), static_cast<const int*>(q_starts),
-      static_cast<const int*>(q_lens), static_cast<const int*>(seq_lens),
-      static_cast<bf16*>(out), Pg, n_kv, S, layer, page_size, sm_scale);
+            int page_size, int window, float sm_scale, cudaStream_t stream) {
+  paged_prefill_kernel<HD, GROUP, KV>
+      <<<dim3(B, n_tiles, n_kv), kThreads, 0, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const KV*>(cache),
+          static_cast<const int*>(pt), static_cast<const int*>(q_starts),
+          static_cast<const int*>(q_lens), static_cast<const int*>(seq_lens),
+          static_cast<bf16*>(out), Pg, n_kv, S, layer, page_size, window,
+          sm_scale);
 }
 
 }  // namespace
 }  // namespace swiftllm
 
 // C entry, bound with ctypes. q_bucket bounds every row's q_len; it sets the
-// grid's tile axis. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a head_dim / GQA group it has no instance for.
+// grid's tile axis. kv_fp8 != 0: the cache holds e4m3 rows with the scale
+// lanes; else bf16. window: 0 = full causal. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a head_dim / GQA group it has no
+// instance for.
 extern "C" int paged_prefill_attention(const void* q, const void* cache,
                                        const void* page_table,
                                        const void* q_starts, const void* q_lens,
                                        const void* seq_lens, void* out, int B,
                                        int q_bucket, int Pg, int n_q, int n_kv,
                                        int hd, int S, int layer, int page_size,
-                                       float sm_scale, void* stream) {
+                                       int window, int kv_fp8, float sm_scale,
+                                       void* stream) {
   using namespace swiftllm;
   const int group = n_q / n_kv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWIFTLLM_PREFILL_CASE(HD_, G_)                                         \
   if (hd == HD_ && group == G_) {                                              \
-    const int tq = kRows / G_;                                                 \
-    launch<HD_, G_>(q, cache, page_table, q_starts, q_lens, seq_lens, out, B,  \
-                    (q_bucket + tq - 1) / tq, Pg, n_kv, S, layer, page_size,   \
-                    sm_scale, st);                                             \
+    const int tiles = (q_bucket + kRows / G_ - 1) / (kRows / G_);              \
+    if (kv_fp8)                                                                \
+      launch<HD_, G_, fp8>(q, cache, page_table, q_starts, q_lens, seq_lens,   \
+                           out, B, tiles, Pg, n_kv, S, layer, page_size,       \
+                           window, sm_scale, st);                              \
+    else                                                                       \
+      launch<HD_, G_, bf16>(q, cache, page_table, q_starts, q_lens, seq_lens,  \
+                            out, B, tiles, Pg, n_kv, S, layer, page_size,      \
+                            window, sm_scale, st);                             \
     return static_cast<int>(cudaGetLastError());                               \
   }
   SWIFTLLM_PREFILL_CASE(64, 1)

@@ -11,7 +11,11 @@
 // What it computes: cache[layer, slots[t]] = kv_new[t] for every token t whose
 // slot lies in [0, S); an out-of-range slot is dropped, as JAX drops an
 // out-of-range scatter. The step gives decode-kind and pad tokens slot -1,
-// so only the prefill-kind tokens' rows are copied. The copy is of raw bytes, so it holds for any dtype.
+// so only the prefill-kind tokens' rows are copied. The copy is of raw bytes
+// in 16-byte vectors, so it holds for any row whose size is a multiple of 16:
+// a bf16 row of 2*n_kv*hd lanes, and an fp8 row of 2*n_kv*hd e4m3 bytes plus
+// its 128 scale lanes (2,176 bytes at 8 kv heads of 128), which it copies
+// whole, scales included.
 //
 // What bounds it on the H100: bytes (one read and one write of each row, no
 // arithmetic). The design: one block per token, 16-byte loads and stores by

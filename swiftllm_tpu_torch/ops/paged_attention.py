@@ -9,8 +9,16 @@ pages page_table[b]. Causal within the tail: query i of row b has position
 seq_lens[b] - q_lens[b] + i.
 
 The cache is ``[L, S, W]``: slot s of layer l is ``cache[l, s]``, page p holds
-slots ``p*page_size .. p*page_size+page_size-1``, and the W = 2*n_kv*hd lanes
-are laid out ``[K_all ‖ V_all]`` (the n_kv K heads, then the n_kv V heads).
+slots ``p*page_size .. p*page_size+page_size-1``, and the lanes are laid out
+``[K_all ‖ V_all]`` (the n_kv K heads, then the n_kv V heads), W = 2*n_kv*hd.
+An fp8 cache (``torch.float8_e4m3fn``, ``kv_quant="fp8"``) appends one tile of
+``FP8_SCALE_LANES`` = 128 lanes, W = 2*n_kv*hd + 128: lane 2*n_kv*hd holds the
+token's K scale and the next lane its V scale (powers of two, stored as e4m3
+themselves), the rest zero; the K and V lanes hold the true values TIMES
+their scale, and ``kv_new`` rows come in the same form. Every entry takes
+``n_kv`` (the lane count alone no longer gives it) and ``window``: with
+``window`` > 0 a query at position p sees only the keys in (p - window, p];
+0 means full causal attention.
 
 - ``paged_decode_attention`` (TPU: ``_decode_kernel_grouped``): rows with one
   query, packed so flat token b is row b; valid rows must form a prefix of
@@ -35,6 +43,9 @@ from swiftllm_tpu_torch.ops import build
 # The C entries of this module's kernels (sources in build.SOURCES).
 KERNELS = ("paged_decode_attention", "store_kv", "paged_prefill_attention")
 
+FP8 = torch.float8_e4m3fn
+FP8_SCALE_LANES = 128   # lanes appended to an fp8 cache row (see above)
+
 _HINT = " (an unsupported head_dim / GQA group returns 1)"
 
 
@@ -50,13 +61,48 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return build.on_cpu("paged attention", *tensors)
 
 
-def _check_types(floats, ints) -> None:
+def _check_types(floats, kv, ints) -> None:
+    """The kernels' types: bf16 queries, cache tensors (the cache, kv_new) all
+    bf16 or all float8_e4m3fn, int32 indices."""
     for t in floats:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA kernels take bfloat16, got {t.dtype}")
+    if kv[0].dtype not in (torch.bfloat16, FP8) or any(
+            t.dtype != kv[0].dtype for t in kv):
+        raise TypeError("the CUDA kernels take a bfloat16 or float8_e4m3fn "
+                        f"cache, got {[t.dtype for t in kv]}")
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"index tensors must be int32, got {t.dtype}")
+
+
+def scale_lanes(cache: torch.Tensor, n_kv: int, hd: int) -> int:
+    """Lanes of ``cache`` past its K and V halves: 0, or FP8_SCALE_LANES for
+    an fp8 cache. Anything else raises."""
+    SL = cache.shape[-1] - 2 * n_kv * hd
+    if SL != (FP8_SCALE_LANES if cache.dtype == FP8 else 0):
+        raise ValueError(f"cache lanes {cache.shape[-1]} of {cache.dtype} vs "
+                         f"2*n_kv*hd = {2 * n_kv * hd}")
+    return SL
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor as its bytes (a uint8 view of the same memory), any
+    other tensor as it is. Scatters and gathers of fp8 rows go by bytes: they
+    copy, and not every backend indexes float8 tensors."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
+def dequantize_kv(kv: torch.Tensor, KH: int) -> torch.Tensor:
+    """Rows ``[..., W]`` of a cache as f32 ``[..., 2*KH]`` of true values: an
+    fp8 row's stored K and V lanes over its scales (a never-written slot has
+    scale 0, guarded; it is never a visible key)."""
+    f = kv.float()
+    if kv.dtype != FP8:
+        return f
+    ks = f[..., 2 * KH:2 * KH + 1].clamp_min(1e-20)
+    vs = f[..., 2 * KH + 1:2 * KH + 2].clamp_min(1e-20)
+    return torch.cat([f[..., :KH] / ks, f[..., KH:2 * KH] / vs], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -74,42 +120,50 @@ def _row_slots(page_table_row, n_keys: int, page_size: int,
 
 
 def _attend(q: torch.Tensor, kv: torch.Tensor, q_pos: torch.Tensor,
-            n_kv: int, sm_scale: float) -> torch.Tensor:
-    """q [n, n_q, hd] over one row's keys kv [K, W] (key k at position k),
-    causal by q_pos [n]; f32 scores and softmax, output in q's dtype."""
+            n_kv: int, sm_scale: float, window: int) -> torch.Tensor:
+    """q [n, n_q, hd] over one row's keys kv [K, W] (key k at position k; an
+    fp8 row is un-scaled by its own lanes), causal by q_pos [n] and within
+    ``window`` of it; f32 scores and softmax, output in q's dtype."""
     n, n_q, hd = q.shape
     K = kv.shape[0]
     KH = n_kv * hd
-    k = kv[:, :KH].float().reshape(K, n_kv, hd)
-    v = kv[:, KH:2 * KH].float().reshape(K, n_kv, hd)
+    kvf = dequantize_kv(kv, KH)
+    k = kvf[:, :KH].reshape(K, n_kv, hd)
+    v = kvf[:, KH:].reshape(K, n_kv, hd)
     qf = q.float().reshape(n, n_kv, n_q // n_kv, hd)
     s = torch.einsum("nhgd,khd->hgnk", qf, k) * sm_scale
-    visible = (torch.arange(K, device=q.device)[None, :]
-               <= q_pos.to(q.device)[:, None])                        # [n, K]
+    key_pos = torch.arange(K, device=q.device)[None, :]
+    q_pos = q_pos.to(q.device)[:, None]
+    visible = key_pos <= q_pos                                        # [n, K]
+    if window:
+        visible &= key_pos > q_pos - window
     p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
     return torch.einsum("hgnk,khd->nhgd", p, v).reshape(n, n_q, hd).to(q.dtype)
 
 
 def paged_decode_attention_plain(q, cache, kv_new, page_table, q_lens,
-                                 seq_lens, kv_slots, layer: int, *,
-                                 page_size: int, sm_scale: float):
+                                 seq_lens, kv_slots, layer: int, *, n_kv: int,
+                                 page_size: int, sm_scale: float,
+                                 window: int = 0):
     """Plain version of ``paged_decode_attention``: the same writes to
-    ``cache`` (in place) and the same output."""
+    ``cache`` (in place) and the same output. The new token's key is read
+    from ``kv_new`` as stored (quantized, with an fp8 cache)."""
     T, n_q, hd = q.shape
     B = page_table.shape[0]
-    S, W = cache.shape[1], cache.shape[2]
-    n_kv = W // (2 * hd)
+    S = cache.shape[1]
+    scale_lanes(cache, n_kv, hd)
+    cache_b, new_b = as_bytes(cache), as_bytes(kv_new)
     out = torch.zeros_like(q)
     ql, sl, slots = q_lens.tolist(), seq_lens.tolist(), kv_slots.tolist()
     for b in range(min(B, T)):
         if ql[b] <= 0 or sl[b] <= 0:
             continue
         if 0 <= slots[b] < S:
-            cache[layer, slots[b]] = kv_new[b]
+            cache_b[layer, slots[b]] = new_b[b]
         hist = _row_slots(page_table[b], sl[b] - 1, page_size, S // page_size)
-        kv = torch.cat([cache[layer, hist], kv_new[b:b + 1]])
-        out[b:b + 1] = _attend(q[b:b + 1], kv,
-                               torch.tensor([sl[b] - 1]), n_kv, sm_scale)
+        kv = torch.cat([cache_b[layer, hist], new_b[b:b + 1]]).view(cache.dtype)
+        out[b:b + 1] = _attend(q[b:b + 1], kv, torch.tensor([sl[b] - 1]),
+                               n_kv, sm_scale, window)
     return out
 
 
@@ -117,16 +171,17 @@ def store_kv_plain(cache, kv_new, kv_slots, layer: int) -> None:
     """Plain version of ``store_kv``: cache[layer, kv_slots[t]] = kv_new[t]
     for every in-range slot (in place)."""
     keep = (kv_slots >= 0) & (kv_slots < cache.shape[1])
-    cache[layer, kv_slots[keep].long()] = kv_new[keep]
+    as_bytes(cache)[layer, kv_slots[keep].long()] = as_bytes(kv_new)[keep]
 
 
 def paged_prefill_attention_plain(q, cache, page_table, q_starts, q_lens,
-                                  seq_lens, layer: int, *, page_size: int,
-                                  sm_scale: float):
+                                  seq_lens, layer: int, *, n_kv: int,
+                                  page_size: int, sm_scale: float,
+                                  window: int = 0):
     """Plain version of ``paged_prefill_attention``. Tokens of no row are 0."""
-    n_q, hd = q.shape[1], q.shape[2]
-    S, W = cache.shape[1], cache.shape[2]
-    n_kv = W // (2 * hd)
+    S = cache.shape[1]
+    scale_lanes(cache, n_kv, q.shape[2])
+    cache_b = as_bytes(cache)
     out = torch.zeros_like(q)
     st, ql, sl = q_starts.tolist(), q_lens.tolist(), seq_lens.tolist()
     for b in range(len(ql)):
@@ -134,9 +189,9 @@ def paged_prefill_attention_plain(q, cache, page_table, q_starts, q_lens,
             continue
         slots = _row_slots(page_table[b], sl[b], page_size, S // page_size)
         q_pos = torch.arange(sl[b] - ql[b], sl[b])
-        out[st[b]:st[b] + ql[b]] = _attend(q[st[b]:st[b] + ql[b]],
-                                           cache[layer, slots], q_pos, n_kv,
-                                           sm_scale)
+        out[st[b]:st[b] + ql[b]] = _attend(
+            q[st[b]:st[b] + ql[b]], cache_b[layer, slots].view(cache.dtype),
+            q_pos, n_kv, sm_scale, window)
     return out
 
 
@@ -145,33 +200,36 @@ def paged_prefill_attention_plain(q, cache, page_table, q_starts, q_lens,
 # ---------------------------------------------------------------------------
 
 def paged_decode_attention(q, cache, kv_new, page_table, q_lens, seq_lens,
-                           kv_slots, layer: int, *, page_size: int,
-                           sm_scale: float):
+                           kv_slots, layer: int, *, n_kv: int, page_size: int,
+                           sm_scale: float, window: int = 0):
     """Decode attention with the KV write fused in.
 
-    q [T, n_q, hd], cache [L, S, W] (updated in place), kv_new [T, W],
-    page_table i32[B, Pg], q_lens/seq_lens i32[B], kv_slots i32[T>=B].
-    Returns out [T, n_q, hd]: row b's attention for every valid row
-    (q_lens[b] > 0, flat token b), zeros elsewhere."""
+    q [T, n_q, hd], cache [L, S, W] (updated in place), kv_new [T, W] in the
+    cache's dtype, page_table i32[B, Pg], q_lens/seq_lens i32[B], kv_slots
+    i32[T>=B]. Returns out [T, n_q, hd]: row b's attention for every valid
+    row (q_lens[b] > 0, flat token b), zeros elsewhere."""
     args = (q, cache, kv_new, page_table, q_lens, seq_lens, kv_slots)
     if _on_cpu(*args):
         return paged_decode_attention_plain(
-            *args, layer, page_size=page_size, sm_scale=sm_scale)
-    _check_types((q, cache, kv_new), (page_table, q_lens, seq_lens, kv_slots))
+            *args, layer, n_kv=n_kv, page_size=page_size, sm_scale=sm_scale,
+            window=window)
+    _check_types((q,), (cache, kv_new),
+                 (page_table, q_lens, seq_lens, kv_slots))
     T, n_q, hd = q.shape
     B, Pg = page_table.shape
     _, S, W = cache.shape
-    n_kv = W // (2 * hd)
-    if T < B or kv_new.shape != (T, W) or 2 * n_kv * hd != W:
+    scale_lanes(cache, n_kv, hd)
+    if T < B or kv_new.shape != (T, W) or window < 0:
         raise ValueError(f"decode shapes: q {tuple(q.shape)}, cache "
                          f"{tuple(cache.shape)}, kv_new {tuple(kv_new.shape)}, "
-                         f"page_table {tuple(page_table.shape)}")
+                         f"page_table {tuple(page_table.shape)}, window {window}")
     out = torch.empty_like(q)
     err = build.entry("paged_decode_attention")(
         q.data_ptr(), cache.data_ptr(), kv_new.data_ptr(),
         page_table.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         kv_slots.data_ptr(), out.data_ptr(), T, B, Pg, n_q, n_kv, hd, S,
-        int(layer), page_size, float(sm_scale), build.stream())
+        int(layer), page_size, int(window), int(cache.dtype == FP8),
+        float(sm_scale), build.stream())
     build.check_launch("paged_decode_attention", err, _HINT)
     return out
 
@@ -182,7 +240,7 @@ def store_kv(cache, kv_new, kv_slots, layer: int) -> None:
     if _on_cpu(cache, kv_new, kv_slots):
         store_kv_plain(cache, kv_new, kv_slots, layer)
         return
-    _check_types((cache, kv_new), (kv_slots,))
+    _check_types((), (cache, kv_new), (kv_slots,))
     T, W = kv_new.shape
     row_bytes = W * kv_new.element_size()
     if cache.shape[2] != W or row_bytes % 16 or kv_slots.shape != (T,):
@@ -198,27 +256,29 @@ def store_kv(cache, kv_new, kv_slots, layer: int) -> None:
 
 
 def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
-                            layer: int, *, page_size: int, sm_scale: float,
-                            q_bucket: int):
+                            layer: int, *, n_kv: int, page_size: int,
+                            sm_scale: float, q_bucket: int, window: int = 0):
     """Causal attention of multi-token rows over the cache (their new KV is
     already stored). q [T, n_q, hd]; q_bucket bounds every q_lens[b].
     Returns out [T, n_q, hd], zeros at tokens of no row."""
     args = (q, cache, page_table, q_starts, q_lens, seq_lens)
     if _on_cpu(*args):
         return paged_prefill_attention_plain(
-            *args, layer, page_size=page_size, sm_scale=sm_scale)
-    _check_types((q, cache), (page_table, q_starts, q_lens, seq_lens))
+            *args, layer, n_kv=n_kv, page_size=page_size, sm_scale=sm_scale,
+            window=window)
+    _check_types((q,), (cache,), (page_table, q_starts, q_lens, seq_lens))
     T, n_q, hd = q.shape
     B, Pg = page_table.shape
-    _, S, W = cache.shape
-    n_kv = W // (2 * hd)
-    if 2 * n_kv * hd != W:
-        raise ValueError(f"cache lanes {W} != 2*n_kv*hd")
+    S = cache.shape[1]
+    scale_lanes(cache, n_kv, hd)
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
     out = torch.zeros_like(q)
     err = build.entry("paged_prefill_attention")(
         q.data_ptr(), cache.data_ptr(), page_table.data_ptr(),
         q_starts.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), B, int(q_bucket), Pg, n_q, n_kv, hd, S, int(layer),
-        page_size, float(sm_scale), build.stream())
+        page_size, int(window), int(cache.dtype == FP8), float(sm_scale),
+        build.stream())
     build.check_launch("paged_prefill_attention", err, _HINT)
     return out

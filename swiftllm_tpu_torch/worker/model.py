@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
-from swiftllm_tpu_torch.models.llama import forward_shard, unpack_step_batch
+from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES, forward_shard,
+                                             unpack_step_batch)
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
 from swiftllm_tpu_torch.utils import GB, cdiv
@@ -48,11 +49,7 @@ def _refuse_unsupported(ec: EngineConfig, mc: LlamaModelConfig) -> None:
         (ec.multi_step_decode > 1, "multi_step_decode > 1",
          "4 (multi-step decode)"),
         (ec.enable_spec_decode, "enable_spec_decode", "5 (spec decode)"),
-        (ec.kv_quant != "none", f"kv_quant={ec.kv_quant!r}", "7 (fp8 KV)"),
-        (bool(mc.sliding_window), "a sliding window",
-         "8 (families, sliding window and LoRA)"),
-        (bool(ec.lora_paths), "LoRA adapters",
-         "8 (families, sliding window and LoRA)"),
+        (bool(ec.lora_paths), "LoRA adapters", "8 (multi-LoRA)"),
         (ec.tp_size > 1 or ec.dp_size > 1, "tp_size/dp_size > 1",
          "9 (parallelism)"),
     ]
@@ -128,11 +125,13 @@ class LlamaModel:
         self.dp = 1
         self.tp = 1
         self.dtype = getattr(torch, engine_config.dtype)
+        self.kv_dtype = (torch.float8_e4m3fn
+                         if engine_config.kv_quant == "fp8" else self.dtype)
         if (self.device.type == "cuda" and engine_config.use_pallas
                 and self.dtype != torch.bfloat16):
-            raise ValueError("the CUDA attention kernels take bfloat16: use "
-                             "dtype='bfloat16', or use_pallas=False for the "
-                             "plain PyTorch path")
+            raise ValueError("the CUDA attention kernels take bfloat16 "
+                             "activations: use dtype='bfloat16', or "
+                             "use_pallas=False for the plain PyTorch path")
         self.params = None
         self.kv_cache = None          # [L, S, W], updated in place each step
         self.token_feedback = None    # i32[max_seqs + 1], last sample per seq
@@ -148,12 +147,20 @@ class LlamaModel:
         self.params = load_params(self.engine_config, self.model_config,
                                   self.device)
 
+    def _lanes(self) -> int:
+        """Cache lane width: [K_all ‖ V_all], plus under fp8 KV one tile of
+        per-token power-of-2 K/V scale lanes (models/llama.py)."""
+        mc = self.model_config
+        lanes = 2 * mc.num_kv_heads * mc.head_dim
+        if self.engine_config.kv_quant == "fp8":
+            lanes += FP8_SCALE_LANES
+        return lanes
+
     def _cache_shape(self, num_blocks: int) -> tuple[int, int, int]:
         """[L, S, W]: S = (num_blocks + 1) * block_size (+1 garbage page),
-        W = 2*n_kv*hd lanes laid out [K_all ‖ V_all]."""
+        W = ``_lanes()``."""
         mc, cfg = self.model_config, self.engine_config
-        return (mc.num_layers, (num_blocks + 1) * cfg.block_size,
-                2 * mc.num_kv_heads * mc.head_dim)
+        return (mc.num_layers, (num_blocks + 1) * cfg.block_size, self._lanes())
 
     def _allocate(self, num_blocks: int):
         """Zeroed cache and feedback buffer, and a fresh block manager. The
@@ -161,7 +168,7 @@ class LlamaModel:
         cfg = self.engine_config
         self.num_blocks_per_shard = num_blocks
         self.kv_cache = torch.zeros(self._cache_shape(num_blocks),
-                                    dtype=self.dtype, device=self.device)
+                                    dtype=self.kv_dtype, device=self.device)
         self.token_feedback = torch.zeros(cfg.max_seqs_in_block_table + 1,
                                           dtype=torch.int32, device=self.device)
         self.hbm_block_mgrs = [BlockManager(
@@ -180,8 +187,8 @@ class LlamaModel:
         cfg, mc = self.engine_config, self.model_config
         if cfg.num_hbm_blocks is not None:
             return cfg.num_hbm_blocks
-        block_bytes = (mc.num_layers * 2 * mc.num_kv_heads * mc.head_dim
-                       * self.dtype.itemsize * cfg.block_size)
+        block_bytes = (mc.num_layers * self._lanes() * self.kv_dtype.itemsize
+                       * cfg.block_size)
         if self.device.type == "cpu":
             # No probe on the host: a 1 GB budget, as the JAX package's CPU
             # backend assumes.

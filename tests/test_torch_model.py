@@ -92,12 +92,17 @@ REFUSED = {
     "lora": (dict(lora_paths="dummy:a"), {}),
     "tensor_parallel": (dict(tp_size=2), {}),
 }
+# Refused at first, run since: the model must now build with them.
+NOW_RUN = {"kv_quant", "sliding_window"}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_features_refused(name):
-    """Every feature this slice does not run raises NotImplementedError at
-    model construction, naming the ROADMAP item that brings it."""
+    """Every feature the port does not run yet raises NotImplementedError at
+    model construction, naming the ROADMAP item that brings it; the fp8 KV
+    cache and the sliding window, refused at first, are accepted."""
+    import torch
+
     from swiftllm_tpu_torch.config import LlamaModelConfig
     ec_kw, mc_kw = REFUSED[name]
     mc = LlamaModelConfig(num_layers=1, num_q_heads=2, num_kv_heads=1,
@@ -106,6 +111,13 @@ def test_unported_features_refused(name):
                           rms_norm_eps=1e-5, **mc_kw)
     ec = EngineConfig(**dict(dict(use_dummy=True, preemption_mode="recompute"),
                              **ec_kw))
+    if name in NOW_RUN:
+        m = LlamaModel(ec, mc, device="cpu")
+        m.init_kvcache_and_swap(2)
+        fp8 = name == "kv_quant"
+        assert m.kv_cache.dtype == (torch.float8_e4m3fn if fp8 else torch.bfloat16)
+        assert m.kv_cache.shape[2] == 2 * 1 * 8 + (128 if fp8 else 0)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         LlamaModel(ec, mc, device="cpu")
 

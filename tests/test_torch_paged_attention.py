@@ -22,6 +22,7 @@ import tests.conftest  # noqa: F401  (forces the JAX CPU backend)
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import torch
 
 from swiftllm_tpu.models.llama import StepBatch as JaxStepBatch
@@ -100,19 +101,41 @@ BATCH_FIELDS = ("positions", "kv_slots", "q_starts", "q_lens", "seq_lens",
                 "page_table", "decode_row", "kv_slots_scatter")
 
 
-def run_torch(case, use_kernels):
+def fp8_to_torch(a) -> torch.Tensor:
+    """An fp8 array of the JAX side (a JAX array or an ml_dtypes ndarray) as a
+    ``torch.float8_e4m3fn`` tensor with the same bytes. numpy has no e4m3 of
+    its own, so the bytes go over as uint8."""
+    return torch.from_numpy(
+        np.asarray(a).view(np.uint8).copy()).view(torch.float8_e4m3fn)
+
+
+def fp8_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The way back: the tensor's bytes as an ml_dtypes e4m3 ndarray."""
+    return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
+
+
+def _to_torch(a):
+    return fp8_to_torch(a) if a.dtype == ml_dtypes.float8_e4m3fn else torch.from_numpy(a.copy())
+
+
+def _to_numpy(t):
+    return fp8_to_numpy(t) if t.dtype == torch.float8_e4m3fn else t.numpy()
+
+
+def run_torch(case, use_kernels, window=0):
     batch = StepBatch(token_ids=torch.zeros(len(case["positions"]), dtype=torch.int32),
                       sample_mask=torch.zeros(len(case["q_lens"]), dtype=torch.bool),
                       **{f: torch.from_numpy(case[f]) for f in BATCH_FIELDS})
-    cache = torch.from_numpy(case["cache"].copy())
+    cache = _to_torch(case["cache"])
     out = _attention_and_store(
-        torch.from_numpy(case["q"]), torch.from_numpy(case["kv_new"]), cache,
-        LAYER, batch, page_size=case["page_size"], sm_scale=case["sm_scale"],
-        use_kernels=use_kernels, q_bucket=case["q_bucket"])
-    return out.numpy(), cache.numpy()
+        torch.from_numpy(case["q"]), _to_torch(case["kv_new"]), cache,
+        LAYER, batch, n_kv=case["n_kv"], page_size=case["page_size"],
+        sm_scale=case["sm_scale"], use_kernels=use_kernels,
+        q_bucket=case["q_bucket"], window=window)
+    return out.numpy(), _to_numpy(cache)
 
 
-def run_jax(case, use_pallas, monkeypatch):
+def run_jax(case, use_pallas, monkeypatch, window=0):
     monkeypatch.setenv("SWIFTLLM_PALLAS_INTERPRET", "1")
     batch = JaxStepBatch(token_ids=jnp.zeros(len(case["positions"]), jnp.int32),
                          sample_mask=jnp.zeros(len(case["q_lens"]), bool),
@@ -121,22 +144,26 @@ def run_jax(case, use_pallas, monkeypatch):
     fn = jax.jit(functools.partial(
         jax_attention_and_store, n_kv=case["n_kv"], page_size=ps,
         sm_scale=float(case["sm_scale"]), use_pallas=use_pallas, q_bucket=qb,
-        fused_tile=use_pallas and qb > 1 and qb % ps == 0))
+        window=window, fused_tile=use_pallas and qb > 1 and qb % ps == 0))
     out, cache = fn(jnp.asarray(case["q"]), jnp.asarray(case["kv_new"]),
                     jnp.asarray(case["cache"]), jnp.int32(LAYER), batch)
     return np.asarray(out), np.asarray(cache)
 
 
-def assert_match(case, got, want):
+def assert_match(case, got, want, atol=ATOL, rtol=RTOL):
+    """Outputs at valid tokens within the tolerance; caches equal (byte for
+    byte when fp8), the garbage page excluded."""
     (o1, c1), (o2, c2) = got, want
     for b in range(len(case["q_lens"])):
         ql = int(case["q_lens"][b])
         if ql == 0:
             continue
         sl = slice(int(case["q_starts"][b]), int(case["q_starts"][b]) + ql)
-        np.testing.assert_allclose(o1[sl], o2[sl], atol=ATOL, rtol=RTOL,
+        np.testing.assert_allclose(o1[sl], o2[sl], atol=atol, rtol=rtol,
                                    err_msg=f"row {b} (q_len={ql})")
     ps = case["page_size"]
+    if c1.dtype == ml_dtypes.float8_e4m3fn:
+        c1, c2 = c1.view(np.uint8), c2.view(np.uint8)
     np.testing.assert_array_equal(c1[:, :-ps], c2[:, :-ps])
 
 
@@ -181,8 +208,8 @@ def test_wrappers_write_in_place_and_zero_other_tokens():
          ("q", "kv_new", "page_table", "q_lens", "seq_lens", "kv_slots")}
     out = pa.paged_decode_attention(
         t["q"], cache, t["kv_new"], t["page_table"], t["q_lens"],
-        t["seq_lens"], t["kv_slots"], LAYER, page_size=case["page_size"],
-        sm_scale=case["sm_scale"])
+        t["seq_lens"], t["kv_slots"], LAYER, n_kv=case["n_kv"],
+        page_size=case["page_size"], sm_scale=case["sm_scale"])
     assert torch.equal(out[2:], torch.zeros_like(out[2:]))
     for b in range(2):
         assert torch.equal(cache[LAYER, int(t["kv_slots"][b])], t["kv_new"][b])
