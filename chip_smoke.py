@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-multi-step   # a measurement, not the smoke
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. the card's name and power limit, torch and CUDA versions;
@@ -13,19 +14,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with two more planted faults (the V scale left out, the window off by
      one); the INT4 dequant-matmul at the four 8B projection shapes and
      T = 1, 16, 128 and 256, with a planted fault (the nibbles unpacked
-     interleaved) that must fail;
+     interleaved) that must fail; the decode kernel's deferred-commit
+     (`pend`) variant on 16 rows (3 of them pad rows) with histories of 1 to
+     2,048 keys, for npend 1, 2, 4 and 8 of a window of 8, with a sliding
+     window and on the long rows, the cache byte-identical afterwards, with
+     two planted faults (a history one key too long, the pending slots
+     shifted by one) that must fail;
   3. one whole mixed step, kernels against plain versions, 4 layers: at 8B
      width in bf16, with INT4 weights in a bucket of 256 tokens, with an fp8
      KV cache, and with both; at Mistral-7B width with its window of 4096
-     and rows whose histories exceed it;
+     and rows whose histories exceed it; then 8 decode steps of 8 rows at
+     8B width, 4 layers, as one multi-step window (fused write, and deferred
+     commit) against 8 sequential single steps: tokens and caches;
   4. the serving path: the port's Engine at full width (32 layers, dummy
      weights), 8 concurrent requests, launch counts of every kernel: 8B in
      bf16, with INT4 and with INT8 weights, 8B with an fp8 KV cache (which
      also serves one prompt of 16,500 tokens), and Mistral-7B-v0.1 width
      with its sliding window (prompts of 5,000 and 8,192 tokens among the
-     8), each engine released before the next one sizes its cache;
+     8); then the bf16 8B engine three times more with logprobs on and
+     three of the 8 requests sampled (temperature 0.8, top-k 20, seeded):
+     multi_step_decode 1, 8 and 8 with SWIFTLLM_DEFER_KV=1, whose tokens
+     must be equal; each engine released before the next one sizes its
+     cache;
   5. /generate over HTTP through the port's build_app (the bf16 engine);
 then one {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
+
+With --compare-multi-step it builds the kernels and runs only
+compare_multi_step: one full-width engine decoding the same 8 requests in
+turns with single steps, windows of 8 and windows of 8 with deferred commit,
+without a profiler, several rounds in one process on one card.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
 ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
@@ -39,6 +56,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import socket
 import subprocess
 import sys
@@ -87,6 +105,7 @@ SOURCE_OF = {n: f"swiftllm_tpu_torch/ops/csrc/{src}"
              for n, (src, _) in build.SOURCES.items()}
 REPLACES = {
     "paged_decode_attention": "swiftllm_tpu/ops/paged_attention.py:248",
+    "paged_decode_attention_pend": "swiftllm_tpu/ops/paged_attention.py:297",
     "store_kv": "swiftllm_tpu/ops/paged_attention.py:942",
     "paged_prefill_attention": "swiftllm_tpu/ops/paged_attention.py:843",
     "int4_matmul": "swiftllm_tpu/ops/int4_matmul.py:61",
@@ -256,17 +275,18 @@ def _visible(pos: int, window: int) -> int:
     return min(pos + 1, window) if window else pos + 1
 
 
-def _decode_costs(case, window=0):
+def _decode_costs(case, window=0, write=True):
     """Bytes and operations the decode rows need: the visible history keys'
     rows read once (rows of the cache's own size: an fp8 row is its e4m3
-    bytes and the scale lanes), kv_new read and its slot written, q read,
-    out written for every token; 4*hd operations per query head and key."""
+    bytes and the scale lanes), kv_new read and (unless `write` is off: the
+    deferred-commit variant) its slot written, q read, out written for every
+    token; 4*hd operations per query head and key."""
     hd, n_q = case["q"].shape[2], case["q"].shape[1]
     row_bytes = case["kv_new"].shape[1] * case["kv_new"].element_size()
     rows = [(ql, sl) for ql, sl in case["rows"] if ql == 1]
     n = len(rows)
     keys = sum(_visible(sl - 1, window) for _, sl in rows)
-    nbytes = ((keys - n) * row_bytes + 2 * n * row_bytes
+    nbytes = ((keys - n) * row_bytes + (2 if write else 1) * n * row_bytes
               + 2 * (n * n_q * hd + case["q"].shape[0] * n_q * hd))
     return nbytes, 4 * n_q * hd * keys
 
@@ -451,6 +471,148 @@ def check_fault_window_edge(case, window):
     assert ratio > 1, "the tolerance lets the window be off by one"
 
 
+# The deferred-commit (`pend`) variant of the decode kernel: a window of
+# PEND_S inner steps, as multi_step_decode = 8 gives it.
+PEND_S = 8
+
+
+def pend_case(gen, device, hists, npend, n_pad=0):
+    """A deferred-commit decode case at 8B width, at inner step npend - 1 of
+    a window: row b has hists[b] keys in the cache (on scattered pages),
+    npend - 1 completed window tokens in kv_pend[layer, :npend - 1, b] and
+    the current one in kv_new[b]; the last n_pad rows of the row axis are pad
+    rows. The cache slots of the window's positions hold unrelated rows (the
+    window is not committed), and the pending slots from npend - 1 on hold
+    stale rows of three times the magnitude."""
+    case = paged_case(gen, device, rows=[(1, h + npend) for h in hists],
+                      n_q=32, n_kv=8, hd=128, page_size=16)
+    L, _, W = case["cache"].shape
+    B = case["page_table"].shape[0]
+    assert B - len(hists) == n_pad, (B, len(hists), n_pad)
+    g = torch.Generator(device=device).manual_seed(100 + npend)
+    case["kv_pend"] = torch.randn(L, PEND_S, B, W, generator=g, device=device,
+                                  dtype=torch.bfloat16)
+    case["kv_pend"][:, npend - 1:] *= 3
+    case["npend"] = npend
+    return case
+
+
+def _pend(case, impl, window=0, npend=None, kv_pend=None):
+    return impl(case["q"], case["cache"], case["kv_new"],
+                case["kv_pend"] if kv_pend is None else kv_pend,
+                case["page_table"], case["dec_lens"], case["seq_lens"],
+                case["layer"], npend=npend or case["npend"], n_kv=case["n_kv"],
+                page_size=case["page_size"], sm_scale=case["sm_scale"],
+                window=window)
+
+
+def _committed(case):
+    """A copy of the case's cache as a commit of the window's completed
+    tokens leaves it: pending slot j of row b at position hist + j."""
+    c = case["cache"].clone()
+    ps, npend, layer = case["page_size"], case["npend"], case["layer"]
+    pt = case["page_table"].cpu()
+    for b, (_, sl) in enumerate(case["rows"]):
+        for j in range(npend - 1):
+            pos = sl - npend + j
+            c[layer, int(pt[b, pos // ps]) * ps + pos % ps] = case["kv_pend"][layer, j, b]
+    return c
+
+
+def check_pend(case, *, name, window=0, results=None, smi=""):
+    """The deferred-commit variant against its plain version; the cache
+    byte-identical afterwards (all of it: nothing may be written); pad rows
+    zero; and against the default variant on the committed cache."""
+    before = case["cache"].clone()
+    got = _pend(case, pa.paged_decode_attention_pend, window)
+    want = _pend(case, pa.paged_decode_attention_pend_plain, window)
+    torch.cuda.synchronize()
+    assert torch.equal(case["cache"].view(torch.int16), before.view(torch.int16)), (
+        f"{name}: the deferred-commit variant wrote the cache")
+    idx = _valid_tokens(case, "decode")
+    assert not got[len(idx):].any(), f"{name}: pad rows are not zero"
+    err, med, ratio = _compare(got[idx], want[idx])
+    c_fused = _committed(case)
+    fused = _decode(case, c_fused, pa.paged_decode_attention, window)
+    ferr, _, fratio = _compare(got[idx], fused[idx])
+    log(f"[kernels] {name} paged_decode_attention_pend (npend {case['npend']}"
+        f"): max_abs_err {err:.3g}, median |want| {med:.3g}, worst {ratio:.3g} "
+        f"of the tolerance; cache byte-identical; against the default variant "
+        f"on the committed cache: max_abs_err {ferr:.3g}"
+        f"{' (bit-identical)' if torch.equal(got[idx], fused[idx]) else ''}")
+    assert ratio <= 1, f"{name}: the pend variant disagrees with its plain version"
+    assert fratio <= 1, f"{name}: the pend variant disagrees with the default one"
+    if results is None:
+        return
+    nbytes, flops = _decode_costs(case, window, write=False)
+    qd, k, v, mask = _dense_kv(case, c_fused, "decode", window)      # NOT timed
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results["paged_decode_attention_pend"] = r = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: _pend(case, pa.paged_decode_attention_pend, window)),
+        plain_ms=time_ms(lambda: _pend(case, pa.paged_decode_attention_pend_plain,
+                                       window), reps=3),
+        library_ms=time_ms(lambda: sdpa(qd, k, v, attn_mask=mask, enable_gqa=True)),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
+    fused_ms = time_ms(lambda: _decode(case, c_fused, pa.paged_decode_attention, window))
+    fb = bound(*_decode_costs(case, window))[0]
+    log(f"[time] {name} paged_decode_attention_pend: " + ", ".join(
+        f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}" for a, b in r.items())
+        + f"; the default variant (fused write) on the same rows, in turn: "
+        f"{fused_ms:.4f} ms, bound {fb:.4f} ({smi})")
+
+
+def check_pend_faults(case):
+    """Two planted faults the tolerance must catch. A history one key too
+    long: the kernel told npend - 1 reads position hist from the cache, where
+    the uncommitted window left unrelated bytes, and shifts the pending
+    slots. Reading pending slot npend - 1: the kernel is handed the pending
+    buffer shifted by one slot, so its last read is the stale one."""
+    want = _pend(case, pa.paged_decode_attention_pend_plain)
+    idx = _valid_tokens(case, "decode")
+    npend = case["npend"]
+    for what, got in (
+            ("a history one key too long",
+             _pend(case, pa.paged_decode_attention_pend, npend=npend - 1)),
+            (f"pending slots shifted by one, slot {npend - 1} read",
+             _pend(case, pa.paged_decode_attention_pend,
+                   kv_pend=case["kv_pend"].roll(-1, dims=1).contiguous()))):
+        err, med, ratio = _compare(got[idx], want[idx])
+        log(f"[kernels] planted fault (pend, npend {npend}: {what}): "
+            f"max_abs_err {err:.3g}, median |want| {med:.3g}, worst "
+            f"{ratio:.3g} of the tolerance")
+        assert ratio > 1, f"the tolerance lets the pend variant pass with {what}"
+
+
+def phase_pend(device, smi) -> dict:
+    """The `pend` variant at 8B width: 16 rows of which the last 3 are pad
+    rows, histories of 1 to 2,048 keys, npend 1, 2, S/2 and S of a window of
+    S = 8 (the window of several rows crosses a page boundary), also under a
+    sliding window of 50; the long rows with and without a window of 4096;
+    the planted faults; and the timed case, 16 live rows at npend S/2."""
+    gen = torch.Generator().manual_seed(5)
+    hists = [1 + round(i * 2047 / 12) for i in range(13)]           # 1 .. 2048
+    assert any(h % 16 + PEND_S > 16 for h in hists)   # a window crosses a page
+    for npend in (1, 2, PEND_S // 2, PEND_S):
+        case = pend_case(gen, device, hists, npend, n_pad=3)
+        check_pend(case, name="pend 8B 13 rows and 3 pad rows")
+        if npend == PEND_S:
+            check_pend(case, name="pend window 50 8B 13 rows and 3 pad rows",
+                       window=50)
+        if npend == PEND_S // 2:
+            check_pend_faults(case)
+    for npend in (1, PEND_S):
+        case = pend_case(gen, device, [20000, 16385, 1], npend, n_pad=1)
+        for window in (0, 4096):
+            check_pend(case, name=f"pend window {window} 8B long rows",
+                       window=window)
+    results = {}
+    timed = pend_case(gen, device, [1 + round(i * 2047 / 15) for i in range(16)],
+                      PEND_S // 2)
+    check_pend(timed, name="pend 8B 16 rows", results=results, smi=smi)
+    return results["paged_decode_attention_pend"]
+
+
 def time_quantize(device, smi):
     """The quantizing kv_new build (plain PyTorch ops, as the JAX package
     leaves it to XLA) against the bf16 build, per layer at 8B width, in the
@@ -466,6 +628,40 @@ def time_quantize(device, smi):
             f"layer, {32 * out[T]:.3f} ms over 32 layers; the bf16 build "
             f"{plain:.4f} ms a layer ({smi})")
     return out
+
+
+def time_sampler(device, smi):
+    """The heads of a step at the serving decode bucket (128 rows) and 8B's
+    vocab, each timed alone: the greedy argmax, the sampler (exact top-256
+    candidates, masks, the hash noise), the logprob head. On the card the
+    sampler must also repeat itself: the same seeds give the same tokens."""
+    from swiftllm_tpu_torch.models import sampling
+    g = torch.Generator(device=device).manual_seed(21)
+    B, V = 128, 128256
+    logits = (torch.randn(B, V, generator=g, device=device) * 1.3
+              ).to(torch.bfloat16).float()
+    knobs = dict(temperature=torch.full((B,), 0.8, device=device),
+                 top_p=torch.full((B,), 0.95, device=device),
+                 top_k=torch.full((B,), 20, device=device, dtype=torch.int32),
+                 seeds=torch.arange(B, device=device, dtype=torch.int32))
+    toks = sampling.sample_tokens(logits, **knobs)
+    assert torch.equal(toks, sampling.sample_tokens(logits, **knobs))
+    assert bool((toks != sampling.exact_greedy(logits)).any())
+    # The CPU draws the same tokens from the same logits and seeds: the
+    # candidates' order is pinned and the noise is a hash.
+    cpu = sampling.sample_tokens(logits.cpu(), **{k: v.cpu() for k, v in knobs.items()})
+    n_same = int((cpu == toks.cpu()).sum())
+    log(f"[sampler] {B} rows, vocab {V}, temperature 0.8, top-k 20, top-p "
+        f"0.95: the card repeats itself; {n_same}/{B} tokens equal the CPU's "
+        f"draws from the same logits and seeds")
+    # (A near-tie in the nucleus or in the argmax may fall either way: the
+    # softmax and the two logs are each device's own.)
+    assert n_same >= B - 4, "the card's draws differ from the CPU's"
+    for name, fn in (
+            ("exact_greedy", lambda: sampling.exact_greedy(logits)),
+            ("sample_tokens", lambda: sampling.sample_tokens(logits, **knobs)),
+            ("chosen_logprobs", lambda: sampling.chosen_logprobs(logits, toks))):
+        log(f"[time] {name} [{B}, {V}] f32: {time_ms(fn):.4f} ms ({smi})")
 
 
 def phase_kernels(device) -> dict:
@@ -682,14 +878,14 @@ MISTRAL_7B = dict(num_q_heads=32, num_kv_heads=8, hidden_size=4096, head_dim=128
                   rope_theta=10000.0, sliding_window=4096)
 
 
-def _requests(specs, vocab):
+def _requests(specs, vocab, out_len=4):
     """(prompt_len, cached, n_tokens) -> port Requests scheduled for one step;
     cached tokens stand for a history already in the cache, with one output
     token to feed next when cached == prompt_len."""
     top = min(120000, vocab - 1)
     sched = []
     for i, (plen, cached, n) in enumerate(specs):
-        r = Request(RawRequest("", 4))
+        r = Request(RawRequest("", out_len))
         r.set_prompt_token_ids([(31 * i + 7 * j) % top + 1 for j in range(plen)])
         if cached == plen:
             r.output_token_ids = [17 + i]
@@ -817,6 +1013,115 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
     torch.cuda.empty_cache()
 
 
+# A top-2 logit margin counts as clear above twice the largest
+# kernels-against-plain logit difference the step phases above measure
+# (about 0.1 at these widths and weights).
+CLEAR_MARGIN = 0.2
+
+
+def phase_multi_step():
+    """S = 8 decode steps of 8 rows at 8B width, 4 layers, through the
+    kernels: 8 sequential single steps, then one multi-step window with the
+    fused write, then one with deferred commit (SWIFTLLM_DEFER_KV=1), on the
+    same weights and the same random cache. A row's tokens must equal the
+    sequential run's up to its first step without a clear top-2 margin in
+    the sequential logits, and the window's cache rows of every row that
+    agrees throughout must be byte-equal after the commit. Launches: 4 a
+    step of the default variant, or of the `pend` variant when deferred."""
+    S = PEND_S
+    mc = LlamaModelConfig(num_layers=4, **LLAMA3_8B)
+    ec = dict(model_path="", use_dummy=True, dtype="bfloat16", block_size=16,
+              preemption_mode="recompute", num_hbm_blocks=1024,
+              max_blocks_per_seq=128, max_batch_size=16, enable_logprobs=True)
+    hists = [40 + 97 * i for i in range(8)]          # 137 + 8 crosses a page
+    n = len(hists)
+    toks, lps, caches, first = {}, {}, {}, None
+    margin = None
+    for run in ("sequential", "fused", "deferred"):
+        steps = 1 if run == "sequential" else S
+        m = LlamaModel(EngineConfig(**ec, multi_step_decode=steps), mc,
+                       device=DEVICE)
+        if first is None:
+            m.load_weights()
+            g = torch.Generator(device=DEVICE).manual_seed(4321)
+            _randomize(m.params, g, "none")
+            m.init_kvcache_and_swap()
+            m.kv_cache.normal_(0.0, 1.0, generator=g)
+            cache0 = m.kv_cache.clone()
+            first = m
+        else:
+            m.params = first.params
+            m.init_kvcache_and_swap()
+            m.kv_cache.copy_(cache0)
+        mgr = m.hbm_block_mgrs[0]
+        for i, h in enumerate(hists):
+            mgr.allocate_for_seq(i, h)
+        sched = _requests([(h, h, 1) for h in hists], mc.vocab_size, out_len=64)
+        os.environ["SWIFTLLM_DEFER_KV"] = "1" if run == "deferred" else "0"
+        build.reset_launch_counts()
+        try:
+            if run == "sequential":
+                t, lp, mg = [], [], []
+                for _ in range(S):
+                    tokens, rows, lg = m.forward(sched, return_logits=True)
+                    assert [r is not None for r in rows[:n]] == [True] * n
+                    lp.append(m.last_logprobs.numpy()[:n])
+                    top2 = torch.from_numpy(lg[:n]).topk(2, dim=-1).values
+                    mg.append((top2[:, 0] - top2[:, 1]).numpy())
+                    t.append(tokens[:n])
+                    for sq, tok in zip(sched, tokens[:n]):
+                        sq.request.output_token_ids.append(int(tok))
+                        sq.request.num_cached_tokens += 1
+                toks[run], lps[run] = np.stack(t, 1), np.stack(lp, 1)
+                margin = np.stack(mg, 1)                              # [n, S]
+            else:
+                tokens, rows = m.forward(sched, multi_step=S)
+                assert [r is not None for r in rows[:n]] == [True] * n
+                toks[run] = tokens.reshape(-1, S)[:n]
+                lps[run] = m.last_logprobs.numpy().reshape(-1, S)[:n]
+        finally:
+            os.environ.pop("SWIFTLLM_DEFER_KV")
+        torch.cuda.synchronize()
+        launches = dict(build.launch_counts)
+        want = {"paged_decode_attention": 0 if run == "deferred" else 4 * S,
+                "paged_decode_attention_pend": 4 * S if run == "deferred" else 0,
+                "store_kv": 0, "paged_prefill_attention": 0}
+        assert {k: launches[k] for k in want} == want, (run, launches)
+        # The window's cache rows: positions hist .. hist + S - 1 of each row.
+        slots = [[int(mgr.seq_block_ids(i)[p // 16]) * 16 + p % 16
+                  for p in range(h, h + S)] for i, h in enumerate(hists)]
+        caches[run] = torch.stack([m.kv_cache[:, sl] for sl in slots])  # [n, L, S, W]
+        assert np.isfinite(lps[run]).all() and (lps[run] <= 0).all(), run
+        if run != "sequential":
+            m.params = None
+        del m
+    # Steps a row is checked on: up to its first step without a clear margin.
+    unclear = margin <= CLEAR_MARGIN
+    upto = np.where(unclear.any(1), unclear.argmax(1) + 1, S)
+    for run in ("fused", "deferred"):
+        same = toks[run] == toks["sequential"]
+        for b in range(n):
+            assert same[b, :upto[b]].all(), (
+                f"{run}: row {b} differs from the sequential steps before its "
+                f"first unclear margin: {toks[run][b]} vs {toks['sequential'][b]}")
+        whole = same.all(1)
+        for b in np.flatnonzero(whole):
+            assert torch.equal(caches[run][b].view(torch.int16),
+                               caches["sequential"][b].view(torch.int16)), (
+                f"{run}: row {b}'s window differs in the cache")
+        dlp = np.abs(lps[run] - lps["sequential"])[same].max()
+        log(f"[multi-step] 8B width, 4 layers, {n} rows (histories "
+            f"{hists[0]}..{hists[-1]}), S = {S}, {run} against {S} sequential "
+            f"steps: {int(same.sum())}/{same.size} tokens equal, "
+            f"{int(sum(upto))} required (clear margin > {CLEAR_MARGIN}), "
+            f"{int(whole.sum())}/{n} rows equal throughout and their window "
+            f"byte-equal in the cache; max |logprob diff| on equal tokens "
+            f"{dlp:.3g}")
+    del first, caches, cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 PROMPT_LENS = [17, 100, 250, 400, 600, 900, 1200, 1500]
 # The serving runs, in order: name -> (model widths, engine options, the 8
 # prompts' lengths, the length of one more prompt served alone or None).
@@ -831,22 +1136,55 @@ SERVE_RUNS = {
     # Prompts past the window of 4096: their chunked prefill and their decode
     # steps both cross it.
     "mistral": (MISTRAL_7B, {}, [17, 100, 250, 400, 600, 900, 5000, 8192], None),
+    # Sampling, logprobs and multi-step decode: the bf16 engine with logprobs
+    # on, three of the 8 requests sampled, 64 output tokens each; single
+    # steps, windows of 8 with the fused write, and windows of 8 with
+    # deferred commit (the decode kernel's `pend` variant).
+    "ms1": (LLAMA3_8B, dict(enable_logprobs=True), PROMPT_LENS, None),
+    "ms8": (LLAMA3_8B, dict(enable_logprobs=True, multi_step_decode=PEND_S),
+            PROMPT_LENS, None),
+    "ms8defer": (LLAMA3_8B, dict(enable_logprobs=True, multi_step_decode=PEND_S),
+                 PROMPT_LENS, None),
 }
 LONG_OUT_LEN = 4
+MS_RUNS = ("ms1", "ms8", "ms8defer")
+MS_OUT_LEN = 64
+MS_SAMPLED = {1: 1001, 4: 1004, 6: 1006}     # request index -> seed
+# Predicted before the first run on the card (PERF.md): the 8 prompts
+# take 4 prefill or mixed steps, as in the bf16 run; then 63 decode steps, or
+# 7 windows of 8 (until the most advanced request has fewer than 8 tokens
+# left) and 7 single steps. Every step launches the decode kernel once a
+# layer (32), and a deferred inner step its `pend` variant instead.
+MS_PREDICTED = {
+    "ms1": dict(steps=67, paged_decode_attention=32 * 67,
+                paged_decode_attention_pend=0),
+    "ms8": dict(steps=18, paged_decode_attention=32 * 67,
+                paged_decode_attention_pend=0),
+    "ms8defer": dict(steps=18, paged_decode_attention=32 * 11,
+                     paged_decode_attention_pend=32 * 56),
+}
 
 
 def serve_kernels(name: str) -> tuple:
     """Kernels the serving run `name` must launch."""
-    return pa.KERNELS + (("int4_matmul",) if name == "int4" else ())
+    return pa.KERNELS + (("int4_matmul",) if name == "int4" else ()) + (
+        ("paged_decode_attention_pend",) if name == "ms8defer" else ())
 
 
-async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict):
+async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
+                       outputs: dict):
     """The serving path at full width, 32 layers, as SERVE_RUNS[name] sets
     it: 8 concurrent requests, launch counts, pages back, the profile; the
     bf16 engine also answers /generate over HTTP, and the fp8-KV engine
-    serves one long prompt more. The engine is released before this
-    returns, so that the next one sizes its cache on an empty card."""
+    serves one long prompt more. The MS_RUNS engines get weights of std 0.02
+    from one seed, sample three of their requests, collect every token's
+    logprob (outputs[name]) and are held to MS_PREDICTED. The engine is
+    released before this returns, so that the next one sizes its cache on an
+    empty card."""
     widths, ec_kw, prompt_lens, long_prompt = SERVE_RUNS[name]
+    multi = name in MS_RUNS
+    if name == "ms8defer":
+        os.environ["SWIFTLLM_DEFER_KV"] = "1"
     mc = LlamaModelConfig(num_layers=32, **widths)
     ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
                       preemption_mode="recompute", **ec_kw)
@@ -866,18 +1204,25 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict):
         log(f"[serve {name}] pool {pools[name]} tokens against the bf16 "
             f"engine's {pools['none']}: {pools[name] / pools['none']:.4f} times "
             f"({smi})")
+    if multi:
+        _randomize(engine.model.params,
+                   torch.Generator(device=DEVICE).manual_seed(77), "none")
     loops = asyncio.create_task(engine.start_all_event_loops())
-    out_len = 32
+    out_len = MS_OUT_LEN if multi else 32
     top = min(128000, mc.vocab_size - 1)
+    logprobs = {}
 
     async def one(i, n, n_out=out_len):
         ids = [(13 * i + 5 * j) % top + 1 for j in range(n)]
+        kw = (dict(temperature=0.8, top_k=20, seed=MS_SAMPLED[i])
+              if multi and i in MS_SAMPLED else {})
         t_sub = time.perf_counter()
         stamps, toks = [], []
         async for so in engine.add_request_and_stream(
-                RawRequest("", n_out, prompt_token_ids=ids)):
+                RawRequest("", n_out, prompt_token_ids=ids, **kw)):
             stamps.append(time.perf_counter())
             toks.append(so.token_id)
+            logprobs.setdefault(i, []).append(so.logprob)
         return t_sub, stamps, toks
 
     torch.cuda.synchronize()
@@ -893,6 +1238,17 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict):
         assert all(0 <= t < mc.vocab_size for t in toks)
     for k in serve_kernels(name):
         assert launches[k] > 0, f"{k} never launched on the {name} serving path"
+    if multi:
+        got = dict(launches, steps=engine.stats.num_steps)
+        assert {k: got[k] for k in MS_PREDICTED[name]} == MS_PREDICTED[name], (
+            name, got, MS_PREDICTED[name])
+        lp = np.array([logprobs[i] for i in range(len(prompt_lens))], np.float64)
+        assert np.isfinite(lp).all() and (lp <= 0).all(), f"{name}: logprobs"
+        outputs[name] = [toks for _, _, toks in res]
+        log(f"[serve {name}] launches and steps as predicted "
+            f"({MS_PREDICTED[name]}); {lp.size} logprobs finite and <= 0 "
+            f"(mean {lp.mean():.3f}; greedy requests {np.delete(lp, list(MS_SAMPLED), 0).mean():.3f}, "
+            f"sampled {lp[list(MS_SAMPLED)].mean():.3f})")
     # The probe step sized the pool: the run's peak must fit the budget.
     peak = torch.cuda.max_memory_allocated()
     budget = torch.cuda.mem_get_info()[1] * ec.hbm_mem_utilization
@@ -933,15 +1289,17 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict):
         await _pages_back(mgr, free0)
         log(f"[serve {name}] the long request finished and its pages are back "
             f"({mgr.num_free_blocks} free of {free0})")
-    busy_ms, prof_steps = await _profile(engine, smi, name)
+    busy_ms, prof_steps = await _profile(engine, smi, name,
+                                         out_len=65 if multi else 24)
     if ec.kv_quant == "fp8":
         q_ms = mc.num_layers * quantize_ms[128]
         log(f"[profile {name}] the quantizing kv_new build: {q_ms:.3f} ms a "
             f"decode step (32 layers at the 128-token bucket, timed alone) "
             f"against {busy_ms / prof_steps:.3f} ms of device time a step in "
             f"this profile ({prof_steps} steps): {100 * q_ms * prof_steps / busy_ms:.1f}%")
-    if name == "none":
-        await _http(engine, mgr, free0)
+    if name in ("none", "ms8"):
+        await _http(engine, mgr, free0, logprobs=multi)
+    os.environ.pop("SWIFTLLM_DEFER_KV", None)
     loops.cancel()
     await asyncio.wait([loops])
     assert loops.cancelled()
@@ -962,9 +1320,10 @@ def _leaves(tree):
             yield v
 
 
-async def _http(engine, mgr, free0):
+async def _http(engine, mgr, free0, logprobs=False):
     """Phase 5: /generate over HTTP on 127.0.0.1, non-streaming and
-    streaming, through the port's build_app."""
+    streaming, through the port's build_app; with `logprobs` both answers
+    carry each token's logprob (an engine with enable_logprobs)."""
     import aiohttp
     from aiohttp import web
     with socket.socket() as sock:
@@ -978,21 +1337,28 @@ async def _http(engine, mgr, free0):
     try:
         async with aiohttp.ClientSession() as http:
             ids = list(range(1, 41))
-            async with http.post(url, json={"prompt_token_ids": ids,
-                                            "output_len": 8}) as r:
+            async with http.post(url, json={"prompt_token_ids": ids, "output_len": 8,
+                                            "logprobs": logprobs}) as r:
                 assert r.status == 200, r.status
                 body = await r.json()
             assert len(body["output_token_ids"]) == 8 and isinstance(body["output"], str)
-            streamed = []
+            streamed, streamed_lp = [], []
             async with http.post(url, json={"prompt_token_ids": ids, "output_len": 8,
-                                            "stream": True, "decode": False}) as r:
+                                            "stream": True, "decode": False,
+                                            "logprobs": logprobs}) as r:
                 assert r.status == 200, r.status
                 async for line in r.content:
                     if line.strip():
-                        streamed.append(json.loads(line)["token_id"])
+                        event = json.loads(line)
+                        streamed.append(event["token_id"])
+                        streamed_lp.append(event.get("logprob"))
             assert streamed == body["output_token_ids"], (streamed, body)
+            if logprobs:
+                assert streamed_lp == body["logprobs"], (streamed_lp, body)
+                assert all(isinstance(x, float) and x <= 0 for x in streamed_lp)
         log(f"[http] /generate on 127.0.0.1:{port}: non-streaming and streaming "
-            f"answers agree ({body['output_token_ids']})")
+            f"answers agree ({body['output_token_ids']}"
+            f"{', logprobs ' + str([round(x, 3) for x in streamed_lp]) if logprobs else ''})")
         await _pages_back(mgr, free0)
     finally:
         await runner.cleanup()
@@ -1000,9 +1366,23 @@ async def _http(engine, mgr, free0):
 
 async def phase_serve(smi: str, quantize_ms: dict) -> dict:
     """Phases 4-5: the engines of SERVE_RUNS, one after another."""
-    pools = {}
-    return {name: await serve_engine(name, smi, pools, quantize_ms)
-            for name in SERVE_RUNS}
+    pools, outputs = {}, {}
+    launches = {name: await serve_engine(name, smi, pools, quantize_ms, outputs)
+                for name in SERVE_RUNS}
+    # The same requests through single steps, fused windows and deferred
+    # windows: every request's tokens equal, the greedy and the seeded
+    # sampled ones alike.
+    base = outputs[MS_RUNS[0]]
+    for name in MS_RUNS[1:]:
+        for i, (a, b) in enumerate(zip(base, outputs[name])):
+            assert a == b, (f"request {i} "
+                            f"({'sampled' if i in MS_SAMPLED else 'greedy'}): "
+                            f"{name} differs from {MS_RUNS[0]}: {b} vs {a}")
+    log(f"[serve] {', '.join(MS_RUNS)}: all {len(base)} requests token-equal "
+        f"({len(base) - len(MS_SAMPLED)} greedy, {len(MS_SAMPLED)} sampled "
+        f"with seeds; {MS_OUT_LEN} tokens each); sampled request 1 begins "
+        f"{base[1][:8]}, greedy request 0 {base[0][:8]}")
+    return launches
 
 
 async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
@@ -1029,7 +1409,11 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
         sort_by="self_device_time_total", row_limit=40))
     log(f"[profile {quant}] {n_req} requests, prompt {prompt}, {out_len} tokens each: "
         f"wall {1e3 * wall:.1f} ms, device busy {1e3 * busy:.1f} ms "
-        f"({100 * busy / wall:.1f}%) ({smi})")
+        f"({100 * busy / wall:.1f}%), {engine.stats.num_steps - steps0} "
+        f"dispatches; a token of a request: wall {1e3 * wall / out_len:.3f} ms, "
+        f"device {1e3 * busy / out_len:.3f} ms, host (the rest) "
+        f"{1e3 * (wall - busy) / out_len:.3f} ms; {n_req * out_len / wall:.1f} "
+        f"tok/s ({smi})")
     for e in top[:8]:
         log(f"[profile {quant}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
@@ -1043,6 +1427,74 @@ async def _pages_back(mgr, free0, timeout=10.0):
     while mgr.num_free_blocks != free0 and time.perf_counter() < t_end:
         await asyncio.sleep(0.01)
     assert mgr.num_free_blocks == free0, (mgr.num_free_blocks, free0)
+
+
+async def compare_multi_step(smi: str, rounds: int = 4):
+    """Single steps against windows of 8, fused and deferred, on ONE engine
+    (Llama-3-8B width, 32 layers, bf16, logprobs on), so that the card, the
+    process and the cache are the same: the scheduler reads
+    multi_step_decode, and decode_multi_step SWIFTLLM_DEFER_KV, at every
+    step, so a round switches them between runs. A run is 8 greedy requests
+    of 64 prompt tokens and 65 output tokens (a prefill step, then 64 single
+    decode steps or 8 windows), on the host's clock around a synchronise,
+    with no profiler attached. The modes take turns in mirrored order
+    (a b c c b a), after one discarded run of each."""
+    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
+                      preemption_mode="recompute", enable_logprobs=True,
+                      multi_step_decode=PEND_S)
+    engine = Engine(ec, mc, device=DEVICE)
+    await engine.initialize(tokenizer_backend="inline")
+    loops = asyncio.create_task(engine.start_all_event_loops())
+    modes = {"ms1": (1, "0"), "ms8": (PEND_S, "0"), "ms8defer": (PEND_S, "1")}
+    n_req, prompt, out_len = 8, 64, 65
+    ms_a_token = {m: [] for m in modes}
+
+    async def run(mode):
+        ec.multi_step_decode, os.environ["SWIFTLLM_DEFER_KV"] = modes[mode]
+        reqs = [RawRequest("", out_len, prompt_token_ids=[
+            (3 * i + j) % 1000 + 1 for j in range(prompt)]) for i in range(n_req)]
+        steps0 = engine.stats.num_steps
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*[engine.add_request_and_wait(r) for r in reqs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = engine.stats.num_steps - steps0
+        assert steps == (1 + 64 if mode == "ms1" else 1 + 8), (mode, steps)
+        pend = build.launch_counts["paged_decode_attention_pend"]
+        assert pend == (32 * 64 if mode == "ms8defer" else 0), (mode, pend)
+        return 1e3 * wall / out_len, [toks for _, toks in outs]
+
+    try:
+        want = None
+        for mode in modes:                                 # discarded runs
+            _, toks = await run(mode)
+            assert want is None or toks == want, f"{mode}: tokens differ"
+            want = toks
+        order = list(modes) + list(modes)[::-1]
+        for r in range(rounds):
+            for mode in order:
+                ms, toks = await run(mode)
+                assert toks == want, f"{mode}: tokens differ"
+                ms_a_token[mode].append(ms)
+            log(f"[compare] round {r}: " + ", ".join(
+                f"{m} {ms_a_token[m][-2]:.3f} {ms_a_token[m][-1]:.3f}"
+                for m in modes) + " ms of wall a token of a request")
+    finally:
+        os.environ.pop("SWIFTLLM_DEFER_KV", None)
+        loops.cancel()
+        await asyncio.wait([loops])
+    base = np.array(ms_a_token["ms1"])
+    for m, v in ms_a_token.items():
+        v = np.array(v)
+        q1, med, q3 = np.percentile(v, [25, 50, 75])
+        log(f"[compare] {m}: {len(v)} runs, wall a token median {med:.3f} ms "
+            f"(quartiles {q1:.3f} to {q3:.3f}, min {v.min():.3f}, max "
+            f"{v.max():.3f}), {n_req * 1e3 / med:.1f} tok/s; faster than the "
+            f"ms1 run of the same turn in {int((v < base).sum())}/{len(v)} "
+            f"({smi})")
 
 
 def main() -> int:
@@ -1064,16 +1516,25 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = build.build_kernels()
-    log(f"[build] {len(reports)} kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(build.KERNELS)} kernels ({len(reports)} sources) built "
+        f"in {time.perf_counter() - t0:.1f} s")
     (OUT_DIR / "ptxas.txt").write_text("\n".join(
         f"== {k}\n{v}" for k, v in reports.items()))
+    if sys.argv[1:] == ["--compare-multi-step"]:
+        asyncio.run(compare_multi_step(smi))
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     for k, v in reports.items():
         for line in v.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {k}: {line.strip()}")
 
     results = phase_kernels("cuda")
+    results["paged_decode_attention_pend"] = phase_pend("cuda", smi)
     quantize_ms = time_quantize("cuda", smi)
+    time_sampler("cuda", smi)
     torch.cuda.empty_cache()
     results["int4_matmul"] = phase_int4("cuda", smi)
     phase_step()
@@ -1081,14 +1542,16 @@ def main() -> int:
     phase_step(kv_quant="fp8")
     phase_step("int4", kv_quant="fp8")
     phase_step(mistral=True)
+    phase_multi_step()
     launches = asyncio.run(phase_serve(smi, quantize_ms))
     # Launches: the attention kernels' on the bf16 serving run (the path of
-    # the slice that brought them), int4_matmul's on the INT4 run; the fp8-KV
-    # and the windowed runs' counts are asserted and logged by their runs.
+    # the slice that brought them), int4_matmul's on the INT4 run, the `pend`
+    # variant's on the deferred multi-step run; the other runs' counts are
+    # asserted and logged by their runs.
+    run_of = {"int4_matmul": "int4", "paged_decode_attention_pend": "ms8defer"}
     kernels = [dict(name=n, route="cuda", source=SOURCE_OF[n],
                     replaces=REPLACES[n],
-                    launches=launches["int4" if n == "int4_matmul" else "none"][n],
-                    **results[n])
+                    launches=launches[run_of.get(n, "none")][n], **results[n])
                for n in build.KERNELS]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any
 
 import numpy as np
@@ -40,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from swiftllm_tpu_torch.config import LlamaModelConfig
-from swiftllm_tpu_torch.models.sampling import exact_greedy
+from swiftllm_tpu_torch.models.sampling import (chosen_logprobs, exact_greedy,
+                                                sample_tokens)
 from swiftllm_tpu_torch.ops import int4_matmul
 from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.worker.quant import is_quantized, proj
@@ -287,10 +289,16 @@ def _ragged_paged_attention_torch(q, cache_l, batch: StepBatch, *,
 
 def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
                          n_kv: int, page_size: int, sm_scale: float,
-                         use_kernels: bool, q_bucket: int, window: int = 0):
+                         use_kernels: bool, q_bucket: int, window: int = 0,
+                         kv_pend=None, npend: int = 0):
     """Store this layer's fresh K‖V (kv_new [T, W], in the cache dtype, with
     the scale lanes when the cache is fp8) into the cache [L, S, W] IN PLACE
     and run attention; returns [T, n_q, hd].
+
+    Deferred commit (``kv_pend`` [L, P, B, W], multi-step windows): the
+    decode entry reads the window's ``npend - 1`` completed tokens from
+    ``kv_pend`` and this step's from ``kv_new``, and the cache is NOT
+    written; ``decode_multi_step`` commits the whole window after its loop.
 
     Kernels: decode buckets run the decode kernel, which writes its rows' KV
     itself. Mixed buckets keep the JAX order: the decode kernel on the
@@ -299,6 +307,12 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
     n_dec take the decode output, the rest the prefill output."""
     T, _, hd = q.shape
     kw = dict(n_kv=n_kv, page_size=page_size, sm_scale=sm_scale, window=window)
+    if kv_pend is not None:
+        assert use_kernels and q_bucket == 1, \
+            "deferred KV commit runs on the decode kernel's path only"
+        return pa.paged_decode_attention_pend(
+            q, cache, kv_new, kv_pend, batch.page_table, batch.q_lens,
+            batch.seq_lens, layer, npend=npend, **kw)
     if use_kernels and q_bucket == 1:
         return pa.paged_decode_attention(
             q, cache, kv_new, batch.page_table, batch.q_lens, batch.seq_lens,
@@ -336,12 +350,20 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
 def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                   batch: StepBatch, *, cfg: LlamaModelConfig, page_size: int,
                   q_bucket: int, use_kernels: bool,
-                  return_logits: bool = False):
-    """One step: embedding, the layers, the final norm, the greedy head and
+                  return_logits: bool = False, use_sampler: bool = False,
+                  return_logprobs: bool = False, kv_pend=None, npend: int = 0):
+    """One step: embedding, the layers, the final norm, the sampling head and
     the feedback write. ``kv_cache`` [L, S, W] and ``feedback`` i32[F] are
     updated IN PLACE (JAX donates them and returns new arrays).
 
-    Returns (tokens i32[B], logits f32[B, V] or None)."""
+    ``use_sampler`` (the bucket key's sampling bit) picks ``sample_tokens``
+    over the greedy head, so an all-greedy batch never pays for the sampler.
+    With ``kv_pend`` [L, P, B, W] (deferred commit, see
+    ``decode_multi_step``) no layer writes the cache, and each layer's fresh
+    rows ``kv_new[:B]`` come back stacked.
+
+    Returns (tokens i32[B], logits f32[B, V] or None[, logprobs f32[B] with
+    ``return_logprobs``][, kv_rows [L, B, W] with ``kv_pend``])."""
     T = batch.token_ids.shape[0]
     hd = cfg.head_dim
     sm_scale = 1.0 / math.sqrt(hd)
@@ -364,6 +386,7 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     # reads the stacked [L, N, K/2] array at the layer's offset (the JAX gate
     # on T); every other projection through quant.proj.
     int4_kernel = use_kernels and T <= int4_matmul.MAX_T
+    kv_rows = []
     for layer in range(kv_cache.shape[0]):
         w = {name: (t[layer] if torch.is_tensor(t)
                     else {k: v[layer] for k, v in t.items()})
@@ -392,7 +415,10 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
         attn = _attention_and_store(
             q, kv_new, kv_cache, layer, batch, n_kv=cfg.num_kv_heads,
             page_size=page_size, sm_scale=sm_scale, use_kernels=use_kernels,
-            q_bucket=q_bucket, window=cfg.sliding_window or 0)
+            q_bucket=q_bucket, window=cfg.sliding_window or 0,
+            kv_pend=kv_pend, npend=npend)
+        if kv_pend is not None:
+            kv_rows.append(kv_new[:batch.q_lens.shape[0]])
         x = x + mproj(attn.reshape(T, -1), "wo")
 
         h = rms_norm(x, w["ffn_norm"], eps)
@@ -401,7 +427,7 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
     x = rms_norm(x, params["final_norm"], eps)
 
-    # Greedy head over each row's last fed token (pad rows -> the zero row).
+    # The head reads each row's last fed token (pad rows -> the zero row).
     last_tok = torch.where(batch.q_lens > 0,
                            batch.q_starts + batch.q_lens - 1, T).clamp(0, T)
     x_pad = torch.cat([x, x.new_zeros(1, x.shape[1])])
@@ -411,7 +437,12 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
         logits = proj(h_last, lm_head).float()                       # [B, V]
     else:
         logits = (h_last @ lm_head.to(h_last.dtype).T).float()       # [B, V]
-    tokens = exact_greedy(logits)
+    if use_sampler:
+        tokens = sample_tokens(logits, temperature=batch.temperature,
+                               top_p=batch.top_p, top_k=batch.top_k,
+                               seeds=batch.seeds)
+    else:
+        tokens = exact_greedy(logits)
 
     # Publish samples to the feedback buffer. Pad rows target the garbage
     # slot (the last); an out-of-range slot is redirected there too, where
@@ -419,4 +450,124 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     fw = batch.feedback_write
     fw = torch.where((fw >= 0) & (fw < f_len), fw, f_len - 1).long()
     feedback[fw] = tokens
-    return tokens, (logits if return_logits else None)
+    out = (tokens, logits if return_logits else None)
+    if return_logprobs:
+        out += (chosen_logprobs(logits, tokens),)
+    if kv_pend is not None:
+        out += (torch.stack(kv_rows),)
+    return out
+
+
+def advance_decode_batch(batch: StepBatch, s: int, *, page_size: int,
+                         garbage_slot: int) -> StepBatch:
+    """Shift a pure-decode StepBatch ``s`` decode steps forward, on the
+    batch's device and without synchronising.
+
+    The host builds the batch of a multi-step window's first step only;
+    inner step ``s`` takes its positions, KV slots, sequence lengths and
+    seeds from here, and reads its input tokens from the feedback buffer,
+    where inner step ``s - 1`` wrote its samples. Pad tokens keep the garbage
+    slot. ``build_step_batch`` allocated the pages of all S steps, so the
+    page table is complete. The seeds come back as int64 holding the u32
+    values ``(seeds + s) mod 2^32``."""
+    T = batch.token_ids.shape[0]
+    B, Pg = batch.page_table.shape
+    live_row = batch.q_lens > 0                                    # [B]
+    t_iota = torch.arange(T, device=batch.token_ids.device)
+    row_of_t = t_iota.clamp(0, B - 1)     # decode contract: token t == row t
+    live_t = (t_iota < B) & live_row[row_of_t]
+    pos = batch.positions + s
+    pidx = (pos // page_size).clamp(0, Pg - 1)
+    page = batch.page_table[row_of_t, pidx]                        # [T]
+    slots = torch.where(live_t, page * page_size + pos % page_size,
+                        garbage_slot)
+    # After the first inner step every live row's token comes from its OWN
+    # feedback slot (multi-step batches sample every row: ``build_step_batch``
+    # asserts it).
+    fw_t = torch.where(batch.sample_mask[row_of_t],
+                       batch.feedback_write[row_of_t], -1)
+    feedback_read = (batch.feedback_read if s == 0
+                     else torch.where(live_t, fw_t, -1))
+    return dataclasses.replace(
+        batch,
+        positions=torch.where(live_t, pos, 0),
+        kv_slots=slots,
+        seq_lens=torch.where(live_row, batch.seq_lens + s, 0),
+        feedback_read=feedback_read,
+        seeds=(batch.seeds.long() + s) & 0xFFFFFFFF,
+    )
+
+
+def _defer_commit_ok(cfg: LlamaModelConfig, *, use_kernels: bool, fp8: bool,
+                     multi_step: int) -> bool:
+    """Whether multi-step decode runs in deferred-commit mode: the decode
+    kernel's path must be on (the gather-based path has no pending-token
+    semantics), the cache must hold unscaled rows (no fp8), a sliding window
+    must not be narrower than the pending window, and the caller must ask
+    for it with ``SWIFTLLM_DEFER_KV=1`` (off by default, as in the JAX
+    package; the environment is read at each call)."""
+    if not use_kernels or fp8:
+        return False
+    if os.environ.get("SWIFTLLM_DEFER_KV", "0") != "1":
+        return False
+    return not (cfg.sliding_window and cfg.sliding_window < multi_step)
+
+
+def decode_multi_step(params: dict, kv_cache: torch.Tensor,
+                      feedback: torch.Tensor, batch: StepBatch, *,
+                      multi_step: int, page_size: int,
+                      return_logprobs: bool = False, **fwd_kwargs):
+    """S pure-decode steps from ONE dispatch: S calls of ``forward_shard``
+    queued on the stream with nothing between them that waits for the card.
+    The batch build, its copy to the card and the tokens' copy back are paid
+    once per S tokens. Tokens come out [B * S] row-major (row b's inner step
+    s at ``b * S + s``), and so do the logprobs.
+
+    Deferred KV commit (``_defer_commit_ok``): the inner steps do not write
+    the cache. Each layer's fresh K‖V rows go into a pending buffer
+    [L, S, B, W]; the decode kernel's ``pend`` variant reads the window's
+    completed tokens from it; and the whole window is committed with one
+    scatter of L*S*B rows after the loop, dead rows to the garbage page.
+
+    Returns (tokens i32[B*S][, logprobs f32[B*S]])."""
+    cfg = fwd_kwargs["cfg"]
+    deferred = _defer_commit_ok(
+        cfg, use_kernels=fwd_kwargs.get("use_kernels", False),
+        fp8=kv_cache.dtype == pa.FP8, multi_step=multi_step)
+    L, S_slots, W = kv_cache.shape
+    B, Pg = batch.page_table.shape
+    P = multi_step
+    garbage_slot = S_slots - page_size
+    # Slots of an earlier window's rows stay in the dead part of the buffer:
+    # a step reads only the slots below npend - 1.
+    pend = (torch.empty((L, P, B, W), dtype=kv_cache.dtype,
+                        device=kv_cache.device) if deferred else None)
+    tokens, logprobs = [], []
+    for s in range(multi_step):
+        bs = advance_decode_batch(batch, s, page_size=page_size,
+                                  garbage_slot=garbage_slot)
+        out = forward_shard(params, kv_cache, feedback, bs,
+                            page_size=page_size,
+                            return_logprobs=return_logprobs,
+                            kv_pend=pend, npend=s + 1, **fwd_kwargs)
+        tokens.append(out[0])
+        if return_logprobs:
+            logprobs.append(out[2])
+        if deferred:
+            pend[:, s] = out[-1]
+    if deferred:
+        # Commit the window: slot of (inner step j, row b), in the pending
+        # buffer's own [P, B] order.
+        live = batch.q_lens > 0                                     # [B]
+        # (decode contract: flat token b is row b)
+        pos = (batch.positions[:B][None, :]
+               + torch.arange(P, device=kv_cache.device)[:, None])   # [P, B]
+        page = torch.gather(batch.page_table.T, 0,
+                            (pos // page_size).clamp(0, Pg - 1).long())
+        slots = torch.where(live[None, :], page * page_size + pos % page_size,
+                            garbage_slot)
+        kv_cache[:, slots.reshape(-1).long()] = pend.view(L, P * B, W)
+    out = (torch.stack(tokens, dim=1).reshape(-1),)
+    if return_logprobs:
+        out += (torch.stack(logprobs, dim=1).reshape(-1),)
+    return out

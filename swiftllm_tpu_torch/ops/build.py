@@ -1,10 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels, and count launches.
 
-Every kernel is one source in ``csrc/`` with a plain C entry of the same
-name. ``build_kernels`` compiles each missing one with ``nvcc`` for
-``sm_90a`` into ``_build/`` beside this file (one process per source, all
-started together), names the library by the hash of its source and
-``common.cuh``, and loads it with ``ctypes``. Nothing is built when a module
+Every kernel has a plain C entry of its own name in a source in ``csrc/``
+(a source may hold several: the decode kernel and its deferred-commit
+variant share one). ``build_kernels`` compiles each missing source with
+``nvcc`` for ``sm_90a`` into ``_build/`` beside this file (one process per
+source, all started together), names the library by the hash of its source
+and ``common.cuh``, and loads it with ``ctypes``. Nothing is built when a module
 is imported: the first launch builds its kernel, or a caller builds them all
 up front. The wrappers in ``paged_attention.py`` and ``int4_matmul.py`` launch
 through ``entry`` and report each launch with ``check_launch``, which adds
@@ -36,6 +37,11 @@ SOURCES = {
     # T, B, Pg, n_q, n_kv, hd, S, layer, page_size, window, kv_fp8, sm_scale,
     # stream
     "paged_decode_attention": ("paged_decode.cu", [_P] * 8 + [_I] * 11 + [_F, _P]),
+    # q, cache, kv_new, kv_pend, page_table, q_lens, seq_lens, out,
+    # T, B, Pg, n_q, n_kv, hd, S, layer, page_size, window, npend, P,
+    # sm_scale, stream
+    "paged_decode_attention_pend": ("paged_decode.cu",
+                                    [_P] * 8 + [_I] * 12 + [_F, _P]),
     # kv_new, cache, slots, T, row_bytes, S, layer, stream
     "store_kv": ("store_kv.cu", [_P] * 3 + [_I] * 4 + [_P]),
     # q, cache, page_table, q_starts, q_lens, seq_lens, out,
@@ -60,12 +66,12 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def _lib_path(name: str) -> Path:
-    """Build output of one kernel, keyed by the hash of its sources."""
+def _lib_path(src: str) -> Path:
+    """Build output of one source, keyed by the hash of what it includes."""
     h = hashlib.sha256()
-    for f in (SOURCES[name][0], "common.cuh"):
+    for f in (src, "common.cuh"):
         h.update((CSRC_DIR / f).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -78,33 +84,34 @@ def _nvcc() -> str:
 
 def build_kernels(names=KERNELS) -> dict[str, str]:
     """Compile every missing kernel library, one ``nvcc`` per source, all
-    started together, and load them. Returns each newly built kernel's
-    ``-Xptxas -v`` report (registers, shared memory, spills)."""
+    started together, and load them. Returns each newly built source's
+    ``-Xptxas -v`` report (registers, shared memory, spills), under the name
+    of the first kernel asked for that it holds."""
     reports = {}
     with _build_lock:
         todo = [n for n in names if n not in _libs]
         procs = {}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n in todo:
-            out = _lib_path(n)
-            if out.exists():
+            src = SOURCES[n][0]
+            out = _lib_path(src)
+            if out.exists() or src in procs:
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp),
-                   str(CSRC_DIR / SOURCES[n][0])]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp, out)
-        for n, (p, tmp, out) in procs.items():
+                   "-Xptxas", "-v", "-o", str(tmp), str(CSRC_DIR / src)]
+            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True),
+                          tmp, out, n)
+        for src, (p, tmp, out, n) in procs.items():
             log, _ = p.communicate()
             if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {SOURCES[n][0]}:\n{log}")
+                raise RuntimeError(f"nvcc failed for {src}:\n{log}")
             os.replace(tmp, out)
             reports[n] = log
         for n in todo:
-            lib = ctypes.CDLL(str(_lib_path(n)))
+            lib = ctypes.CDLL(str(_lib_path(SOURCES[n][0])))
             fn = getattr(lib, n)
             fn.argtypes = SOURCES[n][1]
             fn.restype = ctypes.c_int

@@ -11,7 +11,7 @@
 // from kv_new[b]. Rows that are not valid decode rows, and tokens past the row
 // axis, get zeros.
 //
-// Two variants of the same body, as in the TPU kernel:
+// Three variants of the same body, as in the TPU kernel:
 // - An fp8 cache (the KV template parameter): rows of e4m3 bytes that end in
 //   128 scale lanes (common.cuh). The bytes are converted to f32 in
 //   registers; the score is (q . k_stored) * sm_scale / k_scale, and the
@@ -25,6 +25,16 @@
 //   read, and masks inside that page. A masked key is skipped, so a warp
 //   whose keys are all masked keeps m = kNegBig, l = 0, acc = 0 and merges
 //   with weight exp(kNegBig - M) = 0.
+// - Deferred commit (the PEND template parameter; the TPU kernel's `pend`
+//   mode, for multi-step windows whose tokens are committed to the cache
+//   once, after the window): step 1 below does not run, kv_slots is not
+//   read and the cache is only read. The row's cached history is
+//   hist = max(seq_len - npend, 0) keys; position pos comes from the pages
+//   for pos < hist, from kv_pend[layer, pos - hist, b] for
+//   hist <= pos < seq_len - 1 (the window's npend - 1 completed tokens, in a
+//   plain [L, P, B, W] buffer), and from kv_new[b] for the last. Pending
+//   slots from npend - 1 on hold stale rows and are never addressed. npend
+//   is the same for every row. bf16 rows only; `window` is honoured.
 //
 // What bounds it on the H100: bytes. Each key costs 2*HD*2 bytes of K and V
 // per kv head in bf16 (half that in fp8) and 4*GROUP*HD flops, far below the
@@ -52,16 +62,17 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kVec = 8;  // cache elements per lane and key
 
-template <int HD, int GROUP, typename KV>
+template <int HD, int GROUP, typename KV, bool PEND>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
                     const KV* __restrict__ kv_new,
+                    const KV* __restrict__ kv_pend,
                     const int* __restrict__ page_table,
                     const int* __restrict__ q_lens,
                     const int* __restrict__ seq_lens,
                     const int* __restrict__ kv_slots, bf16* __restrict__ out,
                     int B, int Pg, int n_kv, int S, int layer, int page_size,
-                    int window, float sm_scale) {
+                    int window, int npend, int P, float sm_scale) {
   constexpr int SL = ScaleLanes<KV>::value;
   constexpr int LPK = HD / kVec;  // lanes per key
   constexpr int KPW = 32 / LPK;   // keys per warp per step
@@ -87,17 +98,19 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
 
   // 1. The fused write: this kv head's K and V lanes of the new token (and,
   //    from kv head 0, the scale lanes). An out-of-range slot is dropped, as
-  //    JAX drops an out-of-range scatter.
-  const int slot = kv_slots[b];
-  if (slot >= 0 && slot < S) {
-    KV* dst = cache + layer_off + static_cast<int64_t>(slot) * W;
-    for (int i = tid; i < HD; i += blockDim.x) {
-      dst[h * HD + i] = new_row[h * HD + i];
-      dst[KH + h * HD + i] = new_row[KH + h * HD + i];
-    }
-    if constexpr (SL > 0) {
-      if (h == 0)
-        for (int i = tid; i < SL; i += blockDim.x) dst[2 * KH + i] = new_row[2 * KH + i];
+  //    JAX drops an out-of-range scatter. Not in deferred-commit mode.
+  if constexpr (!PEND) {
+    const int slot = kv_slots[b];
+    if (slot >= 0 && slot < S) {
+      KV* dst = cache + layer_off + static_cast<int64_t>(slot) * W;
+      for (int i = tid; i < HD; i += blockDim.x) {
+        dst[h * HD + i] = new_row[h * HD + i];
+        dst[KH + h * HD + i] = new_row[KH + h * HD + i];
+      }
+      if constexpr (SL > 0) {
+        if (h == 0)
+          for (int i = tid; i < SL; i += blockDim.x) dst[2 * KH + i] = new_row[2 * KH + i];
+      }
     }
   }
 
@@ -126,12 +139,22 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
   const int n_pages = S / page_size;
   const int lo = window > 0 ? max(seq_len - window, 0) : 0;
   const int first = lo / page_size * page_size;
+  // Deferred commit: keys from hist on are not in the cache. Slot j of this
+  // layer's pending rows for row b is pend_b + j * B * W.
+  const int hist = PEND ? max(seq_len - npend, 0) : seq_len;
+  const KV* pend_b = nullptr;
+  if constexpr (PEND)
+    pend_b = kv_pend + (static_cast<int64_t>(layer) * P * B + b) * W;
   for (int base = first + warp * KPW; base < seq_len; base += kWarps * KPW) {
     const int pos = base + sub;
     const bool active = pos >= lo && pos < seq_len;
     const KV* row = new_row;
-    if (active && pos < seq_len - 1)
-      row = cache + layer_off + slot_of(pt, pos, Pg, page_size, n_pages) * W;
+    if (active && pos < seq_len - 1) {
+      if (!PEND || pos < hist)
+        row = cache + layer_off + slot_of(pt, pos, Pg, page_size, n_pages) * W;
+      else
+        row = pend_b + static_cast<int64_t>(pos - hist) * B * W;
+    }
     float kf[kVec], vf[kVec];
     load8(row + h * HD + li * kVec, kf);
     load8(row + KH + h * HD + li * kVec, vf);
@@ -220,17 +243,21 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
   }
 }
 
-template <int HD, int GROUP, typename KV>
-void launch(const void* q, void* cache, const void* kv_new, const void* pt,
-            const void* q_lens, const void* seq_lens, const void* kv_slots,
-            void* out, int T, int B, int Pg, int n_kv, int S, int layer,
-            int page_size, int window, float sm_scale, cudaStream_t stream) {
-  paged_decode_kernel<HD, GROUP, KV><<<dim3(T, n_kv), kWarps * 32, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<KV*>(cache),
-      static_cast<const KV*>(kv_new), static_cast<const int*>(pt),
-      static_cast<const int*>(q_lens), static_cast<const int*>(seq_lens),
-      static_cast<const int*>(kv_slots), static_cast<bf16*>(out), B, Pg, n_kv,
-      S, layer, page_size, window, sm_scale);
+template <int HD, int GROUP, typename KV, bool PEND>
+void launch(const void* q, void* cache, const void* kv_new,
+            const void* kv_pend, const void* pt, const void* q_lens,
+            const void* seq_lens, const void* kv_slots, void* out, int T,
+            int B, int Pg, int n_kv, int S, int layer, int page_size,
+            int window, int npend, int P, float sm_scale,
+            cudaStream_t stream) {
+  paged_decode_kernel<HD, GROUP, KV, PEND>
+      <<<dim3(T, n_kv), kWarps * 32, 0, stream>>>(
+          static_cast<const bf16*>(q), static_cast<KV*>(cache),
+          static_cast<const KV*>(kv_new), static_cast<const KV*>(kv_pend),
+          static_cast<const int*>(pt), static_cast<const int*>(q_lens),
+          static_cast<const int*>(seq_lens), static_cast<const int*>(kv_slots),
+          static_cast<bf16*>(out), B, Pg, n_kv, S, layer, page_size, window,
+          npend, P, sm_scale);
 }
 
 }  // namespace
@@ -254,13 +281,15 @@ extern "C" int paged_decode_attention(const void* q, void* cache,
 #define SWIFTLLM_DECODE_CASE(HD_, G_)                                          \
   if (hd == HD_ && group == G_) {                                              \
     if (kv_fp8)                                                                \
-      launch<HD_, G_, fp8>(q, cache, kv_new, page_table, q_lens, seq_lens,     \
-                           kv_slots, out, T, B, Pg, n_kv, S, layer, page_size, \
-                           window, sm_scale, st);                              \
+      launch<HD_, G_, fp8, false>(q, cache, kv_new, nullptr, page_table,       \
+                                  q_lens, seq_lens, kv_slots, out, T, B, Pg,   \
+                                  n_kv, S, layer, page_size, window, 0, 0,     \
+                                  sm_scale, st);                               \
     else                                                                       \
-      launch<HD_, G_, bf16>(q, cache, kv_new, page_table, q_lens, seq_lens,    \
-                            kv_slots, out, T, B, Pg, n_kv, S, layer,           \
-                            page_size, window, sm_scale, st);                  \
+      launch<HD_, G_, bf16, false>(q, cache, kv_new, nullptr, page_table,      \
+                                   q_lens, seq_lens, kv_slots, out, T, B, Pg,  \
+                                   n_kv, S, layer, page_size, window, 0, 0,    \
+                                   sm_scale, st);                              \
     return static_cast<int>(cudaGetLastError());                               \
   }
   SWIFTLLM_DECODE_CASE(64, 1)
@@ -272,5 +301,40 @@ extern "C" int paged_decode_attention(const void* q, void* cache,
   SWIFTLLM_DECODE_CASE(128, 4)
   SWIFTLLM_DECODE_CASE(128, 8)
 #undef SWIFTLLM_DECODE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C entry of the deferred-commit variant, bound with ctypes. cache, kv_new and
+// kv_pend [L, P, B, W] are bf16; the cache is only read (it is taken
+// non-const because the variants share one kernel signature). npend in 1..P:
+// the window's npend - 1 completed tokens are read from kv_pend. Returns as
+// paged_decode_attention does.
+extern "C" int paged_decode_attention_pend(
+    const void* q, const void* cache, const void* kv_new, const void* kv_pend,
+    const void* page_table, const void* q_lens, const void* seq_lens,
+    void* out, int T, int B, int Pg, int n_q, int n_kv, int hd, int S,
+    int layer, int page_size, int window, int npend, int P, float sm_scale,
+    void* stream) {
+  using namespace swiftllm;
+  const int group = n_q / n_kv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (npend < 1 || npend > P) return static_cast<int>(cudaErrorInvalidValue);
+#define SWIFTLLM_PEND_CASE(HD_, G_)                                            \
+  if (hd == HD_ && group == G_) {                                              \
+    launch<HD_, G_, bf16, true>(q, const_cast<void*>(cache), kv_new, kv_pend,  \
+                                page_table, q_lens, seq_lens, nullptr, out, T, \
+                                B, Pg, n_kv, S, layer, page_size, window,      \
+                                npend, P, sm_scale, st);                       \
+    return static_cast<int>(cudaGetLastError());                               \
+  }
+  SWIFTLLM_PEND_CASE(64, 1)
+  SWIFTLLM_PEND_CASE(64, 2)
+  SWIFTLLM_PEND_CASE(64, 4)
+  SWIFTLLM_PEND_CASE(64, 8)
+  SWIFTLLM_PEND_CASE(128, 1)
+  SWIFTLLM_PEND_CASE(128, 2)
+  SWIFTLLM_PEND_CASE(128, 4)
+  SWIFTLLM_PEND_CASE(128, 8)
+#undef SWIFTLLM_PEND_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

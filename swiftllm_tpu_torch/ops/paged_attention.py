@@ -1,5 +1,5 @@
-"""Ragged paged attention for the PyTorch port: three CUDA kernels written by
-hand for Hopper (sm_90a), their plain PyTorch versions, and launch counters.
+"""Ragged paged attention for the PyTorch port: CUDA kernels written by hand
+for Hopper (sm_90a), their plain PyTorch versions, and launch counters.
 
 Contract (the same as ``swiftllm_tpu/ops/paged_attention.py``): batch row b
 has q_lens[b] query tokens, contiguous in the flat token stream starting at
@@ -23,6 +23,12 @@ their scale, and ``kv_new`` rows come in the same form. Every entry takes
 - ``paged_decode_attention`` (TPU: ``_decode_kernel_grouped``): rows with one
   query, packed so flat token b is row b; valid rows must form a prefix of
   the row axis. It writes ``kv_new[b]`` to slot ``kv_slots[b]`` itself.
+- ``paged_decode_attention_pend`` (TPU: the same kernel's ``pend`` mode,
+  deferred commit): the same attention for inner step ``npend - 1`` of a
+  multi-step window whose tokens are not in the cache yet. The cached history
+  is ``seq_lens[b] - npend`` keys; the window's ``npend - 1`` completed tokens
+  come from ``kv_pend[layer, j, b]`` and the current one from ``kv_new[b]``.
+  It writes nothing: the caller commits the window afterwards.
 - ``store_kv`` + ``paged_prefill_attention`` (TPU: ``_tiles_kernel`` with its
   fused span write): the write is a launch of its own, before the attention,
   because the blocks of one GPU grid run at once (see ``csrc/store_kv.cu``).
@@ -167,6 +173,47 @@ def paged_decode_attention_plain(q, cache, kv_new, page_table, q_lens,
     return out
 
 
+def paged_decode_attention_pend_plain(q, cache, kv_new, kv_pend, page_table,
+                                      q_lens, seq_lens, layer: int, *,
+                                      npend: int, n_kv: int, page_size: int,
+                                      sm_scale: float, window: int = 0):
+    """Plain version of ``paged_decode_attention_pend``: each row's cached
+    keys gathered from its pages, its live pending rows and its new row
+    appended. The cache is only read."""
+    T, n_q, hd = q.shape
+    B = page_table.shape[0]
+    S = cache.shape[1]
+    _check_pend(cache, kv_new, kv_pend, npend, n_kv, hd, B)
+    out = torch.zeros_like(q)
+    ql, sl = q_lens.tolist(), seq_lens.tolist()
+    for b in range(min(B, T)):
+        if ql[b] <= 0 or sl[b] <= 0:
+            continue
+        hist = max(sl[b] - npend, 0)
+        slots = _row_slots(page_table[b], hist, page_size, S // page_size)
+        kv = torch.cat([cache[layer, slots],
+                        kv_pend[layer, :sl[b] - 1 - hist, b], kv_new[b:b + 1]])
+        out[b:b + 1] = _attend(q[b:b + 1], kv, torch.tensor([sl[b] - 1]),
+                               n_kv, sm_scale, window)
+    return out
+
+
+def _check_pend(cache, kv_new, kv_pend, npend: int, n_kv: int, hd: int,
+                B: int) -> None:
+    """The deferred-commit entry's shapes: unscaled rows (no fp8), kv_pend
+    [L, P, B, W] beside cache [L, S, W], 1 <= npend <= P."""
+    if cache.dtype == FP8 or scale_lanes(cache, n_kv, hd):
+        raise TypeError("deferred commit takes a cache of unscaled rows, "
+                        "not float8_e4m3fn")
+    L, _, W = cache.shape
+    if (kv_pend.dim() != 4 or kv_pend.shape[0] != L or kv_pend.shape[2] != B
+            or kv_pend.shape[3] != W or kv_new.shape[1] != W
+            or not 1 <= npend <= kv_pend.shape[1]):
+        raise ValueError(f"pend shapes: cache {tuple(cache.shape)}, kv_new "
+                         f"{tuple(kv_new.shape)}, kv_pend "
+                         f"{tuple(kv_pend.shape)}, rows {B}, npend {npend}")
+
+
 def store_kv_plain(cache, kv_new, kv_slots, layer: int) -> None:
     """Plain version of ``store_kv``: cache[layer, kv_slots[t]] = kv_new[t]
     for every in-range slot (in place)."""
@@ -231,6 +278,47 @@ def paged_decode_attention(q, cache, kv_new, page_table, q_lens, seq_lens,
         int(layer), page_size, int(window), int(cache.dtype == FP8),
         float(sm_scale), build.stream())
     build.check_launch("paged_decode_attention", err, _HINT)
+    return out
+
+
+def paged_decode_attention_pend(q, cache, kv_new, kv_pend, page_table, q_lens,
+                                seq_lens, layer: int, *, npend: int,
+                                n_kv: int, page_size: int, sm_scale: float,
+                                window: int = 0):
+    """Decode attention in deferred-commit mode: no cache write.
+
+    q [T, n_q, hd], cache [L, S, W] bf16 (read only), kv_new [T, W], kv_pend
+    [L, P, B, W] in the cache's dtype, page_table i32[B, Pg], q_lens/seq_lens
+    i32[B]; ``npend`` in 1..P is the same for every row (inner step
+    ``npend - 1`` of the window). Key ``pos`` of row b comes from the pages
+    for ``pos < hist = max(seq_lens[b] - npend, 0)``, from
+    ``kv_pend[layer, pos - hist, b]`` for ``hist <= pos < seq_lens[b] - 1``
+    and from ``kv_new[b]`` for the last. Pending slots from ``npend - 1`` on
+    are never read. Returns out [T, n_q, hd], zeros at rows that are not
+    valid."""
+    args = (q, cache, kv_new, kv_pend, page_table, q_lens, seq_lens)
+    if _on_cpu(*args):
+        return paged_decode_attention_pend_plain(
+            *args, layer, npend=npend, n_kv=n_kv, page_size=page_size,
+            sm_scale=sm_scale, window=window)
+    _check_types((q,), (cache, kv_new, kv_pend),
+                 (page_table, q_lens, seq_lens))
+    T, n_q, hd = q.shape
+    B, Pg = page_table.shape
+    _, S, W = cache.shape
+    _check_pend(cache, kv_new, kv_pend, npend, n_kv, hd, B)
+    if T < B or kv_new.shape != (T, W) or window < 0:
+        raise ValueError(f"decode shapes: q {tuple(q.shape)}, kv_new "
+                         f"{tuple(kv_new.shape)}, page_table "
+                         f"{tuple(page_table.shape)}, window {window}")
+    out = torch.empty_like(q)
+    err = build.entry("paged_decode_attention_pend")(
+        q.data_ptr(), cache.data_ptr(), kv_new.data_ptr(), kv_pend.data_ptr(),
+        page_table.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
+        out.data_ptr(), T, B, Pg, n_q, n_kv, hd, S, int(layer), page_size,
+        int(window), int(npend), kv_pend.shape[1], float(sm_scale),
+        build.stream())
+    build.check_launch("paged_decode_attention_pend", err, _HINT)
     return out
 
 

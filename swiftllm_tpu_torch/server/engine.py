@@ -8,10 +8,10 @@ A copy of ``swiftllm_tpu/server/engine.py`` for the PyTorch port. It builds
 the port's ``LlamaModel`` (on ``device``, "cuda" unless the caller asks for
 "cpu"), caps pages with the port's kernel cap, resolves tokens by waiting on
 a CUDA event (off the event loop) and reading the pinned host copy the step
-queued, and traces with ``torch.profiler``. Requests with temperature > 0
-are refused at admission until sampling is ported; the model refuses the
-other features this slice does not run, so the copy drops the swap, spec and
-multi-step warmup branches that could never run.
+queued (the logprobs with them, under ``enable_logprobs``), and traces with
+``torch.profiler``. The model refuses the features the port does not run
+yet, so the copy drops the swap and spec warmup branches that could never
+run.
 
 - The step batch is a SARATHI mixed prefill+decode token batch (the scheduler
   enables the piggybacking the reference left as a comment, scheduler.py:92-99).
@@ -113,10 +113,11 @@ class Engine:
     async def warmup(self):
         """Run the serving working set of step shapes once before traffic:
         prefill-only steps of 1, 2, 4, ... chunk rows, a decode-only step,
-        every pow2 chunk size below the full chunk, and SARATHI mixed steps.
-        Each is one real step through the normal dispatch path, so the
-        kernels are built and every step shape has run before the first
-        request."""
+        a multi-step window when ``multi_step_decode`` > 1, every pow2 chunk
+        size below the full chunk, and SARATHI mixed steps. Each is one real
+        step through the normal dispatch path, so the kernels are built and
+        every step shape has run before the first request. (The sampler
+        needs no warm-up of its own here: it builds nothing.)"""
         cfg = self.engine_config
         chunk = min(cfg.prefill_chunk_size, cfg.max_tokens_in_batch,
                     cfg.max_seq_len - 8)
@@ -149,6 +150,13 @@ class Engine:
                 self.model.forward([ScheduledSeq(ra, 1)])      # decode-only
                 ra.num_cached_tokens += 1
                 ra.output_token_ids.append(0)
+                if cfg.multi_step_decode > 1:
+                    # The S-step window (and, in deferred-commit mode, the
+                    # decode kernel's variant for it).
+                    S = cfg.multi_step_decode
+                    self.model.forward([ScheduledSeq(ra, 1)], multi_step=S)
+                    ra.num_cached_tokens += S
+                    ra.output_token_ids.extend([0] * S)
                 from swiftllm_tpu_torch.utils import next_power_of_2, tile_q_for
                 align = tile_q_for(next_power_of_2(chunk))
                 size = align
@@ -201,10 +209,6 @@ class Engine:
         """Enqueue a request and return its handle immediately — so callers
         hold something to ``abort_request`` even before the first token
         (e.g. a client that disconnects while the request is still queued)."""
-        if raw_request.temperature > 0:
-            raise NotImplementedError(
-                "temperature > 0 sampling is not in the PyTorch port yet "
-                "(ROADMAP.md queue 1, item 1); send temperature 0")
         req = Request(raw_request)
         if raw_request.lora:
             # Unknown adapter = client error; reject at submit like over-length
@@ -341,7 +345,7 @@ class Engine:
         tokens. Returns the pending-step record."""
         tokens_dev, rows = self.model.forward_async(batch, groups=groups,
                                                     multi_step=steps)
-        lp_dev = self.model.last_logprobs   # device f32[dp*B] or None
+        lp_dev = self.model.last_logprobs   # PendingTokens of f32[B*span], or None
         key = self.model.last_key
         span = (key.spec if key is not None and key.spec
                 else key.steps if key is not None else max(steps, 1))
@@ -386,7 +390,8 @@ class Engine:
         # Waits on the step's CUDA event, then reads the pinned host copy.
         tokens = await loop.run_in_executor(self._resolve_executor,
                                             tokens_dev.numpy)
-        lps = None   # logprobs are not ported (the model refuses them)
+        lps = (await loop.run_in_executor(self._resolve_executor, lp_dev.numpy)
+               if lp_dev is not None else None)
         tokens2 = tokens.reshape(-1, span)
         lps2 = lps.reshape(-1, span) if lps is not None else None
         self.stats.total_step_time += time.perf_counter() - t_dispatch

@@ -4,7 +4,9 @@ A port of ``swiftllm_tpu/worker/model.py`` at tp = dp = 1:
 ``load_weights`` / ``profile_num_blocks`` / ``init_kvcache_and_swap`` /
 ``forward_async`` / ``execute_packed`` / ``forward`` /
 ``free_seqs_resources``, with the same host guard on the decode kernel's
-row contract.
+row contract. A bucket key with ``sampling`` runs the sampler in place of the
+greedy head, one with ``steps`` > 1 runs ``decode_multi_step``, and with
+``enable_logprobs`` every step also returns its chosen tokens' logprobs.
 
 - The model runs on ``device`` ("cuda" unless the caller asks for "cpu"), and
   raises when asked for a GPU it does not find.
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
-from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES, forward_shard,
+from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES,
+                                             decode_multi_step, forward_shard,
                                              unpack_step_batch)
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
@@ -41,13 +44,10 @@ from swiftllm_tpu_torch.worker.block_manager import BlockManager
 def _refuse_unsupported(ec: EngineConfig, mc: LlamaModelConfig) -> None:
     """Raise for every configuration this slice of the port does not run."""
     refused = [
-        (ec.enable_logprobs, "enable_logprobs", "1 (sampling and logprobs)"),
         (ec.preemption_mode == "swap" and ec.num_cpu_blocks > 0,
          "preemption_mode='swap' with num_cpu_blocks > 0", "2 (swap)"),
         (ec.enable_prefix_caching, "enable_prefix_caching",
          "3 (prefix caching)"),
-        (ec.multi_step_decode > 1, "multi_step_decode > 1",
-         "4 (multi-step decode)"),
         (ec.enable_spec_decode, "enable_spec_decode", "5 (spec decode)"),
         (bool(ec.lora_paths), "LoRA adapters", "8 (multi-LoRA)"),
         (ec.tp_size > 1 or ec.dp_size > 1, "tp_size/dp_size > 1",
@@ -84,9 +84,10 @@ def _assert_decode_prefix(batch_np, key, dp: int):
 
 
 class PendingTokens:
-    """A step's sampled tokens on their way to the host. On the GPU the copy
-    into pinned host memory is queued behind the step (``non_blocking``) and
-    a CUDA event marks its end; ``numpy()`` waits on that event only."""
+    """A step's sampled tokens (or their logprobs) on their way to the host.
+    On the GPU the copy into pinned host memory is queued behind the step
+    (``non_blocking``) and a CUDA event marks its end; ``numpy()`` waits on
+    that event only."""
 
     def __init__(self, tokens: torch.Tensor):
         self._event = None
@@ -135,7 +136,8 @@ class LlamaModel:
         self.params = None
         self.kv_cache = None          # [L, S, W], updated in place each step
         self.token_feedback = None    # i32[max_seqs + 1], last sample per seq
-        self.last_logprobs = None     # logprobs are not ported (engine reads it)
+        self.last_logprobs = None     # PendingTokens of the last dispatch's
+                                      # f32 logprobs (enable_logprobs), or None
         self.last_key = None          # BucketKey of the most recent dispatch
         self.lora_slots: dict[str, int] = {}
         self.hbm_block_mgrs: list[BlockManager] = []
@@ -242,15 +244,15 @@ class LlamaModel:
         Returns (tokens, rows[, logits]): ``tokens`` is a ``PendingTokens``
         whose copy to the host is already queued. The next step can be
         dispatched before this one's values reach the host: the builder
-        reads unresolved tokens from the on-device feedback buffer."""
-        if multi_step > 1:
-            raise NotImplementedError("multi-step decode: ROADMAP.md queue 1, "
-                                      "item 4")
+        reads unresolved tokens from the on-device feedback buffer. With
+        ``multi_step`` S > 1 (a pure-decode batch) the dispatch runs S chained
+        decode steps and the tokens come out [B_bucket * S], row-major."""
         if groups is None:
             groups = [scheduled]
         assert len(groups) == 1, "the port runs at dp = 1"
         batch_np, key, rows = build_step_batch(groups, self.hbm_block_mgrs,
-                                               self.engine_config)
+                                               self.engine_config,
+                                               multi_step=multi_step)
         if self.engine_config.use_pallas:
             _assert_decode_prefix(batch_np, key, self.dp)
         out = self.execute_packed(pack_step_batch(batch_np, self.dp), key,
@@ -262,11 +264,11 @@ class LlamaModel:
 
     def execute_packed(self, flat_np: np.ndarray, key,
                        return_logits: bool = False):
-        """Run one step from a packed batch buffer. Returns the tokens'
-        ``PendingTokens`` (and the f32 logits tensor when asked)."""
-        if key.sampling:
-            raise NotImplementedError("temperature > 0 sampling: ROADMAP.md "
-                                      "queue 1, item 1")
+        """Run one dispatch from a packed batch buffer: one step, or the
+        ``key.steps`` chained decode steps of a multi-step window. Returns
+        the tokens' ``PendingTokens`` (and the f32 logits tensor when asked,
+        single steps only). With ``enable_logprobs`` the logprobs' copy to
+        the host is queued too, as ``last_logprobs``."""
         self.last_key = key
         flat = torch.from_numpy(flat_np)
         if self.device.type == "cuda":
@@ -275,11 +277,23 @@ class LlamaModel:
         batch = unpack_step_batch(flat, key.tokens, key.rows, key.pages,
                                   page_size=cfg.block_size,
                                   garbage_slot=self.kv_cache.shape[1] - cfg.block_size)
-        tokens, logits = forward_shard(
-            self.params, self.kv_cache, self.token_feedback, batch,
-            cfg=self.model_config, page_size=cfg.block_size,
-            q_bucket=key.q_len, use_kernels=cfg.use_pallas,
-            return_logits=return_logits)
+        kw = dict(cfg=self.model_config, page_size=cfg.block_size,
+                  q_bucket=key.q_len, use_kernels=cfg.use_pallas,
+                  use_sampler=bool(key.sampling),
+                  return_logprobs=cfg.enable_logprobs)
+        logits = lp = None
+        if key.steps > 1:
+            assert not return_logits, "logits come from single steps only"
+            tokens, *rest = decode_multi_step(
+                self.params, self.kv_cache, self.token_feedback, batch,
+                multi_step=key.steps, **kw)
+        else:
+            tokens, logits, *rest = forward_shard(
+                self.params, self.kv_cache, self.token_feedback, batch,
+                return_logits=return_logits, **kw)
+        if cfg.enable_logprobs:
+            lp = PendingTokens(rest[0])
+        self.last_logprobs = lp
         pending = PendingTokens(tokens)
         return (pending, logits) if return_logits else pending
 
@@ -288,7 +302,8 @@ class LlamaModel:
                 return_logits: bool = False, multi_step: int = 1):
         """Run one step synchronously. Returns (tokens i32[B_bucket], rows
         [, logits f32[B_bucket, V]]) as numpy; rows[i] is the ScheduledSeq of
-        row i (None for padding)."""
+        row i (None for padding). With ``multi_step`` S > 1 the tokens are
+        [B_bucket * S], row-major."""
         out = self.forward_async(scheduled, groups, return_logits, multi_step)
         if return_logits:
             tokens, rows, logits = out

@@ -117,10 +117,39 @@ def test_generate_over_http(jax_run):
 
 
 def test_temperature_refused_at_admission(jax_run):
-    tree, _ = jax_run
+    """Once refused at admission, now admitted and served: a request with
+    temperature > 0 gets the tokens the model-level sampled steps give (the
+    same per-position seeds), which differ from the greedy ones."""
+    from swiftllm_tpu_torch.config import EngineConfig as EC_
+    from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
+    from swiftllm_tpu_torch.server.structs import Request
+    from swiftllm_tpu_torch.worker.model import LlamaModel
+    tree, want_greedy = jax_run
+    kw = dict(temperature=0.7, top_k=30, top_p=0.95, seed=11)
 
     async def body():
         e = await port_engine(tree, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            e.submit(RawRequest("", 4, temperature=0.7, prompt_token_ids=[1, 2]))
-    asyncio.run(body())
+        req = e.submit(RawRequest("", OUT_LEN, prompt_token_ids=PROMPTS[1], **kw))
+        assert not req.aborted
+        loops = asyncio.create_task(e.start_all_event_loops())
+        try:
+            await asyncio.wait_for(req.finished_event.wait(), 120)
+        finally:
+            loops.cancel()
+        return list(req.output_token_ids)
+    got = asyncio.run(body())
+
+    m = LlamaModel(EC_(**dict(EC, use_pallas=True)), LlamaModelConfig(**MC),
+                   device="cpu")
+    m.params = params_from_numpy(tree, "cpu")
+    m.init_kvcache_and_swap()
+    r = Request(RawRequest("", OUT_LEN, **kw))
+    r.set_prompt_token_ids(PROMPTS[1])
+    r.seq_id = 0
+    while not r.is_finished():
+        n = r.num_uncached_tokens()
+        tokens, _ = m.forward([ScheduledSeq(r, n)])
+        r.output_token_ids.append(int(tokens[0]))
+        r.num_cached_tokens += n
+    assert got == r.output_token_ids
+    assert len(got) == OUT_LEN and got != want_greedy[1]

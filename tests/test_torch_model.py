@@ -92,15 +92,17 @@ REFUSED = {
     "lora": (dict(lora_paths="dummy:a"), {}),
     "tensor_parallel": (dict(tp_size=2), {}),
 }
-# Refused at first, run since: the model must now build with them.
-NOW_RUN = {"kv_quant", "sliding_window"}
+# Refused at first, run since: the model must now build with them (and, for
+# logprobs and multi-step decode, run a step).
+NOW_RUN = {"kv_quant", "sliding_window", "logprobs", "multi_step"}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_features_refused(name):
     """Every feature the port does not run yet raises NotImplementedError at
     model construction, naming the ROADMAP item that brings it; the fp8 KV
-    cache and the sliding window, refused at first, are accepted."""
+    cache, the sliding window, logprobs and multi-step decode, refused at
+    first, are accepted, and the last two run a step."""
     import torch
 
     from swiftllm_tpu_torch.config import LlamaModelConfig
@@ -117,6 +119,23 @@ def test_unported_features_refused(name):
         fp8 = name == "kv_quant"
         assert m.kv_cache.dtype == (torch.float8_e4m3fn if fp8 else torch.bfloat16)
         assert m.kv_cache.shape[2] == 2 * 1 * 8 + (128 if fp8 else 0)
+        if name in ("logprobs", "multi_step"):
+            m.load_weights()
+            r = Request(RawRequest("", 8))
+            r.set_prompt_token_ids([3, 1, 4, 1, 5])
+            r.seq_id = 0
+            tokens, _ = m.forward([ScheduledSeq(r, r.prompt_len)])
+            r.output_token_ids.append(int(tokens[0]))
+            r.num_cached_tokens = r.prompt_len
+            S = ec.multi_step_decode
+            tokens, rows = m.forward([ScheduledSeq(r, 1)], multi_step=S)
+            assert rows[0].request is r and len(tokens) == len(rows) * S
+            assert all(0 <= t < 32 for t in tokens[:S])
+            if name == "logprobs":
+                lp = m.last_logprobs.numpy()
+                assert lp.shape == tokens.shape and lp[0] <= 0
+            else:
+                assert m.last_key.steps == S and m.last_logprobs is None
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         LlamaModel(ec, mc, device="cpu")
