@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-multi-step   # a measurement, not the smoke
+    python3 chip_smoke.py --compare-row-tile     # a measurement, not the smoke
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. the card's name and power limit, torch and CUDA versions;
@@ -19,13 +20,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      2,048 keys, for npend 1, 2, 4 and 8 of a window of 8, with a sliding
      window and on the long rows, the cache byte-identical afterwards, with
      two planted faults (a history one key too long, the pending slots
-     shifted by one) that must fail;
+     shifted by one) that must fail; the verify spans of speculative
+     decoding (store_kv, then the prefill kernel at q bucket 8 over 12 spans
+     of 2 to 5 tokens that start mid-page, beside 4 decode-kind rows) in
+     bf16, fp8, window 50 and on long rows with window 4096, with a planted
+     fault (the spans' first query position off by one), the 32-row tile
+     against the 64-row one, and the bf16-score variant at q bucket 8; the
+     prefill kernel's bf16-score variant on the prefill and deep-chunk
+     cases, against its plain version and the f32 kernel, and on the
+     prefill case with its row maxima pinned at the f32 kernels' tolerance,
+     which the f32 kernel must fail;
   3. one whole mixed step, kernels against plain versions, 4 layers: at 8B
      width in bf16, with INT4 weights in a bucket of 256 tokens, with an fp8
      KV cache, and with both; at Mistral-7B width with its window of 4096
      and rows whose histories exceed it; then 8 decode steps of 8 rows at
      8B width, 4 layers, as one multi-step window (fused write, and deferred
-     commit) against 8 sequential single steps: tokens and caches;
+     commit) against 8 sequential single steps: tokens and caches; then one
+     verify step (2 decode rows, 6 spec rows), kernels against plain, and
+     against 5 sequential decode steps fed the same drafts; then prompts
+     whose 1,024-token prefix match_prefix installs, their tails' logits
+     against full prefills of the same prompts, with a planted fault (the
+     pages of another prompt installed) that must fail;
   4. the serving path: the port's Engine at full width (32 layers, dummy
      weights), 8 concurrent requests, launch counts of every kernel: 8B in
      bf16, with INT4 and with INT8 weights, 8B with an fp8 KV cache (which
@@ -35,14 +50,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      three of the 8 requests sampled (temperature 0.8, top-k 20, seeded):
      multi_step_decode 1, 8 and 8 with SWIFTLLM_DEFER_KV=1, whose tokens
      must be equal; each engine released before the next one sizes its
-     cache;
+     cache; last, an 8B engine with spec decode (spec_k 4) and prefix
+     caching on weights whose greedy continuation is known
+     (`_successor_weights`): a 1,024-token shared prefix (shared pages
+     byte-unchanged), then, with prefix matching off, the 8 prompts plain,
+     with n-gram drafts and with oracle drafts under
+     SWIFTLLM_TILE_BF16_SCORES=1 (every draft accepted, fewer steps); on
+     these weights the next token is a function of the last one alone, so
+     this engine checks paths, launches and the accept loop, not attention
+     values (phase 3 checks those);
   5. /generate over HTTP through the port's build_app (the bf16 engine);
 then one {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 With --compare-multi-step it builds the kernels and runs only
 compare_multi_step: one full-width engine decoding the same 8 requests in
 turns with single steps, windows of 8 and windows of 8 with deferred commit,
-without a profiler, several rounds in one process on one card.
+without a profiler, several rounds in one process on one card. With
+--compare-row-tile it runs only compare_row_tile: the verify spans through
+the prefill kernel's 32-row and 64-row tiles, timed in turn.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
 ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
@@ -76,7 +101,7 @@ from swiftllm_tpu_torch.server.api_server import build_app
 from swiftllm_tpu_torch.server.engine import Engine
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
-from swiftllm_tpu_torch.utils import cdiv
+from swiftllm_tpu_torch.utils import cdiv, tile_q_for
 from swiftllm_tpu_torch.worker.model import LlamaModel
 from swiftllm_tpu_torch.worker.quant import (nibbles, quantize_int4,
                                              quantize_weight_torch)
@@ -108,8 +133,21 @@ REPLACES = {
     "paged_decode_attention_pend": "swiftllm_tpu/ops/paged_attention.py:297",
     "store_kv": "swiftllm_tpu/ops/paged_attention.py:942",
     "paged_prefill_attention": "swiftllm_tpu/ops/paged_attention.py:843",
+    "paged_prefill_attention_bf16s": "swiftllm_tpu/ops/paged_attention.py:1163",
     "int4_matmul": "swiftllm_tpu/ops/int4_matmul.py:61",
 }
+# The bf16-score variant against its plain version. Both round the scores,
+# the exponent argument and P to bf16, but against different maxima (the
+# kernel's running maximum moves every 32 keys, the plain version takes the
+# row's), so a probability may differ by a bf16 step, 2^-8 of it near the
+# maximum and more where exp2's argument is large and P small: the output,
+# a P-weighted mean of V values of O(1), moves by a few 1e-3. The f32 kernel
+# comes about as close, so this bound cannot tell the two apart; cases whose
+# row maxima are pinned (pin_row_max) take ATOL / RTOL, which the f32
+# kernel must fail. Against the f32 kernel: the JAX package's own bound for
+# the variant, 3e-2.
+BF16S_ATOL, BF16S_RTOL = 1e-2, 2e-2
+BF16S_VS_F32 = 3e-2
 
 
 def log(*a):
@@ -172,7 +210,7 @@ def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
     n_pages = sum(n_pages_row) + 4
     S = (n_pages + 1) * page_size
     Pg = max(n_pages_row)
-    align = 1 if q_bucket == 1 else min(q_bucket, 128)
+    align = tile_q_for(q_bucket)        # the batch builder's span alignment
     q_starts, cursor = [], 0
     for i, (ql, _) in enumerate(rows):
         if ql > 1 and (i == 0 or rows[i - 1][0] == 1):
@@ -253,12 +291,12 @@ def _valid_tokens(case, kind):
     return torch.tensor(toks, device=case["q"].device)
 
 
-def _compare(got, want, atol=ATOL):
+def _compare(got, want, atol=ATOL, rtol=RTOL):
     """(max |got - want|, median |want|, worst |got - want| over the
-    tolerance atol + RTOL |want|). They agree when the last is at most 1."""
+    tolerance atol + rtol |want|). They agree when the last is at most 1."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
-    ratio = (d / (atol + RTOL * w.abs())).max().item()
+    ratio = (d / (atol + rtol * w.abs())).max().item()
     if not bool(torch.isfinite(g).all()):
         ratio = math.inf
     return d.max().item(), w.abs().median().item(), ratio
@@ -611,6 +649,248 @@ def phase_pend(device, smi) -> dict:
                       PEND_S // 2)
     check_pend(timed, name="pend 8B 16 rows", results=results, smi=smi)
     return results["paged_decode_attention_pend"]
+
+
+# The verify step of speculative decoding (spec_k 4): q bucket
+# next_pow2(spec_k + 1) = 8, spans of [next token] + 1 to 4 drafts.
+SPEC_K = 4
+SPEC_Q = 8
+
+
+def verify_rows():
+    """4 decode-kind rows and 12 spans of 2 to 5 tokens over histories of 1
+    to 2,048 keys (every fourth history to a decode row), the spans starting
+    and ending mid-page."""
+    hists = [1 + round(i * 2046 / 15) for i in range(16)]      # 1 .. 2047
+    rows = [(1, h) for h in hists[1::4]]
+    spans = [h for i, h in enumerate(hists) if i % 4 != 1]
+    rows += [(2 + j % SPEC_K, h + 2 + j % SPEC_K) for j, h in enumerate(spans)]
+    assert all((sl - ql) % 16 for ql, sl in rows[4:])
+    return rows
+
+
+def check_fault_span_start(case):
+    """Planted fault: each span's first query position off by one. The
+    prefill kernel runs with seq_lens one longer than the true ones, so its
+    queries sit one position late and see one key more (the slot past the
+    span, which holds unrelated rows); its output must fail the comparison
+    with the plain version on the true inputs."""
+    c = case["cache"].clone()
+    _store(case, c, pa.store_kv)
+    late = dict(case, seq_lens=case["seq_lens"] + (case["pre_lens"] > 0).int())
+    got = _prefill(late, c, pa.paged_prefill_attention)
+    want = _prefill(case, c, pa.paged_prefill_attention_plain)
+    idx = _valid_tokens(case, "prefill")
+    err, med, ratio = _compare(got[idx], want[idx])
+    log(f"[kernels] planted fault (verify spans, the first query position off "
+        f"by one): max_abs_err {err:.3g}, median |want| {med:.3g}, worst "
+        f"{ratio:.3g} of the tolerance")
+    assert ratio > 1, "the tolerance lets a verify span start one position late"
+
+
+def _row_tiles(case):
+    """The verify spans through the 32-row tile (q bucket 8, GQA group 4)
+    and the 64-row one (the same call at q bucket 16: one tile of 16 tokens
+    either way): (the cache after store_kv, the bucket-16 case, both
+    outputs); the outputs must agree over the spans' tokens."""
+    c = case["cache"].clone()
+    _store(case, c, pa.store_kv)
+    wide = dict(case, q_bucket=2 * SPEC_Q)
+    idx = _valid_tokens(case, "prefill")
+    short_out = _prefill(case, c, pa.paged_prefill_attention)
+    wide_out = _prefill(wide, c, pa.paged_prefill_attention)
+    _, _, ratio = _compare(short_out[idx], wide_out[idx])
+    assert ratio <= 1, "the 32-row and the 64-row tile disagree"
+    return c, wide, short_out, wide_out
+
+
+def phase_verify(device, smi) -> dict:
+    """The unfused mode of the TPU tile kernel, as speculative verify steps
+    run it at 8B width: store_kv of the spans, then paged_prefill_attention
+    at q bucket 8 over spans that start and end mid-page, with the decode
+    kernel on the decode-kind rows; in bf16, fp8, window 50, and on the long
+    rows (20,000 and 16,385 keys) with window 4096; the planted fault; the
+    32-row tile against the 64-row one; the bf16-score variant at q bucket 8
+    (its 32-row instance) on the bf16 case, on it with its row maxima pinned
+    (at ATOL / RTOL, with the control), and on the long rows without a
+    window. Times the bf16 case; returns its paged_prefill_attention row."""
+    gen = torch.Generator().manual_seed(6)
+    w8b = dict(n_q=32, n_kv=8, hd=128, page_size=16, q_bucket=SPEC_Q)
+    rows = verify_rows()
+    results = {}
+    case = paged_case(gen, device, rows=rows, **w8b)
+    check_kernels(case, name="verify 8B 4 decode rows and 12 spans", results=results)
+    check_fault_span_start(case)
+    _, _, short_out, wide_out = _row_tiles(case)
+    log(f"[kernels] verify spans, row tile 32 (q bucket {SPEC_Q}) against 64 (q "
+        f"bucket {2 * SPEC_Q}): outputs "
+        f"{'bit-identical' if torch.equal(short_out, wide_out) else 'within ATOL/RTOL'}")
+    check_bf16s(case, "verify 8B 4 decode rows and 12 spans")
+    check_bf16s(pin_row_max(case, gen), "verify 8B, row maxima pinned",
+                atol=ATOL, rtol=RTOL, control=True)
+    long_rows = [(1, 1), (5, 20000), (3, 16385)]
+    for fp8 in (False, True):
+        tag = "fp8 " if fp8 else ""
+        case = paged_case(gen, device, rows=rows, fp8=fp8, **w8b)
+        for window in ((0, 50) if fp8 else (50,)):
+            check_kernels(case, name=f"{tag}window {window} verify 8B", results=None,
+                          window=window)
+        case = paged_case(gen, device, rows=long_rows, fp8=fp8, **w8b)
+        check_kernels(case, name=f"{tag}window 4096 verify 8B long rows",
+                      results=None, window=4096)
+        if not fp8:
+            check_bf16s(case, "verify 8B long rows, no window")
+    r = results["paged_prefill_attention"]
+    log(f"[time] verify spans (q bucket {SPEC_Q}) paged_prefill_attention: "
+        f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}), plain "
+        f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} ({smi})")
+    return r
+
+
+def compare_row_tile(smi):
+    """The verify spans of phase_verify through the 32-row tile and the
+    64-row one, timed in turn (32, 64, 64, 32), on one card in one process."""
+    gen = torch.Generator().manual_seed(6)
+    case = paged_case(gen, "cuda", rows=verify_rows(), n_q=32, n_kv=8, hd=128,
+                      page_size=16, q_bucket=SPEC_Q)
+    c, wide, short_out, wide_out = _row_tiles(case)
+    t = [time_ms(lambda: _prefill(cs, c, pa.paged_prefill_attention))
+         for cs in (case, wide, wide, case)]
+    log(f"[compare] verify spans, row tile 32 (q bucket {SPEC_Q}) against 64 "
+        f"(q bucket {2 * SPEC_Q}), in turn: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, "
+        f"{t[3]:.4f} ms; outputs "
+        f"{'bit-identical' if torch.equal(short_out, wide_out) else 'within ATOL/RTOL'} ({smi})")
+
+
+def _bf16s(case, cache, on: bool):
+    """paged_prefill_attention with SWIFTLLM_TILE_BF16_SCORES set to `on`."""
+    old = os.environ.get("SWIFTLLM_TILE_BF16_SCORES")
+    os.environ["SWIFTLLM_TILE_BF16_SCORES"] = "1" if on else "0"
+    try:
+        return _prefill(case, cache, pa.paged_prefill_attention)
+    finally:
+        if old is None:
+            del os.environ["SWIFTLLM_TILE_BF16_SCORES"]
+        else:
+            os.environ["SWIFTLLM_TILE_BF16_SCORES"] = old
+
+
+def _bf16s_plain(case, cache):
+    return pa.paged_prefill_attention_plain(
+        case["q"], cache, case["page_table"], case["q_starts"], case["pre_lens"],
+        case["seq_lens"], case["layer"], n_kv=case["n_kv"],
+        page_size=case["page_size"], sm_scale=case["sm_scale"], bf16_scores=True)
+
+
+def check_bf16s(case, label, atol=BF16S_ATOL, rtol=BF16S_RTOL, control=False):
+    """The bf16-score kernel on `case` (its spans stored first), launched
+    once and no f32 launch, against its plain version at atol / rtol and
+    against the f32 kernel within BF16S_VS_F32, over the spans' tokens. With
+    `control` the f32 kernel must fail atol / rtol against the bf16-score
+    plain version: the tolerance then tells the two variants apart. Returns
+    (max_abs_err, the stored cache)."""
+    c = case["cache"].clone()
+    _store(case, c, pa.store_kv)
+    build.reset_launch_counts()
+    got = _bf16s(case, c, True)
+    torch.cuda.synchronize()
+    assert build.launch_counts["paged_prefill_attention_bf16s"] == 1, label
+    assert build.launch_counts["paged_prefill_attention"] == 0, label
+    f32 = _bf16s(case, c, False)
+    want = _bf16s_plain(case, c)
+    idx = _valid_tokens(case, "prefill")
+    err, med, ratio = _compare(got[idx], want[idx], atol, rtol)
+    ferr, _, fratio = _compare(got[idx], f32[idx], BF16S_VS_F32, BF16S_VS_F32)
+    _, _, cratio = _compare(f32[idx], want[idx], atol, rtol)
+    log(f"[kernels] {label} paged_prefill_attention_bf16s: max_abs_err "
+        f"{err:.3g}, median |want| {med:.3g}, worst {ratio:.3g} of the "
+        f"tolerance (atol {atol}, rtol {rtol}); against the f32 kernel "
+        f"max_abs_err {ferr:.3g}, worst {fratio:.3g} of {BF16S_VS_F32}; the f32 "
+        f"kernel against the bf16-score plain version: worst {cratio:.3g} of "
+        f"the tolerance{' (control: must exceed 1)' if control else ''}")
+    assert ratio <= 1, f"{label}: the bf16-score kernel disagrees with its plain version"
+    assert fratio <= 1, f"{label}: the bf16-score kernel strays from the f32 one"
+    assert not torch.equal(got, f32), "the variable changed nothing"
+    if control:
+        assert cratio > 1, f"{label}: the tolerance lets f32 scores pass as bf16 ones"
+    return err, c
+
+
+def pin_row_max(case, gen, gap=2.0):
+    """The case with every query of kv head h along one direction (8 u_h
+    plus N(0, 0.3) a dim) and key 0 of every row set to c u_h, c so that
+    each query's raw score with key 0 tops its score with every key of the
+    layer and of every span row that store_kv writes by `gap` (a span that
+    starts at position 0 writes key 0 itself, so its kv_new row is set
+    too): the kernel's running maximum (key 0 is in its first key tile) and
+    the plain version's row maximum are then the same m, and the two round
+    the exponent argument against the same bf16(m)."""
+    q = case["q"].float()
+    cache, kv_new = case["cache"].clone(), case["kv_new"].clone()
+    n_kv, hd, ps, layer = case["n_kv"], q.shape[2], case["page_size"], case["layer"]
+    grp = q.shape[1] // n_kv
+    g = torch.Generator(device=q.device).manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
+    slots0 = case["page_table"][:, 0].long() * ps
+    at0 = torch.isin(case["scatter"].long(), slots0[case["pre_lens"] > 0])
+    for h in range(n_kv):
+        u = torch.randn(hd, generator=g, device=q.device)
+        u = u / u.norm()
+        qh = 8 * u + 0.3 * torch.randn(q.shape[0], grp, hd, generator=g, device=q.device)
+        q[:, h * grp:(h + 1) * grp] = qh
+        qh = qh.reshape(-1, hd).bfloat16().float()
+        keys = torch.cat([cache[layer, :, h * hd:(h + 1) * hd],
+                          kv_new[:, h * hd:(h + 1) * hd]]).float()
+        top = (qh @ keys.T).amax(1)
+        c = ((top + gap) / (qh @ u)).amax()
+        cache[layer, slots0, h * hd:(h + 1) * hd] = (c * u).bfloat16()
+        kv_new[at0, h * hd:(h + 1) * hd] = (c * u).bfloat16()
+    return dict(case, q=q.bfloat16(), cache=cache, kv_new=kv_new)
+
+
+def phase_bf16s(device, smi) -> dict:
+    """The bf16-score variant on the mixed prefill case (8 decode rows and
+    chunks of 512, 512 and 300) and on a deep chunk (512 tokens after 5,488
+    keys), through check_bf16s at BF16S_ATOL / BF16S_RTOL, the mixed case
+    with its control; then the mixed case with its row maxima pinned
+    (pin_row_max) at ATOL / RTOL, with its control; an fp8 call with the
+    variable set must launch the f32 kernel. Times the mixed case beside the
+    f32 kernel."""
+    gen = torch.Generator().manual_seed(7)
+    w8b = dict(n_q=32, n_kv=8, hd=128, page_size=16, q_bucket=512)
+    mixed = ([(1, 40 + 97 * i) for i in range(8)]
+             + [(512, 512), (512, 1536), (300, 812)])
+    case = paged_case(gen, device, rows=mixed, **w8b)
+    err, c = check_bf16s(case, "mixed 8B")
+    nbytes, flops = _prefill_costs(case)
+    qd, k, v, mask = _dense_kv(case, c, "prefill")          # NOT timed
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f32_ms = time_ms(lambda: _bf16s(case, c, False))
+    row = dict(max_abs_err=err,
+               ms=time_ms(lambda: _bf16s(case, c, True)),
+               plain_ms=time_ms(lambda: _bf16s_plain(case, c), reps=3),
+               library_ms=time_ms(lambda: sdpa(qd, k, v, attn_mask=mask,
+                                               enable_gqa=True)),
+               **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
+    log("[time] mixed 8B paged_prefill_attention_bf16s: " + ", ".join(
+        f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
+        for a, b in row.items()) + f"; the f32 kernel, timed just before it, "
+        f"{f32_ms:.4f} ms ({smi})")
+    del qd, k, v, mask, c
+    check_bf16s(paged_case(gen, device, rows=[(1, 9000), (512, 6000)], **w8b),
+                "mixed 8B deep history")
+    check_bf16s(pin_row_max(case, gen), "mixed 8B, row maxima pinned",
+                atol=ATOL, rtol=RTOL, control=True)
+    # The gate: an fp8 cache keeps f32 scores whatever the variable says.
+    case = paged_case(gen, device, rows=mixed, fp8=True, **w8b)
+    c = case["cache"].clone()
+    _store(case, c, pa.store_kv)
+    build.reset_launch_counts()
+    assert torch.equal(_bf16s(case, c, True), _bf16s(case, c, False))
+    torch.cuda.synchronize()
+    assert build.launch_counts["paged_prefill_attention_bf16s"] == 0
+    log("[kernels] SWIFTLLM_TILE_BF16_SCORES=1 with an fp8 cache: the f32 "
+        "kernel, byte-equal output")
+    return row
 
 
 def time_quantize(device, smi):
@@ -1122,6 +1402,223 @@ def phase_multi_step():
     torch.cuda.empty_cache()
 
 
+def _spec_requests(ids, hists, vocab, drafts=None, fed=None):
+    """Decode-stage port Requests of rows `ids`: row i's prompt is hists[i]
+    tokens, all cached; its outputs are 17 + i, then fed[i] (tokens already
+    fed after it, cached too); it is scheduled with drafts[i] (a verify
+    span) or alone."""
+    out = []
+    for i in ids:
+        r = Request(RawRequest("", 64))
+        r.set_prompt_token_ids([(31 * i + 7 * j) % min(120000, vocab - 1) + 1
+                                for j in range(hists[i])])
+        done = list(fed[i]) if fed else []
+        r.output_token_ids = [17 + i] + done
+        r.num_cached_tokens = hists[i] + len(done)
+        r.seq_id = i
+        d = tuple(drafts[i]) if drafts else ()
+        out.append(ScheduledSeq(r, 1 + len(d), drafts=d))
+    return out
+
+
+def phase_verify_step():
+    """One speculative verify step at 8B width, 4 layers: 2 decode rows and
+    6 spec rows (drafts of 2 to 4 tokens, random) over histories of 40 to
+    719 keys, through the kernels and through the plain versions, on the
+    same weights and cache. Logits within CLEAR_MARGIN / 2 of each other,
+    per-position tokens equal where the plain run's top-2 margin exceeds
+    CLEAR_MARGIN. Then the same rows through 5 sequential single decode
+    steps (kernels), fed the same drafts: each row's verify tokens must equal
+    the sequential ones up to its first step without a clear margin."""
+    mc = LlamaModelConfig(num_layers=4, **LLAMA3_8B)
+    ec = dict(model_path="", use_dummy=True, dtype="bfloat16", block_size=16,
+              preemption_mode="recompute", num_hbm_blocks=1024,
+              max_blocks_per_seq=128, max_batch_size=16, enable_spec_decode=True,
+              spec_k=SPEC_K)
+    hists = [40 + 97 * i for i in range(8)]
+    rng = np.random.default_rng(12)
+    drafts = [()] * 2 + [tuple(int(t) for t in rng.integers(1, 120000, 2 + i % 3))
+                         for i in range(6)]
+    n = len(hists)
+    out = {}
+    first = None
+    for run, use_kernels in (("kernels", True), ("plain", False)):
+        m = LlamaModel(EngineConfig(**ec, use_pallas=use_kernels), mc, device=DEVICE)
+        if first is None:
+            m.load_weights()
+            g = torch.Generator(device=DEVICE).manual_seed(2468)
+            _randomize(m.params, g, "none")
+            m.init_kvcache_and_swap()
+            m.kv_cache.normal_(0.0, 1.0, generator=g)
+            cache0 = m.kv_cache.clone()
+            first = m
+        else:
+            m.params = first.params
+            m.init_kvcache_and_swap()
+            m.kv_cache.copy_(cache0)
+        for i, h in enumerate(hists):
+            m.hbm_block_mgrs[0].allocate_for_seq(i, h)
+        build.reset_launch_counts()
+        tokens, rows, lg = m.forward(_spec_requests(range(n), hists, mc.vocab_size,
+                                                    drafts=drafts), return_logits=True)
+        torch.cuda.synchronize()
+        assert m.last_key.spec == SPEC_Q and m.last_key.q_len == SPEC_Q
+        want = (dict(paged_decode_attention=4, store_kv=4, paged_prefill_attention=4)
+                if use_kernels else dict(paged_decode_attention=0, store_kv=0,
+                                         paged_prefill_attention=0))
+        assert {k: build.launch_counts[k] for k in want} == want, build.launch_counts
+        spans = [r.n_tokens for r in rows[:n]]
+        assert [r.request.seq_id for r in rows[:n]] == list(range(n))
+        out[run] = (tokens.reshape(-1, SPEC_Q)[:n], torch.from_numpy(lg).view(
+            -1, SPEC_Q, lg.shape[-1])[:n])
+        if run == "plain":
+            m.params = None
+        del m
+    a, b = out["kernels"][1], out["plain"][1]
+    valid = torch.zeros(n, SPEC_Q, dtype=torch.bool)
+    for i, sp in enumerate(spans):
+        valid[i, :sp] = True
+    assert torch.isfinite(a[valid]).all() and torch.isfinite(b[valid]).all()
+    diff = (a - b).abs()[valid].max().item()
+    top2 = b.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    clear = valid & (margin > CLEAR_MARGIN)
+    agree = torch.from_numpy(out["kernels"][0] == out["plain"][0])
+    log(f"[verify step] 8B width, 4 layers, 2 decode rows and 6 spec rows "
+        f"(spans {spans}), kernels against plain: max |logit diff| {diff:.4g}; "
+        f"tokens agree at {int(agree[valid].sum())}/{int(valid.sum())} positions, "
+        f"{int(clear.sum())} with margin > {CLEAR_MARGIN} all agree")
+    assert diff <= CLEAR_MARGIN / 2, f"verify step logits differ by {diff}"
+    assert bool(agree[clear].all()), "verify tokens differ on a clear-margin position"
+
+    # The same rows fed the same tokens, one decode step at a time.
+    m = LlamaModel(EngineConfig(**ec, use_pallas=True), mc, device=DEVICE)
+    m.params = first.params
+    m.init_kvcache_and_swap()
+    m.kv_cache.copy_(cache0)
+    for i, h in enumerate(hists):
+        m.hbm_block_mgrs[0].allocate_for_seq(i, h)
+    seq_tok = np.full((n, SPEC_Q), -1)
+    seq_margin = np.zeros((n, SPEC_Q))
+    for j in range(SPEC_K + 1):
+        live = [i for i in range(n) if j < spans[i]]
+        sched = _spec_requests(live, hists, mc.vocab_size,
+                               fed={i: drafts[i][:j] for i in live})
+        tokens, rows, lg = m.forward(sched, return_logits=True)
+        top2 = torch.from_numpy(lg).topk(2, dim=-1).values
+        for b_, r in enumerate(rows):
+            if r is not None:
+                i = r.request.seq_id
+                seq_tok[i, j] = tokens[b_]
+                seq_margin[i, j] = float(top2[b_, 0] - top2[b_, 1])
+    ver = out["kernels"][0]
+    checked = 0
+    for i in range(n):
+        for j in range(spans[i]):
+            if seq_margin[i, j] <= CLEAR_MARGIN:
+                break
+            assert ver[i, j] == seq_tok[i, j], (
+                f"row {i} position {j}: verify {ver[i, j]}, sequential {seq_tok[i, j]}")
+            checked += 1
+    same = int(sum((ver[i, :spans[i]] == seq_tok[i, :spans[i]]).sum() for i in range(n)))
+    log(f"[verify step] against {SPEC_K + 1} sequential decode steps fed the "
+        f"same drafts: {same}/{int(valid.sum())} positions equal, {checked} "
+        f"required (up to each row's first margin <= {CLEAR_MARGIN})")
+    m.params = None
+    del m, first, cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_prefix_step():
+    """Prefix caching through the model at 8B width, 4 layers, on random
+    weights (phase_step's kind) and a random cache: three prompts that share
+    a 1,024-token prefix, and one prompt that shares nothing, each prefilled
+    alone and in full (which registers their pages); then the three again as
+    new requests whose pages match_prefix installs (the first prompt's
+    prefix pages, and each prompt's own pages past it), their tails of 8 and
+    9 tokens prefilled in one step. At each prompt's last position, the
+    token the first decode step would take, the matched step's logits must
+    be within CLEAR_MARGIN of the full prefill's (the two schedules differ
+    in every GEMM's shape and in the attention tile) and its greedy token
+    equal where the top-2 margin exceeds twice the difference. These logits
+    depend on attention over the installed pages: a planted fault, the other
+    prompt's pages installed in their place, must move them past the bound."""
+    mc = LlamaModelConfig(num_layers=4, **LLAMA3_8B)
+    ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
+                      block_size=16, preemption_mode="recompute",
+                      num_hbm_blocks=1024, max_blocks_per_seq=128,
+                      max_batch_size=16, enable_prefix_caching=True)
+    m = LlamaModel(ec, mc, device=DEVICE)
+    m.load_weights()
+    g = torch.Generator(device=DEVICE).manual_seed(1357)
+    _randomize(m.params, g, "none")
+    m.init_kvcache_and_swap()
+    m.kv_cache.normal_(0.0, 1.0, generator=g)
+    mgr = m.hbm_block_mgrs[0]
+    top = min(120000, mc.vocab_size - 1)
+    prefix = [(11 * j) % top + 1 for j in range(SPEC_PREFIX)]
+    prompts = [prefix + [(2000 + 37 * i + 5 * j) % top + 1 for j in range(n)]
+               for i, n in enumerate((40, 57, 9))]
+    other = [(17 * j + 3) % top + 1 for j in range(len(prompts[0]))]
+
+    def request(seq_id, ids):
+        r = Request(RawRequest("", 4))
+        r.set_prompt_token_ids(ids)
+        r.seq_id = seq_id
+        return r
+
+    def step(reqs):
+        """One step of `reqs` (their uncached tails): last-position logits
+        by seq_id, and the step's kernel launches."""
+        build.reset_launch_counts()
+        _, rows, lg = m.forward([ScheduledSeq(r, r.prompt_len - r.num_cached_tokens)
+                                 for r in reqs], return_logits=True)
+        torch.cuda.synchronize()
+        return ({rows[b].request.seq_id: torch.from_numpy(lg[b])
+                 for b in range(len(rows)) if rows[b] is not None},
+                dict(build.launch_counts))
+
+    full = {}
+    for i, ids in enumerate(prompts + [other]):
+        full.update(step([request(i, ids)])[0])
+    reqs = [request(4 + i, ids) for i, ids in enumerate(prompts)]
+    matched = [m.match_prefix(r) for r in reqs]
+    assert matched == [1056, 1072, 1024], matched
+    shared = [mgr.seq_block_ids(r.seq_id)[:SPEC_PREFIX // 16].tolist() for r in reqs]
+    assert shared[1] == shared[2] == shared[0] == mgr.seq_block_ids(0)[:SPEC_PREFIX // 16].tolist()
+    got, launches = step(reqs)
+    want = dict(paged_decode_attention=4, store_kv=4, paged_prefill_attention=4)
+    assert {k: launches[k] for k in want} == want, launches
+    a = torch.stack([got[4 + i] for i in range(3)])
+    b = torch.stack([full[i] for i in range(3)])
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    diff = (a - b).abs().max().item()
+    top2 = b.topk(2, dim=-1).values
+    checked = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    agree = a.argmax(-1) == b.argmax(-1)
+    # The planted fault: prompt 0 again, with the other prompt's pages in
+    # place of the 66 it matched.
+    bad = request(7, prompts[0])
+    n = m.match_prefix(bad)
+    mgr.block_table[7, :n // 16] = mgr.block_table[3, :n // 16]
+    fault = (step([bad])[0][7] - full[0]).abs().max().item()
+    log(f"[prefix step] 8B width, 4 layers: 3 prompts sharing a {SPEC_PREFIX}-token "
+        f"prefix, matched {matched} tokens, their tails in one step against "
+        f"their full prefills: max |logit diff| {diff:.4g} (logit std "
+        f"{b.std().item():.4g}, bound {CLEAR_MARGIN}); greedy tokens agree on "
+        f"{int(agree.sum())}/3, {int(checked.sum())} with margin > 2x diff all "
+        f"agree; planted fault (another prompt's pages installed): max |logit "
+        f"diff| {fault:.4g}")
+    assert diff <= CLEAR_MARGIN, f"prefix-matched logits differ by {diff}"
+    assert bool(agree[checked].all()), "prefix-matched tokens differ on a clear margin"
+    assert fault > CLEAR_MARGIN, "the bound lets a prefix match install the wrong pages"
+    m.params = None
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 PROMPT_LENS = [17, 100, 250, 400, 600, 900, 1200, 1500]
 # The serving runs, in order: name -> (model widths, engine options, the 8
 # prompts' lengths, the length of one more prompt served alone or None).
@@ -1364,11 +1861,233 @@ async def _http(engine, mgr, free0, logprobs=False):
         await runner.cleanup()
 
 
+def _successor_weights(params, g):
+    """Weights of a model whose greedy continuation is known and robust:
+    the next token is succ(t), the successor of the last one inside its
+    block of 8 (t -> t+1, and the block's last back to its first), with a
+    top-2 logit margin in the thousands. Embeddings N(0, 1), lm_head row
+    succ(t) = embed row t, unit norms, every projection N(0, 0.002): the 32
+    layers move the residual stream by about a tenth of the embedding, so
+    attention and the MLPs run on real values and the argmax stays put. A
+    verify step and a decode step round differently (other kernels, other
+    GEMM shapes); near-tied logits would then turn a correct draft into a
+    rejection by rounding alone. The sequence cycles with period 8, which
+    the n-gram proposer finds once a cycle has been generated."""
+    for k, t in params["layers"].items():
+        if "norm" in k:
+            t.fill_(1.0)
+        else:
+            t.normal_(0.0, 0.002, generator=g)
+    params["final_norm"].fill_(1.0)
+    embed, lm_head = params["embed"], params["lm_head"]
+    assert lm_head.data_ptr() != embed.data_ptr(), "needs an untied lm_head"
+    embed.normal_(0.0, 1.0, generator=g)
+    V = embed.shape[0]
+    assert V % 8 == 0
+    t = torch.arange(V, device=embed.device)
+    lm_head[(t & ~7) | ((t + 1) & 7)] = embed
+
+
+def successor(t: int) -> int:
+    return (t & ~7) | ((t + 1) & 7)
+
+
+SPEC_PREFIX = 1024
+SPEC_OUT_LEN = 32
+
+
+async def serve_spec(smi: str) -> dict:
+    """Phase 4, speculative decoding and prefix caching: a full-width 8B
+    bf16 engine with enable_spec_decode (spec_k 4) and enable_prefix_caching,
+    weights from _successor_weights, warmed up (verify buckets included).
+    In turn: (1) 8 requests sharing a 1,024-token prefix with distinct
+    suffixes, the first alone, then 7: matched tokens, the second wave's
+    TTFT, the shared pages byte-unchanged by it; (2) the 8 prompts of the
+    bf16 run with spec off (the reference, "plain"); (3) the same with the
+    n-gram proposer; (4) the same with an oracle proposing the plain run's
+    continuation and SWIFTLLM_TILE_BF16_SCORES=1; (2)-(4) with prefix
+    matching off, so that none rides the pages of another. Every wave: every
+    token the successor of the one before, tokens equal to the plain run's,
+    pages back, and per step one launch a layer of the decode kernel, and of
+    store_kv and the prefill kernel (or its bf16-score variant) when the q
+    bucket is above 1. The weights set the next token from the last one
+    alone, with margins in the thousands: these checks hold the paths, the
+    launches and the accept loop, not attention's values, which
+    phase_verify_step and phase_prefix_step hold. Returns each kernel's
+    launches over the waves."""
+    from swiftllm_tpu_torch.server import spec as spec_mod
+    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
+                      preemption_mode="recompute", enable_spec_decode=True,
+                      spec_k=SPEC_K, enable_prefix_caching=True)
+    t0 = time.perf_counter()
+    engine = Engine(ec, mc, device=DEVICE)
+    await engine.initialize(tokenizer_backend="inline")
+    model = engine.model
+    _successor_weights(model.params, torch.Generator(device=DEVICE).manual_seed(55))
+    keys = []
+    execute = model.execute_packed
+
+    def spy(flat, key, *a):
+        keys.append(key)
+        return execute(flat, key, *a)
+    model.execute_packed = spy
+    await engine.warmup()
+    warm = [k for k in keys if k.spec]
+    assert warm and {k.q_len for k in warm} == {SPEC_Q}, keys
+    mgr = model.hbm_block_mgrs[0]
+    free0 = mgr.num_free_blocks
+    log(f"[serve spec] engine up and warmed in {time.perf_counter() - t0:.1f} s "
+        f"({len(keys)} warm-up steps, {len(warm)} of them verify steps); "
+        f"{model.num_hbm_blocks} pages of {ec.block_size}")
+    matched = []
+    real_match = model.match_prefix
+
+    def match(req):
+        n = real_match(req)
+        matched.append((req.seq_id, n, mgr.seq_block_ids(req.seq_id)[:n // ec.block_size].tolist()))
+        return n
+    engine.scheduler.prefix_matcher = match
+    loops = asyncio.create_task(engine.start_all_event_loops())
+    top = min(128000, mc.vocab_size - 1)
+    totals = dict.fromkeys(build.KERNELS, 0)
+
+    async def wave(name, prompts, bf16s=False):
+        keys.clear()
+        build.reset_launch_counts()
+        st0 = engine.stats.snapshot()
+        os.environ["SWIFTLLM_TILE_BF16_SCORES"] = "1" if bf16s else "0"
+
+        async def one(ids):
+            t_sub = time.perf_counter()
+            req = engine.submit(RawRequest("", SPEC_OUT_LEN, prompt_token_ids=ids))
+            stamps, toks = [], []
+            async for so in engine.stream_outputs(req):
+                stamps.append(time.perf_counter())
+                toks.append(so.token_id)
+            return t_sub, stamps, toks
+        try:
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            res = await asyncio.gather(*[one(p) for p in prompts])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+        finally:
+            os.environ.pop("SWIFTLLM_TILE_BF16_SCORES")
+        await _pages_back(mgr, free0)
+        launches = dict(build.launch_counts)
+        st = {k: engine.stats.snapshot()[k] - st0[k] for k in
+              ("num_spec_drafted", "num_spec_accepted")}
+        steps = len(keys)
+        big = sum(k.q_len > 1 for k in keys)
+        verify = sum(k.spec > 0 for k in keys)
+        pre = "paged_prefill_attention_bf16s" if bf16s else "paged_prefill_attention"
+        want = {"paged_decode_attention": 32 * steps, "store_kv": 32 * big,
+                pre: 32 * big}
+        want["paged_prefill_attention" if bf16s else "paged_prefill_attention_bf16s"] = 0
+        assert {k: launches[k] for k in want} == want, (name, launches, want)
+        for k in totals:
+            totals[k] += launches[k]
+        outs = [toks for _, _, toks in res]
+        for p, toks in zip(prompts, outs):
+            assert len(toks) == SPEC_OUT_LEN, (name, len(toks))
+            seq = [p[-1]] + toks
+            assert all(b == successor(a) for a, b in zip(seq, seq[1:])), (name, seq[:12])
+        first = max(stt[0] for _, stt, _ in res)
+        last = max(stt[-1] for _, stt, _ in res)
+        n_after = sum(1 for _, stt, _ in res for x in stt if x > first)
+        ttft = sorted(stt[0] - t for t, stt, _ in res)
+        log(f"[serve spec] {name}: {len(prompts)} requests, {SPEC_OUT_LEN} tokens "
+            f"each, in {wall:.3f} s; {steps} steps ({big} with q bucket > 1, "
+            f"{verify} verify: {32 * verify} of the {32 * big} store_kv and "
+            f"prefill launches); drafted {st['num_spec_drafted']}, accepted "
+            f"{st['num_spec_accepted']}; TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} "
+            f"ms, max {1e3 * ttft[-1]:.1f} ms; decode "
+            f"{n_after / max(last - first, 1e-9):.1f} tok/s ({n_after} tokens after "
+            f"the last first token); launches {launches} ({smi})")
+        return outs, steps, st, ttft
+
+    try:
+        # (1) A shared 1,024-token prefix: one request alone, then seven.
+        prefix = [(7 * j) % top + 1 for j in range(SPEC_PREFIX)]
+        suffixes = [[(1000 + 31 * i + 3 * j) % top + 1 for j in range(40 + 10 * i)]
+                    for i in range(8)]
+        await wave("prefix wave 1 (1 request)", [prefix + suffixes[0]])
+        shared = [p for sid, n, pages in matched for p in pages]
+        assert not shared, matched
+        # The first request's prefix pages: the registered chain of pages.
+        chain, parent = [], -1
+        for i in range(SPEC_PREFIX // ec.block_size):
+            parent = mgr._prefix_map[
+                (parent, tuple(prefix[i * ec.block_size:(i + 1) * ec.block_size]))]
+            chain.append(parent)
+        slots = (torch.tensor(chain, device=DEVICE)[:, None] * ec.block_size
+                 + torch.arange(ec.block_size, device=DEVICE)[None, :]).reshape(-1)
+        before = model.kv_cache[:, slots].clone()
+        matched.clear()
+        _, _, _, ttft2 = await wave("prefix wave 2 (7 requests)",
+                                    [prefix + sfx for sfx in suffixes[1:]])
+        assert len(matched) == 7 and all(n == SPEC_PREFIX and pg == chain
+                                         for _, n, pg in matched), matched
+        assert torch.equal(model.kv_cache[:, slots].view(torch.int16),
+                           before.view(torch.int16)), "wave 2 changed the shared pages"
+        log(f"[serve spec] prefix: each of the 7 matched {SPEC_PREFIX} tokens "
+            f"({len(chain)} pages, the first request's); the shared pages are "
+            f"byte-unchanged after wave 2 ({before.numel() * 2 / 1e6:.1f} MB); "
+            f"wave 2 TTFT p50 {1e3 * ttft2[len(ttft2) // 2]:.1f} ms")
+        del before
+        # (2)-(4) The bf16 run's prompts: plain, n-gram drafts, oracle drafts,
+        # with prefix matching off, so that each wave prefills its prompts in
+        # full and the three differ in their decode and verify steps alone.
+        engine.scheduler.prefix_matcher = None
+        prompts = [[(13 * i + 5 * j) % top + 1 for j in range(n)]
+                   for i, n in enumerate(PROMPT_LENS)]
+        ec.enable_spec_decode = False
+        plain, plain_steps, _, _ = await wave("plain (spec off)", prompts)
+        ec.enable_spec_decode = True
+        ngram, ngram_steps, st, _ = await wave("n-gram drafts", prompts)
+        assert ngram == plain, "n-gram spec tokens differ from plain"
+        seqs = [p + o for p, o in zip(prompts, plain)]
+
+        def oracle(tokens, k, ngram_max=3, ngram_min=2):
+            ctx = tokens.tolist()
+            for sq in seqs:
+                if len(ctx) < len(sq) and sq[:len(ctx)] == ctx:
+                    return sq[len(ctx):len(ctx) + k]
+            return []
+        real_propose = spec_mod.propose
+        spec_mod.propose = oracle
+        try:
+            orc, orc_steps, st, _ = await wave("oracle drafts, bf16 scores", prompts,
+                                               bf16s=True)
+        finally:
+            spec_mod.propose = real_propose
+        equal = [a == b for a, b in zip(orc, plain)]
+        log(f"[serve spec] oracle: accepted {st['num_spec_accepted']} of "
+            f"{st['num_spec_drafted']} drafts, {orc_steps} steps against "
+            f"{plain_steps} plain and {ngram_steps} with n-gram drafts; tokens "
+            f"equal to the plain run per request: {equal}")
+        assert st["num_spec_accepted"] == st["num_spec_drafted"] > 0, st
+        assert orc_steps < plain_steps and all(equal)
+    finally:
+        loops.cancel()
+        await asyncio.wait([loops])
+    model.params = model.kv_cache = model.token_feedback = None
+    del engine, model, mgr, loops
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    assert left < 2**30, f"{left / 1e9:.2f} GB still allocated after release"
+    return totals
+
+
 async def phase_serve(smi: str, quantize_ms: dict) -> dict:
-    """Phases 4-5: the engines of SERVE_RUNS, one after another."""
+    """Phases 4-5: the engines of SERVE_RUNS, one after another, then the
+    speculative-decoding engine."""
     pools, outputs = {}, {}
     launches = {name: await serve_engine(name, smi, pools, quantize_ms, outputs)
                 for name in SERVE_RUNS}
+    launches["spec"] = await serve_spec(smi)
     # The same requests through single steps, fused windows and deferred
     # windows: every request's tokens equal, the greedy and the seeded
     # sampled ones alike.
@@ -1523,6 +2242,9 @@ def main() -> int:
     if sys.argv[1:] == ["--compare-multi-step"]:
         asyncio.run(compare_multi_step(smi))
         return 0
+    if sys.argv[1:] == ["--compare-row-tile"]:
+        compare_row_tile(smi)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -1533,6 +2255,8 @@ def main() -> int:
 
     results = phase_kernels("cuda")
     results["paged_decode_attention_pend"] = phase_pend("cuda", smi)
+    phase_verify("cuda", smi)
+    results["paged_prefill_attention_bf16s"] = phase_bf16s("cuda", smi)
     quantize_ms = time_quantize("cuda", smi)
     time_sampler("cuda", smi)
     torch.cuda.empty_cache()
@@ -1543,12 +2267,18 @@ def main() -> int:
     phase_step("int4", kv_quant="fp8")
     phase_step(mistral=True)
     phase_multi_step()
+    phase_verify_step()
+    phase_prefix_step()
     launches = asyncio.run(phase_serve(smi, quantize_ms))
-    # Launches: the attention kernels' on the bf16 serving run (the path of
-    # the slice that brought them), int4_matmul's on the INT4 run, the `pend`
-    # variant's on the deferred multi-step run; the other runs' counts are
-    # asserted and logged by their runs.
-    run_of = {"int4_matmul": "int4", "paged_decode_attention_pend": "ms8defer"}
+    # Launches: the decode kernel's and store_kv's on the bf16 serving run
+    # (the path of the slice that brought them), int4_matmul's on the INT4
+    # run, the `pend` variant's on the deferred multi-step run, the prefill
+    # kernel's and its bf16-score variant's on the speculative-decoding
+    # engine's waves; the other runs' counts are asserted and logged by their
+    # runs.
+    run_of = {"int4_matmul": "int4", "paged_decode_attention_pend": "ms8defer",
+              "paged_prefill_attention": "spec",
+              "paged_prefill_attention_bf16s": "spec"}
     kernels = [dict(name=n, route="cuda", source=SOURCE_OF[n],
                     replaces=REPLACES[n],
                     launches=launches[run_of.get(n, "none")][n], **results[n])

@@ -351,10 +351,18 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                   batch: StepBatch, *, cfg: LlamaModelConfig, page_size: int,
                   q_bucket: int, use_kernels: bool,
                   return_logits: bool = False, use_sampler: bool = False,
-                  return_logprobs: bool = False, kv_pend=None, npend: int = 0):
+                  return_logprobs: bool = False, kv_pend=None, npend: int = 0,
+                  sample_span: int = 0):
     """One step: embedding, the layers, the final norm, the sampling head and
     the feedback write. ``kv_cache`` [L, S, W] and ``feedback`` i32[F] are
     updated IN PLACE (JAX donates them and returns new arrays).
+
+    ``sample_span`` S1 > 0 (speculative verify steps): the head reads EVERY
+    one of the first S1 positions of each row's span (pad positions read the
+    zero row), so tokens, logits and logprobs come out [B * S1], row-major.
+    Each row's sampler knobs repeat over its span, position j's seed is the
+    row's seed + j (mod 2^32), and the feedback buffer gets each row's token
+    at its last valid position. The engine's accept loop reads the rest.
 
     ``use_sampler`` (the bucket key's sampling bit) picks ``sample_tokens``
     over the greedy head, so an all-greedy batch never pays for the sampler.
@@ -363,7 +371,10 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     rows ``kv_new[:B]`` come back stacked.
 
     Returns (tokens i32[B], logits f32[B, V] or None[, logprobs f32[B] with
-    ``return_logprobs``][, kv_rows [L, B, W] with ``kv_pend``])."""
+    ``return_logprobs``][, kv_rows [L, B, W] with ``kv_pend``]); B becomes
+    B * S1 with ``sample_span``."""
+    assert not (sample_span and kv_pend is not None), \
+        "verify steps are single steps"
     T = batch.token_ids.shape[0]
     hd = cfg.head_dim
     sm_scale = 1.0 / math.sqrt(hd)
@@ -427,29 +438,50 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
     x = rms_norm(x, params["final_norm"], eps)
 
-    # The head reads each row's last fed token (pad rows -> the zero row).
-    last_tok = torch.where(batch.q_lens > 0,
-                           batch.q_starts + batch.q_lens - 1, T).clamp(0, T)
+    # The head reads each row's last fed token (pad rows -> the zero row),
+    # or, in a verify step, every position of its span.
+    B = batch.q_lens.shape[0]
     x_pad = torch.cat([x, x.new_zeros(1, x.shape[1])])
-    h_last = x_pad[last_tok]                                         # [B, D]
+    if sample_span:
+        sp = torch.arange(sample_span, device=x.device)
+        sel_tok = torch.where(sp[None, :] < batch.q_lens[:, None],
+                              batch.q_starts[:, None] + sp[None, :], T)
+        h_last = x_pad[sel_tok.reshape(-1).clamp(0, T)]              # [B*S1, D]
+    else:
+        last_tok = torch.where(batch.q_lens > 0,
+                               batch.q_starts + batch.q_lens - 1, T).clamp(0, T)
+        h_last = x_pad[last_tok]                                     # [B, D]
     lm_head = params["lm_head"]
     if is_quantized(lm_head):    # [V, D], the [out, in] layout proj takes
         logits = proj(h_last, lm_head).float()                       # [B, V]
     else:
         logits = (h_last @ lm_head.to(h_last.dtype).T).float()       # [B, V]
+    knobs = dict(temperature=batch.temperature, top_p=batch.top_p,
+                 top_k=batch.top_k, seeds=batch.seeds)
+    if sample_span:
+        # Per-position knobs: each row's repeated over its span, the seed
+        # advanced by the position (the JAX package's uint32 sum wraps).
+        knobs = {k: v.repeat_interleave(sample_span) for k, v in knobs.items()}
+        knobs["seeds"] = (knobs["seeds"].long()
+                          + torch.arange(sample_span, device=x.device).repeat(B)
+                          ) & 0xFFFFFFFF
     if use_sampler:
-        tokens = sample_tokens(logits, temperature=batch.temperature,
-                               top_p=batch.top_p, top_k=batch.top_k,
-                               seeds=batch.seeds)
+        tokens = sample_tokens(logits, **knobs)
     else:
         tokens = exact_greedy(logits)
 
-    # Publish samples to the feedback buffer. Pad rows target the garbage
+    # Publish samples to the feedback buffer: in a verify step, each row's
+    # token at its last valid position (the host's accept loop resolves the
+    # token the row really continues with). Pad rows target the garbage
     # slot (the last); an out-of-range slot is redirected there too, where
     # JAX would drop the write.
+    fb_val = tokens
+    if sample_span:
+        last = (batch.q_lens - 1).clamp(0, sample_span - 1).long()
+        fb_val = tokens.view(B, sample_span).gather(1, last[:, None])[:, 0]
     fw = batch.feedback_write
     fw = torch.where((fw >= 0) & (fw < f_len), fw, f_len - 1).long()
-    feedback[fw] = tokens
+    feedback[fw] = fb_val
     out = (tokens, logits if return_logits else None)
     if return_logprobs:
         out += (chosen_logprobs(logits, tokens),)

@@ -2,10 +2,11 @@
 
 Every kernel has a plain C entry of its own name in a source in ``csrc/``
 (a source may hold several: the decode kernel and its deferred-commit
-variant share one). ``build_kernels`` compiles each missing source with
-``nvcc`` for ``sm_90a`` into ``_build/`` beside this file (one process per
-source, all started together), names the library by the hash of its source
-and ``common.cuh``, and loads it with ``ctypes``. Nothing is built when a module
+variant share one, the prefill kernel and its bf16-score variant another).
+``build_kernels`` compiles each missing source with ``nvcc`` for ``sm_90a``
+into ``_build/`` beside this file (one process per source, all started
+together), names the library by the hash of its source and ``common.cuh``,
+and loads it with ``ctypes``. Nothing is built when a module
 is imported: the first launch builds its kernel, or a caller builds them all
 up front. The wrappers in ``paged_attention.py`` and ``int4_matmul.py`` launch
 through ``entry`` and report each launch with ``check_launch``, which adds
@@ -48,6 +49,10 @@ SOURCES = {
     # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, window, kv_fp8,
     # sm_scale, stream
     "paged_prefill_attention": ("paged_prefill.cu", [_P] * 7 + [_I] * 11 + [_F, _P]),
+    # q, cache, page_table, q_starts, q_lens, seq_lens, out,
+    # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
+    "paged_prefill_attention_bf16s": ("paged_prefill.cu",
+                                      [_P] * 7 + [_I] * 9 + [_F, _P]),
     # x, q4, s, y, workspace, T, N, K, layer, splits, stream
     "int4_matmul": ("int4_matmul.cu", [_P] * 5 + [_I] * 5 + [_P]),
 }

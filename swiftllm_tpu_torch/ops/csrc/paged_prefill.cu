@@ -1,9 +1,10 @@
-// Ragged causal paged attention for multi-token (prefill and chunked-prefill)
-// rows.
+// Ragged causal paged attention for multi-token rows: prefill chunks, and
+// the spans of a speculative verify step.
 //
 // Replaces: swiftllm_tpu/ops/paged_attention.py:_tiles_kernel (the
 // q_bucket > 1 branch of ragged_paged_attention). Its fused span write is the
-// separate store_kv launch (store_kv.cu), queued before this one.
+// separate store_kv launch (store_kv.cu), queued before this one; that split
+// is the TPU kernel's unfused mode, which its verify steps take.
 //
 // What it computes: row b's q_lens[b] queries are flat tokens q_starts[b] ..
 // q_starts[b]+q_lens[b]-1 and the last positions of a seq_lens[b]-long
@@ -11,7 +12,15 @@
 // 0 .. seq_len-q_len+i (causal within the tail), with GQA and an f32 online
 // softmax. Tokens of no row are left as the caller allocated them.
 //
-// Two variants of the same body, as in the TPU kernel:
+// Spans that start anywhere. Nothing here assumes a page-aligned span or an
+// aligned q_starts: a verify span ([next token] + drafts, at most q_bucket =
+// next_pow2(spec_k + 1) tokens) starts and ends mid-page, and each query's
+// position comes from seq_len - q_len alone. Keys at or past seq_len are
+// never read (the walk stops at the block's last query), so the stale rows
+// of rejected drafts that a later slot may still hold are invisible once
+// seq_len is short of them.
+//
+// Three variants of the same body, as in the TPU kernel:
 // - An fp8 cache (the KV template parameter): rows of e4m3 bytes that end in
 //   128 scale lanes (common.cuh). The bytes become bf16 on their way into
 //   shared memory (exact), and each staged key's two inverse scales go
@@ -24,10 +33,18 @@
 //   a row whose keys of a tile are all masked keeps its m, l and acc (both m
 //   and the tile's maximum are the finite kNegBig then, so the rescale
 //   factor is exp(0) = 1 on an accumulator that is still 0).
+// - bf16 scores (the BF16S template parameter; its own C entry,
+//   paged_prefill_attention_bf16s; TPU: the SWIFTLLM_TILE_BF16_SCORES mode,
+//   paged_attention.py:1163-1246), for a bf16 cache without a window only.
+//   The softmax runs in log2 space and rounds where the TPU kernel rounds:
+//   the raw score q . k to bf16; the exponent argument s * K2E - m (K2E =
+//   sm_scale * log2(e), itself rounded to bf16, and m rounded to bf16 for
+//   the subtraction) to bf16 after each of its two operations; exp2 of it,
+//   P, to bf16 before the P.V product. m, l and the accumulator stay f32.
 //
 // What bounds it on the H100: for a long prefill, operations (4*HD flops per
 // query-key pair and head, against K/V bytes that every query tile re-reads);
-// for a short chunk over a long history, bytes.
+// for a short chunk or a verify span over a long history, bytes.
 //
 // What this simple design does about it: one block per (row, q tile, kv head)
 // holds 64 query rows (64/GROUP tokens times the GROUP query heads of the kv
@@ -36,6 +53,11 @@
 // query. Scores and P.V run on the CUDA cores in f32 (each thread owns 4 rows
 // by 4 keys of the scores and 4 rows by HD/8 dims of the output); moving them
 // to wgmma with TMA-fed tiles is the later step to the tensor-core bound.
+// Short spans take a block of 32 rows instead (2 rows a thread), chosen from
+// q_bucket: a verify step's bucket of 8 tokens at GQA group 4 is 32 rows, of
+// which a span of at most 5 tokens fills 20; a 64-row block would spend the
+// same time per key tile on 44 empty rows. Each block's walk over its row's
+// history is serial, so a verify step's time is that of its longest row.
 
 #include "common.cuh"
 
@@ -43,13 +65,22 @@ namespace swiftllm {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kRows = 64;   // query rows (token x head) per block
 constexpr int kTK = 32;     // keys per tile
 constexpr int kPad = 8;     // bf16 of padding per shared row: spreads banks
-constexpr int kRPT = 4;     // rows per thread (kRows / 16)
 constexpr int kKPT = 4;     // keys per thread (kTK / 8)
+// Query rows (token x head) per block: 64, or 32 for short spans (q_bucket
+// * GROUP <= 32: a verify step's 8 tokens at GROUP 4), which halves the
+// work of every key tile of a block that would hold at most 20 live rows.
+constexpr int kRowsLong = 64;
+constexpr int kRowsShort = 32;
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD, int GROUP, typename KV>
+// x rounded to the nearest bf16 (ties to even), back in an f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+template <int HD, int GROUP, typename KV, bool BF16S, int ROWS>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
                      const int* __restrict__ page_table,
@@ -59,7 +90,9 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
                      int Pg, int n_kv, int S, int layer, int page_size,
                      int window, float sm_scale) {
   constexpr int SL = ScaleLanes<KV>::value;
-  constexpr int TQ = kRows / GROUP;  // query tokens per block
+  static_assert(!BF16S || SL == 0, "bf16 scores take a bf16 cache");
+  constexpr int kRPT = ROWS / 16;     // rows per thread
+  constexpr int TQ = ROWS / GROUP;   // query tokens per block
   constexpr int DPT = HD / 8;        // output dims per thread
   constexpr int VPR = HD / 8;        // 16-byte vectors per head row
   const int b = blockIdx.x;
@@ -79,10 +112,10 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
   const int* pt = page_table + static_cast<int64_t>(b) * Pg;
   const int n_pages = S / page_size;
 
-  __shared__ __align__(16) bf16 Qs[kRows][HD + kPad];
+  __shared__ __align__(16) bf16 Qs[ROWS][HD + kPad];
   __shared__ __align__(16) bf16 Ks[kTK][HD + kPad];
   __shared__ __align__(16) bf16 Vs[kTK][HD + kPad];
-  __shared__ float Ps[kRows][kTK + 1];
+  __shared__ float Ps[ROWS][kTK + 1];
   __shared__ float inv_ks[kTK], inv_vs[kTK];  // 1 / scale of each staged key
 
   const int tid = threadIdx.x;
@@ -90,7 +123,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
   const int tk = tid % 8;
 
   // Query rows r = g*TQ + qi: token qi of the tile, query head h*GROUP + g.
-  for (int i = tid; i < kRows * VPR; i += kThreads) {
+  for (int i = tid; i < ROWS * VPR; i += kThreads) {
     const int r = i / VPR;
     const int c = (i % VPR) * 8;
     const int g = r / TQ;
@@ -183,24 +216,44 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
         const int key = k0 + tk + 8 * j;
         valid[j] = row_ok[i] && key <= qpos[i] &&
                    (window <= 0 || key > qpos[i] - window);
-        s[i][j] *= sm_scale;
-        if constexpr (SL > 0) s[i][j] *= inv_ks[tk + 8 * j];
+        if constexpr (BF16S) {
+          s[i][j] = round_bf16(s[i][j]);          // raw score, bf16
+        } else {
+          s[i][j] *= sm_scale;
+          if constexpr (SL > 0) s[i][j] *= inv_ks[tk + 8 * j];
+        }
         if (valid[j]) tmax = fmaxf(tmax, s[i][j]);
       }
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float mn = fmaxf(m[i], tmax);
-      const float c = expf(m[i] - mn);
-      float rsum = 0.f;
+      float mn, c, rsum = 0.f;
+      if constexpr (BF16S) {
+        // m in log2 space: the raw maximum times K2E in f32.
+        const float k2e = sm_scale * kLog2e;
+        const float k2e_b = round_bf16(k2e);
+        mn = fmaxf(m[i], tmax == kNegBig ? kNegBig : tmax * k2e);
+        c = exp2f(m[i] - mn);
+        const float mn_b = round_bf16(mn);
 #pragma unroll
-      for (int j = 0; j < kKPT; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - mn) : 0.f;
-        if constexpr (SL > 0)
-          Ps[tr + 16 * i][tk + 8 * j] = p * inv_vs[tk + 8 * j];
-        else
+        for (int j = 0; j < kKPT; ++j) {
+          const float arg = round_bf16(round_bf16(s[i][j] * k2e_b) - mn_b);
+          const float p = valid[j] ? round_bf16(exp2f(arg)) : 0.f;
           Ps[tr + 16 * i][tk + 8 * j] = p;
-        rsum += p;
+          rsum += p;
+        }
+      } else {
+        mn = fmaxf(m[i], tmax);
+        c = expf(m[i] - mn);
+#pragma unroll
+        for (int j = 0; j < kKPT; ++j) {
+          const float p = valid[j] ? expf(s[i][j] - mn) : 0.f;
+          if constexpr (SL > 0)
+            Ps[tr + 16 * i][tk + 8 * j] = p * inv_vs[tk + 8 * j];
+          else
+            Ps[tr + 16 * i][tk + 8 * j] = p;
+          rsum += p;
+        }
       }
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
@@ -239,13 +292,15 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
   }
 }
 
-template <int HD, int GROUP, typename KV>
-void launch(const void* q, const void* cache, const void* pt,
-            const void* q_starts, const void* q_lens, const void* seq_lens,
-            void* out, int B, int n_tiles, int Pg, int n_kv, int S, int layer,
-            int page_size, int window, float sm_scale, cudaStream_t stream) {
-  paged_prefill_kernel<HD, GROUP, KV>
-      <<<dim3(B, n_tiles, n_kv), kThreads, 0, stream>>>(
+template <int HD, int GROUP, typename KV, bool BF16S, int ROWS>
+void launch_rows(const void* q, const void* cache, const void* pt,
+                 const void* q_starts, const void* q_lens, const void* seq_lens,
+                 void* out, int B, int q_bucket, int Pg, int n_kv, int S,
+                 int layer, int page_size, int window, float sm_scale,
+                 cudaStream_t stream) {
+  constexpr int TQ = ROWS / GROUP;
+  paged_prefill_kernel<HD, GROUP, KV, BF16S, ROWS>
+      <<<dim3(B, (q_bucket + TQ - 1) / TQ, n_kv), kThreads, 0, stream>>>(
           static_cast<const bf16*>(q), static_cast<const KV*>(cache),
           static_cast<const int*>(pt), static_cast<const int*>(q_starts),
           static_cast<const int*>(q_lens), static_cast<const int*>(seq_lens),
@@ -253,14 +308,36 @@ void launch(const void* q, const void* cache, const void* pt,
           sm_scale);
 }
 
+// One launch; the row tile follows from q_bucket (see kRowsShort).
+template <int HD, int GROUP, typename KV, bool BF16S = false>
+void launch(const void* q, const void* cache, const void* pt,
+            const void* q_starts, const void* q_lens, const void* seq_lens,
+            void* out, int B, int q_bucket, int Pg, int n_kv, int S, int layer,
+            int page_size, int window, float sm_scale, cudaStream_t stream) {
+  if (q_bucket * GROUP <= kRowsShort)
+    launch_rows<HD, GROUP, KV, BF16S, kRowsShort>(
+        q, cache, pt, q_starts, q_lens, seq_lens, out, B, q_bucket, Pg, n_kv,
+        S, layer, page_size, window, sm_scale, stream);
+  else
+    launch_rows<HD, GROUP, KV, BF16S, kRowsLong>(
+        q, cache, pt, q_starts, q_lens, seq_lens, out, B, q_bucket, Pg, n_kv,
+        S, layer, page_size, window, sm_scale, stream);
+}
+
 }  // namespace
 }  // namespace swiftllm
 
-// C entry, bound with ctypes. q_bucket bounds every row's q_len; it sets the
-// grid's tile axis. kv_fp8 != 0: the cache holds e4m3 rows with the scale
-// lanes; else bf16. window: 0 = full causal. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a head_dim / GQA group it has no
-// instance for.
+#define SWIFTLLM_PREFILL_INSTANCES(CASE) \
+  CASE(64, 1) CASE(64, 2) CASE(64, 4) CASE(64, 8)   \
+  CASE(128, 1) CASE(128, 2) CASE(128, 4) CASE(128, 8)
+
+// C entries, bound with ctypes. q_bucket bounds every row's q_len; it sets
+// the grid's tile axis and the row tile (kRowsShort when q_bucket * GROUP
+// <= 32, else kRowsLong). Each returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a head_dim / GQA group it has no instance for.
+//
+// paged_prefill_attention: kv_fp8 != 0: the cache holds e4m3 rows with the
+// scale lanes; else bf16. window: 0 = full causal.
 extern "C" int paged_prefill_attention(const void* q, const void* cache,
                                        const void* page_table,
                                        const void* q_starts, const void* q_lens,
@@ -274,25 +351,40 @@ extern "C" int paged_prefill_attention(const void* q, const void* cache,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWIFTLLM_PREFILL_CASE(HD_, G_)                                         \
   if (hd == HD_ && group == G_) {                                              \
-    const int tiles = (q_bucket + kRows / G_ - 1) / (kRows / G_);              \
     if (kv_fp8)                                                                \
       launch<HD_, G_, fp8>(q, cache, page_table, q_starts, q_lens, seq_lens,   \
-                           out, B, tiles, Pg, n_kv, S, layer, page_size,       \
+                           out, B, q_bucket, Pg, n_kv, S, layer, page_size,    \
                            window, sm_scale, st);                              \
     else                                                                       \
       launch<HD_, G_, bf16>(q, cache, page_table, q_starts, q_lens, seq_lens,  \
-                            out, B, tiles, Pg, n_kv, S, layer, page_size,      \
+                            out, B, q_bucket, Pg, n_kv, S, layer, page_size,   \
                             window, sm_scale, st);                             \
     return static_cast<int>(cudaGetLastError());                               \
   }
-  SWIFTLLM_PREFILL_CASE(64, 1)
-  SWIFTLLM_PREFILL_CASE(64, 2)
-  SWIFTLLM_PREFILL_CASE(64, 4)
-  SWIFTLLM_PREFILL_CASE(64, 8)
-  SWIFTLLM_PREFILL_CASE(128, 1)
-  SWIFTLLM_PREFILL_CASE(128, 2)
-  SWIFTLLM_PREFILL_CASE(128, 4)
-  SWIFTLLM_PREFILL_CASE(128, 8)
+  SWIFTLLM_PREFILL_INSTANCES(SWIFTLLM_PREFILL_CASE)
 #undef SWIFTLLM_PREFILL_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// paged_prefill_attention_bf16s: the bf16-score variant. A bf16 cache and no
+// window (the TPU kernel's gate): it takes neither argument.
+extern "C" int paged_prefill_attention_bf16s(
+    const void* q, const void* cache, const void* page_table,
+    const void* q_starts, const void* q_lens, const void* seq_lens, void* out,
+    int B, int q_bucket, int Pg, int n_q, int n_kv, int hd, int S, int layer,
+    int page_size, float sm_scale, void* stream) {
+  using namespace swiftllm;
+  const int group = n_q / n_kv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SWIFTLLM_PREFILL_CASE(HD_, G_)                                         \
+  if (hd == HD_ && group == G_) {                                              \
+    launch<HD_, G_, bf16, true>(q, cache, page_table, q_starts, q_lens,        \
+                                seq_lens, out, B, q_bucket, Pg, n_kv, S,       \
+                                layer, page_size, 0, sm_scale, st);            \
+    return static_cast<int>(cudaGetLastError());                               \
+  }
+  SWIFTLLM_PREFILL_INSTANCES(SWIFTLLM_PREFILL_CASE)
+#undef SWIFTLLM_PREFILL_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#undef SWIFTLLM_PREFILL_INSTANCES

@@ -32,6 +32,12 @@ their scale, and ``kv_new`` rows come in the same form. Every entry takes
 - ``store_kv`` + ``paged_prefill_attention`` (TPU: ``_tiles_kernel`` with its
   fused span write): the write is a launch of its own, before the attention,
   because the blocks of one GPU grid run at once (see ``csrc/store_kv.cu``).
+  The pair is also the TPU kernel's unfused mode, which speculative verify
+  steps take: their spans start and end anywhere in a page.
+- ``paged_prefill_attention_bf16s`` (TPU: ``_tiles_kernel`` under
+  ``SWIFTLLM_TILE_BF16_SCORES=1``): the same attention with the scores, the
+  exp2 pass and P in bf16. ``paged_prefill_attention`` takes it, at each
+  call, when that variable is 1, the cache is not fp8 and there is no window.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 On a CUDA tensor it launches its kernel or raises; it never falls back. The
@@ -42,11 +48,16 @@ synchronise. Every launch adds one to ``build.launch_counts[name]``.
 
 from __future__ import annotations
 
+import math
+import os
+
 import torch
 
 from swiftllm_tpu_torch.ops import build
 
-# The C entries of this module's kernels (sources in build.SOURCES).
+# The C entries every serving step of this module's path can launch (sources
+# in build.SOURCES). The deferred-commit and bf16-score variants run only
+# when their environment variable asks for them.
 KERNELS = ("paged_decode_attention", "store_kv", "paged_prefill_attention")
 
 FP8 = torch.float8_e4m3fn
@@ -125,11 +136,23 @@ def _row_slots(page_table_row, n_keys: int, page_size: int,
     return page * page_size + pos % page_size
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
 def _attend(q: torch.Tensor, kv: torch.Tensor, q_pos: torch.Tensor,
-            n_kv: int, sm_scale: float, window: int) -> torch.Tensor:
+            n_kv: int, sm_scale: float, window: int,
+            bf16_scores: bool = False) -> torch.Tensor:
     """q [n, n_q, hd] over one row's keys kv [K, W] (key k at position k; an
     fp8 row is un-scaled by its own lanes), causal by q_pos [n] and within
-    ``window`` of it; f32 scores and softmax, output in q's dtype."""
+    ``window`` of it; f32 scores and softmax, output in q's dtype.
+
+    ``bf16_scores``: the bf16-score variant's rounding, in log2 space, with
+    the row's maximum over all its visible keys (the kernel's running
+    maximum moves tile by tile, so the two round the exponent argument
+    against different m): raw scores to bf16; the argument
+    bf16(bf16(s * bf16(K2E)) - bf16(m)), K2E = sm_scale * log2(e); P =
+    bf16(exp2(argument)); m, l and the sum of P.V in f32."""
     n, n_q, hd = q.shape
     K = kv.shape[0]
     KH = n_kv * hd
@@ -137,14 +160,32 @@ def _attend(q: torch.Tensor, kv: torch.Tensor, q_pos: torch.Tensor,
     k = kvf[:, :KH].reshape(K, n_kv, hd)
     v = kvf[:, KH:].reshape(K, n_kv, hd)
     qf = q.float().reshape(n, n_kv, n_q // n_kv, hd)
-    s = torch.einsum("nhgd,khd->hgnk", qf, k) * sm_scale
+    s = torch.einsum("nhgd,khd->hgnk", qf, k)
     key_pos = torch.arange(K, device=q.device)[None, :]
     q_pos = q_pos.to(q.device)[:, None]
     visible = key_pos <= q_pos                                        # [n, K]
     if window:
         visible &= key_pos > q_pos - window
-    p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
+    if bf16_scores:
+        k2e = sm_scale * math.log2(math.e)
+        k2e_b = float(torch.tensor(k2e).bfloat16())
+        s = _round_bf16(s)
+        m = s.masked_fill(~visible, float("-inf")).amax(-1, keepdim=True) * k2e
+        arg = _round_bf16(_round_bf16(s * k2e_b) - _round_bf16(m))
+        p = _round_bf16(torch.exp2(arg)) * visible
+        o = torch.einsum("hgnk,khd->nhgd", p, v) / p.sum(-1).permute(2, 0, 1)[..., None]
+        return o.reshape(n, n_q, hd).to(q.dtype)
+    p = torch.softmax((s * sm_scale).masked_fill(~visible, float("-inf")), dim=-1)
     return torch.einsum("hgnk,khd->nhgd", p, v).reshape(n, n_q, hd).to(q.dtype)
+
+
+def bf16_scores_on(cache: torch.Tensor, window: int) -> bool:
+    """Whether a multi-token attention call takes the bf16-score variant:
+    ``SWIFTLLM_TILE_BF16_SCORES=1`` (read at each call, off by default, as in
+    the JAX package), a cache that is not fp8, and no window. An fp8 or a
+    windowed call keeps f32 scores, as the JAX gate does."""
+    return (os.environ.get("SWIFTLLM_TILE_BF16_SCORES", "0") == "1"
+            and cache.dtype != FP8 and not window)
 
 
 def paged_decode_attention_plain(q, cache, kv_new, page_table, q_lens,
@@ -224,8 +265,9 @@ def store_kv_plain(cache, kv_new, kv_slots, layer: int) -> None:
 def paged_prefill_attention_plain(q, cache, page_table, q_starts, q_lens,
                                   seq_lens, layer: int, *, n_kv: int,
                                   page_size: int, sm_scale: float,
-                                  window: int = 0):
-    """Plain version of ``paged_prefill_attention``. Tokens of no row are 0."""
+                                  window: int = 0, bf16_scores: bool = False):
+    """Plain version of ``paged_prefill_attention`` (and, with
+    ``bf16_scores``, of its bf16-score variant). Tokens of no row are 0."""
     S = cache.shape[1]
     scale_lanes(cache, n_kv, q.shape[2])
     cache_b = as_bytes(cache)
@@ -238,7 +280,7 @@ def paged_prefill_attention_plain(q, cache, page_table, q_starts, q_lens,
         q_pos = torch.arange(sl[b] - ql[b], sl[b])
         out[st[b]:st[b] + ql[b]] = _attend(
             q[st[b]:st[b] + ql[b]], cache_b[layer, slots].view(cache.dtype),
-            q_pos, n_kv, sm_scale, window)
+            q_pos, n_kv, sm_scale, window, bf16_scores)
     return out
 
 
@@ -348,12 +390,25 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
                             sm_scale: float, q_bucket: int, window: int = 0):
     """Causal attention of multi-token rows over the cache (their new KV is
     already stored). q [T, n_q, hd]; q_bucket bounds every q_lens[b].
-    Returns out [T, n_q, hd], zeros at tokens of no row."""
+    Returns out [T, n_q, hd], zeros at tokens of no row.
+
+    A row's span may start and end anywhere in a page: row b's queries are
+    flat tokens q_starts[b] .. q_starts[b] + q_lens[b] - 1 at positions
+    seq_lens[b] - q_lens[b] .. seq_lens[b] - 1, with no alignment of either.
+    A speculative verify step ([next token] + drafts, q_bucket =
+    next_pow2(spec_k + 1)) relies on it, and on this: no key at or past
+    seq_lens[b] is read, so slots that still hold rejected drafts of an
+    earlier step are invisible once seq_lens[b] stops short of them.
+
+    With ``bf16_scores_on`` (``SWIFTLLM_TILE_BF16_SCORES=1``, a cache that is
+    not fp8, no window) it launches ``paged_prefill_attention_bf16s``, whose
+    launches count under that name."""
     args = (q, cache, page_table, q_starts, q_lens, seq_lens)
+    bf16s = bf16_scores_on(cache, window)
     if _on_cpu(*args):
         return paged_prefill_attention_plain(
             *args, layer, n_kv=n_kv, page_size=page_size, sm_scale=sm_scale,
-            window=window)
+            window=window, bf16_scores=bf16s)
     _check_types((q,), (cache,), (page_table, q_starts, q_lens, seq_lens))
     T, n_q, hd = q.shape
     B, Pg = page_table.shape
@@ -362,6 +417,14 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
     if window < 0:
         raise ValueError(f"window {window} < 0")
     out = torch.zeros_like(q)
+    if bf16s:
+        err = build.entry("paged_prefill_attention_bf16s")(
+            q.data_ptr(), cache.data_ptr(), page_table.data_ptr(),
+            q_starts.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
+            out.data_ptr(), B, int(q_bucket), Pg, n_q, n_kv, hd, S,
+            int(layer), page_size, float(sm_scale), build.stream())
+        build.check_launch("paged_prefill_attention_bf16s", err, _HINT)
+        return out
     err = build.entry("paged_prefill_attention")(
         q.data_ptr(), cache.data_ptr(), page_table.data_ptr(),
         q_starts.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),

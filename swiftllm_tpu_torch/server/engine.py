@@ -9,9 +9,11 @@ the port's ``LlamaModel`` (on ``device``, "cuda" unless the caller asks for
 "cpu"), caps pages with the port's kernel cap, resolves tokens by waiting on
 a CUDA event (off the event loop) and reading the pinned host copy the step
 queued (the logprobs with them, under ``enable_logprobs``), and traces with
-``torch.profiler``. The model refuses the features the port does not run
-yet, so the copy drops the swap and spec warmup branches that could never
-run.
+``torch.profiler``. Speculative decoding (the drafting scheduler, verify
+steps, the accept loop and its warm-up) and prefix caching (the scheduler's
+``prefix_matcher`` wired to ``model.match_prefix``) run as in the JAX
+package. The model refuses swap with a host pool, so the copy drops the swap
+branch that could never run.
 
 - The step batch is a SARATHI mixed prefill+decode token batch (the scheduler
   enables the piggybacking the reference left as a comment, scheduler.py:92-99).
@@ -103,6 +105,8 @@ class Engine:
         self.scheduler = Scheduler(self.model_config, cfg,
                                    self.model.num_hbm_blocks,
                                    dp_size=self.model.dp)
+        if cfg.enable_prefix_caching:
+            self.scheduler.prefix_matcher = self.model.match_prefix
         self.tokenizer = TokenizationEngine(
             cfg.model_path, backend=tokenizer_backend, use_dummy=cfg.use_dummy,
             vocab_size=self.model_config.vocab_size)
@@ -114,10 +118,12 @@ class Engine:
         """Run the serving working set of step shapes once before traffic:
         prefill-only steps of 1, 2, 4, ... chunk rows, a decode-only step,
         a multi-step window when ``multi_step_decode`` > 1, every pow2 chunk
-        size below the full chunk, and SARATHI mixed steps. Each is one real
-        step through the normal dispatch path, so the kernels are built and
-        every step shape has run before the first request. (The sampler
-        needs no warm-up of its own here: it builds nothing.)"""
+        size below the full chunk, SARATHI mixed steps, and with
+        ``enable_spec_decode`` a verify step of 1, 2, 4, ... spec rows up to
+        ``spec_max_rows``. Each is one real step through the normal dispatch
+        path, so the kernels are built and every step shape has run before
+        the first request. (The sampler needs no warm-up of its own here: it
+        builds nothing.)"""
         cfg = self.engine_config
         chunk = min(cfg.prefill_chunk_size, cfg.max_tokens_in_batch,
                     cfg.max_seq_len - 8)
@@ -176,6 +182,27 @@ class Engine:
                     ra.output_token_ids.append(0)
                     for r in rest[:n_rows]:
                         self.model.free_seqs_resources([r])
+                if cfg.enable_spec_decode:
+                    # Verify steps: q bucket spec_k + 1 (pinned), the span
+                    # head; the token bucket floats with the spec row count,
+                    # so every pow2 row count up to spec_max_rows runs.
+                    n_rows = 1
+                    spec_reqs = []
+                    while n_rows <= min(cfg.spec_max_rows, cfg.max_batch_size):
+                        while len(spec_reqs) < n_rows:
+                            rs = Request(RawRequest("", 4))
+                            rs.set_prompt_token_ids([1] * 4)
+                            rs.seq_id = mgr_ids.get_id()
+                            ids.append(rs.seq_id)
+                            rs.num_cached_tokens = 4
+                            rs.output_token_ids.append(0)
+                            spec_reqs.append(rs)
+                            reqs.append(rs)
+                        self.model.forward([
+                            ScheduledSeq(rs, 1 + cfg.spec_k,
+                                         drafts=tuple([0] * cfg.spec_k))
+                            for rs in spec_reqs[:n_rows]])
+                        n_rows *= 2
             finally:
                 self.model.free_seqs_resources(reqs)
                 mgr_ids.free_ids(ids)
@@ -375,7 +402,10 @@ class Engine:
                 n = max(steps, 1)
                 r.output_token_ids.extend([None] * n)
                 r.output_logprobs.extend([None] * n)
-                entries.append((r, len(r.output_token_ids) - n, i, None))
+                # A row without drafts in a verify step is a verify row with
+                # none (drafts ()): it takes its span's first token alone.
+                entries.append((r, len(r.output_token_ids) - n, i,
+                                () if key is not None and key.spec else None))
         self.stats.num_steps += 1
         return (tokens_dev, entries, time.perf_counter(), lp_dev, span)
 
@@ -406,7 +436,7 @@ class Engine:
                     vals.append(int(tokens2[i, j + 1]))
                 self.stats.num_spec_accepted += len(vals) - 1
                 r.spec_accepted += len(vals) - 1
-            elif span > 1:
+            elif drafts is None and span > 1:
                 # Multi-step decode row: every span position is a real
                 # sampled token (the scan chained them on device).
                 vals = [int(v) for v in tokens2[i, :span]]

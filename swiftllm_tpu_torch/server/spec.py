@@ -18,9 +18,10 @@ The matcher is vectorized numpy over a per-request growable token buffer:
 O(context) per proposal with ~3 vector ops per n-gram size, no Python token
 loops.
 
-Copied from ``swiftllm_tpu/server/spec.py``: the scheduler's drafting path and
-the engine's EOS rollback call it. The port's model refuses spec decode for
-now, so only ``rollback_state`` runs.
+Copied from ``swiftllm_tpu/server/spec.py``: the scheduler's drafting path
+calls ``sync_state`` and ``propose``, and the engine's EOS rollback
+``rollback_state``. The verify step runs on the port's ``store_kv`` and
+``paged_prefill_attention`` kernels, whose spans may start anywhere.
 """
 
 from __future__ import annotations

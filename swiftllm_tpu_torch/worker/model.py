@@ -3,9 +3,11 @@
 A port of ``swiftllm_tpu/worker/model.py`` at tp = dp = 1:
 ``load_weights`` / ``profile_num_blocks`` / ``init_kvcache_and_swap`` /
 ``forward_async`` / ``execute_packed`` / ``forward`` /
-``free_seqs_resources``, with the same host guard on the decode kernel's
-row contract. A bucket key with ``sampling`` runs the sampler in place of the
-greedy head, one with ``steps`` > 1 runs ``decode_multi_step``, and with
+``free_seqs_resources`` / ``match_prefix``, with the same host guard on the
+decode kernel's row contract. A bucket key with ``sampling`` runs the sampler
+in place of the greedy head, one with ``steps`` > 1 runs
+``decode_multi_step``, one with ``spec`` > 0 (a speculative verify step) the
+span head over every position of each row's span, and with
 ``enable_logprobs`` every step also returns its chosen tokens' logprobs.
 
 - The model runs on ``device`` ("cuda" unless the caller asks for "cpu"), and
@@ -18,7 +20,9 @@ greedy head, one with ``steps`` > 1 runs ``decode_multi_step``, and with
   memory with ``non_blocking=True``, every write stays on the current
   stream (so step N+1 reads step N's tokens from the feedback buffer in
   order), and the tokens come back through a ``PendingTokens`` handle.
-- Features this slice does not port are refused in ``__init__`` with
+- Speculative decoding and prefix caching run (the scheduler drafts and
+  matches; the model verifies spans and installs matched pages). Swap with a
+  host pool, LoRA and tp/dp > 1 are refused in ``__init__`` with
   ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
   With ``preemption_mode="recompute"`` the scheduler never swaps, so no host
   swap pool is allocated.
@@ -46,9 +50,6 @@ def _refuse_unsupported(ec: EngineConfig, mc: LlamaModelConfig) -> None:
     refused = [
         (ec.preemption_mode == "swap" and ec.num_cpu_blocks > 0,
          "preemption_mode='swap' with num_cpu_blocks > 0", "2 (swap)"),
-        (ec.enable_prefix_caching, "enable_prefix_caching",
-         "3 (prefix caching)"),
-        (ec.enable_spec_decode, "enable_spec_decode", "5 (spec decode)"),
         (bool(ec.lora_paths), "LoRA adapters", "8 (multi-LoRA)"),
         (ec.tp_size > 1 or ec.dp_size > 1, "tp_size/dp_size > 1",
          "9 (parallelism)"),
@@ -175,7 +176,8 @@ class LlamaModel:
                                           dtype=torch.int32, device=self.device)
         self.hbm_block_mgrs = [BlockManager(
             "hbm0", num_blocks, cfg.block_size, cfg.max_seqs_in_block_table,
-            cfg.max_blocks_per_seq)]
+            cfg.max_blocks_per_seq,
+            enable_prefix_caching=cfg.enable_prefix_caching)]
 
     def profile_num_blocks(self) -> int:
         """KV pages that fit the device: run the worst-case bucket once on a
@@ -290,7 +292,7 @@ class LlamaModel:
         else:
             tokens, logits, *rest = forward_shard(
                 self.params, self.kv_cache, self.token_feedback, batch,
-                return_logits=return_logits, **kw)
+                return_logits=return_logits, sample_span=key.spec, **kw)
         if cfg.enable_logprobs:
             lp = PendingTokens(rest[0])
         self.last_logprobs = lp
@@ -315,3 +317,15 @@ class LlamaModel:
         """Release all pages of finished sequences."""
         for r in requests:
             self.hbm_block_mgrs[r.dp_group].free_seq(r.seq_id)
+
+    def match_prefix(self, request: Request) -> int:
+        """Automatic prefix caching: install cached full prompt pages into the
+        newly admitted request's page list and mark those tokens cached.
+        The scheduler calls it at admission (after seq_id and dp_group are
+        assigned, before the step batch is built)."""
+        matched = self.hbm_block_mgrs[request.dp_group].match_prefix(
+            request.seq_id, request.prompt_token_ids,
+            namespace=request.lora_slot)
+        if matched:
+            request.num_cached_tokens = matched
+        return matched

@@ -93,16 +93,18 @@ REFUSED = {
     "tensor_parallel": (dict(tp_size=2), {}),
 }
 # Refused at first, run since: the model must now build with them (and, for
-# logprobs and multi-step decode, run a step).
-NOW_RUN = {"kv_quant", "sliding_window", "logprobs", "multi_step"}
+# logprobs, multi-step decode and spec decode, run a step).
+NOW_RUN = {"kv_quant", "sliding_window", "logprobs", "multi_step",
+           "prefix_caching", "spec_decode"}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_features_refused(name):
     """Every feature the port does not run yet raises NotImplementedError at
     model construction, naming the ROADMAP item that brings it; the fp8 KV
-    cache, the sliding window, logprobs and multi-step decode, refused at
-    first, are accepted, and the last two run a step."""
+    cache, the sliding window, logprobs, multi-step decode, prefix caching
+    and spec decode, refused at first, are accepted: prefix caching reaches
+    the block manager, and logprobs, multi-step and spec decode run a step."""
     import torch
 
     from swiftllm_tpu_torch.config import LlamaModelConfig
@@ -119,6 +121,21 @@ def test_unported_features_refused(name):
         fp8 = name == "kv_quant"
         assert m.kv_cache.dtype == (torch.float8_e4m3fn if fp8 else torch.bfloat16)
         assert m.kv_cache.shape[2] == 2 * 1 * 8 + (128 if fp8 else 0)
+        if name == "prefix_caching":
+            assert m.hbm_block_mgrs[0].prefix_caching
+        if name == "spec_decode":
+            m.load_weights()
+            r = Request(RawRequest("", 8))
+            r.set_prompt_token_ids([3, 1, 4, 1, 5])
+            r.seq_id = 0
+            tokens, _ = m.forward([ScheduledSeq(r, r.prompt_len)])
+            r.output_token_ids.append(int(tokens[0]))
+            r.num_cached_tokens = r.prompt_len
+            tokens, rows = m.forward([ScheduledSeq(r, 3, drafts=(2, 6))])
+            S1 = m.last_key.spec
+            assert S1 == 8 and m.last_key.q_len == S1    # next_pow2(spec_k + 1)
+            assert rows[0].request is r and len(tokens) == len(rows) * S1
+            assert all(0 <= t < 32 for t in tokens[:3])
         if name in ("logprobs", "multi_step"):
             m.load_weights()
             r = Request(RawRequest("", 8))
