@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-multi-step   # a measurement, not the smoke
-    python3 chip_smoke.py --compare-row-tile     # a measurement, not the smoke
+    python3 chip_smoke.py --compare-splits       # a measurement, not the smoke
+    python3 chip_smoke.py --compare-prefill      # a measurement, not the smoke
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. the card's name and power limit, torch and CUDA versions;
   1. build the hand-written kernels from swiftllm_tpu_torch/ops/csrc;
   2. each kernel against its plain PyTorch version at Llama-3-8B width
-     (and one case at Llama-3.2-1B width), with times and bounds, and one
+     (and two cases at Llama-3.2-1B width, one of them at q bucket 4096 in
+     a bucket of 128 rows), with times and bounds, and one
      planted fault (a decode row short of one page) that must fail; the
      attention kernels' variants on the same cases (an fp8 cache, a sliding
      window of 4096 and of 50, and both), each with its times and bounds,
@@ -24,10 +26,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      decoding (store_kv, then the prefill kernel at q bucket 8 over 12 spans
      of 2 to 5 tokens that start mid-page, beside 4 decode-kind rows) in
      bf16, fp8, window 50 and on long rows with window 4096, with a planted
-     fault (the spans' first query position off by one), the 32-row tile
-     against the 64-row one, and the bf16-score variant at q bucket 8; the
+     fault (the spans' first query position off by one), the split path (the
+     planner's split count and one split against each other and against
+     split_kv_attention_plain, as on the long decode rows of bf16 and fp8,
+     and on those rows in a bucket of 128 rows planned over their 3 live
+     rows), and the bf16-score variant at q bucket 8; the
      prefill kernel's bf16-score variant on the prefill and deep-chunk
-     cases, against its plain version and the f32 kernel, and on the
+     cases, against its plain version and the f32 kernel (both timed on
+     each), and on the
      prefill case with its row maxima pinned at the f32 kernels' tolerance,
      which the f32 kernel must fail;
   3. one whole mixed step, kernels against plain versions, 4 layers: at 8B
@@ -66,8 +72,12 @@ With --compare-multi-step it builds the kernels and runs only
 compare_multi_step: one full-width engine decoding the same 8 requests in
 turns with single steps, windows of 8 and windows of 8 with deferred commit,
 without a profiler, several rounds in one process on one card. With
---compare-row-tile it runs only compare_row_tile: the verify spans through
-the prefill kernel's 32-row and 64-row tiles, timed in turn.
+--compare-splits it runs only compare_splits: the verify spans and the long
+decode rows (also in a bucket of 128 rows) at one split and at the
+planner's choice, timed in turn. With --compare-prefill it times the prefill
+kernel once on the cases of its kernel-table rows (mixed step, deep chunk
+under a window, verify spans at the plan and at one split): run it from two
+checkouts in turns to compare two builds on one card.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
 ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
@@ -198,14 +208,17 @@ def fp8_rows(g, n, KH, device):
 
 
 def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
-               q_bucket=1, fp8=False):
+               q_bucket=1, fp8=False, rows_bucket=0):
     """rows: list of (q_len, seq_len). Decode rows (q_len 1) first, packed so
     flat token b is row b; multi-token spans follow, aligned to 128 tokens as
     the batch builder aligns them. Pages are a random permutation of the pool
     (scattered); the pool's last page is the garbage page, in no row. With
-    fp8 the cache and kv_new are quantized rows with their scale lanes."""
+    fp8 the cache and kv_new are quantized rows with their scale lanes. The
+    page table has rows_bucket rows when that is more than the rows' own
+    power of two (the engine pins it to max_batch_size); its "live_rows" is
+    then the rows' count, as the batch builder gives it, else None."""
     W = 2 * n_kv * hd
-    B = 1 << max(len(rows) - 1, 0).bit_length()
+    B = max(1 << max(len(rows) - 1, 0).bit_length(), rows_bucket)
     n_pages_row = [cdiv(s, page_size) for _, s in rows]
     n_pages = sum(n_pages_row) + 4
     S = (n_pages + 1) * page_size
@@ -255,6 +268,7 @@ def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
         q_starts=q_st.to(device), q_lens=q_lens.to(device),
         seq_lens=seq_lens.to(device), rows=rows, page_size=page_size,
         sm_scale=1.0 / math.sqrt(hd), layer=layers - 1, q_bucket=q_bucket,
+        live_rows=len(rows) if B > len(rows) and rows_bucket else None,
         n_dec=n_dec, dec_lens=torch.where(q_lens == 1, q_lens, 0).to(device),
         pre_lens=torch.where(q_lens > 1, q_lens, 0).to(device),
         scatter=scatter.to(device))
@@ -272,9 +286,9 @@ def _store(case, cache, impl):
     impl(cache, case["kv_new"], case["scatter"], case["layer"])
 
 
-def _prefill(case, cache, impl, window=0):
+def _prefill(case, cache, impl, window=0, **extra):
     kw = dict(n_kv=case["n_kv"], page_size=case["page_size"],
-              sm_scale=case["sm_scale"], window=window)
+              sm_scale=case["sm_scale"], window=window, **extra)
     if impl is pa.paged_prefill_attention:
         kw["q_bucket"] = case["q_bucket"]
     return impl(case["q"], cache, case["page_table"], case["q_starts"],
@@ -688,20 +702,67 @@ def check_fault_span_start(case):
     assert ratio > 1, "the tolerance lets a verify span start one position late"
 
 
-def _row_tiles(case):
-    """The verify spans through the 32-row tile (q bucket 8, GQA group 4)
-    and the 64-row one (the same call at q bucket 16: one tile of 16 tokens
-    either way): (the cache after store_kv, the bucket-16 case, both
-    outputs); the outputs must agree over the spans' tokens."""
+def _plan(case, kind, window=0):
+    """The planner's split plan for the case's decode or prefill launch (over
+    the rows below its live_rows)."""
+    B, Pg = case["page_table"].shape
+    B = pa.split_rows(B, case["live_rows"])
+    n_kv, ps = case["n_kv"], case["page_size"]
+    n_sms = torch.cuda.get_device_properties(case["q"].device).multi_processor_count
+    if kind == "decode":
+        return pa.decode_split_plan(B, n_kv, Pg, ps, n_sms, window=window)
+    return pa.prefill_split_plan(B, case["q_bucket"], case["q"].shape[1] // n_kv,
+                                 n_kv, Pg, ps, n_sms, window=window,
+                                 hd=case["q"].shape[2])
+
+
+def _split_calls(case, kind, window=0):
+    """The case's decode or prefill attention at forced split counts:
+    (kernel(n, cache), the split plain version at the planner's plan, the
+    case's cache with its spans stored). kernel runs at n splits (None: the
+    planner's choice) on the cache it is given."""
     c = case["cache"].clone()
-    _store(case, c, pa.store_kv)
-    wide = dict(case, q_bucket=2 * SPEC_Q)
-    idx = _valid_tokens(case, "prefill")
-    short_out = _prefill(case, c, pa.paged_prefill_attention)
-    wide_out = _prefill(wide, c, pa.paged_prefill_attention)
-    _, _, ratio = _compare(short_out[idx], wide_out[idx])
-    assert ratio <= 1, "the 32-row and the 64-row tile disagree"
-    return c, wide, short_out, wide_out
+    if kind == "prefill":
+        _store(case, c, pa.store_kv)
+    kw = dict(n_kv=case["n_kv"], page_size=case["page_size"],
+              sm_scale=case["sm_scale"], window=window)
+    live = dict(live_rows=case["live_rows"])
+    if kind == "decode":
+        args = lambda cc: (case["q"], cc, case["kv_new"], case["page_table"],
+                           case["dec_lens"], case["seq_lens"], case["kv_slots"],
+                           case["layer"])
+        kernel = lambda n, cc: pa.paged_decode_attention(*args(cc), splits=n,
+                                                         **kw, **live)
+        name = "paged_decode_attention"
+    else:
+        args = lambda cc: (case["q"], cc, case["page_table"], case["q_starts"],
+                           case["pre_lens"], case["seq_lens"], case["layer"])
+        kernel = lambda n, cc: pa.paged_prefill_attention(
+            *args(cc), splits=n, q_bucket=case["q_bucket"], **kw, **live)
+        name = "paged_prefill_attention"
+    plain = lambda: pa.split_kv_attention_plain(
+        name, *args(c.clone()), split=_plan(case, kind, window), **kw)
+    return kernel, plain, c
+
+
+def check_splits(case, kind, label, window=0):
+    """The kernel's split path: the planner's choice (which must split) and
+    one split against each other and against split_kv_attention_plain at the
+    planner's plan, within ATOL / RTOL over the case's tokens of `kind`."""
+    n_split, chunk = _plan(case, kind, window)
+    assert n_split > 1, f"{label}: the planner does not split ({n_split}, {chunk})"
+    kernel, plain, c = _split_calls(case, kind, window)
+    idx = _valid_tokens(case, kind)
+    one, planned = kernel(1, c.clone())[idx], kernel(None, c.clone())[idx]
+    want = plain()[idx]
+    for what, a, b in (("1 split against the plan", one, planned),
+                       ("the plan against split_kv_attention_plain", planned, want),
+                       ("1 split against split_kv_attention_plain", one, want)):
+        err, med, ratio = _compare(a, b)
+        log(f"[kernels] {label} {kind} splits ({n_split} of {chunk} keys): {what}: "
+            f"max_abs_err {err:.3g}, median |want| {med:.3g}, worst {ratio:.3g} "
+            f"of the tolerance")
+        assert ratio <= 1, f"{label}: {what} disagree"
 
 
 def phase_verify(device, smi) -> dict:
@@ -710,8 +771,8 @@ def phase_verify(device, smi) -> dict:
     at q bucket 8 over spans that start and end mid-page, with the decode
     kernel on the decode-kind rows; in bf16, fp8, window 50, and on the long
     rows (20,000 and 16,385 keys) with window 4096; the planted fault; the
-    32-row tile against the 64-row one; the bf16-score variant at q bucket 8
-    (its 32-row instance) on the bf16 case, on it with its row maxima pinned
+    split path (check_splits); the bf16-score variant at q bucket 8
+    on the bf16 case, on it with its row maxima pinned
     (at ATOL / RTOL, with the control), and on the long rows without a
     window. Times the bf16 case; returns its paged_prefill_attention row."""
     gen = torch.Generator().manual_seed(6)
@@ -721,10 +782,7 @@ def phase_verify(device, smi) -> dict:
     case = paged_case(gen, device, rows=rows, **w8b)
     check_kernels(case, name="verify 8B 4 decode rows and 12 spans", results=results)
     check_fault_span_start(case)
-    _, _, short_out, wide_out = _row_tiles(case)
-    log(f"[kernels] verify spans, row tile 32 (q bucket {SPEC_Q}) against 64 (q "
-        f"bucket {2 * SPEC_Q}): outputs "
-        f"{'bit-identical' if torch.equal(short_out, wide_out) else 'within ATOL/RTOL'}")
+    check_splits(case, "prefill", "verify 8B")
     check_bf16s(case, "verify 8B 4 decode rows and 12 spans")
     check_bf16s(pin_row_max(case, gen), "verify 8B, row maxima pinned",
                 atol=ATOL, rtol=RTOL, control=True)
@@ -747,27 +805,63 @@ def phase_verify(device, smi) -> dict:
     return r
 
 
-def compare_row_tile(smi):
-    """The verify spans of phase_verify through the 32-row tile and the
-    64-row one, timed in turn (32, 64, 64, 32), on one card in one process."""
+def compare_splits(smi):
+    """The split path's gain: the verify spans of phase_verify (prefill
+    kernel) and the long decode rows of phase_kernels (decode kernel, bf16
+    and fp8; and bf16 in a bucket of 128 rows, planned over its 3 live
+    rows), each at one split and at the planner's choice, timed in turn (1,
+    plan, plan, 1) on one card in one process."""
     gen = torch.Generator().manual_seed(6)
-    case = paged_case(gen, "cuda", rows=verify_rows(), n_q=32, n_kv=8, hd=128,
-                      page_size=16, q_bucket=SPEC_Q)
-    c, wide, short_out, wide_out = _row_tiles(case)
-    t = [time_ms(lambda: _prefill(cs, c, pa.paged_prefill_attention))
-         for cs in (case, wide, wide, case)]
-    log(f"[compare] verify spans, row tile 32 (q bucket {SPEC_Q}) against 64 "
-        f"(q bucket {2 * SPEC_Q}), in turn: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, "
-        f"{t[3]:.4f} ms; outputs "
-        f"{'bit-identical' if torch.equal(short_out, wide_out) else 'within ATOL/RTOL'} ({smi})")
+    w8b = dict(n_q=32, n_kv=8, hd=128, page_size=16)
+    cases = [("verify spans (q bucket 8)", "prefill",
+              paged_case(gen, "cuda", rows=verify_rows(), q_bucket=SPEC_Q, **w8b))]
+    for fp8 in (False, True):
+        cases.append((f"{'fp8 ' if fp8 else ''}decode long rows", "decode",
+                      paged_case(gen, "cuda", rows=[(1, 20000), (1, 16385), (1, 1)],
+                                 fp8=fp8, **w8b)))
+    cases.append(("decode long rows in a bucket of 128 rows", "decode",
+                  paged_case(gen, "cuda", rows=[(1, 20000), (1, 16385), (1, 1)],
+                             rows_bucket=128, **w8b)))
+    for label, kind, case in cases:
+        kernel, _, c = _split_calls(case, kind)
+        plan = _plan(case, kind)
+        t = [time_ms(lambda: kernel(n, c)) for n in (1, None, None, 1)]
+        log(f"[compare] {label}: 1 split against the plan {plan} (splits, chunk), "
+            f"in turn: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f} ms ({smi})")
 
 
-def _bf16s(case, cache, on: bool):
-    """paged_prefill_attention with SWIFTLLM_TILE_BF16_SCORES set to `on`."""
+def compare_prefill(smi):
+    """The prefill kernel's (f32 scores) time on the cases of its kernel
+    table rows: the mixed step, the deep chunk under a window of 4096, and
+    the verify spans at the planner's split and at one split; one process
+    times each once, so that two builds can be compared in turns."""
+    gen = torch.Generator().manual_seed(8)
+    w8b = dict(n_q=32, n_kv=8, hd=128, page_size=16)
+    mixed = ([(1, 40 + 97 * i) for i in range(8)]
+             + [(512, 512), (512, 1536), (300, 812)])
+    cases = [("mixed step", paged_case(gen, "cuda", rows=mixed, q_bucket=512, **w8b), 0),
+             ("deep chunk, window 4096",
+              paged_case(gen, "cuda", rows=[(1, 9000), (512, 6000)], q_bucket=512,
+                         **w8b), 4096),
+             ("verify spans", paged_case(gen, "cuda", rows=verify_rows(),
+                                         q_bucket=SPEC_Q, **w8b), 0)]
+    out = []
+    for label, case, window in cases:
+        c = case["cache"].clone()
+        _store(case, c, pa.store_kv)
+        for splits in ((None, 1) if label == "verify spans" else (None,)):
+            t = time_ms(lambda: _bf16s(case, c, False, window=window, splits=splits))
+            out.append(f"{label}{'' if splits is None else ', one split'} {t:.4f}")
+    log(f"[compare] prefill kernel: {'; '.join(out)} ms ({smi})")
+
+
+def _bf16s(case, cache, on: bool, **extra):
+    """paged_prefill_attention with SWIFTLLM_TILE_BF16_SCORES set to `on`
+    (and the wrapper's keywords `extra`)."""
     old = os.environ.get("SWIFTLLM_TILE_BF16_SCORES")
     os.environ["SWIFTLLM_TILE_BF16_SCORES"] = "1" if on else "0"
     try:
-        return _prefill(case, cache, pa.paged_prefill_attention)
+        return _prefill(case, cache, pa.paged_prefill_attention, **extra)
     finally:
         if old is None:
             del os.environ["SWIFTLLM_TILE_BF16_SCORES"]
@@ -876,8 +970,17 @@ def phase_bf16s(device, smi) -> dict:
         for a, b in row.items()) + f"; the f32 kernel, timed just before it, "
         f"{f32_ms:.4f} ms ({smi})")
     del qd, k, v, mask, c
-    check_bf16s(paged_case(gen, device, rows=[(1, 9000), (512, 6000)], **w8b),
-                "mixed 8B deep history")
+    deep = paged_case(gen, device, rows=[(1, 9000), (512, 6000)], **w8b)
+    _, c = check_bf16s(deep, "mixed 8B deep history")
+    # The deep chunk is 128 units (16 query tiles x 8 kv heads), one a block,
+    # each walking about 100 key tiles: no queue or load balance in play,
+    # only the work of a tile. The f32 kernel at one split, as the variant.
+    f32_deep = time_ms(lambda: _bf16s(deep, c, False, splits=1))
+    bf16s_deep = time_ms(lambda: _bf16s(deep, c, True))
+    log(f"[time] deep chunk (128 units, one a block) paged_prefill_attention_bf16s "
+        f"{bf16s_deep:.4f} ms, the f32 kernel at one split {f32_deep:.4f} ms; "
+        f"the mixed case {row['ms']:.4f} against {f32_ms:.4f} ({smi})")
+    del c
     check_bf16s(pin_row_max(case, gen), "mixed 8B, row maxima pinned",
                 atol=ATOL, rtol=RTOL, control=True)
     # The gate: an fp8 cache keeps f32 scores whatever the variable says.
@@ -955,8 +1058,13 @@ def phase_kernels(device) -> dict:
     # Rows past 16Ki tokens: the range where the TPU decode kernel switches
     # to its staged page table; this kernel reads the table the same way.
     long_rows = [(1, 20000), (1, 16385), (1, 1)]
-    check_kernels(paged_case(gen, device, rows=long_rows, **w8b),
-                  name="decode 8B long rows", results=None)
+    case = paged_case(gen, device, rows=long_rows, **w8b)
+    check_kernels(case, name="decode 8B long rows", results=None)
+    check_splits(case, "decode", "decode 8B long rows")
+    # The same rows in a bucket of 128 rows (the engine's at the default
+    # max_batch_size): the plan counts the 3 live rows, not the bucket.
+    check_splits(paged_case(gen, device, rows=long_rows, rows_bucket=128, **w8b),
+                 "decode", "decode 8B long rows in a bucket of 128")
     mixed = ([(1, 40 + 97 * i) for i in range(8)]
              + [(512, 512), (512, 1536), (300, 812)])
     mres = {}
@@ -986,6 +1094,8 @@ def phase_kernels(device) -> dict:
                 timed = not (window == 4096 and max(s for _, s in rows) <= 4096)
                 check_kernels(case, name=f"{tag}window {window} {label}",
                               results={} if timed else None, window=window)
+            if label == "decode 8B long rows" and fp8:
+                check_splits(case, "decode", "fp8 decode 8B long rows")
             if label == "decode 8B 16 rows":
                 if fp8:
                     check_fault_v_scale(case)
@@ -994,6 +1104,11 @@ def phase_kernels(device) -> dict:
     check_kernels(paged_case(gen, device, q_bucket=512, rows=(
         [(1, 1), (1, 333), (1, 1000)] + [(200, 200), (77, 589)]), **w1b),
         name="mixed 1B (hd 64)", results=None)
+    # A 1B engine's 4,096-token chunks at max_batch_size 128: q bucket 4096
+    # (256 tiles a row at head_dim 64) over a bucket of 128 rows.
+    check_kernels(paged_case(gen, device, q_bucket=4096, rows_bucket=128, rows=(
+        [(1, 700), (1, 2)] + [(2048, 2048), (1024, 3072), (1000, 1000)]), **w1b),
+        name="1B q bucket 4096, 128 rows", results=None)
     for group in (1, 2, 8):      # the other GQA instances, tiny
         check_kernels(paged_case(gen, device, q_bucket=64, rows=(
             [(1, 5), (1, 70), (33, 33), (20, 100)]), n_q=2 * group, n_kv=2,
@@ -2237,13 +2352,17 @@ def main() -> int:
     reports = build.build_kernels()
     log(f"[build] {len(build.KERNELS)} kernels ({len(reports)} sources) built "
         f"in {time.perf_counter() - t0:.1f} s")
-    (OUT_DIR / "ptxas.txt").write_text("\n".join(
-        f"== {k}\n{v}" for k, v in reports.items()))
+    if reports:     # a run that built nothing keeps the last report
+        (OUT_DIR / "ptxas.txt").write_text("\n".join(
+            f"== {k}\n{v}" for k, v in reports.items()))
     if sys.argv[1:] == ["--compare-multi-step"]:
         asyncio.run(compare_multi_step(smi))
         return 0
-    if sys.argv[1:] == ["--compare-row-tile"]:
-        compare_row_tile(smi)
+    if sys.argv[1:] == ["--compare-splits"]:
+        compare_splits(smi)
+        return 0
+    if sys.argv[1:] == ["--compare-prefill"]:
+        compare_prefill(smi)
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)

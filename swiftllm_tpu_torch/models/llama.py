@@ -290,7 +290,8 @@ def _ragged_paged_attention_torch(q, cache_l, batch: StepBatch, *,
 def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
                          n_kv: int, page_size: int, sm_scale: float,
                          use_kernels: bool, q_bucket: int, window: int = 0,
-                         kv_pend=None, npend: int = 0):
+                         kv_pend=None, npend: int = 0,
+                         live_rows: int | None = None):
     """Store this layer's fresh K‖V (kv_new [T, W], in the cache dtype, with
     the scale lanes when the cache is fp8) into the cache [L, S, W] IN PLACE
     and run attention; returns [T, n_q, hd].
@@ -304,29 +305,32 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
     itself. Mixed buckets keep the JAX order: the decode kernel on the
     decode-kind rows (packed first, flat token == row), then ``store_kv`` of
     the prefill-kind spans and the prefill kernel on them; tokens below
-    n_dec take the decode output, the rest the prefill output."""
+    n_dec take the decode output, the rest the prefill output. The kernels
+    plan their key splits over the rows below ``live_rows`` (a host
+    integer: rows from it on have no query; None: any row may)."""
     T, _, hd = q.shape
     kw = dict(n_kv=n_kv, page_size=page_size, sm_scale=sm_scale, window=window)
+    kern = dict(kw, live_rows=live_rows)
     if kv_pend is not None:
         assert use_kernels and q_bucket == 1, \
             "deferred KV commit runs on the decode kernel's path only"
         return pa.paged_decode_attention_pend(
             q, cache, kv_new, kv_pend, batch.page_table, batch.q_lens,
-            batch.seq_lens, layer, npend=npend, **kw)
+            batch.seq_lens, layer, npend=npend, **kern)
     if use_kernels and q_bucket == 1:
         return pa.paged_decode_attention(
             q, cache, kv_new, batch.page_table, batch.q_lens, batch.seq_lens,
-            batch.kv_slots, layer, **kw)
+            batch.kv_slots, layer, **kern)
     if use_kernels:
         q_lens_dec = torch.where(batch.decode_row, batch.q_lens, 0)
         q_lens_pre = torch.where(batch.decode_row, 0, batch.q_lens)
         dec_out = pa.paged_decode_attention(
             q, cache, kv_new, batch.page_table, q_lens_dec, batch.seq_lens,
-            batch.kv_slots, layer, **kw)
+            batch.kv_slots, layer, **kern)
         pa.store_kv(cache, kv_new, batch.kv_slots_scatter, layer)
         pre_out = pa.paged_prefill_attention(
             q, cache, batch.page_table, batch.q_starts, q_lens_pre,
-            batch.seq_lens, layer, q_bucket=q_bucket, **kw)
+            batch.seq_lens, layer, q_bucket=q_bucket, **kern)
         n_dec = batch.decode_row.sum()
         tok = torch.arange(T, device=q.device)[:, None, None]
         return torch.where(tok < n_dec, dec_out, pre_out)
@@ -352,7 +356,7 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                   q_bucket: int, use_kernels: bool,
                   return_logits: bool = False, use_sampler: bool = False,
                   return_logprobs: bool = False, kv_pend=None, npend: int = 0,
-                  sample_span: int = 0):
+                  sample_span: int = 0, live_rows: int | None = None):
     """One step: embedding, the layers, the final norm, the sampling head and
     the feedback write. ``kv_cache`` [L, S, W] and ``feedback`` i32[F] are
     updated IN PLACE (JAX donates them and returns new arrays).
@@ -368,7 +372,9 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     over the greedy head, so an all-greedy batch never pays for the sampler.
     With ``kv_pend`` [L, P, B, W] (deferred commit, see
     ``decode_multi_step``) no layer writes the cache, and each layer's fresh
-    rows ``kv_new[:B]`` come back stacked.
+    rows ``kv_new[:B]`` come back stacked. ``live_rows`` (a host integer:
+    rows from it on have no query) bounds the rows the attention kernels
+    plan their key splits over.
 
     Returns (tokens i32[B], logits f32[B, V] or None[, logprobs f32[B] with
     ``return_logprobs``][, kv_rows [L, B, W] with ``kv_pend``]); B becomes
@@ -427,7 +433,7 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
             q, kv_new, kv_cache, layer, batch, n_kv=cfg.num_kv_heads,
             page_size=page_size, sm_scale=sm_scale, use_kernels=use_kernels,
             q_bucket=q_bucket, window=cfg.sliding_window or 0,
-            kv_pend=kv_pend, npend=npend)
+            kv_pend=kv_pend, npend=npend, live_rows=live_rows)
         if kv_pend is not None:
             kv_rows.append(kv_new[:batch.q_lens.shape[0]])
         x = x + mproj(attn.reshape(T, -1), "wo")

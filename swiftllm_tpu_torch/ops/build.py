@@ -5,7 +5,7 @@ Every kernel has a plain C entry of its own name in a source in ``csrc/``
 variant share one, the prefill kernel and its bf16-score variant another).
 ``build_kernels`` compiles each missing source with ``nvcc`` for ``sm_90a``
 into ``_build/`` beside this file (one process per source, all started
-together), names the library by the hash of its source and ``common.cuh``,
+together), names the library by the hash of its source and the headers,
 and loads it with ``ctypes``. Nothing is built when a module
 is imported: the first launch builds its kernel, or a caller builds them all
 up front. The wrappers in ``paged_attention.py`` and ``int4_matmul.py`` launch
@@ -31,24 +31,31 @@ BUILD_DIR = _HERE / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# The split-KV arguments of the attention entries: n_split, chunk,
+# split_rows, and the partial-state and arrival-counter buffers
+# (ops/csrc/splitkv.cuh).
+_SPLIT = [_I, _I, _I, _P, _P, _P]
 
 # kernel (C entry) name -> (its source in csrc/, the entry's argument types)
 SOURCES = {
     # q, cache, kv_new, page_table, q_lens, seq_lens, kv_slots, out,
     # T, B, Pg, n_q, n_kv, hd, S, layer, page_size, window, kv_fp8, sm_scale,
-    # stream
-    "paged_decode_attention": ("paged_decode.cu", [_P] * 8 + [_I] * 11 + [_F, _P]),
+    # n_split, chunk, split_rows, part_acc, part_ml, counters, stream
+    "paged_decode_attention": ("paged_decode.cu",
+                               [_P] * 8 + [_I] * 11 + [_F] + _SPLIT + [_P]),
     # q, cache, kv_new, kv_pend, page_table, q_lens, seq_lens, out,
     # T, B, Pg, n_q, n_kv, hd, S, layer, page_size, window, npend, P,
-    # sm_scale, stream
+    # sm_scale, n_split, chunk, split_rows, part_acc, part_ml, counters, stream
     "paged_decode_attention_pend": ("paged_decode.cu",
-                                    [_P] * 8 + [_I] * 12 + [_F, _P]),
+                                    [_P] * 8 + [_I] * 12 + [_F] + _SPLIT + [_P]),
     # kv_new, cache, slots, T, row_bytes, S, layer, stream
     "store_kv": ("store_kv.cu", [_P] * 3 + [_I] * 4 + [_P]),
     # q, cache, page_table, q_starts, q_lens, seq_lens, out,
     # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, window, kv_fp8,
-    # sm_scale, stream
-    "paged_prefill_attention": ("paged_prefill.cu", [_P] * 7 + [_I] * 11 + [_F, _P]),
+    # sm_scale, n_split, chunk, split_rows, part_acc, part_ml, counters, T,
+    # stream
+    "paged_prefill_attention": ("paged_prefill.cu",
+                                [_P] * 7 + [_I] * 11 + [_F] + _SPLIT + [_I, _P]),
     # q, cache, page_table, q_starts, q_lens, seq_lens, out,
     # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
     "paged_prefill_attention_bf16s": ("paged_prefill.cu",
@@ -72,10 +79,11 @@ def reset_launch_counts() -> None:
 
 
 def _lib_path(src: str) -> Path:
-    """Build output of one source, keyed by the hash of what it includes."""
+    """Build output of one source, keyed by the hash of the source and of
+    every header in csrc/ (what it may include)."""
     h = hashlib.sha256()
-    for f in (src, "common.cuh"):
-        h.update((CSRC_DIR / f).read_bytes())
+    for f in [CSRC_DIR / src] + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(f.read_bytes())
     return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 

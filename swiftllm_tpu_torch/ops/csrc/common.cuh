@@ -24,6 +24,11 @@ constexpr float kNegBig = -1e30f;
 template <typename KV> struct ScaleLanes { static constexpr int value = 0; };
 template <> struct ScaleLanes<fp8> { static constexpr int value = 128; };
 
+// x rounded to the nearest bf16 (ties to even), back in an f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 __device__ __forceinline__ float fp8_to_float(fp8 b) {
   return __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
 }
@@ -31,7 +36,7 @@ __device__ __forceinline__ float fp8_to_float(fp8 b) {
 // 1 / scale of a stored scale byte. A slot never written holds scale 0; the
 // guard keeps its inverse finite (such a slot is never a visible key).
 __device__ __forceinline__ float inv_scale(fp8 b) {
-  return 1.f / fmaxf(fp8_to_float(b), 1e-20f);
+  return __frcp_rn(fmaxf(fp8_to_float(b), 1e-20f));  // = 1.f / x, rounded alike
 }
 
 // Eight bf16 (one 16-byte load) -> eight floats.

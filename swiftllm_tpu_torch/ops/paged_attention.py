@@ -39,6 +39,17 @@ their scale, and ``kv_new`` rows come in the same form. Every entry takes
   exp2 pass and P in bf16. ``paged_prefill_attention`` takes it, at each
   call, when that variable is 1, the cache is not fp8 and there is no window.
 
+Split-KV (``csrc/splitkv.cuh``): the decode and prefill kernels cut each
+attention unit's keys (a decode row's kv head; a prefill row's query tile
+and kv head) into ``n_split`` splits of ``chunk`` keys, split s holding
+positions ``[s * chunk, (s + 1) * chunk)`` and the last one running on to the
+row's end, walked by separate blocks and merged by the last block to finish.
+``split_plan`` chooses (n_split, chunk) from host integers alone (shapes,
+the card's SM count and ``live_rows``, the bound on the rows with queries
+that the batch builder knows), so a wrapper never reads a device value on
+the host; ``split_kv_attention_plain`` is the plain version of that
+split-then-merge. The bf16-score variant never splits.
+
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 On a CUDA tensor it launches its kernel or raises; it never falls back. The
 kernels are built and bound by ``ops/build.py`` (``nvcc`` at first use,
@@ -48,12 +59,14 @@ synchronise. Every launch adds one to ``build.launch_counts[name]``.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
 import torch
 
 from swiftllm_tpu_torch.ops import build
+from swiftllm_tpu_torch.utils import cdiv
 
 # The C entries every serving step of this module's path can launch (sources
 # in build.SOURCES). The deferred-commit and bf16-score variants run only
@@ -65,6 +78,19 @@ FP8_SCALE_LANES = 128   # lanes appended to an fp8 cache row (see above)
 
 _HINT = " (an unsupported head_dim / GQA group returns 1)"
 
+# Split-KV plan (csrc/splitkv.cuh): at most MAX_SPLITS splits a unit (the
+# kernels' kMaxSplits); the planner aims at SPLIT_BLOCKS_PER_SM blocks per SM
+# over the grid, in chunks that are whole key tiles and not below a floor.
+MAX_SPLITS = 32
+SPLIT_BLOCKS_PER_SM = 4
+KEY_TILE = 64                 # keys of a prefill key tile (paged_prefill.cu)
+DECODE_KEY_STEP = 16          # decode chunks: any multiple of this
+DECODE_MIN_CHUNK = 256
+PREFILL_MIN_CHUNK = 128
+# Rows a prefill launch takes: its blocks stage 16 bytes of every row in
+# shared memory (paged_prefill.cu), beside at most 99 KiB of tiles.
+PREFILL_MAX_ROWS = 8192
+
 
 def max_pages_cap(page_size: int) -> int:
     """Largest pages-per-seq bucket the kernels take. They read the page table
@@ -72,6 +98,130 @@ def max_pages_cap(page_size: int) -> int:
     index with (the JAX kernels' scalar-memory caps have no counterpart). It
     lies far above any pool a card holds, so in practice the pool binds."""
     return (2**31 - 1) // page_size
+
+
+def split_plan(units: int, max_keys: int, n_sms: int, *, tile: int,
+               min_chunk: int, splits: int | None = None,
+               visible: int | None = None) -> tuple[int, int]:
+    """(n_split, chunk) for a grid of ``units`` attention units whose rows
+    hold at most ``max_keys`` keys, on a card of ``n_sms`` SMs: split s holds
+    key positions [s * chunk, (s + 1) * chunk), the last split runs on to the
+    row's end, so every key of every row lies in exactly one split. chunk is
+    a multiple of ``tile``; the splits aim at SPLIT_BLOCKS_PER_SM blocks per
+    SM, with no more of them than ``visible`` (the most keys a unit sees: a
+    window's span; default max_keys) fills at ``min_chunk`` keys a split
+    (one split when the units already fill the card), and at most
+    MAX_SPLITS. ``splits`` forces the count (capped by MAX_SPLITS and the
+    tiles of max_keys only). Ints only, by design: no device tensor reaches
+    the plan, so no launch waits on a read of one (and a CUDA graph can hold
+    it)."""
+    for name, v in (("units", units), ("max_keys", max_keys), ("n_sms", n_sms),
+                    ("tile", tile), ("min_chunk", min_chunk),
+                    ("splits", 0 if splits is None else splits),
+                    ("visible", 0 if visible is None else visible)):
+        if type(v) is not int:
+            raise TypeError(f"split_plan takes ints, got {name}={v!r}")
+    max_keys = max(max_keys, 1)
+    if splits is None:
+        seen = max_keys if visible is None else min(max(visible, 1), max_keys)
+        splits = min(cdiv(SPLIT_BLOCKS_PER_SM * n_sms, max(units, 1)),
+                     cdiv(seen, min_chunk))
+    splits = max(1, min(splits, MAX_SPLITS, cdiv(max_keys, tile)))
+    chunk = cdiv(cdiv(max_keys, splits), tile) * tile
+    return cdiv(max_keys, chunk), chunk
+
+
+def split_range(s: int, n_split: int, chunk: int, lo: int,
+                hi: int) -> tuple[int, int]:
+    """Keys [beg, end) that split s walks in a unit whose visible keys are
+    [lo, hi), as the kernels cut them (csrc/splitkv.cuh:split_keys); an
+    empty range (beg == end) for a split the unit does not reach."""
+    beg = max(lo, s * chunk)
+    end = hi if s == n_split - 1 else min(hi, (s + 1) * chunk)
+    return beg, max(beg, end)
+
+
+def split_rows(B: int, live_rows: int | None) -> int:
+    """The rows a launch plans its splits over: the ``B`` rows of the page
+    table, or fewer when the caller knows that rows from ``live_rows`` on
+    have no query (the batch builder pins B to the rows bucket)."""
+    return B if live_rows is None else max(1, min(int(live_rows), B))
+
+
+def decode_split_plan(B: int, n_kv: int, Pg: int, page_size: int, n_sms: int,
+                      splits: int | None = None,
+                      window: int = 0) -> tuple[int, int]:
+    """The decode kernels' plan: units (row, kv head) over ``B`` rows (the
+    rows that may have a query: ``split_rows``), rows of at most
+    Pg * page_size keys, of which a query sees ``window`` (0: all)."""
+    return split_plan(B * n_kv, Pg * page_size, n_sms, tile=DECODE_KEY_STEP,
+                      min_chunk=DECODE_MIN_CHUNK, splits=splits,
+                      visible=window or None)
+
+
+def prefill_rows(q_bucket: int, group: int, hd: int) -> int:
+    """Query rows (GQA group x tokens) of a prefill block: 128, two
+    warpgroups, at head_dim 128 when the bucket fills them, else 64
+    (paged_prefill.cu:launch, the same rule)."""
+    return 128 if hd == 128 and q_bucket * group >= 128 else 64
+
+
+def prefill_split_plan(B: int, q_bucket: int, group: int, n_kv: int, Pg: int,
+                       page_size: int, n_sms: int, splits: int | None = None,
+                       window: int = 0, *, hd: int) -> tuple[int, int]:
+    """The prefill kernel's plan: units (row, query tile of
+    prefill_rows / group tokens, kv head) over ``B`` rows (as in
+    decode_split_plan); under a window a tile's queries see
+    window + tokens - 1 keys."""
+    tokens = max(prefill_rows(q_bucket, group, hd) // group, 1)
+    visible = window + tokens - 1 if window else None
+    return split_plan(B * cdiv(q_bucket, tokens) * n_kv, Pg * page_size, n_sms,
+                      tile=KEY_TILE, min_chunk=PREFILL_MIN_CHUNK,
+                      splits=splits, visible=visible)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# Arrival counters of the split merge, one int32 a unit, and the prefill
+# kernel's work queue (two more), per device. Zeroed once; every launch
+# leaves them zero (the merging block resets its own, the last block out
+# the queue).
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _device_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's int32 counters, at least ``n`` of them (grown, zeroed,
+    when a launch needs more; every launch leaves them zero)."""
+    cnt = _counters.get(device)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 2 * (0 if cnt is None else cnt.numel())),
+                          dtype=torch.int32, device=device)
+        _counters[device] = cnt
+    return cnt
+
+
+def _split_buffers(device: torch.device, units: int, n_split: int, rows: int,
+                   hd: int) -> list:
+    """(part_acc, part_ml, counters) for a launch with n_split splits of
+    ``units`` units of ``rows`` query rows: the partial states' scratch
+    (f32, uninitialised; a split writes before the merge reads; None when
+    nothing splits) and the device's counters, ``units`` arrival counters
+    and two for the prefill kernel's work queue. The caller holds them
+    until the launch is queued (``_ptrs``)."""
+    bufs = [None, None]
+    if n_split > 1:
+        bufs = [torch.empty(units * n_split * rows * hd, dtype=torch.float32,
+                            device=device),
+                torch.empty(units * n_split * rows * 2, dtype=torch.float32,
+                            device=device)]
+    return bufs + [_device_counters(device, units + 2)]
+
+
+def _ptrs(tensors) -> list:
+    return [None if t is None else t.data_ptr() for t in tensors]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -140,17 +290,37 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.bfloat16().float()
 
 
+def _bf16_of_exact(x64: torch.Tensor) -> torch.Tensor:
+    """f64 values (exact dot products of bf16 vectors) rounded once to bf16,
+    as f32: through f32, with an f32 that lands exactly on a bf16 rounding
+    midpoint while the f64 value does not moved one f32 step toward it, so
+    that the second rounding goes the way the exact value does."""
+    x32 = x64.float()
+    mid = (x32.view(torch.int32) & 0xFFFF) == 0x8000
+    off = x32.double() != x64
+    toward = torch.where(x64 > x32.double(), math.inf, -math.inf).float()
+    x32 = torch.where(mid & off, torch.nextafter(x32, toward), x32)
+    return _round_bf16(x32)
+
+
 def _attend(q: torch.Tensor, kv: torch.Tensor, q_pos: torch.Tensor,
             n_kv: int, sm_scale: float, window: int,
-            bf16_scores: bool = False) -> torch.Tensor:
+            bf16_scores: bool = False, split=None) -> torch.Tensor:
     """q [n, n_q, hd] over one row's keys kv [K, W] (key k at position k; an
     fp8 row is un-scaled by its own lanes), causal by q_pos [n] and within
     ``window`` of it; f32 scores and softmax, output in q's dtype.
 
+    ``split`` = (n_split, chunk): the kernels' split-then-merge, with their
+    partition of the keys (split s: positions [s * chunk, (s + 1) * chunk),
+    the last to the end): each split's own maximum m_s, sum l_s and
+    accumulator over its visible keys, merged with weights exp(m_s - M); a
+    split with no visible key of a query has weight 0 for it.
+
     ``bf16_scores``: the bf16-score variant's rounding, in log2 space, with
     the row's maximum over all its visible keys (the kernel's running
     maximum moves tile by tile, so the two round the exponent argument
-    against different m): raw scores to bf16; the argument
+    against different m): raw scores to bf16, rounded from their exact
+    value (``_bf16_of_exact``), as the kernel rounds them; the argument
     bf16(bf16(s * bf16(K2E)) - bf16(m)), K2E = sm_scale * log2(e); P =
     bf16(exp2(argument)); m, l and the sum of P.V in f32."""
     n, n_q, hd = q.shape
@@ -167,16 +337,37 @@ def _attend(q: torch.Tensor, kv: torch.Tensor, q_pos: torch.Tensor,
     if window:
         visible &= key_pos > q_pos - window
     if bf16_scores:
-        k2e = sm_scale * math.log2(math.e)
+        # K2E as the kernel forms it: the f32 product of f32 operands.
+        k2e = float(torch.tensor(sm_scale, dtype=torch.float32)
+                    * torch.tensor(math.log2(math.e), dtype=torch.float32))
         k2e_b = float(torch.tensor(k2e).bfloat16())
-        s = _round_bf16(s)
+        s = _bf16_of_exact(torch.einsum("nhgd,khd->hgnk", qf.double(), k.double()))
         m = s.masked_fill(~visible, float("-inf")).amax(-1, keepdim=True) * k2e
         arg = _round_bf16(_round_bf16(s * k2e_b) - _round_bf16(m))
         p = _round_bf16(torch.exp2(arg)) * visible
         o = torch.einsum("hgnk,khd->nhgd", p, v) / p.sum(-1).permute(2, 0, 1)[..., None]
         return o.reshape(n, n_q, hd).to(q.dtype)
-    p = torch.softmax((s * sm_scale).masked_fill(~visible, float("-inf")), dim=-1)
-    return torch.einsum("hgnk,khd->nhgd", p, v).reshape(n, n_q, hd).to(q.dtype)
+    if split is None:
+        p = torch.softmax((s * sm_scale).masked_fill(~visible, float("-inf")), dim=-1)
+        return torch.einsum("hgnk,khd->nhgd", p, v).reshape(n, n_q, hd).to(q.dtype)
+    logits = (s * sm_scale).masked_fill(~visible, float("-inf"))
+    parts = []
+    for j in range(split[0]):
+        beg, end = split_range(j, *split, 0, K)
+        if beg == end:
+            continue
+        lj = logits[..., beg:end]
+        mj = lj.amax(-1, keepdim=True)                  # -inf: no visible key
+        pj = torch.exp(lj - torch.where(torch.isinf(mj), 0.0, mj))
+        parts.append((mj, pj.sum(-1, keepdim=True),
+                      torch.einsum("hgnk,khd->hgnd", pj, v[beg:end])))
+    M = torch.stack([mj for mj, _, _ in parts]).amax(0)
+    num = den = 0.0
+    for mj, lj, aj in parts:
+        w = torch.exp(mj - M)                  # 0 where the split saw no key
+        num = num + w * aj
+        den = den + w * lj
+    return (num / den).permute(2, 0, 1, 3).reshape(n, n_q, hd).to(q.dtype)
 
 
 def bf16_scores_on(cache: torch.Tensor, window: int) -> bool:
@@ -191,10 +382,11 @@ def bf16_scores_on(cache: torch.Tensor, window: int) -> bool:
 def paged_decode_attention_plain(q, cache, kv_new, page_table, q_lens,
                                  seq_lens, kv_slots, layer: int, *, n_kv: int,
                                  page_size: int, sm_scale: float,
-                                 window: int = 0):
+                                 window: int = 0, split=None):
     """Plain version of ``paged_decode_attention``: the same writes to
     ``cache`` (in place) and the same output. The new token's key is read
-    from ``kv_new`` as stored (quantized, with an fp8 cache)."""
+    from ``kv_new`` as stored (quantized, with an fp8 cache). ``split``
+    (n_split, chunk): computed split by split, as the kernel splits."""
     T, n_q, hd = q.shape
     B = page_table.shape[0]
     S = cache.shape[1]
@@ -210,17 +402,18 @@ def paged_decode_attention_plain(q, cache, kv_new, page_table, q_lens,
         hist = _row_slots(page_table[b], sl[b] - 1, page_size, S // page_size)
         kv = torch.cat([cache_b[layer, hist], new_b[b:b + 1]]).view(cache.dtype)
         out[b:b + 1] = _attend(q[b:b + 1], kv, torch.tensor([sl[b] - 1]),
-                               n_kv, sm_scale, window)
+                               n_kv, sm_scale, window, split=split)
     return out
 
 
 def paged_decode_attention_pend_plain(q, cache, kv_new, kv_pend, page_table,
                                       q_lens, seq_lens, layer: int, *,
                                       npend: int, n_kv: int, page_size: int,
-                                      sm_scale: float, window: int = 0):
+                                      sm_scale: float, window: int = 0,
+                                      split=None):
     """Plain version of ``paged_decode_attention_pend``: each row's cached
     keys gathered from its pages, its live pending rows and its new row
-    appended. The cache is only read."""
+    appended. The cache is only read. ``split`` as for the decode one."""
     T, n_q, hd = q.shape
     B = page_table.shape[0]
     S = cache.shape[1]
@@ -235,7 +428,7 @@ def paged_decode_attention_pend_plain(q, cache, kv_new, kv_pend, page_table,
         kv = torch.cat([cache[layer, slots],
                         kv_pend[layer, :sl[b] - 1 - hist, b], kv_new[b:b + 1]])
         out[b:b + 1] = _attend(q[b:b + 1], kv, torch.tensor([sl[b] - 1]),
-                               n_kv, sm_scale, window)
+                               n_kv, sm_scale, window, split=split)
     return out
 
 
@@ -265,9 +458,13 @@ def store_kv_plain(cache, kv_new, kv_slots, layer: int) -> None:
 def paged_prefill_attention_plain(q, cache, page_table, q_starts, q_lens,
                                   seq_lens, layer: int, *, n_kv: int,
                                   page_size: int, sm_scale: float,
-                                  window: int = 0, bf16_scores: bool = False):
+                                  window: int = 0, bf16_scores: bool = False,
+                                  split=None):
     """Plain version of ``paged_prefill_attention`` (and, with
-    ``bf16_scores``, of its bf16-score variant). Tokens of no row are 0."""
+    ``bf16_scores``, of its bf16-score variant, which never splits). Tokens
+    of no row are 0. ``split`` (n_split, chunk): computed split by split."""
+    if split is not None and bf16_scores:
+        raise ValueError("the bf16-score variant never splits its keys")
     S = cache.shape[1]
     scale_lanes(cache, n_kv, q.shape[2])
     cache_b = as_bytes(cache)
@@ -280,8 +477,22 @@ def paged_prefill_attention_plain(q, cache, page_table, q_starts, q_lens,
         q_pos = torch.arange(sl[b] - ql[b], sl[b])
         out[st[b]:st[b] + ql[b]] = _attend(
             q[st[b]:st[b] + ql[b]], cache_b[layer, slots].view(cache.dtype),
-            q_pos, n_kv, sm_scale, window, bf16_scores)
+            q_pos, n_kv, sm_scale, window, bf16_scores, split)
     return out
+
+
+SPLIT_PLAIN = {"paged_decode_attention": paged_decode_attention_plain,
+               "paged_decode_attention_pend": paged_decode_attention_pend_plain,
+               "paged_prefill_attention": paged_prefill_attention_plain}
+
+
+def split_kv_attention_plain(kind: str, *args, split: tuple[int, int], **kw):
+    """The plain version of split-then-merge: kernel ``kind``'s plain
+    version (a key of SPLIT_PLAIN, with its arguments) with each row's keys
+    cut as the kernel cuts them under the plan ``split`` = (n_split, chunk),
+    every split's softmax state computed alone and the states merged. Equal
+    to the unsplit plain version up to f32 rounding."""
+    return SPLIT_PLAIN[kind](*args, split=split, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -290,35 +501,46 @@ def paged_prefill_attention_plain(q, cache, page_table, q_starts, q_lens,
 
 def paged_decode_attention(q, cache, kv_new, page_table, q_lens, seq_lens,
                            kv_slots, layer: int, *, n_kv: int, page_size: int,
-                           sm_scale: float, window: int = 0):
+                           sm_scale: float, window: int = 0,
+                           splits: int | None = None,
+                           live_rows: int | None = None):
     """Decode attention with the KV write fused in.
 
     q [T, n_q, hd], cache [L, S, W] (updated in place), kv_new [T, W] in the
     cache's dtype, page_table i32[B, Pg], q_lens/seq_lens i32[B], kv_slots
     i32[T>=B]. Returns out [T, n_q, hd]: row b's attention for every valid
-    row (q_lens[b] > 0, flat token b), zeros elsewhere."""
+    row (q_lens[b] > 0, flat token b), zeros elsewhere. ``live_rows``: rows
+    from it on have no query, as the caller knows on the host (the split
+    plan counts only the rows below it; a valid row past it is computed all
+    the same, unsplit). ``splits`` forces the split count of the kernel
+    (decode_split_plan's choice when None). On CPU tensors the plain
+    version runs, unsplit."""
     args = (q, cache, kv_new, page_table, q_lens, seq_lens, kv_slots)
+    T, n_q, hd = q.shape
+    B, Pg = page_table.shape
     if _on_cpu(*args):
         return paged_decode_attention_plain(
             *args, layer, n_kv=n_kv, page_size=page_size, sm_scale=sm_scale,
             window=window)
     _check_types((q,), (cache, kv_new),
                  (page_table, q_lens, seq_lens, kv_slots))
-    T, n_q, hd = q.shape
-    B, Pg = page_table.shape
     _, S, W = cache.shape
     scale_lanes(cache, n_kv, hd)
     if T < B or kv_new.shape != (T, W) or window < 0:
         raise ValueError(f"decode shapes: q {tuple(q.shape)}, cache "
                          f"{tuple(cache.shape)}, kv_new {tuple(kv_new.shape)}, "
                          f"page_table {tuple(page_table.shape)}, window {window}")
+    R = split_rows(B, live_rows)
+    n_split, chunk = decode_split_plan(R, n_kv, Pg, page_size,
+                                       _sm_count(q.device), splits, window)
+    bufs = _split_buffers(q.device, R * n_kv, n_split, n_q // n_kv, hd)
     out = torch.empty_like(q)
     err = build.entry("paged_decode_attention")(
         q.data_ptr(), cache.data_ptr(), kv_new.data_ptr(),
         page_table.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         kv_slots.data_ptr(), out.data_ptr(), T, B, Pg, n_q, n_kv, hd, S,
         int(layer), page_size, int(window), int(cache.dtype == FP8),
-        float(sm_scale), build.stream())
+        float(sm_scale), n_split, chunk, R, *_ptrs(bufs), build.stream())
     build.check_launch("paged_decode_attention", err, _HINT)
     return out
 
@@ -326,7 +548,8 @@ def paged_decode_attention(q, cache, kv_new, page_table, q_lens, seq_lens,
 def paged_decode_attention_pend(q, cache, kv_new, kv_pend, page_table, q_lens,
                                 seq_lens, layer: int, *, npend: int,
                                 n_kv: int, page_size: int, sm_scale: float,
-                                window: int = 0):
+                                window: int = 0, splits: int | None = None,
+                                live_rows: int | None = None):
     """Decode attention in deferred-commit mode: no cache write.
 
     q [T, n_q, hd], cache [L, S, W] bf16 (read only), kv_new [T, W], kv_pend
@@ -337,29 +560,33 @@ def paged_decode_attention_pend(q, cache, kv_new, kv_pend, page_table, q_lens,
     ``kv_pend[layer, pos - hist, b]`` for ``hist <= pos < seq_lens[b] - 1``
     and from ``kv_new[b]`` for the last. Pending slots from ``npend - 1`` on
     are never read. Returns out [T, n_q, hd], zeros at rows that are not
-    valid."""
+    valid. ``splits`` and ``live_rows`` as for ``paged_decode_attention``."""
     args = (q, cache, kv_new, kv_pend, page_table, q_lens, seq_lens)
+    T, n_q, hd = q.shape
+    B, Pg = page_table.shape
     if _on_cpu(*args):
         return paged_decode_attention_pend_plain(
             *args, layer, npend=npend, n_kv=n_kv, page_size=page_size,
             sm_scale=sm_scale, window=window)
     _check_types((q,), (cache, kv_new, kv_pend),
                  (page_table, q_lens, seq_lens))
-    T, n_q, hd = q.shape
-    B, Pg = page_table.shape
     _, S, W = cache.shape
     _check_pend(cache, kv_new, kv_pend, npend, n_kv, hd, B)
     if T < B or kv_new.shape != (T, W) or window < 0:
         raise ValueError(f"decode shapes: q {tuple(q.shape)}, kv_new "
                          f"{tuple(kv_new.shape)}, page_table "
                          f"{tuple(page_table.shape)}, window {window}")
+    R = split_rows(B, live_rows)
+    n_split, chunk = decode_split_plan(R, n_kv, Pg, page_size,
+                                       _sm_count(q.device), splits, window)
+    bufs = _split_buffers(q.device, R * n_kv, n_split, n_q // n_kv, hd)
     out = torch.empty_like(q)
     err = build.entry("paged_decode_attention_pend")(
         q.data_ptr(), cache.data_ptr(), kv_new.data_ptr(), kv_pend.data_ptr(),
         page_table.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), T, B, Pg, n_q, n_kv, hd, S, int(layer), page_size,
-        int(window), int(npend), kv_pend.shape[1], float(sm_scale),
-        build.stream())
+        int(window), int(npend), kv_pend.shape[1], float(sm_scale), n_split,
+        chunk, R, *_ptrs(bufs), build.stream())
     build.check_launch("paged_decode_attention_pend", err, _HINT)
     return out
 
@@ -387,10 +614,13 @@ def store_kv(cache, kv_new, kv_slots, layer: int) -> None:
 
 def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
                             layer: int, *, n_kv: int, page_size: int,
-                            sm_scale: float, q_bucket: int, window: int = 0):
+                            sm_scale: float, q_bucket: int, window: int = 0,
+                            splits: int | None = None,
+                            live_rows: int | None = None):
     """Causal attention of multi-token rows over the cache (their new KV is
-    already stored). q [T, n_q, hd]; q_bucket bounds every q_lens[b].
-    Returns out [T, n_q, hd], zeros at tokens of no row.
+    already stored). q [T, n_q, hd]; q_bucket bounds every q_lens[b]; at
+    most PREFILL_MAX_ROWS rows. Returns out [T, n_q, hd], zeros at tokens
+    of no row.
 
     A row's span may start and end anywhere in a page: row b's queries are
     flat tokens q_starts[b] .. q_starts[b] + q_lens[b] - 1 at positions
@@ -402,22 +632,27 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
 
     With ``bf16_scores_on`` (``SWIFTLLM_TILE_BF16_SCORES=1``, a cache that is
     not fp8, no window) it launches ``paged_prefill_attention_bf16s``, whose
-    launches count under that name."""
+    launches count under that name, and which never splits. ``splits``
+    forces the split count of the f32 kernel (prefill_split_plan's choice
+    when None) and ``live_rows`` bounds the rows it plans over, as for
+    ``paged_decode_attention``. On CPU tensors the plain version runs,
+    unsplit."""
     args = (q, cache, page_table, q_starts, q_lens, seq_lens)
     bf16s = bf16_scores_on(cache, window)
+    T, n_q, hd = q.shape
+    B, Pg = page_table.shape
     if _on_cpu(*args):
         return paged_prefill_attention_plain(
             *args, layer, n_kv=n_kv, page_size=page_size, sm_scale=sm_scale,
             window=window, bf16_scores=bf16s)
     _check_types((q,), (cache,), (page_table, q_starts, q_lens, seq_lens))
-    T, n_q, hd = q.shape
-    B, Pg = page_table.shape
     S = cache.shape[1]
     scale_lanes(cache, n_kv, hd)
-    if window < 0:
-        raise ValueError(f"window {window} < 0")
-    out = torch.zeros_like(q)
+    if window < 0 or B > PREFILL_MAX_ROWS:
+        raise ValueError(f"prefill: window {window}, {B} rows (at most "
+                         f"{PREFILL_MAX_ROWS})")
     if bf16s:
+        out = torch.zeros_like(q)
         err = build.entry("paged_prefill_attention_bf16s")(
             q.data_ptr(), cache.data_ptr(), page_table.data_ptr(),
             q_starts.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
@@ -425,11 +660,20 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
             int(layer), page_size, float(sm_scale), build.stream())
         build.check_launch("paged_prefill_attention_bf16s", err, _HINT)
         return out
+    group = n_q // n_kv
+    R = split_rows(B, live_rows)
+    n_split, chunk = prefill_split_plan(R, int(q_bucket), group, n_kv, Pg,
+                                        page_size, _sm_count(q.device), splits,
+                                        int(window), hd=hd)
+    rows = prefill_rows(int(q_bucket), group, hd)
+    units = R * cdiv(int(q_bucket), max(rows // group, 1)) * n_kv
+    bufs = _split_buffers(q.device, units, n_split, rows, hd)
+    out = torch.empty_like(q)          # the kernel zeroes tokens of no row
     err = build.entry("paged_prefill_attention")(
         q.data_ptr(), cache.data_ptr(), page_table.data_ptr(),
         q_starts.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), B, int(q_bucket), Pg, n_q, n_kv, hd, S, int(layer),
         page_size, int(window), int(cache.dtype == FP8), float(sm_scale),
-        build.stream())
+        n_split, chunk, R, *_ptrs(bufs), T, build.stream())
     build.check_launch("paged_prefill_attention", err, _HINT)
     return out

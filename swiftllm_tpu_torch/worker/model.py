@@ -257,20 +257,27 @@ class LlamaModel:
                                                multi_step=multi_step)
         if self.engine_config.use_pallas:
             _assert_decode_prefix(batch_np, key, self.dp)
+        # Rows from live_rows on have no query: the attention kernels plan
+        # their key splits over the rows below it (a host integer; the rows
+        # bucket is pinned to max_batch_size).
+        live = np.flatnonzero(np.asarray(batch_np.q_lens) > 0)
+        live_rows = int(live[-1]) + 1 if live.size else 0
         out = self.execute_packed(pack_step_batch(batch_np, self.dp), key,
-                                  return_logits)
+                                  return_logits, live_rows)
         if return_logits:
             tokens, logits = out
             return tokens, rows, logits
         return out, rows
 
     def execute_packed(self, flat_np: np.ndarray, key,
-                       return_logits: bool = False):
+                       return_logits: bool = False,
+                       live_rows: int | None = None):
         """Run one dispatch from a packed batch buffer: one step, or the
         ``key.steps`` chained decode steps of a multi-step window. Returns
         the tokens' ``PendingTokens`` (and the f32 logits tensor when asked,
         single steps only). With ``enable_logprobs`` the logprobs' copy to
-        the host is queued too, as ``last_logprobs``."""
+        the host is queued too, as ``last_logprobs``. ``live_rows``: rows
+        from it on have no query (None: any row may)."""
         self.last_key = key
         flat = torch.from_numpy(flat_np)
         if self.device.type == "cuda":
@@ -282,7 +289,7 @@ class LlamaModel:
         kw = dict(cfg=self.model_config, page_size=cfg.block_size,
                   q_bucket=key.q_len, use_kernels=cfg.use_pallas,
                   use_sampler=bool(key.sampling),
-                  return_logprobs=cfg.enable_logprobs)
+                  return_logprobs=cfg.enable_logprobs, live_rows=live_rows)
         logits = lp = None
         if key.steps > 1:
             assert not return_logits, "logits come from single steps only"
