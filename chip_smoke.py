@@ -4,6 +4,8 @@
     python3 chip_smoke.py --compare-multi-step   # a measurement, not the smoke
     python3 chip_smoke.py --compare-splits       # a measurement, not the smoke
     python3 chip_smoke.py --compare-prefill      # a measurement, not the smoke
+    python3 chip_smoke.py --compare-int4         # a measurement, not the smoke
+    python3 chip_smoke.py --sweep-int4           # a measurement, not the smoke
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. the card's name and power limit, torch and CUDA versions;
@@ -16,10 +18,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      window of 4096 and of 50, and both), each with its times and bounds,
      with two more planted faults (the V scale left out, the window off by
      one); the INT4 dequant-matmul at the four 8B projection shapes and
-     T = 1, 16, 128 and 256, with a planted fault (the nibbles unpacked
-     interleaved) that must fail; the decode kernel's deferred-commit
-     (`pend`) variant on 16 rows (3 of them pad rows) with histories of 1 to
-     2,048 keys, for npend 1, 2, 4 and 8 of a window of 8, with a sliding
+     T = 1, 16, 128 and 256 and at ragged ones, against its plain version
+     and its plan's split-then-merge, two launches bit-identical, timed at
+     every shape and T, with two planted faults (the nibbles unpacked
+     interleaved, a split left out of the merge) that must fail; the
+     decode kernel's deferred-commit (`pend`) variant on 16 rows (3 of
+     them pad rows) with histories of 1 to 2,048 keys, for npend 1, 2, 4
+     and 8 of a window of 8, with a sliding
      window and on the long rows, the cache byte-identical afterwards, with
      two planted faults (a history one key too long, the pending slots
      shifted by one) that must fail; the verify spans of speculative
@@ -77,7 +82,13 @@ decode rows (also in a bucket of 128 rows) at one split and at the
 planner's choice, timed in turn. With --compare-prefill it times the prefill
 kernel once on the cases of its kernel-table rows (mixed step, deep chunk
 under a window, verify spans at the plan and at one split): run it from two
-checkouts in turns to compare two builds on one card.
+checkouts in turns to compare two builds on one card. With --compare-int4
+it builds only int4_matmul and times it once at each 8B shape and T = 1,
+16, 128, 256; it calls nothing the kernel's earlier versions lack, so a copy
+of this script in an earlier checkout times that checkout's kernel. With
+--sweep-int4 it builds only int4_matmul and times it at each 8B shape and
+T for every token width and split count its plan chooses from, beside the
+plan's model (the evidence for int4_matmul.py's constants).
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
 ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
@@ -1124,6 +1135,7 @@ def phase_kernels(device) -> dict:
 INT4_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096),
                "w_gate/w_up": (14336, 4096), "w_down": (4096, 14336)}
 INT4_TABLE = ("w_gate/w_up", 128)      # the kernel table's row (PERF.md)
+INT4_TS = (1, 16, 128, 256)            # the decode buckets the kernel serves
 
 
 def int4_interleaved_plain(x, q4, s, layer):
@@ -1143,16 +1155,24 @@ def _int4_stack(gen, N, K, L, device):
     return (torch.stack([q["q4"] for q in qs]), torch.stack([q["s"] for q in qs]))
 
 
-def _int4_timings(gen, x, N, K, device):
-    """Kernel, plain and library times at one shape. The kernel and the
-    library call each cycle through more weight bytes than L2 holds, as a
-    step meets each layer's weights cold. Library: F.linear on the weight
-    dequantized to bf16 beforehand (the dequantization is not timed)."""
-    T = x.shape[0]
+def _int4_cycle(gen, N, K, device):
+    """Random int8 weights and scales for timing at one shape: enough layers
+    that a run cycling through them reads more weight bytes than L2 holds,
+    as a step meets each layer's weights cold. Returns (q4, s, layers)."""
     L4 = max(2, math.ceil(2 * L2_BYTES / (N * K // 2)))
     q4 = torch.randint(-128, 128, (L4, N, K // 2), generator=gen,
                        device=device, dtype=torch.int8)
     s = torch.rand(L4, N, generator=gen, device=device) * 1e-2
+    return q4, s, L4
+
+
+def _int4_timings(gen, x, N, K, device):
+    """Kernel, plain and library times at one shape. The kernel and the
+    library call each cycle through more weight bytes than L2 holds.
+    Library: F.linear on the weight dequantized to bf16 beforehand (the
+    dequantization is not timed)."""
+    T = x.shape[0]
+    q4, s, L4 = _int4_cycle(gen, N, K, device)
     it = itertools.count()
     ms = time_ms(lambda: im.int4_proj_stacked(x, q4, s, next(it) % L4))
     plain_ms = time_ms(lambda: im.int4_proj_stacked_plain(x, q4, s, next(it) % L4),
@@ -1184,10 +1204,42 @@ def _host_us(fn, n=200) -> float:
     return 1e6 * t / n
 
 
+def int4_dropped_split(x, q4, s, layer, plan):
+    """The planted fault: split-then-merge with the second split's partial
+    left out of the merge."""
+    parts = im.int4_split_partials(x, q4, layer, plan)
+    acc = sum(p for i, p in enumerate(parts) if i != 1)
+    return (acc * s[layer].float()).to(x.dtype)
+
+
+def _int4_check(x, q4, s, label):
+    """int4_matmul at one shape against int4_proj_stacked_plain at layers 0
+    and 3 (INT4_ATOL / RTOL), and against the plain split-then-merge of its
+    own plan; a second launch must give the same bytes (a counter left
+    unreset, or a merge out of split order, would not). Returns the worst
+    _compare against the plain version."""
+    T, K = x.shape
+    plan = im.int4_plan(T, q4.shape[1], K, build.sm_count(x.device))
+    errs = []
+    for layer in (0, 3):
+        got = im.int4_proj_stacked(x, q4, s, layer)
+        again = im.int4_proj_stacked(x, q4, s, layer)
+        assert torch.equal(got, again), f"int4_matmul {label}: two launches differ"
+        errs.append(_compare(got, im.int4_proj_stacked_plain(x, q4, s, layer),
+                             atol=INT4_ATOL))
+        split = _compare(got, im.int4_proj_split_plain(x, q4, s, layer, plan),
+                         atol=INT4_ATOL)
+        assert max(errs[-1][2], split[2]) <= 1, (
+            f"int4_matmul {label} layer {layer} disagrees: {errs[-1]}, split {split}")
+    return max(errs, key=lambda e: e[2]), plan
+
+
 def phase_int4(device, smi) -> dict:
-    """int4_matmul against int4_proj_stacked_plain in bf16 at the 8B shapes,
-    T in {1, 16, 128, 256}, layers 0 and 3 of a 4-layer stack; the planted
-    interleaved-nibble fault must fail; times at T = 16 and 128."""
+    """int4_matmul against int4_proj_stacked_plain in bf16 at the 8B shapes
+    and ragged ones, T in {1, 16, 128, 256} (ragged: 3, 37, 200), layers 0
+    and 3 of a 4-layer stack, two launches bit-identical; the planted faults
+    (interleaved nibbles, a split left out of the merge) must fail; times at
+    every 8B shape and T."""
     gen = torch.Generator(device=device).manual_seed(4)
     # The card's quantizer gives quantize_int4's bytes (the CPU tests hold
     # it against the JAX package's; here, on the card, once).
@@ -1198,40 +1250,41 @@ def phase_int4(device, smi) -> dict:
     assert np.array_equal(got["s"].cpu().numpy(), ref["s"]), "scales differ"
     log("[int4] quantize_weight_torch on the card: the bytes and scales of "
         "quantize_int4 (1024 x 4096)")
-    # Ragged edges: N off the 128-column tile, K/2 off the 32-byte chunk and
-    # (for K = 300) off the 16-byte vector loads, T off every row tile.
+    # Ragged edges: N off the 128-row tile, K/2 off the chunk and (for K =
+    # 300) off TMA's 16-byte rows (the kernel's own copy path), T off every
+    # token tile.
     for N, K in ((200, 300), (1000, 4128)):
         q4, s = _int4_stack(gen, N, K, 4, device)
         for T in (3, 37, 200):
             x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
-            for layer in (0, 3):
-                err = _compare(im.int4_proj_stacked(x, q4, s, layer),
-                               im.int4_proj_stacked_plain(x, q4, s, layer),
-                               atol=INT4_ATOL)
-                assert err[2] <= 1, f"int4_matmul N={N} K={K} T={T}: {err}"
-        log(f"[int4] ragged N {N}, K {K}: matches at T = 3, 37, 200")
-    row, table = None, []
+            _int4_check(x, q4, s, f"N={N} K={K} T={T}")
+        log(f"[int4] ragged N {N}, K {K}: matches at T = 3, 37, 200, two "
+            "launches bit-identical")
+    row, table, faults = None, [], []
     for label, (N, K) in INT4_SHAPES.items():
         q4, s = _int4_stack(gen, N, K, 4, device)
-        worst = (0.0, 0.0, 0.0)
-        for T in (1, 16, 128, 256):
+        worst, plans = (0.0, 0.0, 0.0), []
+        for T in INT4_TS:
             x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
-            errs = [_compare(im.int4_proj_stacked(x, q4, s, layer),
-                             im.int4_proj_stacked_plain(x, q4, s, layer),
-                             atol=INT4_ATOL) for layer in (0, 3)]
-            assert max(e[2] for e in errs) <= 1, (
-                f"int4_matmul {label} T={T} disagrees: {errs}")
-            worst = max([worst] + errs, key=lambda e: e[2])
-            if T in (16, 128):
-                r = dict(max_abs_err=max(e[0] for e in errs),
-                         **_int4_timings(gen, x, N, K, device))
-                table.append((label, T, r))
-                if (label, T) == INT4_TABLE:
-                    row = {k: v for k, v in r.items() if k != "host_us"}
-        log(f"[int4] {label} (N {N}, K {K}): matches the plain version at T = "
-            f"1, 16, 128, 256, layers 0 and 3: max_abs_err {worst[0]:.3g}, "
-            f"median |want| {worst[1]:.3g}, worst {worst[2]:.3g} of the "
-            f"tolerance (atol {INT4_ATOL}, rtol {RTOL})")
+            err, plan = _int4_check(x, q4, s, f"{label} T={T}")
+            worst = max(worst, err, key=lambda e: e[2])
+            plans.append(f"T {T}: {plan.nt}x{plan.t_tiles} tokens, {plan.splits} "
+                         f"splits, {plan.units} units")
+            if plan.splits > 1 and len(faults) < 2 and T in (16, 128):
+                ferr = _compare(im.int4_proj_stacked(x, q4, s, 3),
+                                int4_dropped_split(x, q4, s, 3, plan), atol=INT4_ATOL)
+                faults.append((label, T, plan.splits, ferr))
+                assert ferr[2] > 1, "the tolerance lets a merge without a split pass"
+            r = dict(max_abs_err=err[0], **_int4_timings(gen, x, N, K, device))
+            table.append((label, T, r))
+            if (label, T) == INT4_TABLE:
+                row = {k: v for k, v in r.items() if k != "host_us"}
+        log(f"[int4] {label} (N {N}, K {K}): matches the plain version and its "
+            f"plan's split-then-merge at T = {', '.join(map(str, INT4_TS))}, "
+            f"layers 0 and 3, two launches bit-identical: max_abs_err "
+            f"{worst[0]:.3g}, median |want| {worst[1]:.3g}, worst {worst[2]:.3g} "
+            f"of the tolerance (atol {INT4_ATOL}, rtol {RTOL}); plans: "
+            + "; ".join(plans))
         if label == "w_gate/w_up":
             x = torch.randn(128, K, generator=gen, device=device).to(torch.bfloat16)
             err = _compare(im.int4_proj_stacked(x, q4, s, 3),
@@ -1242,6 +1295,11 @@ def phase_int4(device, smi) -> dict:
             assert err[2] > 1, "the tolerance lets an interleaved unpack pass"
         del q4, s
         torch.cuda.empty_cache()
+    assert len(faults) == 2, faults
+    for label, T, n, err in faults:
+        log(f"[int4] planted fault (the second of {n} splits left out of the "
+            f"merge, {label} T {T}): max_abs_err {err[0]:.3g}, median |want| "
+            f"{err[1]:.3g}, worst {err[2]:.3g} of the tolerance")
     log("[time] int4_matmul library_ms: F.linear on the weight dequantized to "
         "bf16 beforehand (not timed); kernel and library cycle through more "
         "weight bytes than L2 holds; host_us: the host's time to queue one "
@@ -1251,6 +1309,60 @@ def phase_int4(device, smi) -> dict:
             f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
             for a, b in r.items()) + f" ({smi})")
     return row
+
+
+def sweep_int4(smi):
+    """The evidence behind int4_matmul's plan: its time at each 8B shape and
+    T in INT4_TS for every token width the plan may take (down to a quarter
+    of the widest) and K splits 1, 2, 3, 4, 6, 8, 16 (those that give
+    distinct plans), each beside the plan's model of it (int4_matmul.plan_us)
+    and the plan's own choice."""
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    n_sms = build.sm_count(torch.device(DEVICE, 0))
+    for label, (N, K) in INT4_SHAPES.items():
+        q4, s, L4 = _int4_cycle(gen, N, K, DEVICE)
+        for T in INT4_TS:
+            x = torch.randn(T, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+            chosen = im.int4_plan(T, N, K, n_sms)
+            widest = max(w for w in im.TOKEN_WIDTHS
+                         if w <= max(chosen.nt, min(T, im.TOKEN_WIDTHS[-1])))
+            out, it = [], itertools.count()
+            for nt in (w for w in im.TOKEN_WIDTHS if widest // 4 <= w <= widest):
+                seen = set()
+                for sp in (1, 2, 3, 4, 6, 8, 16):
+                    p = im.int4_plan(T, N, K, n_sms, sp, nt)
+                    if p.splits in seen:
+                        continue
+                    seen.add(p.splits)
+                    t = time_ms(lambda: im.int4_proj_stacked(
+                        x, q4, s, next(it) % L4, splits=sp, nt=nt))
+                    out.append(f"{nt}x{p.t_tiles}/{p.splits} {t:.4f} "
+                               f"({im.plan_us(p, n_sms) / 1e3:.4f})")
+            log(f"[sweep] int4_matmul {label} T={T}, plan {chosen.nt}x"
+                f"{chosen.t_tiles}/{chosen.splits} (token width x tiles / "
+                f"splits): " + ", ".join(out) + f" ms measured (modelled) ({smi})")
+        del q4, s
+        torch.cuda.empty_cache()
+
+
+def compare_int4(smi):
+    """int4_matmul's time at each 8B shape and T in INT4_TS, once each in one
+    process, cycling through more weight bytes than L2 holds. It calls only
+    int4_proj_stacked(x, q4, s, layer), so this script, copied into an
+    earlier checkout, times that checkout's kernel: run the two in turns
+    (parent, change, change, parent) to compare builds on one card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    out = []
+    for label, (N, K) in INT4_SHAPES.items():
+        q4, s, L4 = _int4_cycle(gen, N, K, DEVICE)
+        for T in INT4_TS:
+            x = torch.randn(T, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+            it = itertools.count()
+            t = time_ms(lambda: im.int4_proj_stacked(x, q4, s, next(it) % L4))
+            out.append(f"{label} T={T} {t:.4f}")
+        del q4, s
+        torch.cuda.empty_cache()
+    log(f"[compare] int4_matmul: {'; '.join(out)} ms ({smi})")
 
 
 # ---------------------------------------------------------------------------
@@ -1850,6 +1962,12 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
         assert all(0 <= t < mc.vocab_size for t in toks)
     for k in serve_kernels(name):
         assert launches[k] > 0, f"{k} never launched on the {name} serving path"
+    if name == "int4":
+        n = launches["int4_matmul"]
+        assert n % (7 * mc.num_layers) == 0, n     # one launch a projection
+        log(f"[serve int4] int4_matmul launched {n} times: 7 projections x "
+            f"{mc.num_layers} layers x {n // (7 * mc.num_layers)} steps of at "
+            f"most {im.MAX_T} tokens")
     if multi:
         got = dict(launches, steps=engine.stats.num_steps)
         assert {k: got[k] for k in MS_PREDICTED[name]} == MS_PREDICTED[name], (
@@ -2231,6 +2349,7 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
             for i in range(n_req)]
     torch.cuda.synchronize()
     steps0 = engine.stats.num_steps
+    build.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         await asyncio.gather(*[engine.add_request_and_wait(r) for r in reqs])
@@ -2251,6 +2370,23 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
     for e in top[:8]:
         log(f"[profile {quant}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    if quant == "int4":
+        # One device kernel per INT4 projection: the split merge runs inside
+        # the launch, no second pass.
+        kern = [e for e in events
+                if "int4_matmul" in e.key and e.self_device_time_total > 0]
+        n_dev = sum(e.count for e in kern)
+        launched = build.launch_counts["int4_matmul"]
+        t_int4 = sum(e.self_device_time_total for e in kern) / 1e3
+        assert launched > 0 and n_dev == launched, (
+            launched, [(e.key, e.count) for e in kern])
+        assert all("int4_matmul_kernel" in e.key for e in kern), [e.key for e in kern]
+        int4_steps = launched // (7 * engine.model_config.num_layers)
+        log(f"[profile {quant}] int4_matmul: {launched} launches, {n_dev} INT4 "
+            f"kernels on the device ({len(kern)} instance(s), no second pass), "
+            f"{t_int4:.3f} ms, {100 * t_int4 / (1e3 * busy):.1f}% of device time; "
+            f"{t_int4 / int4_steps:.3f} ms a step in each of the {int4_steps} "
+            "steps that ran it")
     return 1e3 * busy, engine.stats.num_steps - steps0
 
 
@@ -2348,6 +2484,10 @@ def main() -> int:
     log(f"[versions] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    if sys.argv[1:] in (["--compare-int4"], ["--sweep-int4"]):
+        build.build_kernels(("int4_matmul",))
+        (compare_int4 if sys.argv[1] == "--compare-int4" else sweep_int4)(smi)
+        return 0
     t0 = time.perf_counter()
     reports = build.build_kernels()
     log(f"[build] {len(build.KERNELS)} kernels ({len(reports)} sources) built "

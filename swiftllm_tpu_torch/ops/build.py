@@ -16,6 +16,7 @@ one to ``launch_counts[name]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -60,8 +61,9 @@ SOURCES = {
     # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, sm_scale, stream
     "paged_prefill_attention_bf16s": ("paged_prefill.cu",
                                       [_P] * 7 + [_I] * 9 + [_F, _P]),
-    # x, q4, s, y, workspace, T, N, K, layer, splits, stream
-    "int4_matmul": ("int4_matmul.cu", [_P] * 5 + [_I] * 5 + [_P]),
+    # x, q4, s, y, partials, counters, T, N, K, L, layer, NT, t_tiles,
+    # splits, per, grid, stream
+    "int4_matmul": ("int4_matmul.cu", [_P] * 6 + [_I] * 10 + [_P]),
 }
 KERNELS = tuple(SOURCES)
 
@@ -161,6 +163,29 @@ def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
             raise ValueError(f"{what} kernels take contiguous, "
                              "16-byte-aligned tensors")
     return False
+
+
+# Arrival counters of the kernels' split merges, per (owner, device).
+_counters: dict[tuple[str, torch.device], torch.Tensor] = {}
+
+
+def device_counters(owner: str, device: torch.device, n: int) -> torch.Tensor:
+    """``owner``'s int32 counters on ``device``, at least ``n`` of them:
+    zeroed when made or grown, and left zero by every launch (the kernels
+    reset what they count)."""
+    cnt = _counters.get((owner, device))
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 2 * (0 if cnt is None else cnt.numel())),
+                          dtype=torch.int32, device=device)
+        _counters[(owner, device)] = cnt
+    return cnt
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` (the split plans
+    size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream() -> ctypes.c_void_p:

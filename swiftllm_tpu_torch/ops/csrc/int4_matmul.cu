@@ -1,4 +1,6 @@
-// Fused INT4 dequant-matmul (W4A16) on the tensor cores.
+// Fused INT4 dequant-matmul (W4A16) for Hopper: wgmma with the weight as
+// the register operand, a ring of TMA copies, and the split-K merge inside
+// the one launch.
 //
 // Replaces: swiftllm_tpu/ops/int4_matmul.py:_kernel, called through
 // int4_proj_stacked. That kernel exists to stream each packed weight byte
@@ -8,331 +10,556 @@
 // What it computes: y[T, N] = x[T, K] @ dequant(q4[layer])^T * s[layer], x
 // bf16, q4 int8 [L, N, K/2] split-half packed (byte j holds column j in its
 // low nibble and column K/2 + j in its high nibble, each a signed 4-bit
-// value), s f32 [L, N]. One f32 accumulator per output, multiplied by the
-// scale, rounded to bf16 once. T <= 256, any N, any even K.
+// value), s f32 [L, N]. One f32 sum per output, times the scale, rounded to
+// bf16 once. T <= 256, any N, any even K.
 //
-// What bounds it on the H100: at the serving decode bucket (T = 128) and an
-// 8B-width MLP projection (N = 14,336, K = 4,096) it is 15.0 GFLOP against
-// 34 MB: operations (15.2 us on the bf16 tensor cores, 10.2 us for the
-// bytes). At T <= 16 the bytes bound it. On the f32 CUDA cores the same
-// product would take over 0.2 ms, so the products run on the tensor cores.
+// What bounds it on the H100: at T <= 16 the bytes (an 8B MLP projection,
+// N = 14,336 and K = 4,096, streams 29.4 MB: 8.8 us at 3.35 TB/s); at T =
+// 128 and 256 the operations (15.0 GFLOP at T = 128: 15.2 us at 989
+// TFLOP/s).
 //
-// The design, simple first:
-// - mma.sync.m16n8k16 bf16 -> f32 through inline PTX. A block of 8 warps
-//   owns a BN = 128 column tile and up to BM = 128 rows (BM = 16, 32, 64 or
-//   128, the least that holds T; T > 128 takes two row tiles, in
-//   neighbouring blocks that share each weight byte through L2). It walks K
-//   in chunks of 32 packed bytes, i.e. 32 columns of each half.
-// - Each chunk's packed bytes are read from device memory once per block,
-//   by cp.async into shared memory, with the x chunk, in a ring of three
-//   stages: two chunks are in flight while the block works on one. The
-//   block then sign-extends both nibbles of every byte in registers, (b <<
-//   28) >> 28 and (b << 24) >> 28 on int32, and stores them as bf16 once;
-//   all warps read their B fragments from there. The low nibbles multiply
-//   x[:, :K/2] and the high nibbles x[:, K/2:], into the same accumulators.
-// - The layer is an offset into the stacked array, as the TPU kernel's
-//   scalar-prefetched layer index: no per-layer copy.
-// - To fill 132 SMs even at N = 1,024, the wrapper splits K over blocks
-//   (gridDim.z); each split writes f32 partial sums and a second pass adds
-//   them, scales and rounds. With one split the scale and rounding happen
-//   in the epilogue.
-// wgmma, TMA and a deeper ring of stages are for a later version.
+// The design:
+// - The operands are swapped: the kernel computes y^T = W . x^T, so a
+//   64-row slice of N is wgmma's M and the tokens (T rounded up to 16, 32,
+//   64 or 128; more tokens take more token tiles) are its N. Tensor-core
+//   work is wasted only on the tokens' rounding, not on padding T to 64.
+// - A (the weight) comes from registers: each thread turns its packed bytes
+//   straight into the A-fragment layout. Two nibbles become a bf16x2 in two
+//   instructions, one lop3 that masks them and sets the exponent of 128
+//   ((n & 15) ^ 8 | 0x4300 is 128 + (n ^ 8)) and one packed subtraction of
+//   136; every nibble from -8 to 7 comes out exact. A byte pair feeds two
+//   products: its low nibbles multiply x[:, j0:j0+16], its high nibbles
+//   x[:, K/2+j0 : K/2+j0+16]. A thread's bytes of a k16 step are gathered
+//   from two 32-bit shared loads a row by one prmt.
+// - B (the x tile) is K-major in 128-byte-swizzled shared memory.
+// - A block is two consumer warpgroups (64 weight rows each, one x tile
+//   between them) and a producer warpgroup, which hands most of its
+//   registers to them (setmaxnreg); its first warp keeps a ring of stages
+//   in flight, each one chunk: KC packed bytes of 128 weight rows (KC = 128,
+//   or 64 at NT = 128, whose x boxes are large) and the 64-column x boxes
+//   they multiply. Where K/2 is a multiple of 16 bytes it copies them with
+//   TMA (tensor maps cached on the host; the layer is a coordinate of the
+//   weights' map: no per-layer copy), completing on the stage's mbarrier;
+//   elsewhere (a ragged K/2, whose rows are not even 4-byte aligned, so
+//   neither TMA nor cp.async can copy them) its 32 lanes load and store the
+//   same swizzled layout, zeros past the edges. The weight rows are swizzled
+//   as TMA writes them (KC bytes), so a warp's fragment loads hit 32 banks.
+//   While one chunk's products run, the consumers load and dequantize the
+//   next one's fragments.
+// - Blocks are persistent (one an SM, at most the SM count): each walks the
+//   units (a 128-row tile, a token tile, a K split) from blockIdx.x in
+//   steps of gridDim.x, and the producer runs ahead into the next unit
+//   while the consumers finish one.
+// - Split-K without a second launch: every split writes its f32 partial
+//   (in the threads' fragment order, so that the writes and the reads are
+//   coalesced) and adds one to the tile's arrival counter; the block that
+//   arrives last sums the partials IN SPLIT ORDER (two launches give the
+//   same bits), scales, rounds, and stores. The counters reset themselves.
+// - The epilogue stages each tile's bf16 outputs through shared memory,
+//   transposed, so that the stores to y[T, N] run along N.
+// The plan (ops/int4_matmul.py:int4_plan, host integers only) picks the
+// token width and the splits from a model of this kernel's time fitted on
+// the card. What holds it back (measured, PERF.md): a wgmma of 64 x 16
+// weights costs some 45 cycles however few the tokens, so at T <= 16 the
+// products, not the bytes, set the pace; and a split's partial, fence and
+// merge cost microseconds, so a projection with few tiles (N = 1,024) pays
+// for filling the card.
+
+#include <cuda.h>
 
 #include <algorithm>
+#include <mutex>
+#include <unordered_map>
 
 #include "common.cuh"
+#include "splitkv.cuh"
+#include "wgmma.cuh"
 
 namespace swiftllm {
 namespace {
 
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kBN = 128;           // output columns per block
-constexpr int kBKH = 32;           // packed bytes (columns of each half) per chunk
-constexpr int kRow = kBKH + 8;     // bf16 per shared row: 80 bytes, so the
-                                   // fragment loads of a warp hit 32 banks
-constexpr int kStages = 3;         // chunks in shared memory: 2 in flight
-static_assert(kThreads * 16 == kBN * kBKH, "one 16-byte dequant slice a thread");
+constexpr int kWG = 2;                  // consumer warpgroups
+constexpr int kBM = 64 * kWG;           // weight rows (output channels) per tile
+constexpr int kConsumers = 128 * kWG;   // consumer threads
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+// Registers a thread: the producer gives most of its own to the consumers
+// (setmaxnreg), which hold the accumulators and two chunks' fragments.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <= 65536, "registers");
+constexpr int kEpiBar = 1;              // the consumers' named barrier
 
-template <int BM>
-struct Tiles {
-  static constexpr int WM = BM == 16 ? 1 : 2;   // warps along M
-  static constexpr int WN = 8 / WM;             // warps along N
-  static constexpr int MT = BM / (16 * WM);     // m16 tiles per warp
-  static constexpr int NT = kBN / (8 * WN);     // n8 tiles per warp
-  // x: kStages x 2 halves x BM rows; packed w: kStages x BN x BKH bytes;
-  // dequantized w: 2 halves x BN rows. At BM = 128: 94 KB, two blocks an SM.
-  static constexpr int kXBytes = kStages * 2 * BM * kRow * 2;
-  static constexpr int kWpBytes = kStages * kBN * kBKH;
-  static constexpr int kSmem = kXBytes + kWpBytes + 2 * kBN * kRow * 2;
+template <int NT>
+struct Cfg {
+  // Packed bytes a chunk (columns of each half): 128 where the x boxes are
+  // small, so that a chunk's fixed costs (its barriers, its hand-offs) buy
+  // twice the weight bytes; 64 at NT = 128, whose x boxes fill the ring.
+  static constexpr int kKC = NT == 128 ? 64 : 128;
+  static constexpr int kSteps = kKC / 16;            // k16 steps a chunk
+  static constexpr int kXBlock = NT * 128;           // NT rows x 64 bf16
+  static constexpr int kXHalf = kXBlock * (kKC / 64);
+  static constexpr int kW = kBM * kKC;               // packed weights
+  static constexpr int kStage = 2 * kXHalf + kW;
+  static constexpr int kEpiCols = NT < 64 ? NT : 64;   // tokens staged at once
+  static constexpr int kEpiPitch = kBM + 8;            // bf16 a staged token row
+  static constexpr int kEpi = kEpiCols * kEpiPitch * 2;
+  static constexpr int kStages = (220 * 1024 - kEpi) / kStage < 8
+                                     ? (220 * 1024 - kEpi) / kStage : 8;
+  static constexpr int kSmem = 1024 + kStages * kStage + kEpi + 2 * kStages * 8;
+  static_assert(kSmem <= 232448, "shared memory");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+struct Args {
+  const bf16* x;
+  const int8_t* q4;
+  const float* s;
+  bf16* y;
+  float* ws;       // partials: [tiles * t_tiles][splits][NT / 8][kConsumers] float4
+  int* counters;   // one a (tile, token tile), zero between launches
+  int T, N, K, layer;
+  int t_tiles, splits, per, units;
+};
+
+// Byte offset of packed byte j of weight row r in a stage, rows of KC
+// bytes as TMA's KC-byte swizzle lays them: 16-byte chunk c at c ^ (r & 7)
+// (128 bytes) or c ^ ((r >> 1) & 3) (64 bytes).
+template <int KC>
+__device__ __forceinline__ int w_off(int r, int j) {
+  const int c = KC == 128 ? (j >> 4) ^ (r & 7) : ((j >> 4) ^ (r >> 1)) & 3;
+  return r * KC + (c << 4) + (j & 15);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Two nibbles at bits 0-3 and 16-19 of v -> their signed values as bf16x2.
+__device__ __forceinline__ uint32_t nib2(uint32_t v) {
+  uint32_t b;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"   // (v & mask) ^ magic
+      : "=r"(b)
+      : "r"(v), "r"(0x000F000Fu), "r"(0x43084308u));
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&b);
+  h = __hsub2(h, __nv_bfloat162(__float2bfloat16(136.f), __float2bfloat16(136.f)));
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <int NT>
+__device__ __forceinline__ void wgmma_x(float (&d)[NT / 2], const uint32_t (&a)[4],
+                                        uint64_t db) {
+  if constexpr (NT == 16) wgmma_rs_n16<0>(d, a, db);
+  else if constexpr (NT == 32) wgmma_rs_n32<0>(d, a, db);
+  else if constexpr (NT == 64) wgmma_rs_n64<0>(d, a, db);
+  else wgmma_rs_n128<0>(d, a, db);
 }
 
-// Two signed nibbles of byte `v` (0..255) -> bf16 values.
-__device__ __forceinline__ float lo_nibble(unsigned v) {
-  return static_cast<float>(static_cast<int>(v << 28) >> 28);
-}
-__device__ __forceinline__ float hi_nibble(unsigned v) {
-  return static_cast<float>(static_cast<int>(v << 24) >> 28);
-}
-
-// Copy chunk c (packed columns j0 .. j0+kBKH of both halves) into stage st.
-// vec: K/2 % 16 == 0, so every 16-byte segment is aligned and either wholly
-// inside the matrix or wholly past its edge (then zero-filled); otherwise
-// element by element with a bound on each.
-template <int BM>
-__device__ __forceinline__ void load_chunk(
-    unsigned char* smem, const bf16* __restrict__ x,
-    const int8_t* __restrict__ w, int T, int N, int K, int m0, int n0, int c,
-    int st, bool vec) {
-  using TL = Tiles<BM>;
-  const int KH = K / 2;
-  const int j0 = c * kBKH;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  unsigned char* wp = smem + TL::kXBytes;
-  // x: BM rows x 2 halves x 4 segments of 8 bf16.
-  for (int i = threadIdx.x; i < BM * 8; i += kThreads) {
-    const int seg = i % 4, half = (i / 4) % 2, r = i / 8;
-    const int m = m0 + r, col = j0 + seg * 8;
-    bf16* dst = xs + ((st * 2 + half) * BM + r) * kRow + seg * 8;
-    const bf16* src = x + static_cast<int64_t>(m) * K + half * KH + col;
-    if (vec) {
-      const bool ok = m < T && col < KH;
-      cp_async16(dst, ok ? src : x, ok);
-    } else {
+// Keeps registers live across an asynchronous product that reads them.
+template <int S>
+__device__ __forceinline__ void keep_live(uint32_t (&r)[S][4]) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (m < T && col + e < KH) ? src[e] : __float2bfloat16(0.f);
-    }
-  }
-  // packed w: BN rows x 2 segments of 16 bytes.
-  for (int i = threadIdx.x; i < kBN * 2; i += kThreads) {
-    const int seg = i % 2, r = i / 2;
-    const int n = n0 + r, col = j0 + seg * 16;
-    unsigned char* dst = wp + (st * kBN + r) * kBKH + seg * 16;
-    const int8_t* src = w + static_cast<int64_t>(n) * KH + col;
-    if (vec) {
-      const bool ok = n < N && col < KH;
-      cp_async16(dst, ok ? src : w, ok);
-    } else {
+  for (int i = 0; i < S; ++i)
 #pragma unroll
-      for (int e = 0; e < 16; ++e)
-        dst[e] = (n < N && col + e < KH) ? static_cast<unsigned char>(src[e]) : 0;
-    }
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kEpiBar), "n"(kConsumers) : "memory");
+}
+
+struct Unit {
+  int tile, mt, split, c_begin, c_end;
+};
+
+template <int KC>
+__device__ __forceinline__ Unit unit_of(const Args& a, int u) {
+  Unit w;
+  w.mt = u % a.t_tiles;
+  const int rest = u / a.t_tiles;
+  w.split = rest % a.splits;
+  w.tile = rest / a.splits;
+  const int chunks = (a.K / 2 + KC - 1) / KC;
+  w.c_begin = w.split * a.per;
+  w.c_end = min(chunks, w.c_begin + a.per);
+  return w;
+}
+
+// The ragged path's copy of chunk c into a stage: the producer warp's 32
+// lanes, zeros outside the matrix (rows past N or T, columns past K/2).
+template <int NT>
+__device__ void fill_stage(const Args& a, unsigned char* st, int n0, int t0, int c,
+                           int lane) {
+  constexpr int KC = Cfg<NT>::kKC;
+  const int KH = a.K / 2, j0 = c * KC;
+  const int8_t* w = a.q4 + static_cast<int64_t>(a.layer) * a.N * KH;
+  unsigned char* sw = st + 2 * Cfg<NT>::kXHalf;
+  for (int i = lane; i < kBM * KC; i += 32) {
+    const int r = i / KC, j = i % KC;
+    const int n = n0 + r, jj = j0 + j;
+    sw[w_off<KC>(r, j)] = (n < a.N && jj < KH)
+        ? static_cast<unsigned char>(w[static_cast<int64_t>(n) * KH + jj]) : 0;
+  }
+  for (int i = lane; i < 2 * NT * KC; i += 32) {
+    const int half = i / (NT * KC), r = (i / KC) % NT, j = i % KC;
+    const int t = t0 + r, jj = j0 + j;
+    bf16 v = __float2bfloat16(0.f);
+    if (t < a.T && jj < KH) v = a.x[static_cast<int64_t>(t) * a.K + half * KH + jj];
+    *reinterpret_cast<bf16*>(st + half * Cfg<NT>::kXHalf + swz<NT>(r, j >> 3) +
+                             (j & 7) * 2) = v;
   }
 }
 
-template <int BM>
-__global__ void __launch_bounds__(kThreads, 2)
-int4_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q4,
-                   const float* __restrict__ s, bf16* __restrict__ y,
-                   float* __restrict__ ws, int T, int N, int K, int layer,
-                   int per_split, bool vec) {
-  using TL = Tiles<BM>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const bf16* xs = reinterpret_cast<const bf16*>(smem);
-  const unsigned char* wp = smem + TL::kXBytes;
-  bf16* wd = reinterpret_cast<bf16*>(smem + TL::kXBytes + TL::kWpBytes);
-
-  const int KH = K / 2;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * kBN;
-  const int chunks = (KH + kBKH - 1) / kBKH;
-  const int c_begin = blockIdx.z * per_split;
-  const int c_end = min(chunks, c_begin + per_split);
-  const int8_t* w = q4 + static_cast<int64_t>(layer) * N * KH;
-  const float* sl = s + static_cast<int64_t>(layer) * N;
+template <int NT, bool TMA>
+__global__ void __launch_bounds__(kThreads, 1)
+int4_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_x, const Args a) {
+  using C = Cfg<NT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  bf16* epi = reinterpret_cast<bf16*>(smem + C::kStages * C::kStage);
+  const uint32_t bars = smem_addr(smem + C::kStages * C::kStage + C::kEpi);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (C::kStages + st); };
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / TL::WN, wn = warp % TL::WN;
-
-  float acc[TL::MT][TL::NT][4];
-#pragma unroll
-  for (int i = 0; i < TL::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < TL::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // One commit group per chunk (empty past the end), so that "all but the
-  // newest kStages - 2 groups have landed" means "chunk c has landed".
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (c_begin + i < c_end)
-      load_chunk<BM>(smem, x, w, T, N, K, m0, n0, c_begin + i, i, vec);
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int st = (c - c_begin) % kStages;
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2));
-    // Chunk c has landed for every thread, and every warp is done with the
-    // products of chunk c-1: its stage and the dequantized tile are free.
-    __syncthreads();
-    if (c + kStages - 1 < c_end)
-      load_chunk<BM>(smem, x, w, T, N, K, m0, n0, c + kStages - 1,
-                     (c + kStages - 1 - c_begin) % kStages, vec);
-    asm volatile("cp.async.commit_group;\n" ::);
-
-    // Sign-extend both nibbles of this chunk's bytes once, into bf16.
-    {
-      const int r = threadIdx.x / 2, seg = threadIdx.x % 2;  // 256 x 16 bytes
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          wp + (st * kBN + r) * kBKH + seg * 16);
-      const unsigned char* b = reinterpret_cast<const unsigned char*>(&u);
-      uint32_t lo[8], hi[8];
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        const __nv_bfloat162 l = __floats2bfloat162_rn(lo_nibble(b[2 * p]),
-                                                       lo_nibble(b[2 * p + 1]));
-        const __nv_bfloat162 h = __floats2bfloat162_rn(hi_nibble(b[2 * p]),
-                                                       hi_nibble(b[2 * p + 1]));
-        lo[p] = *reinterpret_cast<const uint32_t*>(&l);
-        hi[p] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-      uint4* dl = reinterpret_cast<uint4*>(wd + r * kRow + seg * 16);
-      uint4* dh = reinterpret_cast<uint4*>(wd + (kBN + r) * kRow + seg * 16);
-      dl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      dl[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::kStages; ++i) {
+      mbar_init(full(i), TMA ? 1 : 32);
+      mbar_init(empty(i), kConsumers / 32);
     }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
+  const int KH = a.K / 2;
+  if (warp >= kConsumers / 32) {
+    // ---- the producer warpgroup: its first warp fills the ring ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp != kConsumers / 32) return;
+    int st = 0, ph = 0;
+    for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+      const Unit w = unit_of<C::kKC>(a, u);
+      const int n0 = w.tile * kBM, t0 = w.mt * NT;
+      for (int c = w.c_begin; c < w.c_end; ++c) {
+        mbar_wait(empty(st), ph ^ 1);
+        unsigned char* stage = smem + st * C::kStage;
+        if constexpr (TMA) {
+          if (lane == 0) {
+            const uint32_t dst = smem_addr(stage);
+            mbar_arrive_expect_tx(full(st), C::kStage);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const bf16* xa = xs + (st * 2 + half) * BM * kRow;
-      const bf16* wb = wd + half * kBN * kRow;
-#pragma unroll
-      for (int kk = 0; kk < kBKH; kk += 16) {
-        uint32_t a[TL::MT][4], b[TL::NT][2];
-#pragma unroll
-        for (int i = 0; i < TL::MT; ++i) {
-          const bf16* p = xa + ((wm * TL::MT + i) * 16 + g) * kRow + kk + 2 * t;
-          a[i][0] = ld32(p);
-          a[i][1] = ld32(p + 8 * kRow);
-          a[i][2] = ld32(p + 8);
-          a[i][3] = ld32(p + 8 * kRow + 8);
+            for (int b = 0; b < C::kKC / 64; ++b) {
+              tma_load_2d(dst + b * C::kXBlock, &tm_x, full(st), c * C::kKC + 64 * b, t0);
+              tma_load_2d(dst + C::kXHalf + b * C::kXBlock, &tm_x, full(st),
+                          KH + c * C::kKC + 64 * b, t0);
+            }
+            tma_load_3d(dst + 2 * C::kXHalf, &tm_w, full(st), c * C::kKC, n0, a.layer);
+          }
+        } else {
+          fill_stage<NT>(a, stage, n0, t0, c, lane);
+          fence_proxy_async();   // the x boxes are read by wgmma (async proxy)
+          mbar_arrive(full(st));
         }
-#pragma unroll
-        for (int j = 0; j < TL::NT; ++j) {
-          const bf16* p = wb + ((wn * TL::NT + j) * 8 + g) * kRow + kk + 2 * t;
-          b[j][0] = ld32(p);
-          b[j][1] = ld32(p + 8);
-        }
-#pragma unroll
-        for (int i = 0; i < TL::MT; ++i)
-#pragma unroll
-          for (int j = 0; j < TL::NT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+        if (++st == C::kStages) { st = 0; ph ^= 1; }
       }
     }
+    return;
   }
 
-  // Epilogue: accumulator e of tile (i, j) is row g (e < 2) or g + 8, column
-  // 2t + e % 2 of that tile.
-  const bool split = gridDim.z > 1;
+  // ---- the consumer warpgroups ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp / 4, g = lane / 4, q = lane % 4;
+  const int r0 = wg * 64 + (warp % 4) * 16 + g;   // rows r0 and r0 + 8 of the tile
+  // A thread's A fragment of a 16-byte k group: bytes 2q, 2q+1 (word q/2,
+  // half q%2) and 2q+8, 2q+9 (word 2 + q/2) of each of its two rows; one
+  // prmt gathers them as [2q, 2q+8, 2q+1, 2q+9].
+  const uint32_t sel = 0x5140 + (q & 1) * 0x2222;
+  const int wofs = 4 * (q >> 1);
+  const float* sl = a.s + static_cast<int64_t>(a.layer) * a.N;
+  int st = 0, ph = 0;
+
+  float acc[NT / 2];
+  // The A fragments of one chunk: four k16 steps, low and high nibbles.
+  using Frag = uint32_t[C::kSteps][4];
+  auto load_a = [&](int stage_i, Frag& lo, Frag& hi) {
+    const unsigned char* sw = smem + stage_i * C::kStage + 2 * C::kXHalf;
 #pragma unroll
-  for (int i = 0; i < TL::MT; ++i) {
+    for (int s = 0; s < C::kSteps; ++s) {
 #pragma unroll
-    for (int j = 0; j < TL::NT; ++j) {
+      for (int h = 0; h < 2; ++h) {
+        const unsigned char* row = sw + w_off<C::kKC>(r0 + 8 * h, 16 * s);
+        const uint32_t wa = *reinterpret_cast<const uint32_t*>(row + wofs);
+        const uint32_t wb = *reinterpret_cast<const uint32_t*>(row + 8 + wofs);
+        const uint32_t p = __byte_perm(wa, wb, sel);
+        lo[s][h] = nib2(p);
+        lo[s][2 + h] = nib2(p >> 8);
+        hi[s][h] = nib2(p >> 4);
+        hi[s][2 + h] = nib2(p >> 12);
+      }
+    }
+  };
+  // The chunk's products: with wgmma, eight, in flight when this returns.
+  auto issue = [&](int stage_i, Frag& lo, Frag& hi) {
+    const uint32_t xlo = smem_addr(smem + stage_i * C::kStage), xhi = xlo + C::kXHalf;
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + (wm * TL::MT + i) * 16 + g + (e / 2) * 8;
-        const int n = n0 + (wn * TL::NT + j) * 8 + 2 * t + e % 2;
-        if (m >= T || n >= N) continue;
-        const int64_t o = static_cast<int64_t>(m) * N + n;
-        if (split)
-          ws[static_cast<int64_t>(blockIdx.z) * T * N + o] = acc[i][j][e];
-        else
-          y[o] = __float2bfloat16(acc[i][j][e] * sl[n]);
+    for (int s = 0; s < C::kSteps; ++s) {
+      const uint32_t o = (s >> 2) * C::kXBlock + 32 * (s & 3);
+      wgmma_x<NT>(acc, lo[s], sw128_desc(xlo + o, 16, 1024));
+      wgmma_x<NT>(acc, hi[s], sw128_desc(xhi + o, 16, 1024));
+    }
+    wgmma_commit();
+  };
+  // Waits for a chunk's products; until then the fragments they read stay
+  // live (the compiler must not give their registers to the next chunk's),
+  // and then the stage goes back to the producer.
+  auto retire = [&](int stage_i, Frag& lo, Frag& hi) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    keep_live(lo);
+    keep_live(hi);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(stage_i));
+  };
+  auto next = [&](int& stage_i, int& parity) {
+    if (++stage_i == C::kStages) { stage_i = 0; parity ^= 1; }
+  };
+
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    const Unit w = unit_of<C::kKC>(a, u);
+    const int n0 = w.tile * kBM, t0 = w.mt * NT;
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+
+    // Two sets of fragments in turn: the next chunk's are loaded and
+    // dequantized while this chunk's products run. Each chunk's products
+    // are waited for before the next are issued: keeping them in flight
+    // across the next issue (wgmma_wait<1>) gave wrong sums on the card.
+    Frag la, ha, lb, hb;
+    mbar_wait(full(st), ph);
+    load_a(st, la, ha);
+    for (int c = w.c_begin;;) {
+      int cur = st;
+      next(st, ph);
+      issue(cur, la, ha);
+      bool more = ++c < w.c_end;
+      if (more) {
+        mbar_wait(full(st), ph);
+        load_a(st, lb, hb);
+      }
+      retire(cur, la, ha);
+      if (!more) break;
+      cur = st;
+      next(st, ph);
+      issue(cur, lb, hb);
+      more = ++c < w.c_end;
+      if (more) {
+        mbar_wait(full(st), ph);
+        load_a(st, la, ha);
+      }
+      retire(cur, lb, hb);
+      if (!more) break;
+    }
+
+    // ---- split-K merge: the last split of the tile sums them in order ----
+    if (a.splits > 1) {
+      const int pair = w.tile * a.t_tiles + w.mt;
+      float4* part = reinterpret_cast<float4*>(a.ws) +
+                     static_cast<int64_t>(pair) * a.splits * (NT / 8) * kConsumers;
+#pragma unroll
+      for (int i = 0; i < NT / 8; ++i)
+        part[(static_cast<int64_t>(w.split) * (NT / 8) + i) * kConsumers + threadIdx.x] =
+            make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+      if (!arrive_last(a.counters + pair, a.splits, kEpiBar, kConsumers))
+        continue;
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+      for (int sp = 0; sp < a.splits; ++sp) {
+#pragma unroll
+        for (int i = 0; i < NT / 8; ++i) {
+          const float4 v = __ldcg(part + (static_cast<int64_t>(sp) * (NT / 8) + i) *
+                                             kConsumers + threadIdx.x);
+          acc[4 * i] += v.x;
+          acc[4 * i + 1] += v.y;
+          acc[4 * i + 2] += v.z;
+          acc[4 * i + 3] += v.w;
+        }
+      }
+    }
+
+    // ---- epilogue: scale, round, stage transposed, store along N ----
+    // Accumulator i: token column 8 (i / 4) + 2q + (i & 1), row r0 + 8 ((i / 2) & 1).
+    const float sc[2] = {n0 + r0 < a.N ? sl[n0 + r0] : 0.f,
+                         n0 + r0 + 8 < a.N ? sl[n0 + r0 + 8] : 0.f};
+#pragma unroll
+    for (int tb = 0; tb < NT; tb += C::kEpiCols) {
+      consumers_sync();   // the staging buffer is free
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) {
+        const int col = 8 * (i / 4) + 2 * q + (i & 1);
+        if (col < tb || col >= tb + C::kEpiCols) continue;
+        const int h = (i >> 1) & 1;
+        epi[(col - tb) * C::kEpiPitch + r0 + 8 * h] = __float2bfloat16(acc[i] * sc[h]);
+      }
+      consumers_sync();
+      for (int v = threadIdx.x; v < C::kEpiCols * (kBM / 8); v += kConsumers) {
+        const int tr = v / (kBM / 8), c8 = (v % (kBM / 8)) * 8;
+        const int t = t0 + tb + tr, n = n0 + c8;
+        if (t >= a.T || n >= a.N) continue;
+        const bf16* src = epi + tr * C::kEpiPitch + c8;
+        bf16* dst = a.y + static_cast<int64_t>(t) * a.N + n;
+        if (n + 8 <= a.N && a.N % 8 == 0) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int e = 0; e < 8 && n + e < a.N; ++e) dst[e] = src[e];
+        }
       }
     }
   }
 }
 
-// Second pass of a split launch: y = bf16(sum over splits of ws * s).
-__global__ void int4_reduce_kernel(const float* __restrict__ ws,
-                                   const float* __restrict__ s,
-                                   bf16* __restrict__ y, int T, int N,
-                                   int splits) {
-  const int64_t total = static_cast<int64_t>(T) * N;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float a = 0.f;
-    for (int z = 0; z < splits; ++z) a += ws[z * total + i];
-    y[i] = __float2bfloat16(a * s[i % N]);
-  }
+// ---- host side ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// library links no libcuda).
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
 }
 
-template <int BM>
-void launch(const bf16* x, const int8_t* q4, const float* s, bf16* y,
-            float* ws, int T, int N, int K, int layer, int splits,
-            int per_split, bool vec, cudaStream_t stream) {
-  constexpr int smem = Tiles<BM>::kSmem;
-  static bool attr_set = false;  // above 48 KB only as opted-in dynamic smem
-  if (!attr_set) {
-    cudaFuncSetAttribute(int4_matmul_kernel<BM>,
+struct MapKey {
+  const void* ptr;
+  int64_t d0, d1, d2;
+  int box;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 && box == o.box;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (int64_t v : {k.d0, k.d1, k.d2, static_cast<int64_t>(k.box)})
+      h = h * 1000003u ^ std::hash<int64_t>()(v);
+    return h;
+  }
+};
+
+// Tensor maps, encoded once per (address, shape, box): a decode step meets
+// the same weights, and mostly the same activation buffers, again and again.
+// The map holds only the address and the shape, so a buffer freed and
+// reallocated at the same address with the same shape reuses it rightly.
+bool tensor_map(CUtensorMap* out, const MapKey& key, bool weights) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return true;
+  }
+  const EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return false;
+  CUresult r;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  if (weights) {   // q4 as bytes [L][N][K/2], boxes of KC (key.box) bytes x 128 rows
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(key.d0),
+                                static_cast<cuuint64_t>(key.d1),
+                                static_cast<cuuint64_t>(key.d2)};
+    const cuuint64_t strides[2] = {dims[0], dims[0] * dims[1]};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(key.box), kBM, 1};
+    r = enc(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(key.ptr), dims,
+            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            key.box == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {         // x as bf16 [T][K], boxes of 64 columns x NT rows
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(key.d0),
+                                static_cast<cuuint64_t>(key.d1)};
+    const cuuint64_t strides[1] = {dims[0] * 2};
+    const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(key.box)};
+    r = enc(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(key.ptr), dims,
+            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  if (r != CUDA_SUCCESS) return false;
+  if (cache.size() >= 1024) cache.clear();
+  cache.emplace(key, *out);
+  return true;
+}
+
+template <int NT, bool TMA>
+int launch(const Args& a, int L, int grid, cudaStream_t stream) {
+  constexpr int smem = Cfg<NT>::kSmem;
+  CUtensorMap tw{}, tx{};
+  if (TMA && (!tensor_map(&tw, {a.q4, a.K / 2, a.N, L, Cfg<NT>::kKC}, true) ||
+              !tensor_map(&tx, {a.x, a.K, a.T, 0, NT}, false)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool attr_set[64] = {};   // per device: above 48 KB only when opted in
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && !attr_set[dev]) {
+    cudaFuncSetAttribute(int4_matmul_kernel<NT, TMA>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    attr_set = true;
+    attr_set[dev] = true;
   }
-  const dim3 grid((T + BM - 1) / BM, (N + kBN - 1) / kBN, splits);
-  int4_matmul_kernel<BM><<<grid, kThreads, smem, stream>>>(
-      x, q4, s, y, ws, T, N, K, layer, per_split, vec);
+  int4_matmul_kernel<NT, TMA><<<grid, kThreads, smem, stream>>>(tw, tx, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int dispatch(bool tma, const Args& a, int L, int grid, cudaStream_t stream) {
+  return tma ? launch<NT, true>(a, L, grid, stream) : launch<NT, false>(a, L, grid, stream);
 }
 
 }  // namespace
 }  // namespace swiftllm
 
 // C entry, bound with ctypes. 0 < T <= 256, K even, 0 <= layer < L; x, q4, s
-// and y contiguous and 16-byte aligned (the wrapper checks all of it). ws
-// holds splits x T x N f32 when splits > 1 (unused otherwise). Returns
-// cudaGetLastError() after the launches.
-extern "C" int int4_matmul(const void* x, const void* q4, const void* s,
-                           void* y, void* ws, int T, int N, int K, int layer,
-                           int splits, void* stream) {
+// and y contiguous and 16-byte aligned (the wrapper checks all of it). The
+// plan (ops/int4_matmul.py:int4_plan): NT token columns a tile (16, 32, 64
+// or 128; t_tiles = ceil(T / NT)), splits of `per` chunks of KC packed
+// bytes (128, or 64 at NT = 128), units = ceil(N / 128) * t_tiles * splits, grid blocks. ws holds
+// units x 128 x NT f32 partials when splits > 1; counters holds ceil(N /
+// 128) * t_tiles int32, zero (every launch leaves them zero). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+extern "C" int int4_matmul(const void* x, const void* q4, const void* s, void* y,
+                           void* ws, void* counters, int T, int N, int K, int L,
+                           int layer, int NT, int t_tiles, int splits, int per,
+                           int grid, void* stream) {
   using namespace swiftllm;
-  if (T <= 0 || T > 256 || N <= 0 || K <= 0 || K % 2 || splits < 1)
+  if (T <= 0 || T > 256 || N <= 0 || K <= 0 || K % 2 || layer < 0 || layer >= L ||
+      splits < 1 || per < 1 || grid < 1 || t_tiles * NT < T ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = (K / 2 + kBKH - 1) / kBKH;
-  const int per_split = (chunks + splits - 1) / splits;
-  const bool vec = (K / 2) % 16 == 0;
+  const int KH = K / 2;
+  const int tiles = (N + kBM - 1) / kBM;
+  Args a{static_cast<const bf16*>(x), static_cast<const int8_t*>(q4),
+         static_cast<const float*>(s), static_cast<bf16*>(y), static_cast<float*>(ws),
+         static_cast<int*>(counters), T, N, K, layer, t_tiles, splits, per,
+         tiles * t_tiles * splits};
+  // TMA needs 16-byte strides and 16-byte-aligned bases.
+  const bool tma = KH % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q4) % 16 == 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* qb = static_cast<const int8_t*>(q4);
-  const auto* sb = static_cast<const float*>(s);
-  auto* yb = static_cast<bf16*>(y);
-  auto* wsb = static_cast<float*>(ws);
-  if (T <= 16)
-    launch<16>(xb, qb, sb, yb, wsb, T, N, K, layer, splits, per_split, vec, st);
-  else if (T <= 32)
-    launch<32>(xb, qb, sb, yb, wsb, T, N, K, layer, splits, per_split, vec, st);
-  else if (T <= 64)
-    launch<64>(xb, qb, sb, yb, wsb, T, N, K, layer, splits, per_split, vec, st);
-  else
-    launch<128>(xb, qb, sb, yb, wsb, T, N, K, layer, splits, per_split, vec, st);
-  if (splits > 1) {
-    const int64_t total = static_cast<int64_t>(T) * N;
-    const int blocks = static_cast<int>(std::min<int64_t>((total + 255) / 256, 4096));
-    int4_reduce_kernel<<<blocks, 256, 0, st>>>(
-        wsb, sb + static_cast<int64_t>(layer) * N, yb, T, N, splits);
+  grid = std::min(grid, a.units);
+  switch (NT) {
+    case 16: return dispatch<16>(tma, a, L, grid, st);
+    case 32: return dispatch<32>(tma, a, L, grid, st);
+    case 64: return dispatch<64>(tma, a, L, grid, st);
+    case 128: return dispatch<128>(tma, a, L, grid, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

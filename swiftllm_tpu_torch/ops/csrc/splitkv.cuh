@@ -1,4 +1,5 @@
-// Split-KV for the paged-attention kernels: the keys of one attention unit
+// Split-KV for the paged-attention kernels (and the arrival counter that
+// int4_matmul.cu's split-K merge shares): the keys of one attention unit
 // (a decode row's kv head, or a prefill row's query tile and kv head) are cut
 // into splits that separate blocks walk at once, and the last block of the
 // unit to finish merges their partial softmax states. No second launch.
@@ -49,19 +50,30 @@ __device__ __forceinline__ void split_keys(int s, int n_split, int chunk,
 
 // Called by every thread of a block that wrote its partial state: true in
 // the block that arrived last (all the unit's partials are then visible to
-// it). The pattern of CUDA's threadFenceReduction sample.
-__device__ __forceinline__ bool arrive_last(int* counter, int n_active) {
+// it). The pattern of CUDA's threadFenceReduction sample. A kernel whose
+// other warps run a loop of their own (int4_matmul.cu's producer) passes a
+// named barrier `bar` (not 0) that only its first `nthreads` threads (whole
+// warps, thread 0 among them) call this at.
+__device__ __forceinline__ bool arrive_last(int* counter, int n_active, int bar = 0,
+                                            int nthreads = 0) {
   __shared__ int is_last;
+  auto sync = [&] {
+    if (bar == 0)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(nthreads) : "memory");
+  };
   __threadfence();
-  __syncthreads();
+  sync();
   if (threadIdx.x == 0) {
     const int prev = atomicAdd(counter, 1);
     is_last = prev == n_active - 1;
     if (is_last) *counter = 0;
   }
-  __syncthreads();
-  if (is_last) __threadfence();
-  return is_last != 0;
+  sync();
+  const bool last = is_last != 0;
+  if (last) __threadfence();
+  return last;
 }
 
 // Merges the partials of splits first .. first+count-1 of one unit, R rows

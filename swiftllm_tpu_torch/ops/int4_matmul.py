@@ -1,6 +1,7 @@
 """Fused INT4 dequant-matmul for the PyTorch port: a CUDA kernel written by
 hand for Hopper (sm_90a, ``csrc/int4_matmul.cu``), its plain PyTorch
-version, and its launch counter.
+versions (unsplit, and split-then-merge), its split plan, and its launch
+counter.
 
 Contract (the same as ``swiftllm_tpu/ops/int4_matmul.py:int4_proj_stacked``):
 ``y[T, N] = x[T, K] @ dequant(q4[layer])^T * s[layer]``, with q4 ``[L, N,
@@ -13,8 +14,11 @@ the scale, and is rounded to x's dtype ONCE (the TPU kernel's numerics, not
 The kernel reads the stacked weights at the layer's offset, as the TPU
 kernel takes the layer by scalar prefetch: no per-layer slice is copied. It
 takes any N, any even K and T <= 256 (the decode buckets; the model sends
-larger buckets through ``proj``). The TPU kernel's tile picking and sublane
-padding have no Hopper counterpart.
+larger buckets through ``proj``). It cuts K into chunks of packed bytes
+(``chunk_bytes``) and may split the chunks of a tile over several blocks;
+the last block of a tile to finish sums the splits' f32 partials in split
+order (``int4_proj_split_plain`` is the plain version of that). The TPU
+kernel's tile picking and sublane padding have no Hopper counterpart.
 
 The wrapper takes the plain version for tensors on the CPU, and only then. On
 a CUDA tensor it launches the kernel or raises; it never falls back.
@@ -22,15 +26,110 @@ a CUDA tensor it launches the kernel or raises; it never falls back.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from swiftllm_tpu_torch.ops import build
+from swiftllm_tpu_torch.utils import cdiv
 from swiftllm_tpu_torch.worker.quant import nibbles
 
 MAX_T = 256
-NUM_SMS = 132              # H100 SXM
-_BN = 128                  # output columns per block (csrc/int4_matmul.cu)
-_BKH = 32                  # packed bytes per K chunk
+BM = 128                      # weight rows a tile (csrc/int4_matmul.cu:kBM)
+TOKEN_WIDTHS = (16, 32, 64, 128)   # the kernel's token-tile widths (NT)
+
+
+def chunk_bytes(nt: int) -> int:
+    """Packed bytes a K chunk at token width ``nt`` (Cfg<NT>::kKC)."""
+    return 64 if nt == 128 else 128
+
+
+class Int4Plan(NamedTuple):
+    """A launch's plan, ints only: ``t_tiles`` token tiles of ``nt``
+    columns, ``tiles`` tiles of BM weight rows, ``chunks`` K chunks of
+    ``kc`` packed bytes cut into ``splits`` splits of ``per`` (the last may
+    be shorter), ``units`` = tiles x t_tiles x splits, on ``grid``
+    persistent blocks."""
+    nt: int
+    t_tiles: int
+    tiles: int
+    kc: int
+    chunks: int
+    splits: int
+    per: int
+    units: int
+    grid: int
+
+
+# The plan's model of a launch's time on an H100 (µs), fitted to the times
+# of the (token width, splits) pairs at the four 8B shapes that
+# `chip_smoke.py --sweep-int4` prints beside it: a fixed LAUNCH_US; for
+# each unit of the busiest block, UNIT_US (its epilogue, and a split's
+# partial, fence and arrival) and per chunk 4 x kc / 16 products of 64 x
+# 16 weights (two warpgroups, low and high nibbles) of PRODUCT_CYCLES +
+# NT_CYCLES x nt cycles each at CLOCK_GHZ; and when the tile splits, the
+# merge: MERGE_US and MERGE_US_PER_KB for each KB of f32 partials the last
+# block reads.
+LAUNCH_US, UNIT_US = 3.5, 2.0
+PRODUCT_CYCLES, NT_CYCLES = 45.0, 0.28
+CLOCK_GHZ = 1.755
+MERGE_US, MERGE_US_PER_KB = 1.0, 0.02
+# Among plans within PLAN_SLACK of the least modelled time, the one that
+# fills the most SMs (then the least modelled time).
+PLAN_SLACK = 0.05
+
+
+def plan_us(p: "Int4Plan", n_sms: int) -> float:
+    """The modelled time (µs) of a launch by plan ``p`` on ``n_sms`` SMs."""
+    chunk_us = (4 * p.kc / 16 * (PRODUCT_CYCLES + NT_CYCLES * p.nt)
+                / (CLOCK_GHZ * 1e3))
+    us = LAUNCH_US + cdiv(p.units, n_sms) * (p.per * chunk_us + UNIT_US)
+    if p.splits > 1:
+        us += MERGE_US + MERGE_US_PER_KB * p.splits * BM * p.nt * 4 / 1024
+    return us
+
+
+def _plan_of(T: int, N: int, K: int, n_sms: int, nt: int, splits: int) -> "Int4Plan":
+    t_tiles, tiles, kc = cdiv(T, nt), cdiv(N, BM), chunk_bytes(nt)
+    chunks = cdiv(K // 2, kc)
+    per = cdiv(chunks, max(1, min(splits, chunks)))
+    s = cdiv(chunks, per)                # no empty split
+    units = tiles * t_tiles * s
+    return Int4Plan(nt, t_tiles, tiles, kc, chunks, s, per, units, min(units, n_sms))
+
+
+@functools.lru_cache(maxsize=4096)
+def int4_plan(T: int, N: int, K: int, n_sms: int, splits: int | None = None,
+              nt: int | None = None) -> Int4Plan:
+    """The kernel's plan for x [T, K] and N output channels on a card of
+    ``n_sms`` SMs (one persistent block an SM): the token width (the least
+    of TOKEN_WIDTHS that holds T, or one down to a quarter of it with more
+    token tiles) and the K splits, of those whose modelled time
+    (``plan_us``) is within PLAN_SLACK of the least, the one that fills
+    the most SMs. More splits or token tiles fill more SMs; each split adds
+    a partial to the merge, each token tile the fixed cost of every product
+    again. ``nt`` forces the token width, ``splits`` the count (made such
+    that no split is empty; at the widest token width unless ``nt`` says
+    otherwise). Ints only: no device value reaches the plan. Cached: the
+    search costs the host hundreds of µs, a step's launches a dictionary
+    lookup each."""
+    for name, v in (("T", T), ("N", N), ("K", K), ("n_sms", n_sms),
+                    ("splits", 0 if splits is None else splits),
+                    ("nt", 0 if nt is None else nt)):
+        if type(v) is not int:
+            raise TypeError(f"int4_plan takes ints, got {name}={v!r}")
+    widest = next(w for w in TOKEN_WIDTHS if w >= min(T, TOKEN_WIDTHS[-1]))
+    if nt is not None and nt not in TOKEN_WIDTHS:
+        raise ValueError(f"int4_plan: token width {nt} not in {TOKEN_WIDTHS}")
+    widths = ([nt] if nt is not None else [widest] if splits is not None
+              else [w for w in TOKEN_WIDTHS if widest // 4 <= w <= widest])
+    plans = [_plan_of(T, N, K, n_sms, w, s) for w in widths
+             for s in ([splits] if splits is not None
+                       else range(1, cdiv(K // 2, chunk_bytes(w)) + 1))]
+    best = min(plan_us(p, n_sms) for p in plans)
+    near = [p for p in plans if plan_us(p, n_sms) <= (1 + PLAN_SLACK) * best]
+    return max(near, key=lambda p: (min(p.units, n_sms), -plan_us(p, n_sms)))
 
 
 def int4_proj_stacked_plain(x: torch.Tensor, q4: torch.Tensor,
@@ -44,24 +143,40 @@ def int4_proj_stacked_plain(x: torch.Tensor, q4: torch.Tensor,
     return (acc * s[layer].float()).to(x.dtype)
 
 
-def split_k(T: int, N: int, K: int) -> int:
-    """K splits of one launch: the nearest to about two blocks per SM (four
-    for small token counts, whose blocks are light), so that the blocks come
-    close to one full wave; each split at least one K chunk. The splits' f32
-    partial sums are added by a second pass."""
-    m_tiles = -(-T // 128)
-    blocks = m_tiles * -(-N // _BN)
-    target = NUM_SMS * (2 if T > 32 else 4)
-    chunks = -(-(K // 2) // _BKH)
-    splits = min(chunks, max(1, int(target / blocks + 0.5)))
-    per = -(-chunks // splits)
-    return -(-chunks // per)
+def int4_split_partials(x: torch.Tensor, q4: torch.Tensor, layer: int,
+                        plan: Int4Plan) -> list[torch.Tensor]:
+    """The f32 partial sums [T, N] of the plan's splits, in split order:
+    split i covers packed columns [i * per * kc, (i + 1) * per * kc) of
+    both halves (the last to K/2)."""
+    lo, hi = nibbles(q4[layer])
+    half = q4.shape[2]
+    xf = x.float()
+    parts = []
+    for i in range(plan.splits):
+        a, b = i * plan.per * plan.kc, min((i + 1) * plan.per * plan.kc, half)
+        parts.append(xf[:, a:b] @ lo[:, a:b].float().T
+                     + xf[:, half + a:half + b] @ hi[:, a:b].float().T)
+    return parts
+
+
+def int4_proj_split_plain(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
+                          layer: int, plan: Int4Plan) -> torch.Tensor:
+    """Plain version of split-then-merge: the splits' f32 partials summed in
+    split order, then the scale and one rounding to x's dtype."""
+    acc = torch.zeros(x.shape[0], q4.shape[1], dtype=torch.float32,
+                      device=x.device)
+    for p in int4_split_partials(x, q4, layer, plan):
+        acc = acc + p
+    return (acc * s[layer].float()).to(x.dtype)
 
 
 def int4_proj_stacked(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
-                      layer: int) -> torch.Tensor:
+                      layer: int, *, splits: int | None = None,
+                      nt: int | None = None) -> torch.Tensor:
     """x [T, K] @ dequant(q4[layer])^T * s[layer] → [T, N] in x's dtype.
-    q4 int8 [L, N, K/2], s f32 [L, N]."""
+    q4 int8 [L, N, K/2], s f32 [L, N]. ``splits`` and ``nt`` force the
+    kernel's split count and token width (a measurement's knobs; the plan
+    chooses by default)."""
     if build.on_cpu("int4_matmul", x, q4, s):
         return int4_proj_stacked_plain(x, q4, s, layer)
     T, K = x.shape
@@ -72,12 +187,18 @@ def int4_proj_stacked(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
     if K != 2 * KH or s.shape != (L, N) or not 0 < T <= MAX_T or not 0 <= layer < L:
         raise ValueError(f"int4_matmul shapes: x {tuple(x.shape)}, q4 "
                          f"{tuple(q4.shape)}, s {tuple(s.shape)}, layer {layer}")
+    p = int4_plan(T, N, K, build.sm_count(x.device), splits, nt)
     y = torch.empty(T, N, dtype=x.dtype, device=x.device)
-    splits = split_k(T, N, K)
-    ws = (torch.empty(splits, T, N, dtype=torch.float32, device=x.device)
-          if splits > 1 else y)
+    ws = cnt = None
+    if p.splits > 1:
+        ws = torch.empty(p.units * BM * p.nt, dtype=torch.float32, device=x.device)
+        # One arrival counter a (tile, token tile); the merging block resets
+        # its own, so every launch leaves them zero.
+        cnt = build.device_counters("int4_matmul", x.device, p.tiles * p.t_tiles)
     err = build.entry("int4_matmul")(
-        x.data_ptr(), q4.data_ptr(), s.data_ptr(), y.data_ptr(), ws.data_ptr(),
-        T, N, K, int(layer), splits, build.stream())
+        x.data_ptr(), q4.data_ptr(), s.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), T, N, K, L, int(layer), p.nt,
+        p.t_tiles, p.splits, p.per, p.grid, build.stream())
     build.check_launch("int4_matmul", err)
     return y

@@ -59,7 +59,6 @@ synchronise. Every launch adds one to ``build.launch_counts[name]``.
 
 from __future__ import annotations
 
-import functools
 import math
 import os
 
@@ -180,44 +179,23 @@ def prefill_split_plan(B: int, q_bucket: int, group: int, n_kv: int, Pg: int,
                       splits=splits, visible=visible)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-# Arrival counters of the split merge, one int32 a unit, and the prefill
-# kernel's work queue (two more), per device. Zeroed once; every launch
-# leaves them zero (the merging block resets its own, the last block out
-# the queue).
-_counters: dict[torch.device, torch.Tensor] = {}
-
-
-def _device_counters(device: torch.device, n: int) -> torch.Tensor:
-    """The device's int32 counters, at least ``n`` of them (grown, zeroed,
-    when a launch needs more; every launch leaves them zero)."""
-    cnt = _counters.get(device)
-    if cnt is None or cnt.numel() < n:
-        cnt = torch.zeros(max(n, 2 * (0 if cnt is None else cnt.numel())),
-                          dtype=torch.int32, device=device)
-        _counters[device] = cnt
-    return cnt
-
-
 def _split_buffers(device: torch.device, units: int, n_split: int, rows: int,
                    hd: int) -> list:
     """(part_acc, part_ml, counters) for a launch with n_split splits of
     ``units`` units of ``rows`` query rows: the partial states' scratch
     (f32, uninitialised; a split writes before the merge reads; None when
-    nothing splits) and the device's counters, ``units`` arrival counters
-    and two for the prefill kernel's work queue. The caller holds them
-    until the launch is queued (``_ptrs``)."""
+    nothing splits) and the device's counters (``build.device_counters``),
+    ``units`` arrival counters and two for the prefill kernel's work queue,
+    which every launch leaves zero (the merging block resets its own, the
+    last block out the queue). The caller holds them until the launch is
+    queued (``_ptrs``)."""
     bufs = [None, None]
     if n_split > 1:
         bufs = [torch.empty(units * n_split * rows * hd, dtype=torch.float32,
                             device=device),
                 torch.empty(units * n_split * rows * 2, dtype=torch.float32,
                             device=device)]
-    return bufs + [_device_counters(device, units + 2)]
+    return bufs + [build.device_counters("paged_attention", device, units + 2)]
 
 
 def _ptrs(tensors) -> list:
@@ -532,7 +510,7 @@ def paged_decode_attention(q, cache, kv_new, page_table, q_lens, seq_lens,
                          f"page_table {tuple(page_table.shape)}, window {window}")
     R = split_rows(B, live_rows)
     n_split, chunk = decode_split_plan(R, n_kv, Pg, page_size,
-                                       _sm_count(q.device), splits, window)
+                                       build.sm_count(q.device), splits, window)
     bufs = _split_buffers(q.device, R * n_kv, n_split, n_q // n_kv, hd)
     out = torch.empty_like(q)
     err = build.entry("paged_decode_attention")(
@@ -578,7 +556,7 @@ def paged_decode_attention_pend(q, cache, kv_new, kv_pend, page_table, q_lens,
                          f"{tuple(page_table.shape)}, window {window}")
     R = split_rows(B, live_rows)
     n_split, chunk = decode_split_plan(R, n_kv, Pg, page_size,
-                                       _sm_count(q.device), splits, window)
+                                       build.sm_count(q.device), splits, window)
     bufs = _split_buffers(q.device, R * n_kv, n_split, n_q // n_kv, hd)
     out = torch.empty_like(q)
     err = build.entry("paged_decode_attention_pend")(
@@ -663,7 +641,7 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
     group = n_q // n_kv
     R = split_rows(B, live_rows)
     n_split, chunk = prefill_split_plan(R, int(q_bucket), group, n_kv, Pg,
-                                        page_size, _sm_count(q.device), splits,
+                                        page_size, build.sm_count(q.device), splits,
                                         int(window), hd=hd)
     rows = prefill_rows(int(q_bucket), group, hd)
     units = R * cdiv(int(q_bucket), max(rows // group, 1)) * n_kv

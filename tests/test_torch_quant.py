@@ -11,8 +11,11 @@ and why:
   std, since each side rounds every half-product to bf16 (2^-8 relative)
   before adding and scaling, and the sum of two rounded int4 halves can
   cancel to a value much smaller than either half;
-- ``int4_proj_stacked_plain`` against the JAX kernel in interpret mode, f32:
-  rtol 1e-5, atol 1e-4 (sums of up to 768 products of O(10), another order);
+- ``int4_proj_stacked_plain`` and ``int4_proj_split_plain`` against the JAX
+  kernel in interpret mode, f32: rtol 1e-5, atol 1e-4 (sums of up to 1,280
+  products of O(10), another order); the split plain version against the
+  unsplit one: 1e-6 of the output's scale (the same f32 products, summed in
+  another order);
 - a step's logits atol/rtol 1e-4, its written cache rows atol 1e-5, greedy
   tokens and the feedback buffer exactly (as in tests/test_torch_llama.py);
 - greedy tokens of a checkpoint and of the engine: exactly;
@@ -197,14 +200,89 @@ def test_int4_plain_is_split_half_not_interleaved():
 @pytest.mark.parametrize("N,K", [(4096, 4096), (1024, 4096), (14336, 4096),
                                  (4096, 14336)])
 def test_split_k_fills_the_card(T, N, K):
-    """At the 8B shapes every launch has at least one block per SM (or one
-    split per K chunk), and no split is empty."""
-    splits = im.split_k(T, N, K)
-    chunks = -(-(K // 2) // im._BKH)
-    per = -(-chunks // splits)
-    blocks = -(-T // 128) * -(-N // im._BN) * splits
-    assert blocks >= im.NUM_SMS or splits == chunks
-    assert (splits - 1) * per < chunks <= splits * per
+    """At the 8B shapes, on cards of 132 and 114 SMs: every K chunk lies in
+    exactly one split, no split is empty, the token tiles hold T, and there
+    are enough units (tiles x token tiles x splits) for the SM count: 80% of
+    it at N >= 4096, half of it at N = 1,024 (whose 8 tiles would need a
+    merge of many partials to fill more; the plan weighs that)."""
+    for n_sms in (132, 114):
+        p = im.int4_plan(T, N, K, n_sms)
+        assert p.chunks == -(-(K // 2) // p.kc)
+        owner = [c // p.per for c in range(p.chunks)]
+        assert owner == sorted(owner) and set(owner) == set(range(p.splits))
+        assert (p.splits - 1) * p.per < p.chunks <= p.splits * p.per
+        assert p.nt in im.TOKEN_WIDTHS and p.t_tiles * p.nt >= T > (p.t_tiles - 1) * p.nt
+        assert p.units == p.tiles * p.t_tiles * p.splits == p.tiles * p.t_tiles * len(set(owner))
+        assert p.units >= (0.8 if N >= 4096 else 0.5) * n_sms
+        assert p.grid == min(p.units, n_sms)
+
+
+def test_int4_plan_takes_ints_and_forced_splits():
+    """The plan reads no device value (ints only); a forced split count is
+    made such that no split is empty; a forced token width is one of the
+    kernel's."""
+    with pytest.raises(TypeError, match="ints"):
+        im.int4_plan(torch.tensor(16), 4096, 4096, 132)
+    p = im.int4_plan(16, 4096, 4096, 132, splits=3)   # 16 chunks: 6, 6, 4
+    assert (p.splits, p.per, p.chunks) == (3, 6, 16)
+    p = im.int4_plan(16, 4096, 4096, 132, splits=100)
+    assert (p.splits, p.per) == (p.chunks, 1)
+    p = im.int4_plan(128, 4096, 4096, 132, 2, 64)    # token width forced
+    assert (p.nt, p.t_tiles, p.kc, p.splits) == (64, 2, 128, 2)
+    with pytest.raises(ValueError, match="token width"):
+        im.int4_plan(128, 4096, 4096, 132, nt=48)
+
+
+# (T, N, K, forced splits): token widths 16, 32, 64 and 128 (chunks of 128
+# or 64 packed bytes), ragged N, K/2 off the chunk, a last split shorter
+# than the others.
+SPLIT_CASES = [(3, 200, 300, 2), (16, 256, 1280, 3), (37, 96, 1000, 4),
+               (64, 128, 2304, 5), (128, 200, 1280, 4), (200, 64, 640, 3)]
+
+
+@pytest.mark.parametrize("T,N,K,splits", SPLIT_CASES)
+def test_int4_split_plain_matches_unsplit(T, N, K, splits):
+    """Split-then-merge in f32 (the partials summed in split order, then the
+    scale) against the unsplit plain version: only the order of the f32
+    sums differs, so 1e-6 of the output's scale."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32))
+    qw = jq.quantize_int4(rng.standard_normal((2, N, K)).astype(np.float32))
+    q4, s = torch.from_numpy(qw["q4"]), torch.from_numpy(qw["s"])
+    p = im.int4_plan(T, N, K, 132, splits)
+    assert p.splits > 1
+    parts = im.int4_split_partials(x, q4, 1, p)
+    assert len(parts) == p.splits
+    got = im.int4_proj_split_plain(x, q4, s, 1, p)
+    want = im.int4_proj_stacked_plain(x, q4, s, 1)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6 * scale)
+    # Leaving one split out moves the product far past that bound (the
+    # fault chip_smoke.py plants against the kernel's merge).
+    dropped = (sum(parts[1:]) * s[1]).numpy()
+    assert np.abs(dropped - want.numpy()).max() > 1e-3 * scale
+
+
+@pytest.mark.parametrize("T,N,K,splits", [(5, 256, 1280, 3), (40, 128, 1280, 2),
+                                          (128, 128, 1280, 4)])
+def test_int4_split_plain_matches_pallas(T, N, K, splits):
+    """The split plain version against the JAX kernel in interpret mode, f32
+    (as test_int4_plain_matches_pallas), where K/2 = 640 does not divide into
+    the splits evenly: 5 chunks of 128 bytes as 2 + 2 + 1, or as 3 + 2; 10
+    chunks of 64 bytes as 3 + 3 + 3 + 1."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    qw = jq.quantize_int4(rng.standard_normal((3, N, K)).astype(np.float32))
+    p = im.int4_plan(T, N, K, 132, splits)
+    assert p.chunks % p.per != 0
+    for layer in (0, 2):
+        want = np.asarray(jax_int4_proj_stacked(
+            jnp.asarray(x), jnp.asarray(qw["q4"]), jnp.asarray(qw["s"]),
+            jnp.int32(layer), interpret=True))
+        got = im.int4_proj_split_plain(torch.from_numpy(x),
+                                       torch.from_numpy(qw["q4"]),
+                                       torch.from_numpy(qw["s"]), layer, p)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
 # --- (g) the wrapper ----------------------------------------------------------
