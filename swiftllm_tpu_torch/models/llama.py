@@ -23,6 +23,9 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
   of at most 256 tokens go through the INT4 kernel of
   ``ops/int4_matmul.py``. Every other quantized weight (INT8, INT4 in the
   prefill buckets, the quantized ``lm_head``) goes through ``quant.proj``.
+- Multi-LoRA: a projection that an adapter targets adds each token's own
+  adapter update (``lora_add``, plain GEMMs, as the JAX package leaves its
+  einsums to XLA), in every step kind: mixed, multi-step and verify.
 
 Numerics round where the JAX package rounds: RMSNorm casts back to the
 activation dtype BEFORE the weight multiply, SiLU runs in f32 and is cast
@@ -287,6 +290,43 @@ def _ragged_paged_attention_torch(q, cache_l, batch: StepBatch, *,
     return o_flat[:T]
 
 
+# ---------------------------------------------------------------------------
+# Multi-LoRA
+# ---------------------------------------------------------------------------
+
+def lora_select(lora_ids: torch.Tensor, lora_scale: torch.Tensor) -> torch.Tensor:
+    """Per (token, adapter) scale, f32[T, n]: adapter s-1's alpha/r where the
+    token's slot is s, else 0 (slot 0, the base model, scales none). Built
+    once a step and shared by every projection."""
+    slots = torch.arange(1, lora_scale.shape[0] + 1, device=lora_ids.device,
+                         dtype=lora_ids.dtype)
+    return (lora_ids[:, None] == slots).float() * lora_scale
+
+
+def lora_add(y: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """y + each token's own adapter update, in place: y[T, out] +=
+    sum over adapters n of sel[t, n] * (x[t] @ A[n].T) @ B[n].T, for one
+    layer's stacked adapters A [n, r, in], B [n, out, r] and ``sel`` from
+    ``lora_select``.
+
+    The JAX package's form (``swiftllm_tpu/models/llama.py``, ``lora_add``
+    in ``layer_step``) computes every adapter's update for every token, an
+    f32 [T, n, out] intermediate, and selects it by slot with a third
+    einsum. This form computes the same function in three launches and no
+    [T, n, out] tensor: z = x @ A_stackᵀ ([T, n*r], rounded to x's type as
+    the reference rounds it), z scaled per (token, adapter) in place (the
+    product in f32, rounded to x's type), then ``y.addmm_(z, B_stackᵀ)``,
+    which sums in f32 and rounds once, where the reference rounds the update
+    and then the sum. A base token's z row is 0, so its y is left exactly as
+    it was. B laid out by ``worker/weights.lora_entry`` makes B_stackᵀ a
+    view."""
+    n, r, d_in = A.shape
+    z = F.linear(x, A.reshape(n * r, d_in))                          # [T, n*r]
+    z.view(-1, n, r).mul_(sel[:, :, None])
+    return y.addmm_(z, B.transpose(-1, -2).reshape(n * r, -1))
+
+
 def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
                          n_kv: int, page_size: int, sm_scale: float,
                          use_kernels: bool, q_bucket: int, window: int = 0,
@@ -399,6 +439,9 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
     rope_cs = rope_tables(batch.positions, params["inv_freq"], x.dtype)
     layers = params["layers"]
+    # Multi-LoRA: each token's adapter scale, once a step (lora_add).
+    sel = (lora_select(batch.lora_ids, params["lora_scale"])
+           if "lora_scale" in params else None)
     # INT4 weights of decode-size buckets go through the INT4 kernel, which
     # reads the stacked [L, N, K/2] array at the layer's offset (the JAX gate
     # on T); every other projection through quant.proj.
@@ -412,8 +455,11 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
         def mproj(h_, name):
             wt = layers[name]
             if int4_kernel and is_quantized(wt) and "q4" in wt:
-                return int4_matmul.int4_proj_stacked(h_, wt["q4"], wt["s"], layer)
-            return proj(h_, w[name])
+                y = int4_matmul.int4_proj_stacked(h_, wt["q4"], wt["s"], layer)
+            else:
+                y = proj(h_, w[name])
+            lw = w.get("lora_" + name)     # a projection an adapter targets
+            return y if lw is None else lora_add(y, h_, lw["A"], lw["B"], sel)
 
         h = rms_norm(x, w["attn_norm"], eps)
         q_flat = mproj(h, "wq")

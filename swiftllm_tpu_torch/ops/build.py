@@ -8,9 +8,9 @@ into ``_build/`` beside this file (one process per source, all started
 together), names the library by the hash of its source and the headers,
 and loads it with ``ctypes``. Nothing is built when a module
 is imported: the first launch builds its kernel, or a caller builds them all
-up front. The wrappers in ``paged_attention.py`` and ``int4_matmul.py`` launch
-through ``entry`` and report each launch with ``check_launch``, which adds
-one to ``launch_counts[name]``.
+up front. The wrappers in ``paged_attention.py``, ``int4_matmul.py`` and
+``swap_pages.py`` launch through ``entry`` and report each launch with
+``check_launch``, which adds one to ``launch_counts[name]``.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ BUILD_DIR = _HERE / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # The split-KV arguments of the attention entries: n_split, chunk,
 # split_rows, and the partial-state and arrival-counter buffers
 # (ops/csrc/splitkv.cuh).
@@ -64,8 +65,25 @@ SOURCES = {
     # x, q4, s, y, partials, counters, T, N, K, L, layer, NT, t_tiles,
     # splits, per, grid, stream
     "int4_matmul": ("int4_matmul.cu", [_P] * 6 + [_I] * 10 + [_P]),
+    # src, dst, pages, n_pages, L, src_layer_bytes, dst_layer_bytes,
+    # page_bytes, blocks, stream
+    "swap_pages": ("swap_pages.cu", [_P] * 3 + [_I] * 2 + [_LL] * 2 + [_I, _I, _P]),
 }
 KERNELS = tuple(SOURCES)
+# C entries that launch no kernel (built from the same sources, never
+# counted): the swap pool's allocator, and the yardstick chip_smoke.py times
+# the page mover against.
+HELPERS = {
+    # bytes, &address
+    "swap_pool_alloc": ("swap_pages.cu", [_LL, ctypes.POINTER(_P)]),
+    # address
+    "swap_pool_free": ("swap_pages.cu", [_P]),
+    # src, dst, runs (host), n_runs, L, src_layer_bytes, dst_layer_bytes,
+    # page_bytes, stream
+    "copy_page_runs": ("swap_pages.cu",
+                       [_P] * 3 + [_I] * 2 + [_LL] * 2 + [_I, _P]),
+}
+_ENTRIES = {**SOURCES, **HELPERS}
 
 # Launches of each kernel since the last reset_launch_counts(). Only a
 # wrapper that launches its kernel adds to its count.
@@ -108,7 +126,7 @@ def build_kernels(names=KERNELS) -> dict[str, str]:
         procs = {}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n in todo:
-            src = SOURCES[n][0]
+            src = _ENTRIES[n][0]
             out = _lib_path(src)
             if out.exists() or src in procs:
                 continue
@@ -126,16 +144,17 @@ def build_kernels(names=KERNELS) -> dict[str, str]:
             os.replace(tmp, out)
             reports[n] = log
         for n in todo:
-            lib = ctypes.CDLL(str(_lib_path(SOURCES[n][0])))
+            lib = ctypes.CDLL(str(_lib_path(_ENTRIES[n][0])))
             fn = getattr(lib, n)
-            fn.argtypes = SOURCES[n][1]
+            fn.argtypes = _ENTRIES[n][1]
             fn.restype = ctypes.c_int
             _libs[n] = lib
     return reports
 
 
 def entry(name: str):
-    """The C entry of kernel ``name``, built and loaded at first use."""
+    """The C entry ``name`` (a kernel's, or one of HELPERS), built and
+    loaded at first use."""
     if name not in _libs:
         build_kernels((name,))
     return getattr(_libs[name], name)

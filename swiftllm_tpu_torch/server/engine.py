@@ -12,8 +12,10 @@ queued (the logprobs with them, under ``enable_logprobs``), and traces with
 ``torch.profiler``. Speculative decoding (the drafting scheduler, verify
 steps, the accept loop and its warm-up) and prefix caching (the scheduler's
 ``prefix_matcher`` wired to ``model.match_prefix``) run as in the JAX
-package. The model refuses swap with a host pool, so the copy drops the swap
-branch that could never run.
+package, and so do swap preemption (the pipeline drained before a swap-out,
+whose pages the model's page mover copies on the step's stream; a request
+aborted while swapped returns its host pages) and LoRA routing by adapter
+name.
 
 - The step batch is a SARATHI mixed prefill+decode token batch (the scheduler
   enables the piggybacking the reference left as a comment, scheduler.py:92-99).
@@ -357,6 +359,9 @@ class Engine:
             return
         r.resources_freed = True
         self.model.free_seqs_resources([r])
+        if getattr(r, "swapped", False):
+            self.model.free_swap_resources([r])
+            self.scheduler.on_swap_in_done([r])   # return its CPU-block budget
         self.scheduler.id_manager_for(r).free_id(r.seq_id)
 
     async def _run_on_model_async(self, fn, *args):
@@ -522,9 +527,22 @@ class Engine:
                 r.seq_id = -1
                 r.num_cached_tokens = 0
             self.stats.num_preemptions += len(decision.recompute)
-        # No swap branch: the model refuses swap preemption, so the
-        # scheduler (preemption_mode "recompute") never asks for a swap.
-        assert not decision.swap_out and not decision.swap_in
+        if decision.swap_out:
+            # Resolve the pipeline's tokens first (the victims' last tokens
+            # must be known on the host). Memory order needs no wait: the
+            # page mover runs on the step's stream, after the steps that
+            # wrote these pages.
+            await self._drain_pipeline()
+            await self._run_on_model_async(self.model.swap_out_seqs, decision.swap_out)
+            self.scheduler.on_swap_out_done(decision.swap_out)
+            for r in decision.swap_out:
+                r.swapped = True
+            self.stats.num_preemptions += len(decision.swap_out)
+        if decision.swap_in:
+            await self._run_on_model_async(self.model.swap_in_seqs, decision.swap_in)
+            self.scheduler.on_swap_in_done(decision.swap_in)
+            for r in decision.swap_in:
+                r.swapped = False
 
         progressed = bool(decision.batch or decision.swap_in
                           or decision.swap_out or decision.recompute)

@@ -1,14 +1,16 @@
 """LlamaModel — the data-plane worker of the PyTorch port.
 
 A port of ``swiftllm_tpu/worker/model.py`` at tp = dp = 1:
-``load_weights`` / ``profile_num_blocks`` / ``init_kvcache_and_swap`` /
-``forward_async`` / ``execute_packed`` / ``forward`` /
-``free_seqs_resources`` / ``match_prefix``, with the same host guard on the
-decode kernel's row contract. A bucket key with ``sampling`` runs the sampler
-in place of the greedy head, one with ``steps`` > 1 runs
-``decode_multi_step``, one with ``spec`` > 0 (a speculative verify step) the
-span head over every position of each row's span, and with
-``enable_logprobs`` every step also returns its chosen tokens' logprobs.
+``load_weights`` (with ``_load_loras``) / ``profile_num_blocks`` /
+``init_kvcache_and_swap`` / ``forward_async`` / ``execute_packed`` /
+``forward`` / ``swap_out_seqs`` / ``swap_in_seqs`` /
+``free_swap_resources`` / ``free_seqs_resources`` / ``match_prefix``, with
+the same host guard on the decode kernel's row contract. A bucket key with
+``sampling`` runs the sampler in place of the greedy head, one with
+``steps`` > 1 runs ``decode_multi_step``, one with ``spec`` > 0 (a
+speculative verify step) the span head over every position of each row's
+span, and with ``enable_logprobs`` every step also returns its chosen
+tokens' logprobs.
 
 - The model runs on ``device`` ("cuda" unless the caller asks for "cpu"), and
   raises when asked for a GPU it does not find.
@@ -20,12 +22,18 @@ span head over every position of each row's span, and with
   memory with ``non_blocking=True``, every write stays on the current
   stream (so step N+1 reads step N's tokens from the feedback buffer in
   order), and the tokens come back through a ``PendingTokens`` handle.
+- Swap preemption: the host pool is one page-locked tensor
+  ``[L, num_cpu_blocks * block_size, W]`` in the cache's type, allocated
+  when the scheduler can swap (``preemption_mode="swap"`` and
+  ``num_cpu_blocks`` > 0). Whole sequences move page by page through the
+  page mover (``ops/swap_pages.py``), every request of a swap in one launch
+  on the step's stream; nothing waits for the card.
+- LoRA adapters (``lora_paths``) are stacked into the params on the device
+  (``worker/lora.py``) and applied in every step by ``models/llama.py``.
 - Speculative decoding and prefix caching run (the scheduler drafts and
-  matches; the model verifies spans and installs matched pages). Swap with a
-  host pool, LoRA and tp/dp > 1 are refused in ``__init__`` with
-  ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
-  With ``preemption_mode="recompute"`` the scheduler never swaps, so no host
-  swap pool is allocated.
+  matches; the model verifies spans and installs matched pages).
+  tp/dp > 1 is refused in ``__init__`` with ``NotImplementedError`` naming
+  the ``ROADMAP.md`` item that brings it.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
 from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES,
                                              decode_multi_step, forward_shard,
                                              unpack_step_batch)
+from swiftllm_tpu_torch.ops.swap_pages import pinned_pool, swap_pages
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
 from swiftllm_tpu_torch.utils import GB, cdiv
@@ -48,9 +57,6 @@ from swiftllm_tpu_torch.worker.block_manager import BlockManager
 def _refuse_unsupported(ec: EngineConfig, mc: LlamaModelConfig) -> None:
     """Raise for every configuration this slice of the port does not run."""
     refused = [
-        (ec.preemption_mode == "swap" and ec.num_cpu_blocks > 0,
-         "preemption_mode='swap' with num_cpu_blocks > 0", "2 (swap)"),
-        (bool(ec.lora_paths), "LoRA adapters", "8 (multi-LoRA)"),
         (ec.tp_size > 1 or ec.dp_size > 1, "tp_size/dp_size > 1",
          "9 (parallelism)"),
     ]
@@ -140,8 +146,11 @@ class LlamaModel:
         self.last_logprobs = None     # PendingTokens of the last dispatch's
                                       # f32 logprobs (enable_logprobs), or None
         self.last_key = None          # BucketKey of the most recent dispatch
-        self.lora_slots: dict[str, int] = {}
+        self.lora_slots: dict[str, int] = {}   # adapter name -> slot (>= 1)
+        self.lora_targets: tuple[str, ...] = ()
+        self.cpu_cache = None         # pinned host [L, cpu_slots, W], or None
         self.hbm_block_mgrs: list[BlockManager] = []
+        self.cpu_block_mgr: BlockManager | None = None
         self.num_blocks_per_shard = 0
 
     # --- init -----------------------------------------------------------------
@@ -149,6 +158,40 @@ class LlamaModel:
         from swiftllm_tpu_torch.worker.weights import load_params
         self.params = load_params(self.engine_config, self.model_config,
                                   self.device)
+        if self.engine_config.lora_paths:
+            self._load_loras()
+
+    def _load_loras(self):
+        """Stack the configured LoRA adapters into the params on the device:
+        ``layers["lora_<target>"] = {"A": [L, n, r, in], "B": [L, n, out,
+        r]}`` (B laid out for ``lora_add``'s GEMM, ``weights.lora_entry``)
+        and ``lora_scale`` f32[n]. lora_paths: "name=/path,name2=/path2", or
+        "dummy:a,b[,r=K]" for seeded random adapters (tests, no files). The
+        adapters are read in f32 and cast to the activation dtype here."""
+        from swiftllm_tpu_torch.worker.lora import (load_lora_adapters,
+                                                    make_dummy_loras)
+        from swiftllm_tpu_torch.worker.weights import lora_entry
+        spec_raw, mc = self.engine_config.lora_paths, self.model_config
+        if spec_raw.startswith("dummy:"):
+            r, names = 8, []
+            for p in (p for p in spec_raw[len("dummy:"):].split(",") if p):
+                if p.startswith("r="):
+                    r = int(p[2:])
+                else:
+                    names.append(p)
+            entries, scales, slots, targets = make_dummy_loras(
+                names, mc, mc.num_kv_heads, np.float32, r=r)
+        else:
+            paths = dict(item.split("=", 1)
+                         for item in spec_raw.split(",") if item)
+            entries, scales, slots, targets = load_lora_adapters(
+                paths, mc, mc.num_kv_heads, np.float32)
+        self.lora_slots, self.lora_targets = slots, targets
+        for k, v in entries.items():
+            self.params["layers"][k] = lora_entry(
+                {h: torch.from_numpy(a).to(self.device, self.dtype)
+                 for h, a in v.items()})
+        self.params["lora_scale"] = torch.from_numpy(scales).to(self.device)
 
     def _lanes(self) -> int:
         """Cache lane width: [K_all ‖ V_all], plus under fp8 KV one tile of
@@ -226,12 +269,28 @@ class LlamaModel:
         return int(num)
 
     def init_kvcache_and_swap(self, num_blocks_per_shard: int | None = None):
-        """Allocate the KV cache (sized by ``profile_num_blocks`` unless given)
-        and the feedback buffer. No host swap pool: this slice preempts by
-        recompute only."""
+        """Allocate the KV cache (sized by ``profile_num_blocks`` unless
+        given), the feedback buffer and the host swap pool's block manager.
+        The pool itself, ``[L, num_cpu_blocks * block_size, W]`` in the
+        cache's type and page-locked on a GPU host (``pinned_pool``), is
+        allocated only when the scheduler can swap
+        (``preemption_mode="swap"``, ``num_cpu_blocks`` > 0; otherwise it
+        preempts by recompute and never touches it). It is left
+        uninitialised: a page is read only after a swap-out wrote it."""
+        cfg = self.engine_config
         if num_blocks_per_shard is None:
             num_blocks_per_shard = self.profile_num_blocks()
         self._allocate(num_blocks_per_shard)
+        self.cpu_block_mgr = BlockManager(
+            "cpu", cfg.num_cpu_blocks, cfg.block_size,
+            self.dp * cfg.max_seqs_in_block_table, cfg.max_blocks_per_seq)
+        self.cpu_cache = None
+        if cfg.preemption_mode == "swap" and cfg.num_cpu_blocks > 0:
+            L, _, W = self._cache_shape(0)
+            shape = (L, cfg.num_cpu_blocks * cfg.block_size, W)
+            self.cpu_cache = (pinned_pool(shape, self.kv_dtype)
+                              if self.device.type == "cuda"
+                              else torch.empty(shape, dtype=self.kv_dtype))
 
     @property
     def num_hbm_blocks(self) -> int:
@@ -319,6 +378,63 @@ class LlamaModel:
             return tokens.numpy(), rows, logits.cpu().numpy()
         tokens, rows = out
         return tokens.numpy(), rows
+
+    # --- swap (host offload) ------------------------------------------------
+    # Whole-sequence granularity, as in the JAX package; the pages of every
+    # request of one swap move in ONE launch of the page mover, on the step's
+    # stream, so nothing here waits for the card (the engine drains its
+    # pipeline before a swap-out to resolve tokens, not for memory order).
+
+    def _cpu_key(self, r: Request) -> int:
+        """Row of the host pool's block table: seq ids are per dp group."""
+        return r.dp_group * self.engine_config.max_seqs_in_block_table + r.seq_id
+
+    def _page_bytes(self) -> int:
+        """Bytes of one page across all layers."""
+        return (self.model_config.num_layers * self.engine_config.block_size
+                * self._lanes() * self.kv_dtype.itemsize)
+
+    def swap_out_seqs(self, requests: list[Request]):
+        """Offload whole sequences' KV pages to the host pool and free their
+        device pages. The pages past ``num_cached_tokens`` hold nothing
+        cached and stay behind."""
+        if not requests:
+            return
+        src, dst = [], []
+        for r in requests:
+            host = self.cpu_block_mgr.allocate_fresh_for_seq(
+                self._cpu_key(r), r.num_cached_tokens)
+            dev = self.hbm_block_mgrs[r.dp_group].seq_block_ids(r.seq_id)
+            assert len(dev) >= len(host), (len(dev), len(host))
+            src.append(dev[:len(host)])
+            dst.append(host)
+        swap_pages(self.kv_cache, self.cpu_cache, np.concatenate(src),
+                   np.concatenate(dst), self.engine_config.block_size)
+        for r in requests:
+            self.hbm_block_mgrs[r.dp_group].free_seq(r.seq_id)
+
+    def swap_in_seqs(self, requests: list[Request]):
+        """Restore swapped-out sequences into fresh device pages and free
+        their host pages (a later swap-out that reuses them is queued after
+        this copy on the same stream)."""
+        if not requests:
+            return
+        src, dst = [], []
+        for r in requests:
+            src.append(self.cpu_block_mgr.seq_block_ids(self._cpu_key(r)).copy())
+            dst.append(self.hbm_block_mgrs[r.dp_group].allocate_fresh_for_seq(
+                r.seq_id, r.num_cached_tokens))
+        swap_pages(self.cpu_cache, self.kv_cache, np.concatenate(src),
+                   np.concatenate(dst), self.engine_config.block_size)
+        for r in requests:
+            self.cpu_block_mgr.free_seq(self._cpu_key(r))
+
+    def free_swap_resources(self, requests: list[Request]):
+        """Release the host pages of requests that died while swapped out."""
+        if self.cpu_block_mgr is None:
+            return
+        for r in requests:
+            self.cpu_block_mgr.free_seq(self._cpu_key(r))
 
     def free_seqs_resources(self, requests: list[Request]):
         """Release all pages of finished sequences."""

@@ -207,12 +207,27 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def lora_entry(entry: dict) -> dict:
+    """A stacked adapter entry ``{"A": [L, n, r, in], "B": [L, n, out, r]}``
+    with B's memory laid out as [L, n, r, out] (its values and shape
+    unchanged): a layer's ``B[l].transpose(-1, -2)`` is then a contiguous
+    [n, r, out], so ``models/llama.py:lora_add`` reads it as the [n*r, out]
+    operand of one GEMM without a copy."""
+    return dict(entry, B=entry["B"].transpose(-1, -2).contiguous()
+                .transpose(-1, -2))
+
+
 def params_from_numpy(tree: dict, device="cuda") -> dict:
     """The JAX package's parameter tree (tp = 1, fetched to the host as
     numpy) → this port's dict of tensors on ``device``. The trees share their
     keys and layouts, so this is a leaf-by-leaf copy; a quantized leaf
     ``{"q" | "q4", "s"}`` comes across as the same dict, its int8 bytes and
-    f32 scales unchanged."""
-    return {k: (params_from_numpy(v, device) if isinstance(v, dict)
-                else _to_tensor(v, device))
-            for k, v in tree.items()}
+    f32 scales unchanged, and a LoRA entry ``lora_<target>`` and
+    ``lora_scale`` too, B in ``lora_entry``'s memory layout."""
+    out = {k: (params_from_numpy(v, device) if isinstance(v, dict)
+               else _to_tensor(v, device))
+           for k, v in tree.items()}
+    for k, v in out.items():
+        if k.startswith("lora_") and isinstance(v, dict):
+            out[k] = lora_entry(v)
+    return out

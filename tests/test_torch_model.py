@@ -95,16 +95,18 @@ REFUSED = {
 # Refused at first, run since: the model must now build with them (and, for
 # logprobs, multi-step decode and spec decode, run a step).
 NOW_RUN = {"kv_quant", "sliding_window", "logprobs", "multi_step",
-           "prefix_caching", "spec_decode"}
+           "prefix_caching", "spec_decode", "swap", "lora"}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_features_refused(name):
     """Every feature the port does not run yet raises NotImplementedError at
     model construction, naming the ROADMAP item that brings it; the fp8 KV
-    cache, the sliding window, logprobs, multi-step decode, prefix caching
-    and spec decode, refused at first, are accepted: prefix caching reaches
-    the block manager, and logprobs, multi-step and spec decode run a step."""
+    cache, the sliding window, logprobs, multi-step decode, prefix caching,
+    spec decode, swap and LoRA, refused at first, are accepted: prefix
+    caching reaches the block manager, swap allocates the host pool, LoRA
+    loads its adapters, and logprobs, multi-step, spec decode and LoRA run a
+    step."""
     import torch
 
     from swiftllm_tpu_torch.config import LlamaModelConfig
@@ -123,6 +125,18 @@ def test_unported_features_refused(name):
         assert m.kv_cache.shape[2] == 2 * 1 * 8 + (128 if fp8 else 0)
         if name == "prefix_caching":
             assert m.hbm_block_mgrs[0].prefix_caching
+        if name == "swap":
+            assert tuple(m.cpu_cache.shape) == (1, 8 * 16, 16)
+            assert m.cpu_cache.dtype == m.kv_cache.dtype
+            assert m.cpu_block_mgr.num_free_blocks == 8
+        if name == "lora":
+            m.load_weights()
+            assert m.lora_slots == {"a": 1} and m.lora_targets == ("wq", "wv", "wo")
+            r = Request(RawRequest("", 8))
+            r.set_prompt_token_ids([3, 1, 4, 1, 5])
+            r.seq_id, r.lora_slot = 0, 1
+            tokens, rows = m.forward([ScheduledSeq(r, r.prompt_len)])
+            assert rows[0].request is r and 0 <= tokens[0] < 32
         if name == "spec_decode":
             m.load_weights()
             r = Request(RawRequest("", 8))
