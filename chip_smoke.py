@@ -7,6 +7,7 @@
     python3 chip_smoke.py --compare-int4         # a measurement, not the smoke
     python3 chip_smoke.py --sweep-int4           # a measurement, not the smoke
     python3 chip_smoke.py --sweep-swap           # a measurement, not the smoke
+    python3 chip_smoke.py --parallel             # phase 6 alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. the card's name and power limit, torch and CUDA versions;
@@ -75,7 +76,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      must be equal; each engine released before the next one sizes its
      cache; last, an 8B engine with spec decode (spec_k 4) and prefix
      caching on weights whose greedy continuation is known
-     (`_successor_weights`): a 1,024-token shared prefix (shared pages
+     (`seeded_weights(successor=True)`): a 1,024-token shared prefix (shared pages
      byte-unchanged), then, with prefix matching off, the 8 prompts plain,
      with n-gram drafts and with oracle drafts under
      SWIFTLLM_TILE_BF16_SCORES=1 (every draft accepted, fewer steps); on
@@ -95,6 +96,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Llama-3-8B's config.json, every other flag at its default): /generate,
      /v1/completions with logprobs and a streamed /v1/chat/completions give
      the same tokens, and the server exits 0 on SIGINT;
+  6. tensor and data parallelism: ranks of this script (--rank-phase, the
+     torchrun environment), all on the one card over gloo (NCCL refuses
+     two ranks on one device). [tp2 step]: 8B width, 4 layers, a mixed step
+     at tp = 2 in bf16, fp8 KV and INT4, each rank's kernels against their
+     plain versions at the shard's widths and every kernel launched on
+     every rank, the gathered logits against tp = 1's, and a planted fault
+     (the decode kernel's last KV head skipped) that every one of those
+     checks must reject; [serve tp1], [serve
+     tp2] (swapping, a follower replaying the swaps) and [serve dp2 tp2]
+     (four ranks): full-width 8B engines whose tokens must equal tp = 1's,
+     with wall, TTFT, decode tok/s and each rank's memory; [http tp2]: the
+     api_server command line at tp = 2, /generate, then SIGTERM to rank 0
+     ends both ranks;
 then one {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 With --compare-multi-step it builds the kernels and runs only
@@ -115,7 +129,8 @@ T for every token width and split count its plan chooses from, beside the
 plan's model (the evidence for int4_matmul.py's constants). With
 --sweep-swap it builds only swap_pages and times a round trip of 128 pages
 at several grids, alone and beside a decode-like load (the evidence for
-swap_pages.py's MOVER_BLOCKS).
+swap_pages.py's MOVER_BLOCKS). With --parallel it builds the kernels and
+runs only phase 6.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
 ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
@@ -126,6 +141,7 @@ every line this script logs (chip_smoke.log), and the api_server's output
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import itertools
 import json
@@ -144,17 +160,19 @@ import torch
 import torch.nn.functional as F
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
-from swiftllm_tpu_torch.models.llama import quantize_kv
+from swiftllm_tpu_torch.models.llama import compute_inv_freq, quantize_kv
 from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops import int4_matmul as im
 from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.ops.swap_pages import (page_slots, pinned_pool,
                                                swap_pages, swap_pages_plain)
+from swiftllm_tpu_torch.parallel.mesh import SINGLE
 from swiftllm_tpu_torch.server.api_server import build_app
 from swiftllm_tpu_torch.server.engine import Engine
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
 from swiftllm_tpu_torch.utils import cdiv, tile_q_for
+from swiftllm_tpu_torch.worker import weights
 from swiftllm_tpu_torch.worker.model import LlamaModel
 from swiftllm_tpu_torch.worker.quant import (nibbles, quantize_int4,
                                              quantize_weight_torch)
@@ -1425,7 +1443,7 @@ def copy_page_runs(src, dst, src_pages, dst_pages, page_size):
     err = build.entry("copy_page_runs")(
         src.data_ptr(), dst.data_ptr(), runs.ctypes.data, runs.shape[1],
         src.shape[0], src.shape[1] * row, dst.shape[1] * row, page_size * row,
-        build.stream())
+        build.stream(torch.device(DEVICE)))
     assert err == 0, f"cudaMemcpy2DAsync failed with CUDA error {err}"
 
 
@@ -1692,30 +1710,51 @@ def _requests(specs, vocab, out_len=4):
     return sched
 
 
-def _randomize(params, g, quant):
-    """Unit norms and N(0, 0.02) weights from g, in place; a quantized weight
-    is drawn in f32 one layer at a time and quantized on the card."""
-    def fill(t):
-        if not isinstance(t, dict):
-            t.normal_(0.0, 0.02, generator=g)
-            return
-        q = t["q4"] if "q4" in t else t["q"]
-        K = q.shape[-1] * (2 if "q4" in t else 1)
-        for idx in (range(q.shape[0]) if q.dim() == 3 else [slice(None)]):
-            qd = quantize_weight_torch(torch.empty(
-                q.shape[-2], K, device=q.device).normal_(0.0, 0.02, generator=g), quant)
-            for k, v in qd.items():
-                t[k][idx].copy_(v)
+def seeded_weights(mc, quant: str = "none", seed: int = 0, std: float = 0.02,
+                   mesh=SINGLE, successor: bool = False) -> dict:
+    """One rank's shard (the whole model with `mesh` SINGLE) of weights
+    whose whole values do not depend on tp: every weight drawn whole, one
+    layer at a time, from a generator seeded by (seed, weight, layer), then
+    quantized for `quant` and cut to the shard (weights.build_shard).
+    Projections, embeddings and lm_head N(0, std), unit norms. With
+    `successor`, the successor model (see successor()): embeddings N(0, 1)
+    and lm_head row succ(t) = embed row t."""
+    shapes = weights.weight_shapes(mc)
+    keys = list(shapes)
 
-    for k, t in list(params["layers"].items()) + [
-            ("embed", params["embed"]), ("lm_head", params["lm_head"]),
-            ("final_norm", params["final_norm"])]:
-        if k.startswith("lora_"):      # adapters keep their own values
-            continue
-        if "norm" in k:
-            t.fill_(1.0)
-        else:
-            fill(t)
+    def draw(key, i):
+        g = torch.Generator(device=DEVICE).manual_seed(
+            seed * 1_000_003 + keys.index(key) * 1009 + (i or 0))
+        return torch.empty(shapes[key], device=DEVICE).normal_(
+            0.0, 1.0 if key == "embed" and successor else std, generator=g)
+
+    def get(key, i):
+        if "norm" in key:
+            return torch.ones(shapes[key], device=DEVICE)
+        if key == "lm_head" and successor:
+            r = torch.arange(shapes[key][0], device=DEVICE)
+            return draw("embed", None)[(r & ~7) | ((r - 1) & 7)]
+        return draw(key, i)
+    if successor:
+        assert mc.vocab_size % 8 == 0 and not mc.tie_word_embeddings
+    params = weights.build_shard(mc, quant, torch.bfloat16, mesh, get,
+                                 cast_first=False)
+    params["inv_freq"] = torch.from_numpy(compute_inv_freq(mc)).to(DEVICE)
+    return params
+
+
+@contextlib.contextmanager
+def loading(seed: int, std: float = 0.02, successor: bool = False):
+    """Every LlamaModel built meanwhile in this process loads
+    seeded_weights(seed, std, successor) for its shard (LoRA adapters are
+    still read from lora_paths)."""
+    real = weights.load_params
+    weights.load_params = lambda ec, mc, device, mesh: seeded_weights(
+        mc, ec.quant, seed, std, mesh, successor)
+    try:
+        yield
+    finally:
+        weights.load_params = real
 
 
 def phase_step(quant="none", kv_quant="none", mistral=False):
@@ -1756,9 +1795,8 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
         m = LlamaModel(EngineConfig(**ec, use_pallas=use_kernels), mc,
                        device=DEVICE)
         if run == "kernels":
-            m.load_weights()
+            m.params = seeded_weights(mc, quant, seed=1234)
             g = torch.Generator(device=DEVICE).manual_seed(1234)
-            _randomize(m.params, g, quant)
             m.init_kvcache_and_swap()
             if kv_quant == "fp8":
                 KH = mc.num_kv_heads * mc.head_dim
@@ -1841,9 +1879,8 @@ def phase_multi_step():
         m = LlamaModel(EngineConfig(**ec, multi_step_decode=steps), mc,
                        device=DEVICE)
         if first is None:
-            m.load_weights()
+            m.params = seeded_weights(mc, seed=4321)
             g = torch.Generator(device=DEVICE).manual_seed(4321)
-            _randomize(m.params, g, "none")
             m.init_kvcache_and_swap()
             m.kv_cache.normal_(0.0, 1.0, generator=g)
             cache0 = m.kv_cache.clone()
@@ -1964,9 +2001,8 @@ def phase_verify_step():
     for run, use_kernels in (("kernels", True), ("plain", False)):
         m = LlamaModel(EngineConfig(**ec, use_pallas=use_kernels), mc, device=DEVICE)
         if first is None:
-            m.load_weights()
+            m.params = seeded_weights(mc, seed=2468)
             g = torch.Generator(device=DEVICE).manual_seed(2468)
-            _randomize(m.params, g, "none")
             m.init_kvcache_and_swap()
             m.kv_cache.normal_(0.0, 1.0, generator=g)
             cache0 = m.kv_cache.clone()
@@ -2069,9 +2105,8 @@ def phase_prefix_step():
                       num_hbm_blocks=1024, max_blocks_per_seq=128,
                       max_batch_size=16, enable_prefix_caching=True)
     m = LlamaModel(ec, mc, device=DEVICE)
-    m.load_weights()
+    m.params = seeded_weights(mc, seed=1357)
     g = torch.Generator(device=DEVICE).manual_seed(1357)
-    _randomize(m.params, g, "none")
     m.init_kvcache_and_swap()
     m.kv_cache.normal_(0.0, 1.0, generator=g)
     mgr = m.hbm_block_mgrs[0]
@@ -2226,8 +2261,8 @@ def phase_lora_step(adapters: dict):
     slots = [i % 3 for i in range(len(specs))]
     g = torch.Generator(device=DEVICE).manual_seed(2468)
     m = LlamaModel(EngineConfig(**ec, lora_paths=paths), mc, device=DEVICE)
-    m.load_weights()
-    _randomize(m.params, g, "none")
+    with loading(2468):
+        m.load_weights()
     assert m.lora_slots == {"a": 1, "b": 2}, m.lora_slots
     assert m.lora_targets == ("w_gate", "wo", "wq", "wv"), m.lora_targets
     m.init_kvcache_and_swap()
@@ -2364,7 +2399,8 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
                       preemption_mode="recompute", **ec_kw)
     t0 = time.perf_counter()
     engine = Engine(ec, mc, device=DEVICE)
-    await engine.initialize(tokenizer_backend="inline")
+    with loading(77) if multi else contextlib.nullcontext():
+        await engine.initialize(tokenizer_backend="inline")
     mgr = engine.model.hbm_block_mgrs[0]
     free0 = mgr.num_free_blocks
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.model.params))
@@ -2378,9 +2414,6 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
         log(f"[serve {name}] pool {pools[name]} tokens against the bf16 "
             f"engine's {pools['none']}: {pools[name] / pools['none']:.4f} times "
             f"({smi})")
-    if multi:
-        _randomize(engine.model.params,
-                   torch.Generator(device=DEVICE).manual_seed(77), "none")
     loops = asyncio.create_task(engine.start_all_event_loops())
     out_len = MS_OUT_LEN if multi else 32
     top = min(128000, mc.vocab_size - 1)
@@ -2544,35 +2577,6 @@ async def _http(engine, mgr, free0, logprobs=False):
         await runner.cleanup()
 
 
-def _successor_weights(params, g):
-    """Weights of a model whose greedy continuation is known and robust:
-    the next token is succ(t), the successor of the last one inside its
-    block of 8 (t -> t+1, and the block's last back to its first), with a
-    top-2 logit margin in the thousands. Embeddings N(0, 1), lm_head row
-    succ(t) = embed row t, unit norms, every projection N(0, 0.002): the 32
-    layers move the residual stream by about a tenth of the embedding, so
-    attention and the MLPs run on real values and the argmax stays put. A
-    verify step and a decode step round differently (other kernels, other
-    GEMM shapes); near-tied logits would then turn a correct draft into a
-    rejection by rounding alone. The sequence cycles with period 8, which
-    the n-gram proposer finds once a cycle has been generated."""
-    for k, t in params["layers"].items():
-        if k.startswith("lora_"):      # adapters keep their own values
-            continue
-        if "norm" in k:
-            t.fill_(1.0)
-        else:
-            t.normal_(0.0, 0.002, generator=g)
-    params["final_norm"].fill_(1.0)
-    embed, lm_head = params["embed"], params["lm_head"]
-    assert lm_head.data_ptr() != embed.data_ptr(), "needs an untied lm_head"
-    embed.normal_(0.0, 1.0, generator=g)
-    V = embed.shape[0]
-    assert V % 8 == 0
-    t = torch.arange(V, device=embed.device)
-    lm_head[(t & ~7) | ((t + 1) & 7)] = embed
-
-
 def successor(t: int) -> int:
     return (t & ~7) | ((t + 1) & 7)
 
@@ -2584,7 +2588,7 @@ SPEC_OUT_LEN = 32
 async def serve_spec(smi: str) -> dict:
     """Phase 4, speculative decoding and prefix caching: a full-width 8B
     bf16 engine with enable_spec_decode (spec_k 4) and enable_prefix_caching,
-    weights from _successor_weights, warmed up (verify buckets included).
+    weights from seeded_weights(successor=True), warmed up (verify buckets included).
     In turn: (1) 8 requests sharing a 1,024-token prefix with distinct
     suffixes, the first alone, then 7: matched tokens, the second wave's
     TTFT, the shared pages byte-unchanged by it; (2) the 8 prompts of the
@@ -2607,9 +2611,9 @@ async def serve_spec(smi: str) -> dict:
                       spec_k=SPEC_K, enable_prefix_caching=True)
     t0 = time.perf_counter()
     engine = Engine(ec, mc, device=DEVICE)
-    await engine.initialize(tokenizer_backend="inline")
+    with loading(55, std=0.002, successor=True):
+        await engine.initialize(tokenizer_backend="inline")
     model = engine.model
-    _successor_weights(model.params, torch.Generator(device=DEVICE).manual_seed(55))
     keys = []
     execute = model.execute_packed
 
@@ -2783,13 +2787,14 @@ async def _serve_greedy(engine, prompts, out_len, loras=None):
     return [list(toks) for _, toks in res]
 
 
-async def _engine(ec, mc, seed, weights=_successor_weights):
-    """A full-width engine on `weights` (_successor_weights by default)
-    from `seed`, its loops running."""
+async def _engine(ec, mc, seed, successor=True):
+    """A full-width engine on seeded_weights from `seed`: the successor
+    model, or with `successor` False random weights (std 0.02); its loops
+    running."""
     t0 = time.perf_counter()
     engine = Engine(ec, mc, device=DEVICE)
-    await engine.initialize(tokenizer_backend="inline")
-    weights(engine.model.params, torch.Generator(device=DEVICE).manual_seed(seed))
+    with loading(seed, std=0.002 if successor else 0.02, successor=successor):
+        await engine.initialize(tokenizer_backend="inline")
     loops = asyncio.create_task(engine.start_all_event_loops())
     return engine, loops, time.perf_counter() - t0
 
@@ -2814,7 +2819,7 @@ async def serve_swap(smi: str, kv: str) -> dict:
     sequence's pages are copied aside before its swap-out and must come back
     byte-identical after its swap-in (at other pages); the tokens must equal
     a roomy engine's (no preemption) on the same weights; both pools must be
-    full again at the end. Weights: _successor_weights (the tokens are the
+    full again at the end. Weights: seeded_weights(successor=True) (the tokens are the
     successor chain, whatever the batch: these checks hold the paths and
     the pages, the byte check the KV). The byte check reads the cache, so
     that run waits for the card at every swap; the same requests are then
@@ -2937,10 +2942,6 @@ LORA_OUT = 16
 LORA_SAME = 8           # leading tokens a one-adapter engine must reproduce
 
 
-def _random_weights(params, g):
-    _randomize(params, g, "none")
-
-
 async def serve_lora(smi: str, adapters: dict) -> dict:
     """Multi-LoRA serving at 8B width, 32 layers, the default EngineConfig
     but for the device pages, on random weights (std 0.02, as
@@ -2966,7 +2967,7 @@ async def serve_lora(smi: str, adapters: dict) -> dict:
     prompts[2] = prompts[1]
     paths = ",".join(f"{k}={v}" for k, v in adapters.items())
     engine, loops, up = await _engine(EngineConfig(**kw, lora_paths=paths), mc,
-                                      92, _random_weights)
+                                      92, successor=False)
     assert engine.model.lora_slots == {"a": 1, "b": 2}
     build.reset_launch_counts()
     mixed = await _serve_greedy(engine, prompts, LORA_OUT, LORA_OF)
@@ -2977,7 +2978,7 @@ async def serve_lora(smi: str, adapters: dict) -> dict:
     assert bad.aborted and not bad.output_token_ids, "an unknown adapter was served"
     with_lora = await _decode_profile(engine, "lora", "a", smi)
     await _release(engine, loops)
-    engine, loops, _ = await _engine(EngineConfig(**kw), mc, 92, _random_weights)
+    engine, loops, _ = await _engine(EngineConfig(**kw), mc, 92, successor=False)
     base = await _serve_greedy(engine, prompts, LORA_OUT)
     without = await _decode_profile(engine, "lora_off", None, smi)
     await _release(engine, loops)
@@ -2991,7 +2992,7 @@ async def serve_lora(smi: str, adapters: dict) -> dict:
     for name in adapters:
         engine, loops, _ = await _engine(
             EngineConfig(**kw, lora_paths=f"{name}={adapters[name]}"), mc, 92,
-            _random_weights)
+            successor=False)
         assert engine.model.lora_slots == {name: 1}
         alone = await _serve_greedy(engine, prompts, LORA_OUT,
                                     [lo if lo == name else None for lo in LORA_OF])
@@ -3311,11 +3312,574 @@ async def compare_multi_step(smi: str, rounds: int = 4):
             f"({smi})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: tensor and data parallelism over torch.distributed. Ranks are
+# processes of this script (--rank-phase), started with the torchrun
+# environment, all on cuda:0: NCCL refuses two ranks on one device, so the
+# step's collectives run over gloo, which takes CUDA tensors for all_reduce
+# and broadcast (the only collectives the port's step uses).
+# ---------------------------------------------------------------------------
+
+DIST_BACKEND = "gloo"
+TP_STEP_VARIANTS = {"bf16": {}, "fp8": dict(kv_quant="fp8", block_size=32),
+                    "int4": dict(quant="int4")}
+TP_HISTORIES = [40 + 97 * i for i in range(8)]     # the decode rows' keys
+TP_FED = [(1009 * i + 17) % 120000 + 1 for i in range(8)]
+# [tp2 step]'s checks. The tp = 1 kernels against their plain versions
+# within TP_STEP_LIMIT: CLEAR_MARGIN, the absolute bound of the step phases
+# above (they measure about 0.1 at these widths and weights); with INT4
+# weights twice that, as the plain INT4 projection (quant.proj) rounds each
+# half-product to bf16 where the kernel rounds once (phase_step measures
+# 0.14-0.34 for it, 0.08 for the kernel alone). The tp = 2 step rounds to
+# bf16 where tp = 1 does not (each all-reduce adds one rounding of the
+# residual stream a layer, and the shards' products are other GEMM shapes),
+# as the kernels do against their plain versions: each rank's kernels
+# against its plain versions, and the gathered logits against tp = 1's,
+# within TP_LOGIT_FACTOR times the tp = 1 kernels' difference in the same
+# run (or one bf16 ulp of the largest logit, if more). Greedy tokens agree
+# on every row whose top-2 margin is clear of twice the difference.
+TP_STEP_LIMIT = {"bf16": CLEAR_MARGIN, "fp8": CLEAR_MARGIN,
+                 "int4": 2 * CLEAR_MARGIN}
+TP_LOGIT_FACTOR = 3.0
+SERVE_TP_PAGES = 380                 # SWAP_PAGES' bf16 pool: 4 of the 8 fit
+SERVE_TP_OUT = 32                    # the 4 admitted outgrow 380 pages
+SERVE_DP_PAGES = 1024
+
+
+def _rank_env(world: int, rank: int, port: int) -> dict:
+    """The environment torchrun gives a rank (OMP_NUM_THREADS=1 included)."""
+    return dict(os.environ, WORLD_SIZE=str(world), RANK=str(rank),
+                LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                PYTHONPATH=str(Path(__file__).resolve().parent))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(phase: str, world: int, args: dict, timeout: float) -> list:
+    """Run RANK_PHASES[phase](**args) in `world` processes of this script
+    joined over gloo; each rank's result (JSON) in rank order. A rank that
+    fails, or a group still running after `timeout` seconds (then killed),
+    fails the run. Each rank's output: chiprun_out/rank_<phase>_<r>.log."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        out = open(OUT_DIR / f"rank_{phase}_{r}.log", "w", encoding="utf-8")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-phase",
+             phase, json.dumps(args)], stdout=out, stderr=subprocess.STDOUT,
+            env=_rank_env(world, r, port)), out))
+    t_end = time.perf_counter() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, t_end - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{phase}: ranks still running after {timeout} s "
+                             "(killed)") from None
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    codes = [p.returncode for p, _ in procs]
+    assert codes == [0] * world, (
+        f"{phase}: rank exit codes {codes}; see chiprun_out/rank_{phase}_*.log")
+    return [json.loads((OUT_DIR / f"rank_{phase}_{r}.json").read_text())
+            for r in range(world)]
+
+
+def tp_step(variant: str, out_path: str, fault: bool = False) -> dict:
+    """[tp2 step] on this process's ranks (tp = the world size; 1 in the
+    parent): 8B width, 4 layers, seeded_weights (std 0.02). A prefill step writes
+    8 histories of 40 to 719 tokens; then one mixed step (the 8 decode rows
+    and a fresh 512-token chunk; with INT4 weights a 128-token chunk, so
+    that the bucket of 256 tokens runs int4_matmul) with the kernels, and
+    the same step again from the same cache with their plain versions.
+    Every rank runs every step (the primary's batch reaches the followers
+    through the control channel). The kernels' logits go to out_path;
+    returns the kernels-against-plain difference, whether greedy tokens
+    agree on its clear-margin rows, and this rank's launches. With `fault`
+    the kernel run's decode attention skips its last KV head (its queries'
+    output zero): a planted fault that the checks must reject."""
+    from swiftllm_tpu_torch.parallel import distributed
+    tp = distributed.world_size()
+    mc = LlamaModelConfig(num_layers=4, **LLAMA3_8B)
+    kw = TP_STEP_VARIANTS[variant]
+    ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
+                      preemption_mode="recompute", num_hbm_blocks=512,
+                      max_blocks_per_seq=128, max_batch_size=16,
+                      max_tokens_in_batch=4096, tp_size=tp, **kw)
+    m = LlamaModel(ec, mc, device=DEVICE)
+    m.params = seeded_weights(mc, ec.quant, seed=4321, mesh=m.mesh)
+    m.init_kvcache_and_swap()
+    chunk = 128 if ec.quant == "int4" else 512
+    reqs = []
+    for i, n in enumerate(TP_HISTORIES + [chunk]):
+        r = Request(RawRequest("", 4))
+        r.set_prompt_token_ids([(31 * i + 7 * j) % 120000 + 1 for j in range(n)])
+        r.seq_id = i
+        reqs.append(r)
+    m.forward([ScheduledSeq(r, r.prompt_len) for r in reqs[:8]])
+    # The decode rows are fed TP_FED, the same at any tp: the prefill step's
+    # greedy samples may flip on a near tie between tp = 1 and tp = 2 (the
+    # all-reduces round differently), and would then feed the two runs
+    # different tokens.
+    m.token_feedback[:8] = torch.tensor(TP_FED, dtype=torch.int32, device=DEVICE)
+    for t, r in zip(TP_FED, reqs[:8]):
+        r.output_token_ids.append(t)
+        r.num_cached_tokens = r.prompt_len
+    cache0, fb0 = m.kv_cache.clone(), m.token_feedback.clone()
+    seen = []
+    real = m.execute_packed
+
+    def spy(flat, key, *a):
+        seen.append((flat, key))
+        return real(flat, key, *a)
+    m.execute_packed = spy
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    decode = pa.paged_decode_attention
+    if fault:
+        def skip_last_kv_head(q, *a, n_kv, **kw):
+            out = decode(q, *a, n_kv=n_kv, **kw)
+            out[:, -(q.shape[1] // n_kv):] = 0
+            return out
+        pa.paged_decode_attention = skip_last_kv_head
+    try:
+        _, rows, lg = m.forward([ScheduledSeq(r, 1) for r in reqs[:8]]
+                                + [ScheduledSeq(reqs[8], chunk)],
+                                return_logits=True)
+    finally:
+        pa.paged_decode_attention = decode
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    flat, key = seen[-1]
+    m.kv_cache.copy_(cache0)
+    m.token_feedback.copy_(fb0)
+    m.engine_config.use_pallas = False
+    _, plain = real(flat, key, True)
+    live = [i for i, r in enumerate(rows) if r is not None]
+    a = torch.from_numpy(lg[live])
+    b = plain.float().cpu()[live]
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    diff = (a - b).abs().max().item()
+    torch.save(a, out_path)
+    gloo_ms = {}
+    if tp > 1 and variant == "bf16" and not fault:
+        # What one all-reduce of a decode step's and of a 2,048-token
+        # step's activations costs over this backend (host clock around
+        # 20 calls, the card synchronised before and after).
+        for rows in (8, 2048):
+            x = torch.ones(rows, mc.hidden_size, dtype=torch.bfloat16,
+                           device=DEVICE)
+            distributed.all_reduce_tp(x, m.mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                distributed.all_reduce_tp(x, m.mesh)
+            torch.cuda.synchronize()
+            gloo_ms[rows] = 1e3 * (time.perf_counter() - t0) / 20
+    return dict(diff=diff, greedy=greedy_agrees(a, b, diff), launches=launches,
+                tokens=key.tokens, gloo_ms=gloo_ms,
+                rows=len(live), n_q=mc.num_q_heads // tp,
+                n_kv=m.num_kv_eff // tp, lanes=m.kv_cache.shape[2],
+                std=b.std().item())
+
+
+def tp_step_kernels(variant: str) -> tuple:
+    return pa.KERNELS + (("int4_matmul",) if variant == "int4" else ())
+
+
+def greedy_agrees(a, b, diff) -> bool:
+    """Greedy tokens of logits `a` and `b` agree on every row whose top-2
+    margin in `b` exceeds twice `diff`."""
+    top2 = b.topk(2, dim=-1).values
+    checked = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    return bool((a.argmax(-1) == b.argmax(-1))[checked].all())
+
+
+def tp_step_checks(variant: str, one: dict, ranks: list, a, b) -> dict:
+    """[tp2 step]'s checks of a tp = 1 run `one` (logits `b`) and its tp = 2
+    ranks (gathered logits `a`): each check's name -> (passed, measured,
+    bound)."""
+    ulp = 2.0 ** (math.floor(math.log2(b.abs().max().item())) - 7)
+    bound = TP_LOGIT_FACTOR * max(one["diff"], ulp)
+    diff = (a - b).abs().max().item()
+    limit = TP_STEP_LIMIT[variant]
+    checks = {"tp=1 kernels against plain": (
+        one["diff"] <= limit and one["greedy"], one["diff"], limit)}
+    for r, res in enumerate(ranks):
+        checks[f"rank {r} kernels against plain"] = (
+            res["diff"] <= bound and res["greedy"], res["diff"], bound)
+    checks["gathered tp=2 against tp=1"] = (
+        diff <= bound and greedy_agrees(a, b, diff), diff, bound)
+    return checks
+
+
+def phase_tp_step(smi: str, tmp: Path):
+    """[tp2 step]: each variant at tp = 1 here, then at tp = 2 in two ranks
+    (one process each, over gloo); every kernel of the step launched on
+    every rank, and tp_step_checks: the tp = 1 kernels against their plain
+    versions, each rank's at the shard's widths (16 q and 4 kv heads), and
+    the gathered tp = 2 logits against tp = 1's. Then the bf16 step again
+    with a planted fault (tp_step's `fault`) at tp = 1 and in both ranks:
+    every check must reject it."""
+    for variant in TP_STEP_VARIANTS:
+        t0 = time.perf_counter()
+        one = tp_step(variant, str(tmp / f"tp1_{variant}.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = spawn_ranks("tp_step", 2, dict(variant=variant, out_path=str(
+            tmp / f"tp2_{variant}.pt")), timeout=240)
+        for r, res in enumerate(ranks):
+            for k in tp_step_kernels(variant):
+                assert res["launches"][k] > 0, (variant, r, k, res["launches"])
+        b = torch.load(tmp / f"tp1_{variant}.pt")
+        checks = tp_step_checks(variant, one, ranks,
+                                torch.load(tmp / f"tp2_{variant}.pt"), b)
+        log(f"[tp2 step] {variant}, backend {DIST_BACKEND}, 8B width, 4 layers, "
+            f"{one['rows']} rows ({one['tokens']} tokens): per rank "
+            f"{ranks[0]['n_q']} q / {ranks[0]['n_kv']} kv heads, {ranks[0]['lanes']} "
+            f"cache lanes (logit std {one['std']:.4g}); max |logit diff| against "
+            f"bound: {', '.join(f'{k} {v[1]:.4g} <= {v[2]:.4g}' for k, v in checks.items())}; "
+            f"greedy tokens agree on every clear-margin row; rank launches "
+            f"{[{k: r['launches'][k] for k in tp_step_kernels(variant)} for r in ranks]} "
+            f"in {time.perf_counter() - t0:.1f} s")
+        assert all(v[0] for v in checks.values()), (variant, checks)
+        if ranks[0]["gloo_ms"]:
+            log(f"[tp2 step] one {DIST_BACKEND} all_reduce of bf16 [rows, 4096] "
+                f"on cuda:0 between the two ranks, ms a call (20 calls): "
+                f"{ranks[0]['gloo_ms']} ({smi})")
+        if variant == "bf16":
+            good = one
+    bad = tp_step("bf16", str(tmp / "tp1_fault.pt"), fault=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad_ranks = spawn_ranks("tp_step", 2, dict(
+        variant="bf16", out_path=str(tmp / "tp2_fault.pt"), fault=True),
+        timeout=240)
+    b = torch.load(tmp / "tp1_bf16.pt")
+    checks = tp_step_checks("bf16", good, bad_ranks,
+                            torch.load(tmp / "tp2_fault.pt"), b)
+    checks["tp=1 kernels against plain"] = tp_step_checks("bf16", bad, [], b, b)[
+        "tp=1 kernels against plain"]
+    log(f"[tp2 step] planted fault (the decode kernel's last KV head skipped), "
+        f"bf16: {', '.join(f'{k} {v[1]:.4g} against {v[2]:.4g}' for k, v in checks.items())}"
+        f"; every check rejects it")
+    assert not any(v[0] for v in checks.values()), checks
+
+
+def serve_prompts(mc) -> list:
+    top = min(128000, mc.vocab_size - 1)
+    return [[(13 * i + 5 * j) % top + 1 for j in range(SWAP_PROMPT)]
+            for i in range(8)]
+
+
+async def _serve_timed(engine, prompts, out_len) -> dict:
+    """Serve `prompts` at once: tokens, wall, TTFT and decode rate."""
+    async def one(p):
+        t_sub, stamps, toks = time.perf_counter(), [], []
+        async for so in engine.add_request_and_stream(
+                RawRequest("", out_len, prompt_token_ids=p)):
+            stamps.append(time.perf_counter())
+            toks.append(so.token_id)
+        return t_sub, stamps, toks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = await asyncio.gather(*[one(p) for p in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ttft = sorted(st[0] - t for t, st, _ in res)
+    first = max(st[0] for _, st, _ in res)
+    last = max(st[-1] for _, st, _ in res)
+    n_after = sum(1 for _, st, _ in res for x in st if x > first)
+    return dict(tokens=[toks for _, _, toks in res], wall=wall,
+                ttft_p50=ttft[len(ttft) // 2], ttft_max=ttft[-1],
+                decode_tok_s=n_after / (last - first) if last > first else 0.0)
+
+
+async def _profile_collectives(engine, smi: str, name: str) -> dict:
+    """_profile's decode-heavy run on rank 0 of a tp/dp engine, with the
+    host time blocked in the step's all-reduces (every collective of the
+    step is one), in the control channel's broadcasts, and in the model's
+    dispatches (forward_async, which holds both) summed beside it."""
+    dist = torch.distributed
+    spent = {"all_reduce": [0.0, 0], "broadcast": [0.0, 0],
+             "dispatch": [0.0, 0]}
+    model = engine.model
+    real = {"all_reduce": dist.all_reduce, "broadcast": dist.broadcast,
+            "dispatch": model.forward_async}
+
+    def timed(kind):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = real[kind](*a, **kw)
+            spent[kind][0] += time.perf_counter() - t
+            spent[kind][1] += 1
+            return out
+        return call
+    dist.all_reduce, dist.broadcast = timed("all_reduce"), timed("broadcast")
+    model.forward_async = timed("dispatch")
+    t0 = time.perf_counter()
+    try:
+        busy_ms, steps = await _profile(engine, smi, name)
+    finally:
+        dist.all_reduce, dist.broadcast = real["all_reduce"], real["broadcast"]
+        model.forward_async = real["dispatch"]
+    return dict(wall_s=time.perf_counter() - t0, busy_ms=busy_ms, steps=steps,
+                spent=spent)
+
+
+def serve_rank(ec_kw: dict, seed: int, smi: str, profile: str = "") -> dict:
+    """One rank of [serve tp2] / [serve dp2 tp2]: rank 0 runs the Engine on
+    the 8 prompts (then, with `profile`, _profile_collectives under that
+    name), the others follow. Returns this rank's launches, peak memory and
+    the ops it replayed (followers), or the served tokens, times and
+    profile (rank 0)."""
+    from swiftllm_tpu_torch.parallel import distributed
+    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    ec = EngineConfig(model_path="", use_dummy=True, **ec_kw)
+    if not distributed.is_primary():
+        m = LlamaModel(ec, mc, device=DEVICE)
+        with loading(seed, std=0.002, successor=True):
+            m.load_weights()
+        m.init_kvcache_and_swap()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops = []
+        real = distributed.exchange_op
+
+        def logged(*a, **kw):
+            out = real(*a, **kw)
+            ops.append(out[0])
+            return out
+        distributed.exchange_op = logged
+        build.reset_launch_counts()
+        distributed.follower_loop(m)
+        torch.cuda.synchronize()
+        return dict(launches=dict(build.launch_counts), ops=ops,
+                    peak=torch.cuda.max_memory_allocated(), resident=resident,
+                    cpu_free=m.cpu_block_mgr.num_free_blocks)
+
+    async def body():
+        engine = Engine(ec, mc, device=DEVICE)
+        with loading(seed, std=0.002, successor=True):
+            await engine.initialize(tokenizer_backend="inline")
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loops = asyncio.create_task(engine.start_all_event_loops())
+        build.reset_launch_counts()
+        out = await _serve_timed(engine, serve_prompts(mc), SERVE_TP_OUT)
+        launches = dict(build.launch_counts)
+        m = engine.model
+        for mgr in m.hbm_block_mgrs:
+            await _pages_back(mgr, m.num_hbm_blocks)
+        prof = (await _profile_collectives(engine, smi, profile)
+                if profile else None)
+        loops.cancel()
+        await asyncio.wait([loops])
+        engine.stop_followers()
+        return dict(out, launches=launches, stats=engine.stats.snapshot(),
+                    profile=prof,
+                    groups=[g.num_free_blocks for g in m.hbm_block_mgrs],
+                    pages=m.num_hbm_blocks,
+                    cpu_free=m.cpu_block_mgr.num_free_blocks,
+                    peak=torch.cuda.max_memory_allocated(), resident=resident)
+    return asyncio.run(body())
+
+
+RANK_PHASES = {"tp_step": tp_step, "serve": serve_rank}
+
+
+def rank_main(phase: str, args: dict) -> int:
+    """A rank of a phase-6 run: join the group, run the phase, write the
+    result where spawn_ranks reads it."""
+    from swiftllm_tpu_torch.parallel import distributed
+    distributed.initialize(DIST_BACKEND)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    print(f"rank {rank} of {os.environ['WORLD_SIZE']}: backend {DIST_BACKEND}, "
+          f"device {DEVICE}", flush=True)
+    result = RANK_PHASES[phase](**args)
+    (OUT_DIR / f"rank_{phase}_{rank}.json").write_text(json.dumps(result))
+    distributed.shutdown()
+    return 0
+
+
+async def serve_tp1_reference(ec_kw: dict, seed: int) -> dict:
+    """The tp = 1 engine on the same successor weights and prompts."""
+    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    engine, loops, _ = await _engine(
+        EngineConfig(model_path="", use_dummy=True, **ec_kw), mc, seed)
+    out = await _serve_timed(engine, serve_prompts(mc), SERVE_TP_OUT)
+    out["stats"] = engine.stats.snapshot()
+    await _release(engine, loops)
+    del engine, loops
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_parallel(smi: str) -> None:
+    """[serve tp2] and [serve dp2 tp2]: full-width engines (8B, 32 layers)
+    on successor weights (seeded_weights), 8 prompts of 1,500 tokens and 32 output
+    tokens each. tp = 2 at the default EngineConfig (swap preemption, 2,048
+    host pages) on a pool of 380 pages, which holds four of the eight: the
+    follower must replay swap-outs and swap-ins. dp = 2 x tp = 2 on four
+    ranks, 1,024 pages a group: requests on both groups. Tokens equal the
+    tp = 1 engine's on the same weights and the successor chain; every rank
+    launches every attention kernel (and the swapping ranks the page
+    mover)."""
+    from swiftllm_tpu_torch.parallel.distributed import (OP_STEP, OP_STOP,
+                                                         OP_SWAP_IN,
+                                                         OP_SWAP_OUT)
+    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    seed = 93
+    cases = [("serve tp2", 2, dict(tp_size=2, num_hbm_blocks=SERVE_TP_PAGES)),
+             ("serve dp2 tp2", 4, dict(dp_size=2, tp_size=2,
+                                      num_hbm_blocks=SERVE_DP_PAGES))]
+    profile_of = {"serve tp2": "tp2"}
+    t0 = time.perf_counter()
+    want = asyncio.run(serve_tp1_reference(dict(num_hbm_blocks=SERVE_TP_PAGES),
+                                           seed))
+    for p, toks in zip(serve_prompts(mc), want["tokens"]):
+        chain = [successor(p[-1])]
+        while len(chain) < SERVE_TP_OUT:
+            chain.append(successor(chain[-1]))
+        assert toks == chain, "the tp=1 engine left the successor chain"
+    log(f"[serve tp1] reference: 8B, 32 layers, 8 x {SWAP_PROMPT} prompt tokens, "
+        f"{SERVE_TP_OUT} out, {SERVE_TP_PAGES} pages: wall {want['wall']:.3f} s, "
+        f"TTFT p50 {1e3 * want['ttft_p50']:.1f} ms, decode "
+        f"{want['decode_tok_s']:.1f} tok/s, {want['stats']['num_preemptions']} "
+        f"preemptions, in {time.perf_counter() - t0:.1f} s ({smi})")
+    for name, world, kw in cases:
+        t0 = time.perf_counter()
+        primary, *followers = spawn_ranks(
+            "serve", world, dict(ec_kw=kw, seed=seed, smi=smi,
+                                 profile=profile_of.get(name, "")), timeout=420)
+        assert primary["tokens"] == want["tokens"], f"{name}: tokens differ from tp=1"
+        for r, res in enumerate([primary] + followers):
+            for k in pa.KERNELS:
+                assert res["launches"][k] > 0, (name, r, k, res["launches"])
+        assert primary["groups"] == [primary["pages"]] * kw.get("dp_size", 1)
+        ops = followers[0]["ops"]
+        if name == "serve tp2":
+            assert primary["stats"]["num_preemptions"] >= 1, primary["stats"]
+            # (one op may move several requests: the counts need not match;
+            # every rank's host pool full again shows they were replayed)
+            n_out, n_in = ops.count(OP_SWAP_OUT), ops.count(OP_SWAP_IN)
+            assert n_out >= 1 and n_in >= 1, ops
+            for r, res in enumerate([primary] + followers):
+                assert res["launches"]["swap_pages"] > 0, (r, res["launches"])
+                assert res["cpu_free"] == 2048, (r, res["cpu_free"])
+            swaps = (f"; the follower replayed {n_out} swap-out and {n_in} "
+                     "swap-in ops")
+        else:
+            swaps = ""
+        assert ops[-1] == OP_STOP
+        assert ops.count(OP_STEP) == primary["stats"]["num_steps"], ops
+        log(f"[{name}] backend {DIST_BACKEND}, {world} ranks on one card, 8B, 32 "
+            f"layers, {kw}: tokens equal tp=1's; wall {primary['wall']:.3f} s, "
+            f"TTFT p50 {1e3 * primary['ttft_p50']:.1f} ms, max "
+            f"{1e3 * primary['ttft_max']:.1f} ms, decode "
+            f"{primary['decode_tok_s']:.1f} tok/s, "
+            f"{primary['stats']['num_steps']} steps, "
+            f"{primary['stats']['num_preemptions']} preemptions{swaps}; per rank "
+            f"resident after load "
+            f"{[round(r['resident'] / 1e9, 2) for r in [primary] + followers]} GB, "
+            f"peak while serving "
+            f"{[round(r['peak'] / 1e9, 2) for r in [primary] + followers]} GB; "
+            f"launches rank 0 {primary['launches']}; in "
+            f"{time.perf_counter() - t0:.1f} s ({smi})")
+        prof = primary["profile"]
+        if prof:
+            # (the profiled run's own line, [profile tp2], is rank 0's)
+            held = "; ".join(
+                f"{k} {t:.3f} s in {n} calls ({1e3 * t / max(n, 1):.3f} ms each)"
+                for k, (t, n) in prof["spent"].items())
+            log(f"[{name}] rank 0 under the profiler (8 requests, 64-token "
+                f"prompts, 24 tokens each, {prof['steps']} steps, wall "
+                f"{prof['wall_s']:.3f} s, device busy {prof['busy_ms']:.1f} "
+                f"ms): the host held in {held} ({smi})")
+
+
+def http_tp2(smi: str, tmp: Path):
+    """[http tp2]: the api_server command line at tp = 2, two ranks started
+    with the torchrun environment, both on cuda:0 (--device), gloo
+    (--dist-backend), 512 pages each (--num-hbm-blocks: two ranks share the
+    card), Llama-3-8B's config.json with dummy weights. One /generate is
+    answered; then SIGTERM to rank 0: it stops the follower (OP_STOP) and
+    both exit 0 within 90 s. Output: chiprun_out/api_server_tp2_<r>.log."""
+    import signal
+    import urllib.request
+    model_dir = tmp / "llama3-8b-tp2"
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "config.json").write_text(json.dumps(LLAMA3_8B_CONFIG))
+    http_port, port = _free_port(), _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        out = open(OUT_DIR / f"api_server_tp2_{r}.log", "w", encoding="utf-8")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "swiftllm_tpu_torch.server.api_server",
+             "--model-path", str(model_dir), "--use-dummy", "true",
+             "--port", str(http_port), "--host", "127.0.0.1",
+             "--tp-size", "2", "--dist-backend", DIST_BACKEND,
+             "--device", DEVICE + ":0", "--num-hbm-blocks", "512"],
+            stdout=out, stderr=subprocess.STDOUT,
+            env=_rank_env(2, r, port)), out))
+    url = f"http://127.0.0.1:{http_port}"
+    try:
+        while True:
+            for p, _ in procs:
+                assert p.poll() is None, f"a rank exited with {p.returncode}"
+            assert time.perf_counter() - t0 < 400, "the server did not come up"
+            try:
+                if urllib.request.urlopen(url + "/health", timeout=2).status == 200:
+                    break
+            except OSError:
+                time.sleep(1)
+        up = time.perf_counter() - t0
+        req = urllib.request.Request(
+            url + "/generate", data=json.dumps(
+                {"prompt_token_ids": list(range(1, 41)), "output_len": 8}).encode(),
+            headers={"Content-Type": "application/json"})
+        t1 = time.perf_counter()
+        gen = json.load(urllib.request.urlopen(req, timeout=120))
+        took = time.perf_counter() - t1
+        assert len(gen["output_token_ids"]) == 8, gen
+        t2 = time.perf_counter()
+        procs[0][0].send_signal(signal.SIGTERM)
+        codes = [p.wait(timeout=90) for p, _ in procs]
+        down = time.perf_counter() - t2
+        assert codes == [0, 0], f"exit codes after SIGTERM: {codes}"
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    follower = (OUT_DIR / "api_server_tp2_1.log").read_text()
+    assert "follower rank 1 ready" in follower, follower[-2000:]
+    log(f"[http tp2] api_server --tp-size 2 --dist-backend {DIST_BACKEND}, two "
+        f"ranks on one card: up in {up:.1f} s, /generate answered 8 tokens "
+        f"{gen['output_token_ids']} in {took:.3f} s; SIGTERM to rank 0: both "
+        f"ranks exited 0 in {down:.1f} s ({smi})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank-phase"]:      # a rank of phase 6
+        return rank_main(sys.argv[2], json.loads(sys.argv[3]))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.log").write_text("")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3352,6 +3916,14 @@ def main() -> int:
     if sys.argv[1:] == ["--compare-prefill"]:
         compare_prefill(smi)
         return 0
+    if sys.argv[1:] == ["--parallel"]:
+        tmp = tempfile.TemporaryDirectory()
+        phase_tp_step(smi, Path(tmp.name))
+        phase_serve_parallel(smi)
+        http_tp2(smi, Path(tmp.name))
+        tmp.cleanup()
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3385,6 +3957,11 @@ def main() -> int:
     phase_lora_step(adapters)
     launches = asyncio.run(phase_serve(smi, quantize_ms, adapters))
     http_cli(smi, Path(tmp.name))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_tp_step(smi, Path(tmp.name))
+    phase_serve_parallel(smi)
+    http_tp2(smi, Path(tmp.name))
     tmp.cleanup()
     # Launches: the decode kernel's and store_kv's on the bf16 serving run
     # (the path of the slice that brought them), int4_matmul's on the INT4

@@ -1,4 +1,4 @@
-"""Llama-family forward pass for the PyTorch port, at tp = dp = 1.
+"""Llama-family forward pass for the PyTorch port: one rank's shard.
 
 A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
 
@@ -26,6 +26,14 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
 - Multi-LoRA: a projection that an adapter targets adds each token's own
   adapter update (``lora_add``, plain GEMMs, as the JAX package leaves its
   einsums to XLA), in every step kind: mixed, multi-step and verify.
+- Tensor and data parallelism (``mesh``, ``parallel/mesh.py``): the step
+  runs on one rank's shard, as the JAX package's ``forward_shard`` runs
+  under ``shard_map``: n_q/tp query heads and n_kv_eff/tp KV heads, the
+  vocab-sharded embedding (masked gather, all-reduce), an all-reduce after
+  ``wo`` and after ``w_down``, the vocab padding masked out of the logits,
+  the head's gathers over tp (``models/sampling.py``), and the sampled
+  tokens and logprobs gathered over dp, so every rank returns every dp
+  group's. The collectives are ``parallel/distributed.py``'s.
 
 Numerics round where the JAX package rounds: RMSNorm casts back to the
 activation dtype BEFORE the weight multiply, SiLU runs in f32 and is cast
@@ -48,6 +56,10 @@ from swiftllm_tpu_torch.models.sampling import (chosen_logprobs, exact_greedy,
                                                 sample_tokens)
 from swiftllm_tpu_torch.ops import int4_matmul
 from swiftllm_tpu_torch.ops import paged_attention as pa
+from swiftllm_tpu_torch.parallel.distributed import (all_reduce_tp, gather_dp,
+                                                     gather_tp)
+from swiftllm_tpu_torch.parallel.mesh import (SINGLE, Mesh,
+                                              effective_num_kv_heads)
 from swiftllm_tpu_torch.worker.quant import is_quantized, proj
 
 
@@ -396,10 +408,12 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                   q_bucket: int, use_kernels: bool,
                   return_logits: bool = False, use_sampler: bool = False,
                   return_logprobs: bool = False, kv_pend=None, npend: int = 0,
-                  sample_span: int = 0, live_rows: int | None = None):
-    """One step: embedding, the layers, the final norm, the sampling head and
-    the feedback write. ``kv_cache`` [L, S, W] and ``feedback`` i32[F] are
-    updated IN PLACE (JAX donates them and returns new arrays).
+                  sample_span: int = 0, live_rows: int | None = None,
+                  mesh: Mesh = SINGLE):
+    """One step on this rank's shard: embedding, the layers, the final norm,
+    the sampling head and the feedback write. ``kv_cache`` [L, S, W] and
+    ``feedback`` i32[F] (this rank's) are updated IN PLACE (JAX donates them
+    and returns new arrays); ``batch`` is this rank's dp group's.
 
     ``sample_span`` S1 > 0 (speculative verify steps): the head reads EVERY
     one of the first S1 positions of each row's span (pad positions read the
@@ -416,9 +430,11 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     rows from it on have no query) bounds the rows the attention kernels
     plan their key splits over.
 
-    Returns (tokens i32[B], logits f32[B, V] or None[, logprobs f32[B] with
-    ``return_logprobs``][, kv_rows [L, B, W] with ``kv_pend``]); B becomes
-    B * S1 with ``sample_span``."""
+    Returns (tokens i32[dp*B], logits f32[dp*B, V_padded] or None[,
+    logprobs f32[dp*B] with ``return_logprobs``][, kv_rows [L, B, W] with
+    ``kv_pend``]); B becomes B * S1 with ``sample_span``. Tokens, logits and
+    logprobs are gathered over tp and dp, the same on every rank; V_padded
+    is the vocab padded to a multiple of tp, its padding -inf."""
     assert not (sample_span and kv_pend is not None), \
         "verify steps are single steps"
     T = batch.token_ids.shape[0]
@@ -431,11 +447,16 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     fed = feedback[batch.feedback_read.clamp(0, f_len - 1)]
     token_ids = torch.where(batch.feedback_read >= 0, fed, batch.token_ids)
 
+    # The vocab-sharded embedding: each rank gathers the ids it holds, the
+    # all-reduce assembles the rows.
     embed = params["embed"]
-    vocab = embed.shape[0]
-    in_range = (token_ids >= 0) & (token_ids < vocab)
-    x = embed[token_ids.clamp(0, vocab - 1)]
-    x = torch.where(in_range[:, None], x, torch.zeros_like(x))       # [T, D]
+    v_local = embed.shape[0]
+    local_ids = token_ids - mesh.tp_rank * v_local if mesh.tp > 1 else token_ids
+    in_range = (local_ids >= 0) & (local_ids < v_local)
+    x = embed[local_ids.clamp(0, v_local - 1)]
+    x = all_reduce_tp(torch.where(in_range[:, None], x,
+                                  torch.zeros_like(x)), mesh)        # [T, D]
+    n_kv = effective_num_kv_heads(cfg.num_kv_heads, mesh.tp) // mesh.tp
 
     rope_cs = rope_tables(batch.positions, params["inv_freq"], x.dtype)
     layers = params["layers"]
@@ -476,17 +497,19 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
         else:
             kv_new = torch.cat([k.reshape(T, -1), v_flat], dim=1).to(kv_cache.dtype)
         attn = _attention_and_store(
-            q, kv_new, kv_cache, layer, batch, n_kv=cfg.num_kv_heads,
+            q, kv_new, kv_cache, layer, batch, n_kv=n_kv,
             page_size=page_size, sm_scale=sm_scale, use_kernels=use_kernels,
             q_bucket=q_bucket, window=cfg.sliding_window or 0,
             kv_pend=kv_pend, npend=npend, live_rows=live_rows)
         if kv_pend is not None:
             kv_rows.append(kv_new[:batch.q_lens.shape[0]])
-        x = x + mproj(attn.reshape(T, -1), "wo")
+        # In-sharded projections: each rank's partial sum (an adapter's
+        # included), then the all-reduce.
+        x = x + all_reduce_tp(mproj(attn.reshape(T, -1), "wo"), mesh)
 
         h = rms_norm(x, w["ffn_norm"], eps)
         gate = F.silu(mproj(h, "w_gate").float()).to(x.dtype)
-        x = x + mproj(gate * mproj(h, "w_up"), "w_down")
+        x = x + all_reduce_tp(mproj(gate * mproj(h, "w_up"), "w_down"), mesh)
 
     x = rms_norm(x, params["final_norm"], eps)
 
@@ -508,6 +531,11 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
         logits = proj(h_last, lm_head).float()                       # [B, V]
     else:
         logits = (h_last @ lm_head.to(h_last.dtype).T).float()       # [B, V]
+    if mesh.tp * v_local != cfg.vocab_size:
+        # The vocab padding (to a multiple of tp) never wins.
+        ids = mesh.tp_rank * v_local + torch.arange(v_local, device=x.device)
+        logits = logits.masked_fill(ids[None, :] >= cfg.vocab_size,
+                                    float("-inf"))
     knobs = dict(temperature=batch.temperature, top_p=batch.top_p,
                  top_k=batch.top_k, seeds=batch.seeds)
     if sample_span:
@@ -518,9 +546,9 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                           + torch.arange(sample_span, device=x.device).repeat(B)
                           ) & 0xFFFFFFFF
     if use_sampler:
-        tokens = sample_tokens(logits, **knobs)
+        tokens = sample_tokens(logits, mesh=mesh, **knobs)
     else:
-        tokens = exact_greedy(logits)
+        tokens = exact_greedy(logits, mesh)
 
     # Publish samples to the feedback buffer: in a verify step, each row's
     # token at its last valid position (the host's accept loop resolves the
@@ -534,9 +562,15 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     fw = batch.feedback_write
     fw = torch.where((fw >= 0) & (fw < f_len), fw, f_len - 1).long()
     feedback[fw] = fb_val
-    out = (tokens, logits if return_logits else None)
+    logprobs = chosen_logprobs(logits, tokens, mesh) if return_logprobs else None
+    if return_logits and mesh.tp > 1:
+        logits = gather_tp(logits, mesh).permute(1, 0, 2).flatten(1)
+    # Every dp group's tokens (and logprobs, logits) on every rank: the
+    # primary reads them all from its own.
+    out = (gather_dp(tokens, mesh),
+           gather_dp(logits, mesh) if return_logits else None)
     if return_logprobs:
-        out += (chosen_logprobs(logits, tokens),)
+        out += (gather_dp(logprobs, mesh),)
     if kv_pend is not None:
         out += (torch.stack(kv_rows),)
     return out

@@ -1,9 +1,12 @@
-"""Token sampling for the PyTorch port, at tp = 1.
+"""Token sampling over vocab-sharded logits, for the PyTorch port.
 
 Port of ``swiftllm_tpu/models/sampling.py``: greedy rows stay exact over the
-full vocab; sampling rows draw from the top ``MAX_CAND`` candidates with
-temperature, top-k, top-p and a Gumbel-max draw. All rows share one code
-path; ``temperature <= 0`` selects the greedy result.
+full vocab (each shard's maximum and argmax, one [tp, 2, B] gather, the
+first shard winning a tie); sampling rows draw from the global top
+``MAX_CAND`` candidates (each shard's top candidates, one gather, the global
+top) with temperature, top-k, top-p and a Gumbel-max draw, redundantly on
+every tp rank. All rows share one code path; ``temperature <= 0`` selects
+the greedy result. At tp = 1 (``mesh`` SINGLE) nothing is gathered.
 
 Two things differ from the JAX package, both on purpose:
 
@@ -15,7 +18,8 @@ Two things differ from the JAX package, both on purpose:
 - The Gumbel noise is this module's own stateless hash of (seed, candidate
   index), not ``jax.random``'s threefry stream: the distribution is the
   same, the draws are not. ``sample_tokens`` takes the noise as an argument,
-  so a test can inject the JAX package's.
+  so a test can inject the JAX package's. It is drawn over the GLOBAL
+  candidates, so a seed draws the same token at any tp.
 
 Everything is tensor operations on the logits' device, with no generator
 state and no host synchronisation: the draw of seed ``s0 + s`` is the same
@@ -26,15 +30,30 @@ from __future__ import annotations
 
 import torch
 
+from swiftllm_tpu_torch.parallel.distributed import (all_reduce_tp, gather_tp,
+                                                     pmax_tp)
+from swiftllm_tpu_torch.parallel.mesh import SINGLE, Mesh
+
 MAX_CAND = 256
 
 _M32 = 0xFFFFFFFF
 
 
-def exact_greedy(logits: torch.Tensor) -> torch.Tensor:
-    """Argmax over the vocab, the first index on ties (as ``jnp.argmax``).
-    logits: f32[B, V] -> i32[B]."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def exact_greedy(logits: torch.Tensor, mesh: Mesh = SINGLE) -> torch.Tensor:
+    """Argmax over the (tp-sharded) vocab, the first index on ties (as
+    ``jnp.argmax``; across shards the first shard). logits: f32[B, V_local]
+    -> i32[B] global ids."""
+    local_arg = torch.argmax(logits, dim=-1).to(torch.int32)
+    if mesh.tp == 1:
+        return local_arg
+    v_local = logits.shape[-1]
+    assert mesh.tp * v_local < 1 << 24, "vocab ids must be exact in f32"
+    # One gather of (max, argmax) pairs; the ids ride exactly in f32.
+    pairs = gather_tp(torch.stack([logits.amax(dim=-1).float(),
+                                   local_arg.float()]), mesh)   # [tp, 2, B]
+    win = torch.argmax(pairs[:, 0], dim=0)                      # [B]
+    arg = pairs[:, 1].gather(0, win[None])[0].to(torch.int32)
+    return arg + win.to(torch.int32) * v_local
 
 
 def top_candidates(logits: torch.Tensor, k: int):
@@ -87,17 +106,28 @@ def gumbel_noise(seeds: torch.Tensor, n: int) -> torch.Tensor:
 
 def sample_tokens(logits: torch.Tensor, *, temperature: torch.Tensor,
                   top_p: torch.Tensor, top_k: torch.Tensor,
-                  seeds: torch.Tensor,
+                  seeds: torch.Tensor, mesh: Mesh = SINGLE,
                   gumbel: torch.Tensor | None = None) -> torch.Tensor:
-    """i32[B] sampled token ids.
+    """i32[B] sampled token ids (global vocab ids).
 
-    logits f32[B, V]; temperature f32[B] (<= 0: greedy), top_p f32[B] (1.0:
-    off), top_k i32[B] (0: off), seeds u32[B] (one per row and step, see
-    ``gumbel_noise``). ``gumbel`` f32[B, min(MAX_CAND, V)] replaces the
-    module's own noise."""
-    greedy = exact_greedy(logits)
-    C = min(MAX_CAND, logits.shape[-1])
-    vals, gids = top_candidates(logits, C)                 # descending
+    logits f32[B, V_local] (vocab padding already -inf); temperature f32[B]
+    (<= 0: greedy), top_p f32[B] (1.0: off), top_k i32[B] (0: off), seeds
+    u32[B] (one per row and step, see ``gumbel_noise``). ``gumbel`` f32[B,
+    C] replaces the module's own noise, C = min(MAX_CAND, tp *
+    min(MAX_CAND, V_local)) candidates."""
+    greedy = exact_greedy(logits, mesh)
+    v_local = logits.shape[-1]
+    vals, gids = top_candidates(logits, min(MAX_CAND, v_local))
+    if mesh.tp > 1:
+        # Every shard's candidates, shard-major, ids exact in f32; the global
+        # top keeps the lower position, so the lower id, first on ties.
+        both = gather_tp(torch.stack([vals, (gids + mesh.tp_rank * v_local)
+                                      .float()]), mesh)          # [tp, 2, B, k]
+        vals = both[:, 0].permute(1, 0, 2).flatten(1)            # [B, tp*k]
+        all_ids = both[:, 1].permute(1, 0, 2).flatten(1)
+        vals, pos = top_candidates(vals, min(MAX_CAND, vals.shape[1]))
+        gids = torch.gather(all_ids, 1, pos).long()
+    C = vals.shape[1]                                      # descending
 
     scaled = vals / temperature.clamp_min(1e-6)[:, None]
 
@@ -120,12 +150,21 @@ def sample_tokens(logits: torch.Tensor, *, temperature: torch.Tensor,
     return torch.where(temperature > 0, sampled, greedy)
 
 
-def chosen_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def chosen_logprobs(logits: torch.Tensor, tokens: torch.Tensor,
+                    mesh: Mesh = SINGLE) -> torch.Tensor:
     """Raw log-softmax of the chosen token of each row (whatever the
-    temperature): logits f32[B, V], tokens i32[B] -> f32[B]. The logsumexp is
-    written out as the JAX package writes it (max, sum of exp, log)."""
-    gmax = logits.max(dim=-1).values
-    lse = gmax + torch.log(torch.exp(logits - gmax[:, None]).sum(dim=-1))
+    temperature): logits f32[B, V_local], tokens i32[B] global ids -> f32[B].
+    The logsumexp is written out as the JAX package writes it (max, sum of
+    exp, log); over the tp-sharded vocab that is a pmax, then one sum of
+    the shards' (sum of exp, the chosen logit where the shard holds it)."""
+    gmax = pmax_tp(logits.max(dim=-1).values, mesh)
+    sumexp = torch.exp(logits - gmax[:, None]).sum(dim=-1)
     V = logits.shape[-1]
-    picked = torch.gather(logits, 1, tokens.long().clamp(0, V - 1)[:, None])[:, 0]
-    return picked - lse
+    local = tokens.long()
+    if mesh.tp > 1:
+        local = local - mesh.tp_rank * V
+    picked = torch.gather(logits, 1, local.clamp(0, V - 1)[:, None])[:, 0]
+    if mesh.tp > 1:
+        sumexp, picked = all_reduce_tp(torch.stack([
+            sumexp, torch.where((local >= 0) & (local < V), picked, 0.0)]), mesh)
+    return picked - (gmax + torch.log(sumexp))

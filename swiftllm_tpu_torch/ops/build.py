@@ -5,17 +5,21 @@ Every kernel has a plain C entry of its own name in a source in ``csrc/``
 variant share one, the prefill kernel and its bf16-score variant another).
 ``build_kernels`` compiles each missing source with ``nvcc`` for ``sm_90a``
 into ``_build/`` beside this file (one process per source, all started
-together), names the library by the hash of its source and the headers,
+together, under a file lock, so that ranks started together build once),
+names the library by the hash of its source and the headers,
 and loads it with ``ctypes``. Nothing is built when a module
 is imported: the first launch builds its kernel, or a caller builds them all
 up front. The wrappers in ``paged_attention.py``, ``int4_matmul.py`` and
-``swap_pages.py`` launch through ``entry`` and report each launch with
-``check_launch``, which adds one to ``launch_counts[name]``.
+``swap_pages.py`` launch through ``launch``, which runs the C entry on the
+tensors' card and its current stream and adds one to
+``launch_counts[name]``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -93,6 +97,21 @@ _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 
 
+@contextlib.contextmanager
+def _locked():
+    """The build lock of this process's threads and of every process that
+    builds into ``_build/`` (ranks started together): one builds a missing
+    library, the others wait for it and load it."""
+    with _build_lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "w") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
@@ -121,10 +140,9 @@ def build_kernels(names=KERNELS) -> dict[str, str]:
     ``-Xptxas -v`` report (registers, shared memory, spills), under the name
     of the first kernel asked for that it holds."""
     reports = {}
-    with _build_lock:
+    with _locked():
         todo = [n for n in names if n not in _libs]
         procs = {}
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for n in todo:
             src = _ENTRIES[n][0]
             out = _lib_path(src)
@@ -160,8 +178,15 @@ def entry(name: str):
     return getattr(_libs[name], name)
 
 
-def check_launch(name: str, err: int, hint: str = "") -> None:
-    """Raise if the C entry reported a CUDA error; else count the launch."""
+def launch(name: str, device: torch.device, *args, hint: str = "") -> None:
+    """Launch kernel ``name``'s C entry with ``args`` on ``device``'s current
+    stream, with ``device`` the calling thread's current card meanwhile (the
+    current card is per thread, and a thread that never set it is on card 0,
+    whatever card the tensors lie on). Raise if the entry reported a CUDA
+    error; else count the launch."""
+    fn = entry(name)
+    with torch.cuda.device(device):
+        err = fn(*args, stream(device))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}{hint}")
     launch_counts[name] += 1
@@ -207,5 +232,6 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """The current stream of the card ``device``."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

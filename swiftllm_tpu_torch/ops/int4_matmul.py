@@ -195,10 +195,9 @@ def int4_proj_stacked(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
         # One arrival counter a (tile, token tile); the merging block resets
         # its own, so every launch leaves them zero.
         cnt = build.device_counters("int4_matmul", x.device, p.tiles * p.t_tiles)
-    err = build.entry("int4_matmul")(
-        x.data_ptr(), q4.data_ptr(), s.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(),
+    build.launch(
+        "int4_matmul", x.device, x.data_ptr(), q4.data_ptr(), s.data_ptr(),
+        y.data_ptr(), None if ws is None else ws.data_ptr(),
         None if cnt is None else cnt.data_ptr(), T, N, K, L, int(layer), p.nt,
-        p.t_tiles, p.splits, p.per, p.grid, build.stream())
-    build.check_launch("int4_matmul", err)
+        p.t_tiles, p.splits, p.per, p.grid)
     return y

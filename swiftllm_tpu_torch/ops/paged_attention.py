@@ -53,8 +53,9 @@ split-then-merge. The bf16-score variant never splits.
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 On a CUDA tensor it launches its kernel or raises; it never falls back. The
 kernels are built and bound by ``ops/build.py`` (``nvcc`` at first use,
-``ctypes``), launched on ``torch.cuda.current_stream()``, and never
-synchronise. Every launch adds one to ``build.launch_counts[name]``.
+``ctypes``), launched by ``build.launch`` on the current stream of the
+tensors' card with that card current, and never synchronise. Every launch
+adds one to ``build.launch_counts[name]``.
 """
 
 from __future__ import annotations
@@ -513,13 +514,13 @@ def paged_decode_attention(q, cache, kv_new, page_table, q_lens, seq_lens,
                                        build.sm_count(q.device), splits, window)
     bufs = _split_buffers(q.device, R * n_kv, n_split, n_q // n_kv, hd)
     out = torch.empty_like(q)
-    err = build.entry("paged_decode_attention")(
+    build.launch(
+        "paged_decode_attention", q.device,
         q.data_ptr(), cache.data_ptr(), kv_new.data_ptr(),
         page_table.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         kv_slots.data_ptr(), out.data_ptr(), T, B, Pg, n_q, n_kv, hd, S,
         int(layer), page_size, int(window), int(cache.dtype == FP8),
-        float(sm_scale), n_split, chunk, R, *_ptrs(bufs), build.stream())
-    build.check_launch("paged_decode_attention", err, _HINT)
+        float(sm_scale), n_split, chunk, R, *_ptrs(bufs), hint=_HINT)
     return out
 
 
@@ -559,13 +560,13 @@ def paged_decode_attention_pend(q, cache, kv_new, kv_pend, page_table, q_lens,
                                        build.sm_count(q.device), splits, window)
     bufs = _split_buffers(q.device, R * n_kv, n_split, n_q // n_kv, hd)
     out = torch.empty_like(q)
-    err = build.entry("paged_decode_attention_pend")(
+    build.launch(
+        "paged_decode_attention_pend", q.device,
         q.data_ptr(), cache.data_ptr(), kv_new.data_ptr(), kv_pend.data_ptr(),
         page_table.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), T, B, Pg, n_q, n_kv, hd, S, int(layer), page_size,
         int(window), int(npend), kv_pend.shape[1], float(sm_scale), n_split,
-        chunk, R, *_ptrs(bufs), build.stream())
-    build.check_launch("paged_decode_attention_pend", err, _HINT)
+        chunk, R, *_ptrs(bufs), hint=_HINT)
     return out
 
 
@@ -584,10 +585,9 @@ def store_kv(cache, kv_new, kv_slots, layer: int) -> None:
                          f"kv_slots {tuple(kv_slots.shape)}")
     if T == 0:
         return
-    err = build.entry("store_kv")(kv_new.data_ptr(), cache.data_ptr(),
-                                  kv_slots.data_ptr(), T, row_bytes,
-                                  cache.shape[1], int(layer), build.stream())
-    build.check_launch("store_kv", err, _HINT)
+    build.launch("store_kv", cache.device, kv_new.data_ptr(), cache.data_ptr(),
+                 kv_slots.data_ptr(), T, row_bytes, cache.shape[1], int(layer),
+                 hint=_HINT)
 
 
 def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
@@ -631,12 +631,12 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
                          f"{PREFILL_MAX_ROWS})")
     if bf16s:
         out = torch.zeros_like(q)
-        err = build.entry("paged_prefill_attention_bf16s")(
+        build.launch(
+            "paged_prefill_attention_bf16s", q.device,
             q.data_ptr(), cache.data_ptr(), page_table.data_ptr(),
             q_starts.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
             out.data_ptr(), B, int(q_bucket), Pg, n_q, n_kv, hd, S,
-            int(layer), page_size, float(sm_scale), build.stream())
-        build.check_launch("paged_prefill_attention_bf16s", err, _HINT)
+            int(layer), page_size, float(sm_scale), hint=_HINT)
         return out
     group = n_q // n_kv
     R = split_rows(B, live_rows)
@@ -647,11 +647,11 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
     units = R * cdiv(int(q_bucket), max(rows // group, 1)) * n_kv
     bufs = _split_buffers(q.device, units, n_split, rows, hd)
     out = torch.empty_like(q)          # the kernel zeroes tokens of no row
-    err = build.entry("paged_prefill_attention")(
+    build.launch(
+        "paged_prefill_attention", q.device,
         q.data_ptr(), cache.data_ptr(), page_table.data_ptr(),
         q_starts.data_ptr(), q_lens.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), B, int(q_bucket), Pg, n_q, n_kv, hd, S, int(layer),
         page_size, int(window), int(cache.dtype == FP8), float(sm_scale),
-        n_split, chunk, R, *_ptrs(bufs), T, build.stream())
-    build.check_launch("paged_prefill_attention", err, _HINT)
+        n_split, chunk, R, *_ptrs(bufs), T, hint=_HINT)
     return out

@@ -136,9 +136,8 @@ def swap_pages(src: torch.Tensor, dst: torch.Tensor, src_pages, dst_pages,
         return
     dev = cuda[0].device
     pages_dev = torch.from_numpy(pages).pin_memory().to(dev, non_blocking=True)
-    err = build.entry("swap_pages")(
-        src.data_ptr(), dst.data_ptr(), pages_dev.data_ptr(), n, src.shape[0],
-        src.shape[1] * row_bytes, dst.shape[1] * row_bytes, page_bytes,
-        MOVER_BLOCKS if blocks is None else blocks, build.stream())
-    build.check_launch("swap_pages", err,
-                       " (is the host side pinned and mapped?)")
+    build.launch(
+        "swap_pages", dev, src.data_ptr(), dst.data_ptr(), pages_dev.data_ptr(),
+        n, src.shape[0], src.shape[1] * row_bytes, dst.shape[1] * row_bytes,
+        page_bytes, MOVER_BLOCKS if blocks is None else blocks,
+        hint=" (is the host side pinned and mapped?)")

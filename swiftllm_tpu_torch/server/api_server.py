@@ -10,10 +10,21 @@ client-disconnect aborts the request (its api_server.py:75 TODO), ``GET
 
 Built on aiohttp (the route surface and payloads are identical to the
 reference's). A copy of ``swiftllm_tpu/server/api_server.py`` serving the
-PyTorch port's engine on one device (``--device``, "cuda" by default); the
-multi-host follower path is not ported (ROADMAP.md queue 1, item 9).
+PyTorch port's engine.
+
+With ``--tp-size`` / ``--dp-size`` it runs as one process per rank, launched
+with the standard ``torch.distributed`` environment (``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, as torchrun
+sets it) and ``--dist-backend`` naming the backend of the step's
+collectives. Rank 0 serves HTTP; every other rank builds its shard of the
+model, sizes its cache with rank 0 and replays rank 0's steps
+(``distributed.follower_loop``) until rank 0 stops it, on exit, on SIGTERM
+and on a crash. The device is ``cuda:{LOCAL_RANK}`` unless ``--device``
+names one.
 
 Run:  python -m swiftllm_tpu_torch.server.api_server --model-path /path/to/llama ...
+      torchrun --nproc-per-node 2 -m swiftllm_tpu_torch.server.api_server \
+          --dist-backend nccl --tp-size 2 --model-path /path/to/llama ...
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import argparse
 import asyncio
 import json
 import os
+import signal
 import sys
 import traceback
 
@@ -152,6 +164,23 @@ async def main_coroutine(args: argparse.Namespace,
                          engine_config: EngineConfig | None = None,
                          model_config: LlamaModelConfig | None = None):
     engine_config = engine_config or EngineConfig.from_cli_args(args)
+    from swiftllm_tpu_torch.parallel import distributed
+    if distributed.initialize(args.dist_backend):
+        print(f"swiftllm-tpu-torch rank {os.environ['RANK']} of "
+              f"{os.environ['WORLD_SIZE']}: backend {args.dist_backend}, "
+              f"device {args.device}", flush=True)
+    if not distributed.is_primary():
+        from swiftllm_tpu_torch.worker.model import LlamaModel
+        model = LlamaModel(engine_config, model_config, device=args.device)
+        model.load_weights()
+        model.init_kvcache_and_swap()
+        print(f"swiftllm-tpu-torch follower rank {os.environ['RANK']} ready; "
+              "replaying the primary's steps", flush=True)
+        await asyncio.get_running_loop().run_in_executor(
+            None, distributed.follower_loop, model)
+        distributed.shutdown()
+        return
+
     engine = Engine(engine_config, model_config, device=args.device)
     await engine.initialize()
     app = build_app(engine)
@@ -162,13 +191,23 @@ async def main_coroutine(args: argparse.Namespace,
     await site.start()
     print(f"swiftllm-tpu-torch API server listening on http://{args.host}:{args.port}")
 
+    # SIGTERM ends the serving loop as SIGINT does, so the followers are
+    # stopped on the way out.
+    serving = asyncio.ensure_future(engine.start_all_event_loops())
+    asyncio.get_running_loop().add_signal_handler(signal.SIGTERM,
+                                                  serving.cancel)
     try:
-        await engine.start_all_event_loops()
+        await serving
+    except asyncio.CancelledError:
+        if asyncio.current_task().cancelling():
+            raise       # this coroutine is cancelled itself (SIGINT)
     except Exception:
         traceback.print_exc()
+        engine.stop_followers()
         os._exit(1)   # crash-and-die, as the reference (api_server.py:114-119)
     finally:
         await runner.cleanup()
+        distributed.shutdown()
 
 
 def main():
@@ -176,10 +215,16 @@ def main():
         description="swiftllm-tpu-torch API server (the PyTorch port)")
     parser.add_argument("--host", type=str, default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="cuda (default) or cpu")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda:{LOCAL_RANK} (default) or another device "
+                             "(cpu, cuda:N)")
+    parser.add_argument("--dist-backend", type=str, default=None,
+                        help="backend of the step's collectives when run as "
+                             "several ranks (nccl or gloo); required then")
     EngineConfig.add_cli_args(parser)
     args = parser.parse_args()
+    if args.device is None:
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
     try:
         asyncio.run(main_coroutine(args))
     except KeyboardInterrupt:

@@ -17,6 +17,10 @@ whose pages the model's page mover copies on the step's stream; a request
 aborted while swapped returns its host pages) and LoRA routing by adapter
 name.
 
+- With tp/dp > 1 the engine runs on rank 0: its model announces every step
+  and swap op to the follower ranks (``parallel/distributed.py``), requests
+  are pinned to dp groups at admission, and ``stop_followers`` releases the
+  followers on every way out of the serving loop.
 - The step batch is a SARATHI mixed prefill+decode token batch (the scheduler
   enables the piggybacking the reference left as a comment, scheduler.py:92-99).
 - ``model.forward`` runs in a thread-pool executor so device steps never
@@ -86,8 +90,12 @@ class Engine:
         self.untokenized_raw_requests: list[tuple[Request, str]] = []
         self._pending_steps = collections.deque()   # dispatched, values pending
         self._work_event = asyncio.Event()
-        self._model_executor = ThreadPoolExecutor(max_workers=1,
-                                                  thread_name_prefix="model-step")
+        # The model thread launches on this engine's card, whichever card a
+        # new thread would start on.
+        from swiftllm_tpu_torch.worker.model import bind_device
+        self._model_executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="model-step",
+            initializer=bind_device, initargs=(device,))
         # Token resolution blocks on the device→host copy; it must not occupy
         # the dispatch thread or the pipeline serializes on it.
         self._resolve_executor = ThreadPoolExecutor(max_workers=1,
@@ -137,6 +145,11 @@ class Engine:
             chunk_rows.append(n)
             n *= 2
 
+        def fwd(rows, **kw):
+            # Warm-up rows belong to dp group 0; the other groups idle.
+            self.model.forward(rows, groups=[rows] + [[]] * (self.model.dp - 1),
+                               **kw)
+
         def run_steps():
             mgr_ids = self.scheduler.id_managers[0]
             ids = [mgr_ids.get_id() for _ in range(chunk_rows[-1] + 1)]
@@ -149,27 +162,27 @@ class Engine:
             ra, rest = reqs[0], reqs[1:]
             try:
                 for n_rows in chunk_rows:                      # prefill-only
-                    self.model.forward([ScheduledSeq(r, chunk)
+                    fwd([ScheduledSeq(r, chunk)
                                         for r in reqs[:n_rows]])
                     for r in reqs[1:n_rows]:   # keep ra's pages
                         self.model.free_seqs_resources([r])
                 ra.num_cached_tokens = chunk
                 ra.output_token_ids.append(0)
-                self.model.forward([ScheduledSeq(ra, 1)])      # decode-only
+                fwd([ScheduledSeq(ra, 1)])      # decode-only
                 ra.num_cached_tokens += 1
                 ra.output_token_ids.append(0)
                 if cfg.multi_step_decode > 1:
                     # The S-step window (and, in deferred-commit mode, the
                     # decode kernel's variant for it).
                     S = cfg.multi_step_decode
-                    self.model.forward([ScheduledSeq(ra, 1)], multi_step=S)
+                    fwd([ScheduledSeq(ra, 1)], multi_step=S)
                     ra.num_cached_tokens += S
                     ra.output_token_ids.extend([0] * S)
                 from swiftllm_tpu_torch.utils import next_power_of_2, tile_q_for
                 align = tile_q_for(next_power_of_2(chunk))
                 size = align
                 while size < chunk:
-                    self.model.forward([ScheduledSeq(rest[0], size)])
+                    fwd([ScheduledSeq(rest[0], size)])
                     self.model.free_seqs_resources([rest[0]])
                     size *= 2
                 # Mixed steps carry a tile-padded decode block on top of the
@@ -177,7 +190,7 @@ class Engine:
                 mixed_max = max(1, (cfg.max_tokens_in_batch - align)
                                 // max(chunk, 1))
                 for n_rows in [n for n in chunk_rows if n <= mixed_max]:
-                    self.model.forward([ScheduledSeq(ra, 1)]   # SARATHI mixed
+                    fwd([ScheduledSeq(ra, 1)]   # SARATHI mixed
                                        + [ScheduledSeq(r, chunk)
                                           for r in rest[:n_rows]])
                     ra.num_cached_tokens += 1
@@ -200,7 +213,7 @@ class Engine:
                             rs.output_token_ids.append(0)
                             spec_reqs.append(rs)
                             reqs.append(rs)
-                        self.model.forward([
+                        fwd([
                             ScheduledSeq(rs, 1 + cfg.spec_k,
                                          drafts=tuple([0] * cfg.spec_k))
                             for rs in spec_reqs[:n_rows]])
@@ -590,3 +603,15 @@ class Engine:
         except BaseException as e:
             self._crashed = e
             raise
+        finally:
+            self.stop_followers()
+
+    def stop_followers(self):
+        """Release the follower ranks (tp/dp > 1) from their loops, on every
+        way out of the serving loop: a crash, a cancellation, a shutdown.
+        It runs on the model thread, after any step still in flight there,
+        so the stop never interleaves with a step's broadcast; a second call
+        does nothing."""
+        from swiftllm_tpu_torch.parallel import distributed
+        if distributed.world_size() > 1:
+            self._model_executor.submit(distributed.stop_followers).result()

@@ -1,6 +1,6 @@
-"""LlamaModel — the data-plane worker of the PyTorch port.
+"""LlamaModel — the data-plane worker of the PyTorch port, one per rank.
 
-A port of ``swiftllm_tpu/worker/model.py`` at tp = dp = 1:
+A port of ``swiftllm_tpu/worker/model.py``:
 ``load_weights`` (with ``_load_loras``) / ``profile_num_blocks`` /
 ``init_kvcache_and_swap`` / ``forward_async`` / ``execute_packed`` /
 ``forward`` / ``swap_out_seqs`` / ``swap_in_seqs`` /
@@ -32,8 +32,15 @@ tokens' logprobs.
   (``worker/lora.py``) and applied in every step by ``models/llama.py``.
 - Speculative decoding and prefix caching run (the scheduler drafts and
   matches; the model verifies spans and installs matched pages).
-  tp/dp > 1 is refused in ``__init__`` with ``NotImplementedError`` naming
-  the ``ROADMAP.md`` item that brings it.
+- tp/dp > 1 (``parallel/``): one process per rank, rank = dp_rank * tp +
+  tp_rank. Each rank holds its shard of the weights, its dp group's cache
+  at its shard's lanes, its group's feedback buffer and a host pool of its
+  shard's lanes. Rank 0 (the primary) builds each step and broadcasts it
+  (``forward_async``); the other ranks replay it (``execute_packed``, from
+  ``distributed.follower_loop``), and the swap ops through their payloads
+  (``apply_swap_out/in/free``). Every rank runs ``init_kvcache_and_swap``
+  at once: the profile's probe step is a collective step too, and
+  ``agree_num_blocks`` gives every rank rank 0's count.
 """
 
 from __future__ import annotations
@@ -46,25 +53,17 @@ from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES,
                                              decode_multi_step, forward_shard,
                                              unpack_step_batch)
 from swiftllm_tpu_torch.ops.swap_pages import pinned_pool, swap_pages
+from swiftllm_tpu_torch.parallel import distributed
+from swiftllm_tpu_torch.parallel.mesh import (effective_num_kv_heads,
+                                              make_mesh, param_specs,
+                                              shard_params)
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
 from swiftllm_tpu_torch.utils import GB, cdiv
 from swiftllm_tpu_torch.worker.batch_builder import (build_step_batch,
-                                                     pack_step_batch)
+                                                     pack_step_batch,
+                                                     packed_len)
 from swiftllm_tpu_torch.worker.block_manager import BlockManager
-
-
-def _refuse_unsupported(ec: EngineConfig, mc: LlamaModelConfig) -> None:
-    """Raise for every configuration this slice of the port does not run."""
-    refused = [
-        (ec.tp_size > 1 or ec.dp_size > 1, "tp_size/dp_size > 1",
-         "9 (parallelism)"),
-    ]
-    for bad, what, item in refused:
-        if bad:
-            raise NotImplementedError(
-                f"the PyTorch port does not run {what} yet: ROADMAP.md "
-                f"queue 1, item {item}")
 
 
 def _assert_decode_prefix(batch_np, key, dp: int):
@@ -116,6 +115,16 @@ class PendingTokens:
         return self._host.numpy()
 
 
+def bind_device(device) -> None:
+    """Make ``device`` the calling thread's current card, where it names one.
+    The current card is per thread, and a thread that never set it is on
+    card 0: the thread that builds the model, the engine's model thread and
+    a follower's loop each call this before they touch the card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+
+
 class LlamaModel:
     def __init__(self, engine_config: EngineConfig,
                  model_config: LlamaModelConfig | None = None,
@@ -123,15 +132,21 @@ class LlamaModel:
         self.engine_config = engine_config
         self.model_config = model_config or LlamaModelConfig.load_from_model_path(
             engine_config.model_path)
-        _refuse_unsupported(engine_config, self.model_config)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LlamaModel: no CUDA device found; pass "
                                "device='cpu' to run on the CPU")
+        bind_device(self.device)
         # f32 products in full f32 on the card (PyTorch's default, stated).
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.dp = 1
-        self.tp = 1
+        # This rank's place in the (dp, tp) layout: a collective call with
+        # tp/dp > 1, which every rank makes here.
+        self.mesh = make_mesh(engine_config.dp_size, engine_config.tp_size,
+                              self.device)
+        self.dp = self.mesh.dp
+        self.tp = self.mesh.tp
+        self.num_kv_eff = effective_num_kv_heads(self.model_config.num_kv_heads,
+                                                 self.tp)
         self.dtype = getattr(torch, engine_config.dtype)
         self.kv_dtype = (torch.float8_e4m3fn
                          if engine_config.kv_quant == "fp8" else self.dtype)
@@ -157,7 +172,7 @@ class LlamaModel:
     def load_weights(self):
         from swiftllm_tpu_torch.worker.weights import load_params
         self.params = load_params(self.engine_config, self.model_config,
-                                  self.device)
+                                  self.device, self.mesh)
         if self.engine_config.lora_paths:
             self._load_loras()
 
@@ -165,7 +180,8 @@ class LlamaModel:
         """Stack the configured LoRA adapters into the params on the device:
         ``layers["lora_<target>"] = {"A": [L, n, r, in], "B": [L, n, out,
         r]}`` (B laid out for ``lora_add``'s GEMM, ``weights.lora_entry``)
-        and ``lora_scale`` f32[n]. lora_paths: "name=/path,name2=/path2", or
+        and ``lora_scale`` f32[n], each cut to this rank's shard
+        (``mesh.param_specs``). lora_paths: "name=/path,name2=/path2", or
         "dummy:a,b[,r=K]" for seeded random adapters (tests, no files). The
         adapters are read in f32 and cast to the activation dtype here."""
         from swiftllm_tpu_torch.worker.lora import (load_lora_adapters,
@@ -180,24 +196,28 @@ class LlamaModel:
                 else:
                     names.append(p)
             entries, scales, slots, targets = make_dummy_loras(
-                names, mc, mc.num_kv_heads, np.float32, r=r)
+                names, mc, self.num_kv_eff, np.float32, r=r)
         else:
             paths = dict(item.split("=", 1)
                          for item in spec_raw.split(",") if item)
             entries, scales, slots, targets = load_lora_adapters(
-                paths, mc, mc.num_kv_heads, np.float32)
+                paths, mc, self.num_kv_eff, np.float32)
         self.lora_slots, self.lora_targets = slots, targets
-        for k, v in entries.items():
+        specs = param_specs(lora_targets=targets)["layers"]
+        mine = shard_params({k: {h: torch.from_numpy(a) for h, a in v.items()}
+                             for k, v in entries.items()},
+                            specs, self.mesh.tp_rank, self.tp)
+        for k, v in mine.items():
             self.params["layers"][k] = lora_entry(
-                {h: torch.from_numpy(a).to(self.device, self.dtype)
-                 for h, a in v.items()})
+                {h: a.to(self.device, self.dtype) for h, a in v.items()})
         self.params["lora_scale"] = torch.from_numpy(scales).to(self.device)
 
     def _lanes(self) -> int:
-        """Cache lane width: [K_all ‖ V_all], plus under fp8 KV one tile of
-        per-token power-of-2 K/V scale lanes (models/llama.py)."""
+        """This rank's cache lane width: [K_all ‖ V_all] of its n_kv_eff / tp
+        heads, plus under fp8 KV one tile of per-token power-of-2 K/V scale
+        lanes (models/llama.py)."""
         mc = self.model_config
-        lanes = 2 * mc.num_kv_heads * mc.head_dim
+        lanes = 2 * (self.num_kv_eff // self.tp) * mc.head_dim
         if self.engine_config.kv_quant == "fp8":
             lanes += FP8_SCALE_LANES
         return lanes
@@ -209,8 +229,10 @@ class LlamaModel:
         return (mc.num_layers, (num_blocks + 1) * cfg.block_size, self._lanes())
 
     def _allocate(self, num_blocks: int):
-        """Zeroed cache and feedback buffer, and a fresh block manager. The
-        cache starts at zero so a page never read before holds no NaN."""
+        """Zeroed cache and feedback buffer (this rank's dp group's), and a
+        fresh block manager for each dp group (the primary's scheduler
+        places every group's pages). The cache starts at zero so a page
+        never read before holds no NaN."""
         cfg = self.engine_config
         self.num_blocks_per_shard = num_blocks
         self.kv_cache = torch.zeros(self._cache_shape(num_blocks),
@@ -218,15 +240,18 @@ class LlamaModel:
         self.token_feedback = torch.zeros(cfg.max_seqs_in_block_table + 1,
                                           dtype=torch.int32, device=self.device)
         self.hbm_block_mgrs = [BlockManager(
-            "hbm0", num_blocks, cfg.block_size, cfg.max_seqs_in_block_table,
+            f"hbm{g}", num_blocks, cfg.block_size, cfg.max_seqs_in_block_table,
             cfg.max_blocks_per_seq,
-            enable_prefix_caching=cfg.enable_prefix_caching)]
+            enable_prefix_caching=cfg.enable_prefix_caching)
+            for g in range(self.dp)]
 
     def profile_num_blocks(self) -> int:
         """KV pages that fit the device: run the worst-case bucket once on a
         probe cache, take its scratch as the rise of
         ``max_memory_allocated``, and give the cache what is left of
-        ``mem_get_info()``'s total times ``hbm_mem_utilization``. With
+        ``mem_get_info()``'s total times ``hbm_mem_utilization`` (right for
+        one rank a card; ranks that share a card take ``num_hbm_blocks``).
+        The probe step runs on every rank at once, as a step does. With
         quantized weights the probe's bucket (over 256 tokens) runs
         ``quant.proj``, so the scratch holds its bf16 copy of the largest
         weight (or ``lm_head`` chunk), more than the INT4 kernel's split-K
@@ -245,16 +270,18 @@ class LlamaModel:
         n_rows = max(1, min(cfg.max_tokens_in_batch // chunk,
                             cfg.max_batch_size))
         self._allocate(n_rows * cdiv(chunk, cfg.block_size))
-        reqs = []
-        for i in range(n_rows):
-            r = Request(RawRequest("", 1))
-            r.set_prompt_token_ids([0] * chunk)
-            r.seq_id = i
-            reqs.append(r)
+        groups = []
+        for g in range(self.dp):
+            groups.append([])
+            for i in range(n_rows):
+                r = Request(RawRequest("", 1))
+                r.set_prompt_token_ids([0] * chunk)
+                r.seq_id, r.dp_group = i, g
+                groups[g].append(ScheduledSeq(r, chunk))
         torch.cuda.synchronize(self.device)
         torch.cuda.reset_peak_memory_stats(self.device)
         base = torch.cuda.memory_allocated(self.device)
-        self.forward([ScheduledSeq(r, chunk) for r in reqs])
+        self.forward([s for grp in groups for s in grp], groups)
         scratch = torch.cuda.max_memory_allocated(self.device) - base
         self.kv_cache = self.token_feedback = None
         self.hbm_block_mgrs = []
@@ -270,16 +297,19 @@ class LlamaModel:
 
     def init_kvcache_and_swap(self, num_blocks_per_shard: int | None = None):
         """Allocate the KV cache (sized by ``profile_num_blocks`` unless
-        given), the feedback buffer and the host swap pool's block manager.
-        The pool itself, ``[L, num_cpu_blocks * block_size, W]`` in the
-        cache's type and page-locked on a GPU host (``pinned_pool``), is
-        allocated only when the scheduler can swap
-        (``preemption_mode="swap"``, ``num_cpu_blocks`` > 0; otherwise it
-        preempts by recompute and never touches it). It is left
-        uninitialised: a page is read only after a swap-out wrote it."""
+        given, then agreed with rank 0), the feedback buffer and the host
+        swap pool's block manager. The pool itself, ``[L, num_cpu_blocks *
+        block_size, W]`` at this rank's lanes in the cache's type and
+        page-locked on a GPU host (``pinned_pool``), is allocated only when
+        the scheduler can swap (``preemption_mode="swap"``,
+        ``num_cpu_blocks`` > 0; otherwise it preempts by recompute and never
+        touches it). It is left uninitialised: a page is read only after a
+        swap-out wrote it. The host pages' block manager is one for all dp
+        groups, kept in step on every rank."""
         cfg = self.engine_config
         if num_blocks_per_shard is None:
             num_blocks_per_shard = self.profile_num_blocks()
+        num_blocks_per_shard = distributed.agree_num_blocks(num_blocks_per_shard)
         self._allocate(num_blocks_per_shard)
         self.cpu_block_mgr = BlockManager(
             "cpu", cfg.num_cpu_blocks, cfg.block_size,
@@ -307,38 +337,45 @@ class LlamaModel:
         dispatched before this one's values reach the host: the builder
         reads unresolved tokens from the on-device feedback buffer. With
         ``multi_step`` S > 1 (a pure-decode batch) the dispatch runs S chained
-        decode steps and the tokens come out [B_bucket * S], row-major."""
+        decode steps and the tokens come out [B_bucket * S], row-major. With
+        dp > 1 ``groups`` holds each dp group's rows; with several ranks the
+        packed batch is broadcast, and every rank runs the step."""
         if groups is None:
+            assert self.dp == 1, "pass explicit dp groups when dp > 1"
             groups = [scheduled]
-        assert len(groups) == 1, "the port runs at dp = 1"
         batch_np, key, rows = build_step_batch(groups, self.hbm_block_mgrs,
                                                self.engine_config,
                                                multi_step=multi_step)
         if self.engine_config.use_pallas:
             _assert_decode_prefix(batch_np, key, self.dp)
-        # Rows from live_rows on have no query: the attention kernels plan
-        # their key splits over the rows below it (a host integer; the rows
-        # bucket is pinned to max_batch_size).
-        live = np.flatnonzero(np.asarray(batch_np.q_lens) > 0)
-        live_rows = int(live[-1]) + 1 if live.size else 0
-        out = self.execute_packed(pack_step_batch(batch_np, self.dp), key,
-                                  return_logits, live_rows)
+        flat, key = distributed.broadcast_step(
+            pack_step_batch(batch_np, self.dp), key, dp=self.dp,
+            return_logits=return_logits)
+        out = self.execute_packed(flat, key, return_logits)
         if return_logits:
             tokens, logits = out
             return tokens, rows, logits
         return out, rows
 
     def execute_packed(self, flat_np: np.ndarray, key,
-                       return_logits: bool = False,
-                       live_rows: int | None = None):
-        """Run one dispatch from a packed batch buffer: one step, or the
-        ``key.steps`` chained decode steps of a multi-step window. Returns
-        the tokens' ``PendingTokens`` (and the f32 logits tensor when asked,
-        single steps only). With ``enable_logprobs`` the logprobs' copy to
-        the host is queued too, as ``last_logprobs``. ``live_rows``: rows
-        from it on have no query (None: any row may)."""
+                       return_logits: bool = False):
+        """Run one dispatch from a packed batch buffer (every dp group's; this
+        rank runs its own group's slice): one step, or the ``key.steps``
+        chained decode steps of a multi-step window. Followers enter here
+        from ``distributed.follower_loop``. Returns the tokens'
+        ``PendingTokens`` (and the f32 logits tensor when asked, single
+        steps only), every dp group's. With ``enable_logprobs`` the
+        logprobs' copy to the host is queued too, as ``last_logprobs``."""
         self.last_key = key
-        flat = torch.from_numpy(flat_np)
+        n = packed_len(key)
+        local = flat_np[self.mesh.dp_rank * n:(self.mesh.dp_rank + 1) * n]
+        # Rows from live_rows on have no query: the attention kernels plan
+        # their key splits over the rows below it (a host integer, read from
+        # the group's q_lens, after its T token ids and B q_starts).
+        q_lens = local[key.tokens + key.rows:key.tokens + 2 * key.rows]
+        live = np.flatnonzero(q_lens > 0)
+        live_rows = int(live[-1]) + 1 if live.size else 0
+        flat = torch.from_numpy(np.ascontiguousarray(local))
         if self.device.type == "cuda":
             flat = flat.pin_memory().to(self.device, non_blocking=True)
         cfg = self.engine_config
@@ -348,7 +385,8 @@ class LlamaModel:
         kw = dict(cfg=self.model_config, page_size=cfg.block_size,
                   q_bucket=key.q_len, use_kernels=cfg.use_pallas,
                   use_sampler=bool(key.sampling),
-                  return_logprobs=cfg.enable_logprobs, live_rows=live_rows)
+                  return_logprobs=cfg.enable_logprobs, live_rows=live_rows,
+                  mesh=self.mesh)
         logits = lp = None
         if key.steps > 1:
             assert not return_logits, "logits come from single steps only"
@@ -371,7 +409,7 @@ class LlamaModel:
         """Run one step synchronously. Returns (tokens i32[B_bucket], rows
         [, logits f32[B_bucket, V]]) as numpy; rows[i] is the ScheduledSeq of
         row i (None for padding). With ``multi_step`` S > 1 the tokens are
-        [B_bucket * S], row-major."""
+        [B_bucket * S], row-major. B_bucket counts every dp group's rows."""
         out = self.forward_async(scheduled, groups, return_logits, multi_step)
         if return_logits:
             tokens, rows, logits = out
@@ -384,15 +422,38 @@ class LlamaModel:
     # request of one swap move in ONE launch of the page mover, on the step's
     # stream, so nothing here waits for the card (the engine drains its
     # pipeline before a swap-out to resolve tokens, not for memory order).
+    # The primary encodes each swap as a payload, announces it, and applies
+    # it as every follower does: each rank moves its shard's lanes of its
+    # own dp group's pages into (or out of) its own pool, and every rank
+    # keeps the host block manager in step.
 
-    def _cpu_key(self, r: Request) -> int:
+    def _cpu_key(self, g: int, seq_id: int) -> int:
         """Row of the host pool's block table: seq ids are per dp group."""
-        return r.dp_group * self.engine_config.max_seqs_in_block_table + r.seq_id
+        return g * self.engine_config.max_seqs_in_block_table + seq_id
 
     def _page_bytes(self) -> int:
-        """Bytes of one page across all layers."""
+        """Bytes of one page across all layers (this rank's lanes)."""
         return (self.model_config.num_layers * self.engine_config.block_size
                 * self._lanes() * self.kv_dtype.itemsize)
+
+    @staticmethod
+    def _encode_swap_payload(entries) -> np.ndarray:
+        """[per request: dp_group, seq_id, n_tokens, n_pages, page ids...]:
+        the flat i32 wire format every rank replays a swap op from
+        (``distributed.broadcast_swap``)."""
+        out: list[int] = []
+        for g, seq_id, n_tokens, pages in entries:
+            out += [g, seq_id, n_tokens, len(pages)]
+            out += [int(p) for p in pages]
+        return np.asarray(out, np.int32)
+
+    @staticmethod
+    def _decode_swap_payload(payload: np.ndarray):
+        i, n = 0, len(payload)
+        while i < n:
+            g, seq_id, n_tokens, n_pages = (int(x) for x in payload[i:i + 4])
+            yield g, seq_id, n_tokens, np.asarray(payload[i + 4:i + 4 + n_pages])
+            i += 4 + n_pages
 
     def swap_out_seqs(self, requests: list[Request]):
         """Offload whole sequences' KV pages to the host pool and free their
@@ -400,41 +461,73 @@ class LlamaModel:
         cached and stay behind."""
         if not requests:
             return
-        src, dst = [], []
-        for r in requests:
-            host = self.cpu_block_mgr.allocate_fresh_for_seq(
-                self._cpu_key(r), r.num_cached_tokens)
-            dev = self.hbm_block_mgrs[r.dp_group].seq_block_ids(r.seq_id)
-            assert len(dev) >= len(host), (len(dev), len(host))
-            src.append(dev[:len(host)])
-            dst.append(host)
-        swap_pages(self.kv_cache, self.cpu_cache, np.concatenate(src),
-                   np.concatenate(dst), self.engine_config.block_size)
+        payload = self._encode_swap_payload(
+            [(r.dp_group, r.seq_id, r.num_cached_tokens,
+              self.hbm_block_mgrs[r.dp_group].seq_block_ids(r.seq_id))
+             for r in requests])
+        distributed.broadcast_swap(distributed.OP_SWAP_OUT, payload)
+        self.apply_swap_out(payload)
         for r in requests:
             self.hbm_block_mgrs[r.dp_group].free_seq(r.seq_id)
 
+    def apply_swap_out(self, payload: np.ndarray):
+        """Every rank: allocate the host pages of each sequence, and move the
+        pages of this rank's dp group out of the cache in one launch. Device
+        page ids come from the payload: followers track no device pages."""
+        src, dst = [], []
+        for g, seq_id, n_tokens, dev in self._decode_swap_payload(payload):
+            host = self.cpu_block_mgr.allocate_fresh_for_seq(
+                self._cpu_key(g, seq_id), n_tokens)
+            assert len(dev) >= len(host), (len(dev), len(host))
+            if g == self.mesh.dp_rank:
+                src.append(dev[:len(host)])
+                dst.append(host)
+        if src:
+            swap_pages(self.kv_cache, self.cpu_cache, np.concatenate(src),
+                       np.concatenate(dst), self.engine_config.block_size)
+
     def swap_in_seqs(self, requests: list[Request]):
-        """Restore swapped-out sequences into fresh device pages and free
-        their host pages (a later swap-out that reuses them is queued after
-        this copy on the same stream)."""
+        """Restore swapped-out sequences into fresh device pages (allocated
+        here, by the primary's block managers, and sent in the payload) and
+        free their host pages (a later swap-out that reuses them is queued
+        after this copy on the same stream)."""
         if not requests:
             return
+        payload = self._encode_swap_payload(
+            [(r.dp_group, r.seq_id, r.num_cached_tokens,
+              self.hbm_block_mgrs[r.dp_group].allocate_fresh_for_seq(
+                  r.seq_id, r.num_cached_tokens))
+             for r in requests])
+        distributed.broadcast_swap(distributed.OP_SWAP_IN, payload)
+        self.apply_swap_in(payload)
+
+    def apply_swap_in(self, payload: np.ndarray):
+        """Every rank: move the pages of this rank's dp group back into the
+        cache in one launch, and free every sequence's host pages."""
         src, dst = [], []
-        for r in requests:
-            src.append(self.cpu_block_mgr.seq_block_ids(self._cpu_key(r)).copy())
-            dst.append(self.hbm_block_mgrs[r.dp_group].allocate_fresh_for_seq(
-                r.seq_id, r.num_cached_tokens))
-        swap_pages(self.cpu_cache, self.kv_cache, np.concatenate(src),
-                   np.concatenate(dst), self.engine_config.block_size)
-        for r in requests:
-            self.cpu_block_mgr.free_seq(self._cpu_key(r))
+        for g, seq_id, _, dev in self._decode_swap_payload(payload):
+            key = self._cpu_key(g, seq_id)
+            if g == self.mesh.dp_rank:
+                src.append(self.cpu_block_mgr.seq_block_ids(key).copy())
+                dst.append(dev)
+            self.cpu_block_mgr.free_seq(key)
+        if src:
+            swap_pages(self.cpu_cache, self.kv_cache, np.concatenate(src),
+                       np.concatenate(dst), self.engine_config.block_size)
 
     def free_swap_resources(self, requests: list[Request]):
-        """Release the host pages of requests that died while swapped out."""
-        if self.cpu_block_mgr is None:
+        """Release the host pages of requests that died while swapped out
+        (on every rank)."""
+        if self.cpu_block_mgr is None or not requests:
             return
-        for r in requests:
-            self.cpu_block_mgr.free_seq(self._cpu_key(r))
+        payload = self._encode_swap_payload(
+            [(r.dp_group, r.seq_id, 0, ()) for r in requests])
+        distributed.broadcast_swap(distributed.OP_SWAP_FREE, payload)
+        self.apply_swap_free(payload)
+
+    def apply_swap_free(self, payload: np.ndarray):
+        for g, seq_id, _, _ in self._decode_swap_payload(payload):
+            self.cpu_block_mgr.free_seq(self._cpu_key(g, seq_id))
 
     def free_seqs_resources(self, requests: list[Request]):
         """Release all pages of finished sequences."""

@@ -1,7 +1,7 @@
 """Weight loading for the PyTorch port: HF checkpoints (or seeded dummy
-weights) → a dict of tensors on one device.
+weights) → one rank's shard, a dict of tensors on its device.
 
-A port of ``swiftllm_tpu/worker/weights.py`` at tp = 1, with the same tree:
+A port of ``swiftllm_tpu/worker/weights.py``, with the same tree:
 projections kept in the torch ``[out, in]`` layout and stacked over layers
 (``[L, out, in]``), norms ``[L, D]``, ``embed`` and ``lm_head`` ``[V, D]``
 (the same tensor with tied embeddings), ``final_norm`` ``[D]``, ``inv_freq``
@@ -12,6 +12,13 @@ untied ``lm_head`` are stored quantized (``worker/quant.py``): ``{"q" |
 "q4": int8[L, N, ...], "s": f32[L, N]}``. They are quantized layer by layer,
 after the cast to ``dtype``, on the device. A tied ``lm_head`` stays the
 ``embed`` tensor, which the embedding gather needs unquantized.
+
+At tp > 1 each rank builds only its shard (``parallel/mesh.py``): every
+weight goes to the device one layer at a time, whole, is quantized there
+(the scales of an in-sharded row span all its columns) and cut to the
+shard, so no rank ever holds the whole model. KV heads are replicated up to
+tp where tp > num_kv_heads, and the vocab is padded to a multiple of tp
+with zero rows (the head masks them out).
 """
 
 from __future__ import annotations
@@ -24,68 +31,132 @@ import torch
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
 from swiftllm_tpu_torch.models.llama import compute_inv_freq
+from swiftllm_tpu_torch.parallel.mesh import (GEMM_KEYS, SINGLE, Mesh,
+                                              effective_num_kv_heads,
+                                              param_specs, shard_leaf,
+                                              shard_params)
+from swiftllm_tpu_torch.utils import cdiv
 from swiftllm_tpu_torch.worker.quant import quantize_weight_torch
 
 # The JAX package's dummy-weight scale: uniform(-1e-3, 1e-3).
 DUMMY_RANGE = 1e-3
 
-# The projections, which quant stores quantized (the JAX package's
-# parallel/mesh.py:GEMM_KEYS).
-GEMM_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+def _stacked(L: int, layer):
+    """[L, ...] stacks of ``layer(i)`` (a tensor or a quantized dict), each
+    layer written into one preallocated stack as it is made, so the peak
+    holds one whole layer beside the stack."""
+    first = layer(0)
+    if isinstance(first, dict):
+        out = {k: v.new_empty((L,) + tuple(v.shape)) for k, v in first.items()}
+        for i in range(L):
+            d = first if i == 0 else layer(i)
+            for k, v in d.items():
+                out[k][i] = v
+        return out
+    out = first.new_empty((L,) + tuple(first.shape))
+    for i in range(L):
+        out[i] = first if i == 0 else layer(i)
+    return out
 
 
-def stack_quantized(per_layer: list) -> dict:
-    """Per-layer quantize_* dicts → one dict of [L, ...] stacks."""
-    return {k: torch.stack([d[k] for d in per_layer]) for k in per_layer[0]}
+def _replicate_kv(w: torch.Tensor, nkv: int, nkv_eff: int) -> torch.Tensor:
+    """[nkv*hd, ...] → [nkv_eff*hd, ...]: each KV head repeated nkv_eff/nkv
+    times, its replicas next to each other."""
+    if nkv_eff == nkv:
+        return w
+    h = w.reshape(nkv, -1, *w.shape[1:])
+    return h.repeat_interleave(nkv_eff // nkv, dim=0).reshape(-1, *w.shape[1:])
+
+
+def _pad_vocab(w: torch.Tensor, tp: int) -> torch.Tensor:
+    """Pad the vocab axis to a multiple of tp with zero rows."""
+    vp = cdiv(w.shape[0], tp) * tp
+    return w if vp == w.shape[0] else torch.cat(
+        [w, w.new_zeros((vp - w.shape[0],) + tuple(w.shape[1:]))])
+
+
+def build_shard(mc: LlamaModelConfig, quant: str, dtype: torch.dtype,
+                mesh: Mesh, get, cast_first: bool) -> dict:
+    """This rank's shard of the tree, from ``get(key, layer)``: the whole
+    tensor of one weight (of one layer for ``layers`` leaves) on the device.
+    Each is KV-replicated, padded, cast or quantized (after the cast to
+    ``dtype`` with ``cast_first``, else from the tensor as it comes), and
+    cut to the shard before the next is fetched."""
+    tp, r = mesh.tp, mesh.tp_rank
+    nkv_eff = effective_num_kv_heads(mc.num_kv_heads, tp)
+    tied = mc.tie_word_embeddings
+    specs = param_specs(quant, quantized_lm_head=quant != "none" and not tied,
+                        qkv_bias=mc.qkv_bias)
+
+    def leaf(key, i=None):
+        t = get(key, i)
+        if key in ("wk", "wv", "bk", "bv"):
+            t = _replicate_kv(t, mc.num_kv_heads, nkv_eff)
+        if key in ("embed", "lm_head"):
+            t = _pad_vocab(t, tp)
+        spec = specs["layers"][key] if i is not None else specs[key]
+        if i is not None:   # a layer's slice: one axis fewer than the stack
+            spec = ({k: _drop_layer_axis(v) for k, v in spec.items()}
+                    if isinstance(spec, dict) else _drop_layer_axis(spec))
+        if quant != "none" and (key in GEMM_KEYS
+                                or (key == "lm_head" and not tied)):
+            t = quantize_weight_torch(t.to(dtype) if cast_first else t, quant)
+            return {k: shard_leaf(v, spec[k], r, tp) for k, v in t.items()}
+        return shard_leaf(t, spec, r, tp).to(dtype)   # cut, then cast
+
+    keys = ["attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w_gate", "w_up",
+            "w_down"] + (["bq", "bk", "bv"] if mc.qkv_bias else [])
+    layers = {k: _stacked(mc.num_layers, lambda i, k=k: leaf(k, i))
+              for k in keys}
+    embed = leaf("embed")
+    return {
+        "embed": embed,
+        "lm_head": embed if tied else leaf("lm_head"),
+        "final_norm": leaf("final_norm"),
+        "layers": layers,
+    }
+
+
+def _drop_layer_axis(axis):
+    return axis - 1 if isinstance(axis, int) else axis
+
+
+def weight_shapes(mc: LlamaModelConfig) -> dict:
+    """The whole shape of each weight, as ``build_shard``'s ``get`` returns
+    it (one layer's for ``layers`` leaves)."""
+    D, hd = mc.hidden_size, mc.head_dim
+    nq, nkv, F, V = (mc.num_q_heads, mc.num_kv_heads, mc.ffn_inter_dim,
+                     mc.vocab_size)
+    return {"attn_norm": (D,), "ffn_norm": (D,), "wq": (nq * hd, D),
+            "wk": (nkv * hd, D), "wv": (nkv * hd, D), "wo": (D, nq * hd),
+            "w_gate": (F, D), "w_up": (F, D), "w_down": (D, F),
+            "bq": (nq * hd,), "bk": (nkv * hd,), "bv": (nkv * hd,),
+            "embed": (V, D), "lm_head": (V, D), "final_norm": (D,)}
 
 
 def _dummy_params(mc: LlamaModelConfig, dtype: torch.dtype,
                   device: torch.device, quant: str = "none",
-                  seed: int = 0) -> dict:
+                  seed: int = 0, mesh: Mesh = SINGLE) -> dict:
     """Dummy weights drawn ON the device from a seeded generator,
     uniform(-1e-3, 1e-3) as the JAX package draws them (the generators
-    differ, so the values do too). Nothing is uploaded from the host. A
-    quantized projection is drawn one layer at a time in f32 and quantized
-    there, as the JAX package does under lax.map: no f32 stack of all
-    layers is ever built (about 28 GB at 8B)."""
+    differ, so the values do too). Nothing is uploaded from the host.
+
+    Every weight is drawn whole, in f32, one layer at a time and in one
+    order, then cast (or quantized, as the JAX package does under lax.map)
+    and cut to this rank's shard: the values are the same at any tp (KV
+    heads drawn once and replicated), and no f32 stack of all layers is
+    ever built (about 28 GB at 8B)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    D, hd = mc.hidden_size, mc.head_dim
-    nq, nkv, F, V, L = (mc.num_q_heads, mc.num_kv_heads, mc.ffn_inter_dim,
-                        mc.vocab_size, mc.num_layers)
+    shapes = weight_shapes(mc)
 
-    def w(*shape, dt=dtype):
-        return torch.empty(shape, dtype=dt, device=device).uniform_(
-            -DUMMY_RANGE, DUMMY_RANGE, generator=gen)
-
-    def gemm(*shape):
-        if quant == "none":
-            return w(*shape)
-        if len(shape) == 2:
-            return quantize_weight_torch(w(*shape, dt=torch.float32), quant)
-        return stack_quantized([quantize_weight_torch(
-            w(*shape[1:], dt=torch.float32), quant) for _ in range(shape[0])])
-
-    layers = {
-        "attn_norm": w(L, D),
-        "wq": gemm(L, nq * hd, D),
-        "wk": gemm(L, nkv * hd, D),
-        "wv": gemm(L, nkv * hd, D),
-        "wo": gemm(L, D, nq * hd),
-        "ffn_norm": w(L, D),
-        "w_gate": gemm(L, F, D),
-        "w_up": gemm(L, F, D),
-        "w_down": gemm(L, D, F),
-    }
-    if mc.qkv_bias:
-        layers.update(bq=w(L, nq * hd), bk=w(L, nkv * hd), bv=w(L, nkv * hd))
-    embed = w(V, D)
-    return {
-        "embed": embed,
-        "lm_head": embed if mc.tie_word_embeddings else gemm(V, D),
-        "final_norm": w(D),
-        "inv_freq": torch.from_numpy(compute_inv_freq(mc)).to(device),
-        "layers": layers,
-    }
+    def get(key, i):
+        return torch.empty(shapes[key], dtype=torch.float32,
+                           device=device).uniform_(-DUMMY_RANGE, DUMMY_RANGE,
+                                                   generator=gen)
+    params = build_shard(mc, quant, dtype, mesh, get, cast_first=False)
+    params["inv_freq"] = torch.from_numpy(compute_inv_freq(mc)).to(device)
+    return params
 
 
 def _safetensors_getter(path: str):
@@ -138,31 +209,22 @@ def _pick_getter(path: str):
     raise FileNotFoundError(f"no supported checkpoint found under {path}")
 
 
-def effective_num_kv_heads(model_config: LlamaModelConfig, tp: int) -> int:
-    """KV heads actually materialized: replicated up to tp when tp > num_kv_heads."""
-    nkv = model_config.num_kv_heads
-    if tp <= nkv:
-        assert nkv % tp == 0, f"num_kv_heads={nkv} not divisible by tp={tp}"
-        return nkv
-    assert tp % nkv == 0, f"tp={tp} not a multiple of num_kv_heads={nkv}"
-    return tp
-
-
 def load_params(engine_config: EngineConfig, model_config: LlamaModelConfig,
-                device) -> dict:
-    """Build the parameter dict on ``device`` (dummy or from the checkpoint
-    at ``engine_config.model_path``), in ``engine_config.dtype``."""
+                device, mesh: Mesh = SINGLE) -> dict:
+    """Build this rank's shard of the parameters on ``device`` (dummy, or
+    from the checkpoint at ``engine_config.model_path``), in
+    ``engine_config.dtype``."""
     mc = model_config
     device = torch.device(device)
     dtype = getattr(torch, engine_config.dtype)
     quant = engine_config.quant
     if engine_config.use_dummy:
-        return _dummy_params(mc, dtype, device, quant)
+        return _dummy_params(mc, dtype, device, quant, mesh=mesh)
     get = _pick_getter(engine_config.model_path)
     D, hd = mc.hidden_size, mc.head_dim
-    nq, nkv, F, V, L = (mc.num_q_heads, mc.num_kv_heads, mc.ffn_inter_dim,
-                        mc.vocab_size, mc.num_layers)
-    layer_names = {
+    nq, nkv, F, V = (mc.num_q_heads, mc.num_kv_heads, mc.ffn_inter_dim,
+                     mc.vocab_size)
+    names = {
         "attn_norm": ("model.layers.{i}.input_layernorm.weight", (D,)),
         "wq": ("model.layers.{i}.self_attn.q_proj.weight", (nq * hd, D)),
         "wk": ("model.layers.{i}.self_attn.k_proj.weight", (nkv * hd, D)),
@@ -172,32 +234,20 @@ def load_params(engine_config: EngineConfig, model_config: LlamaModelConfig,
         "w_gate": ("model.layers.{i}.mlp.gate_proj.weight", (F, D)),
         "w_up": ("model.layers.{i}.mlp.up_proj.weight", (F, D)),
         "w_down": ("model.layers.{i}.mlp.down_proj.weight", (D, F)),
+        "bq": ("model.layers.{i}.self_attn.q_proj.bias", (nq * hd,)),
+        "bk": ("model.layers.{i}.self_attn.k_proj.bias", (nkv * hd,)),
+        "bv": ("model.layers.{i}.self_attn.v_proj.bias", (nkv * hd,)),
+        "embed": ("model.embed_tokens.weight", (V, D)),
+        "lm_head": ("lm_head.weight", (V, D)),
+        "final_norm": ("model.norm.weight", (D,)),
     }
-    if mc.qkv_bias:
-        layer_names.update(
-            bq=("model.layers.{i}.self_attn.q_proj.bias", (nq * hd,)),
-            bk=("model.layers.{i}.self_attn.k_proj.bias", (nkv * hd,)),
-            bv=("model.layers.{i}.self_attn.v_proj.bias", (nkv * hd,)))
 
-    def fetch(name, shape, is_gemm=False):
-        t = get(name, shape).to(device=device, dtype=dtype)
-        return quantize_weight_torch(t, quant) if is_gemm else t
-
-    layers = {}
-    for key, (tmpl, shape) in layer_names.items():
-        per_layer = [fetch(tmpl.format(i=i), shape, key in GEMM_KEYS)
-                     for i in range(L)]
-        layers[key] = (stack_quantized(per_layer) if isinstance(per_layer[0], dict)
-                       else torch.stack(per_layer))
-    embed = fetch("model.embed_tokens.weight", (V, D))
-    return {
-        "embed": embed,
-        "lm_head": (embed if mc.tie_word_embeddings
-                    else fetch("lm_head.weight", (V, D), is_gemm=True)),
-        "final_norm": fetch("model.norm.weight", (D,)),
-        "inv_freq": torch.from_numpy(compute_inv_freq(mc)).to(device),
-        "layers": layers,
-    }
+    def fetch(key, i):
+        tmpl, shape = names[key]
+        return get(tmpl.format(i=i), shape).to(device=device)
+    params = build_shard(mc, quant, dtype, mesh, fetch, cast_first=True)
+    params["inv_freq"] = torch.from_numpy(compute_inv_freq(mc)).to(device)
+    return params
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -217,17 +267,42 @@ def lora_entry(entry: dict) -> dict:
                 .transpose(-1, -2))
 
 
-def params_from_numpy(tree: dict, device="cuda") -> dict:
-    """The JAX package's parameter tree (tp = 1, fetched to the host as
-    numpy) → this port's dict of tensors on ``device``. The trees share their
-    keys and layouts, so this is a leaf-by-leaf copy; a quantized leaf
-    ``{"q" | "q4", "s"}`` comes across as the same dict, its int8 bytes and
-    f32 scales unchanged, and a LoRA entry ``lora_<target>`` and
-    ``lora_scale`` too, B in ``lora_entry``'s memory layout."""
-    out = {k: (params_from_numpy(v, device) if isinstance(v, dict)
-               else _to_tensor(v, device))
-           for k, v in tree.items()}
-    for k, v in out.items():
-        if k.startswith("lora_") and isinstance(v, dict):
-            out[k] = lora_entry(v)
+def specs_of(tree: dict) -> dict:
+    """The tp specs (``parallel/mesh.param_specs``) of a parameter tree,
+    read from its leaves: the quantization, a quantized ``lm_head``, the
+    qkv biases and the LoRA targets."""
+    layers = tree["layers"]
+    q = next((v for v in layers.values() if isinstance(v, dict)
+              and ("q" in v or "q4" in v)), None)
+    quant = "none" if q is None else ("int8" if "q" in q else "int4")
+    return param_specs(
+        quant, quantized_lm_head=isinstance(tree["lm_head"], dict),
+        qkv_bias="bq" in layers,
+        lora_targets=tuple(k[len("lora_"):] for k in layers
+                           if k.startswith("lora_")))
+
+
+def params_from_numpy(tree: dict, device="cuda", tp_rank: int = 0,
+                      tp: int = 1) -> dict:
+    """The JAX package's parameter tree (fetched to the host as numpy, its
+    vocab padded and its KV heads replicated for ``tp``) → tp rank
+    ``tp_rank``'s shard as this port's dict of tensors on ``device``. The
+    trees share their keys and layouts, so this is a leaf-by-leaf copy; a
+    quantized leaf ``{"q" | "q4", "s"}`` comes across as the same dict, its
+    int8 bytes and f32 scales unchanged (an in-sharded INT4 weight repacked
+    per shard, ``parallel/mesh.shard_int4_in``), and a LoRA entry
+    ``lora_<target>`` and ``lora_scale`` too, B in ``lora_entry``'s memory
+    layout."""
+    def host(t):
+        return ({k: host(v) for k, v in t.items()} if isinstance(t, dict)
+                else _to_tensor(t, "cpu"))
+    out = shard_params(host(tree), specs_of(tree), tp_rank, tp)
+
+    def to(t):
+        return ({k: to(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(device))
+    out = to(out)
+    for k, v in out["layers"].items():
+        if k.startswith("lora_"):
+            out["layers"][k] = lora_entry(v)
     return out

@@ -18,6 +18,8 @@ def test_port_imports_no_jax():
         swiftllm_tpu_torch.__path__, prefix="swiftllm_tpu_torch."))
     assert "swiftllm_tpu_torch.server.api_server" in names
     assert "swiftllm_tpu_torch.ops.paged_attention" in names
+    assert {"swiftllm_tpu_torch.parallel.mesh",
+            "swiftllm_tpu_torch.parallel.distributed"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"

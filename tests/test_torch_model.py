@@ -93,23 +93,33 @@ REFUSED = {
     "tensor_parallel": (dict(tp_size=2), {}),
 }
 # Refused at first, run since: the model must now build with them (and, for
-# logprobs, multi-step decode and spec decode, run a step).
+# logprobs, multi-step decode, spec decode and tensor parallelism, run a step).
 NOW_RUN = {"kv_quant", "sliding_window", "logprobs", "multi_step",
-           "prefix_caching", "spec_decode", "swap", "lora"}
+           "prefix_caching", "spec_decode", "swap", "lora", "tensor_parallel"}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
-def test_unported_features_refused(name):
+def test_unported_features_refused(name, tmp_path):
     """Every feature the port does not run yet raises NotImplementedError at
     model construction, naming the ROADMAP item that brings it; the fp8 KV
     cache, the sliding window, logprobs, multi-step decode, prefix caching,
-    spec decode, swap and LoRA, refused at first, are accepted: prefix
-    caching reaches the block manager, swap allocates the host pool, LoRA
-    loads its adapters, and logprobs, multi-step, spec decode and LoRA run a
-    step."""
+    spec decode, swap, LoRA and tensor parallelism, refused at first, are
+    accepted: prefix caching reaches the block manager, swap allocates the
+    host pool, LoRA loads its adapters, and logprobs, multi-step, spec
+    decode and LoRA run a step; tp = 2 builds under an initialized 2-rank
+    group (two processes over gloo), sizes each rank's cache at its one KV
+    head (tp > num_kv_heads replicates it) and runs a step."""
     import torch
 
     from swiftllm_tpu_torch.config import LlamaModelConfig
+    if name == "tensor_parallel":
+        from tests.test_torch_parallel import build_tp2_rank, run_ranks
+        outs = run_ranks(build_tp2_rank, 2, tmp_path=tmp_path)
+        assert [o["mesh"] for o in outs] == [(1, 2), (1, 2)]
+        assert outs[1]["tp_rank"] == 1
+        assert all(o["shape"] == (1, 3 * 16, 2 * 1 * 8) for o in outs)
+        assert 0 <= outs[0]["token"] < 32
+        return
     ec_kw, mc_kw = REFUSED[name]
     mc = LlamaModelConfig(num_layers=1, num_q_heads=2, num_kv_heads=1,
                           hidden_size=16, head_dim=8, ffn_inter_dim=32,
