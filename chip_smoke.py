@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-multi-step   # a measurement, not the smoke
+    python3 chip_smoke.py --compare-graphs       # a measurement, not the smoke
+    python3 chip_smoke.py --graphs               # the [graphs] phase alone
     python3 chip_smoke.py --compare-splits       # a measurement, not the smoke
     python3 chip_smoke.py --compare-prefill      # a measurement, not the smoke
     python3 chip_smoke.py --compare-int4         # a measurement, not the smoke
@@ -65,8 +67,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      0.02, written as peft files), kernels against plain versions, base
      rows bit-equal to a step without adapters, adapter rows against
      weights with the adapter merged in;
-  4. the serving path: the port's Engine at full width (32 layers, dummy
-     weights), 8 concurrent requests, launch counts of every kernel: 8B in
+  4. the serving path, every engine serving each step from a CUDA graph
+     (worker/graphs.py; each engine's graphs, replays, capture seconds and
+     graph pool logged as [graphs <run>], every step a replay or a key's
+     first use, the pool within the profile's budget for it, check_pool;
+     every profile's launch counts held against the kernels the profiler
+     saw on the device, device_launches): first [graphs], the default
+     EngineConfig at 8B width, 32 layers, bf16 (phase_graphs): the default
+     warm-up's graphs and wall time, a decode and a mixed step's replay
+     against the eager step (logits; the capture's launches against the
+     eager step's, and the kernels the replay ran on the device against
+     the capture's), 8 requests served eagerly
+     and from graphs with equal tokens, warmup(bucket_keys) capturing
+     exactly those buckets, and a planted fault (replays without their
+     batch copied in) that must fail the token check; then the port's
+     Engine at full width (32 layers, dummy weights), 8 concurrent
+     requests, launch counts of every kernel: 8B in
      bf16, with INT4 and with INT8 weights, 8B with an fp8 KV cache (which
      also serves one prompt of 16,500 tokens), and Mistral-7B-v0.1 width
      with its sliding window (prompts of 5,000 and 8,192 tokens among the
@@ -111,8 +127,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ends both ranks;
 then one {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
-With --compare-multi-step it builds the kernels and runs only
-compare_multi_step: one full-width engine decoding the same 8 requests in
+With --compare-graphs it builds the kernels and runs only compare_graphs:
+one full-width engine serving the same 8 requests in turns eagerly and from
+CUDA graphs, single steps and windows of 8, then each under the profiler.
+With --graphs it runs only the [graphs] phase. With --compare-multi-step it
+builds the kernels and runs only compare_multi_step: one full-width engine decoding the same 8 requests in
 turns with single steps, windows of 8 and windows of 8 with deferred commit,
 without a profiler, several rounds in one process on one card. With
 --compare-splits it runs only compare_splits: the verify spans and the long
@@ -2435,11 +2454,13 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
+    since = graph_state(engine)
     t_run = time.perf_counter()
     res = await asyncio.gather(*[one(i, n) for i, n in enumerate(prompt_lens)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     launches = dict(build.launch_counts)
+    graph_report(engine, name, since, smi)
     for (_, stamps, toks), n in zip(res, prompt_lens):
         assert len(toks) == out_len, f"prompt {n}: {len(toks)} tokens"
         assert all(0 <= t < mc.vocab_size for t in toks)
@@ -2512,6 +2533,9 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
             f"this profile ({prof_steps} steps): {100 * q_ms * prof_steps / busy_ms:.1f}%")
     if name in ("none", "ms8"):
         await _http(engine, mgr, free0, logprobs=multi)
+    g = engine.model.graphs
+    log(f"[graphs {name}] after the profile: {len(g.table)} graphs held, pool "
+        f"{g.pool_bytes / 1e6:.1f} MB reserved{check_pool(engine, name)}")
     os.environ.pop("SWIFTLLM_DEFER_KV", None)
     loops.cancel()
     await asyncio.wait([loops])
@@ -2622,6 +2646,7 @@ async def serve_spec(smi: str) -> dict:
         return execute(flat, key, *a)
     model.execute_packed = spy
     await engine.warmup()
+    since = graph_state(engine)
     warm = [k for k in keys if k.spec]
     assert warm and {k.q_len for k in warm} == {SPEC_Q}, keys
     mgr = model.hbm_block_mgrs[0]
@@ -2655,16 +2680,27 @@ async def serve_spec(smi: str) -> dict:
                 stamps.append(time.perf_counter())
                 toks.append(so.token_id)
             return t_sub, stamps, toks
+        # The oracle wave runs under the profiler: the kernels it saw on
+        # the device against the launches counted (device_launches).
+        prof = (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+            if bf16s else contextlib.nullcontext())
         try:
-            torch.cuda.synchronize()
-            t_run = time.perf_counter()
-            res = await asyncio.gather(*[one(p) for p in prompts])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t_run
+            with prof:
+                torch.cuda.synchronize()
+                t_run = time.perf_counter()
+                res = await asyncio.gather(*[one(p) for p in prompts])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t_run
         finally:
             os.environ.pop("SWIFTLLM_TILE_BF16_SCORES")
         await _pages_back(mgr, free0)
         launches = dict(build.launch_counts)
+        if bf16s:
+            seen = device_launches(prof.key_averages(), launches)
+            log(f"[serve spec] {name}: launches counted, and kernels the "
+                f"profiler saw on the device: " + ", ".join(
+                    f"{k} {n} / {d}" for k, (n, d) in seen.items() if n or d))
         st = {k: engine.stats.snapshot()[k] - st0[k] for k in
               ("num_spec_drafted", "num_spec_accepted")}
         steps = len(keys)
@@ -2758,6 +2794,7 @@ async def serve_spec(smi: str) -> dict:
             f"equal to the plain run per request: {equal}")
         assert st["num_spec_accepted"] == st["num_spec_drafted"] > 0, st
         assert orc_steps < plain_steps and all(equal)
+        graph_report(engine, "spec", since, smi)
     finally:
         loops.cancel()
         await asyncio.wait([loops])
@@ -2800,8 +2837,9 @@ async def _engine(ec, mc, seed, successor=True):
 
 
 async def _release(engine, loops):
-    loops.cancel()
-    await asyncio.wait([loops])
+    if loops is not None:
+        loops.cancel()
+        await asyncio.wait([loops])
     engine.model.params = engine.model.kv_cache = engine.model.token_feedback = None
     engine.model.cpu_cache = None
     del engine, loops
@@ -2915,6 +2953,7 @@ async def serve_swap(smi: str, kv: str) -> dict:
     preempted0 = engine.stats.num_preemptions
     build.reset_launch_counts()
     steps0 = engine.stats.num_steps
+    since = graph_state(engine)
     t_run = time.perf_counter()
     got = await _serve_greedy(engine, prompts, SWAP_OUT)
     wall = time.perf_counter() - t_run
@@ -2927,6 +2966,7 @@ async def serve_swap(smi: str, kv: str) -> dict:
     for k in pa.KERNELS:
         assert launches[k] > 0, f"{k} never launched on the swapping engine"
     assert got == want, "the unwrapped swap run's tokens differ from the roomy run's"
+    graph_report(engine, f"swap {kv}", since, smi)
     log(f"[serve swap {kv}] again through the engine's own swap methods (no "
         f"host wait): {wall:.3f} s, {engine.stats.num_steps - steps0} steps, "
         f"{swaps} swap-outs; tokens equal to the roomy engine's; both pools "
@@ -2970,8 +3010,10 @@ async def serve_lora(smi: str, adapters: dict) -> dict:
                                       92, successor=False)
     assert engine.model.lora_slots == {"a": 1, "b": 2}
     build.reset_launch_counts()
+    since = graph_state(engine)
     mixed = await _serve_greedy(engine, prompts, LORA_OUT, LORA_OF)
     launches = dict(build.launch_counts)
+    graph_report(engine, "lora", since, smi)
     for k in pa.KERNELS:
         assert launches[k] > 0, f"{k} never launched on the LoRA engine"
     bad = engine.submit(RawRequest("", 4, prompt_token_ids=[1, 2, 3], lora="c"))
@@ -3153,6 +3195,8 @@ async def phase_serve(smi: str, quantize_ms: dict, adapters: dict) -> dict:
     speculative-decoding engine, the swapping engines (bf16 and fp8) and the
     LoRA engines (`adapters`: name -> peft dir)."""
     pools, outputs = {}, {}
+    gc.collect()
+    await phase_graphs(smi)
     launches = {name: await serve_engine(name, smi, pools, quantize_ms, outputs)
                 for name in SERVE_RUNS}
     launches["spec"] = await serve_spec(smi)
@@ -3175,12 +3219,47 @@ async def phase_serve(smi: str, quantize_ms: dict, adapters: dict) -> dict:
     return launches
 
 
+# The device kernel each counted C entry launches, once a call, by the name
+# the profiler records it under.
+DEVICE_KERNEL = {"paged_decode_attention": "paged_decode_kernel",
+                 "paged_decode_attention_pend": "paged_decode_kernel",
+                 "store_kv": "store_kv_kernel",
+                 "paged_prefill_attention": "paged_prefill_kernel",
+                 "paged_prefill_attention_bf16s": "paged_prefill_kernel",
+                 "int4_matmul": "int4_matmul_kernel",
+                 "swap_pages": "swap_pages_kernel"}
+
+
+def device_launches(events, counts: dict) -> dict:
+    """Holds launch counts (`counts`: entry -> launches, a graph replay's
+    counted as its capture recorded) against the kernels the profiler saw
+    on the device (`events`: key_averages() of the same run). The profiler
+    is not an exact counter: CUPTI may drop a few activity records of a long
+    run (one run on the H100 saw 5,145 of 5,152 launches). A kernel that ran
+    but was not counted, or counted but never queued, shows as more on the
+    device than counted or as fewer than 99% of the count: either fails.
+    Returns {device kernel: (counted, on the device)}."""
+    assert set(counts) <= set(DEVICE_KERNEL), set(counts) - set(DEVICE_KERNEL)
+    out = {}
+    for kern in sorted(set(DEVICE_KERNEL.values())):
+        counted = sum(n for k, n in counts.items() if DEVICE_KERNEL[k] == kern)
+        on_dev = sum(e.count for e in events
+                     if kern in e.key and e.self_device_time_total > 0)
+        lost = counted - on_dev
+        assert 0 <= lost and 100 * lost <= counted, (kern, counted, on_dev)
+        out[kern] = (counted, on_dev)
+    return out
+
+
 async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
                    out_len=24):
     """Where a step's time goes: n_req short requests (so mostly decode
     steps) under torch.profiler. Prints the kernels with the most device
     time and the device's busy share of the wall time; the full table goes
-    to chiprun_out/profile_<quant>.txt."""
+    to chiprun_out/profile_<quant>.txt. Every kernel's launch count is held
+    against the kernels the profiler saw on the device (device_launches):
+    replays count what their captures recorded, and this shows that they
+    ran them."""
     from torch.profiler import ProfilerActivity, profile
     reqs = [RawRequest("", out_len, prompt_token_ids=[(3 * i + j) % 1000 + 1
                                                        for j in range(prompt)])
@@ -3208,27 +3287,23 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
     for e in top[:8]:
         log(f"[profile {quant}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    seen = device_launches(events, build.launch_counts)
+    log(f"[profile {quant}] launches counted, and kernels the profiler saw on "
+        f"the device: " + ", ".join(f"{k} {n} / {d}" for k, (n, d) in seen.items()
+                                    if n or d))
     if quant == "int4":
         # One device kernel per INT4 projection: the split merge runs inside
         # the launch, no second pass.
         kern = [e for e in events
                 if "int4_matmul" in e.key and e.self_device_time_total > 0]
-        n_dev = sum(e.count for e in kern)
-        launched = build.launch_counts["int4_matmul"]
-        t_int4 = sum(e.self_device_time_total for e in kern) / 1e3
-        # The profiler is not an exact counter: CUPTI may drop a few activity
-        # records of a run this long (one run on the H100 saw 5,145 of 5,152
-        # launches). A second pass would show as twice the launches, so the
-        # device count may fall short of the launches by at most 1% and never
-        # exceed them.
-        lost = launched - n_dev
-        assert launched > 0 and 0 <= lost and 100 * lost <= launched, (
-            launched, [(e.key, e.count) for e in kern])
+        launched, n_dev = seen["int4_matmul_kernel"]
+        assert launched > 0, "int4_matmul never launched"
         assert all("int4_matmul_kernel" in e.key for e in kern), [e.key for e in kern]
+        t_int4 = sum(e.self_device_time_total for e in kern) / 1e3
         int4_steps = launched // (7 * engine.model_config.num_layers)
         log(f"[profile {quant}] int4_matmul: {launched} launches, {n_dev} INT4 "
-            f"kernels on the device ({lost} record(s) lost to the profiler; "
-            f"{len(kern)} instance(s), no second pass), "
+            f"kernels on the device ({launched - n_dev} record(s) lost to the "
+            f"profiler; {len(kern)} instance(s), no second pass), "
             f"{t_int4:.3f} ms, {100 * t_int4 / (1e3 * busy):.1f}% of device time; "
             f"{t_int4 / int4_steps:.3f} ms a step in each of the {int4_steps} "
             "steps that ran it")
@@ -3242,6 +3317,322 @@ async def _pages_back(mgr, free0, timeout=10.0):
     while mgr.num_free_blocks != free0 and time.perf_counter() < t_end:
         await asyncio.sleep(0.01)
     assert mgr.num_free_blocks == free0, (mgr.num_free_blocks, free0)
+
+
+def graph_state(engine) -> tuple:
+    """(graphs captured, replays so far, engine steps so far) of an engine
+    whose model serves from CUDA graphs, as every engine at tp = 1 on the
+    card does."""
+    g = engine.model.graphs
+    assert g is not None, "the model runs eagerly: at tp = 1 on the card it must not"
+    return len(g.table), sum(e.replays for e in g.table.values()), engine.stats.num_steps
+
+
+# What a graph pool may hold past the profile's budget: the caching
+# allocator keeps allocations under 1 MiB (a graph's static tokens and
+# logprobs) in segments of 2 MiB, at most one such segment a graph.
+GRAPH_POOL_SMALL = 2 << 20
+
+
+def check_pool(engine, label: str, pinned: int = 0) -> str:
+    """Where the profile set the KV pages, the engine's graph pool must lie
+    within the profile's budget for it, GRAPH_POOL_SMALL a graph held and
+    `pinned` (bytes of outputs that graphs outside serving kept, such as
+    _graph_step_check's logits). Returns the words for the log."""
+    g, prof = engine.model.graphs, engine.model.profiled
+    if not prof:
+        return ""
+    allowed = prof["graph_pool"] + pinned + GRAPH_POOL_SMALL * len(g.table)
+    assert g.pool_bytes <= allowed, (
+        f"{label}: the graph pool reserved {g.pool_bytes / 1e6:.1f} MB, the "
+        f"profile budgeted {prof['graph_pool'] / 1e6:.1f} MB (allowed "
+        f"{allowed / 1e6:.1f} MB with {len(g.table)} graphs and "
+        f"{pinned / 1e6:.1f} MB pinned)")
+    lost = prof["graph_pool"] / prof["block_bytes"]
+    pages = engine.model.num_hbm_blocks
+    return (f" (within the {allowed / 1e6:.1f} MB allowed); the profile's "
+            f"captures reserved {prof['graph_pool'] / 1e6:.1f} MB of it, "
+            f"beside {prof['scratch'] / 1e6:.1f} MB of eager scratch: "
+            f"{lost:.1f} KV pages, {100 * lost / (pages + lost):.2f}% of the "
+            f"{pages + lost:.0f} the cache had without them")
+
+
+def graph_report(engine, label: str, since: tuple, smi: str,
+                 pinned: int = 0) -> None:
+    """Every engine step since `since` (graph_state) was the replay of a
+    graph, or a key's first use (run eagerly, then captured); logs the
+    table, its capture seconds and pool, and holds the pool to the
+    profile's budget (check_pool)."""
+    n0, r0, s0 = since
+    n, r, s = graph_state(engine)
+    assert (n - n0) + (r - r0) == s - s0, (label, n - n0, r - r0, s - s0)
+    assert r > r0, f"{label}: no step was a replay"
+    g = engine.model.graphs
+    log(f"[graphs {label}] {s - s0} steps: {n - n0} keys captured at first use, "
+        f"{r - r0} replays; {n} graphs held, {g.capture_s:.2f} s capturing, "
+        f"pool {g.pool_bytes / 1e6:.1f} MB reserved"
+        f"{check_pool(engine, label, pinned)} ({smi})")
+
+
+def eager_twin(model: LlamaModel) -> LlamaModel:
+    """A LlamaModel built with cuda_graphs=False (the only way to the eager
+    step on the card) that shares `model`'s weights, cache, feedback buffer,
+    block managers and host pool: swapped in for `engine.model`, the same
+    engine runs its steps eagerly, on the same state."""
+    twin = LlamaModel(model.engine_config, model.model_config,
+                      device=model.device, cuda_graphs=False)
+    assert twin.graphs is None
+    for k in ("params", "kv_cache", "token_feedback", "hbm_block_mgrs",
+              "cpu_block_mgr", "cpu_cache", "num_blocks_per_shard",
+              "lora_slots", "lora_targets"):
+        setattr(twin, k, getattr(model, k))
+    return twin
+
+
+GRAPH_OUT = 32
+
+
+def _graph_step_check(model, twin, label, specs, smi) -> dict:
+    """One step of `specs` (_requests) with logits, three times on the same
+    state (its cache writes are the same bytes each time): eagerly (`twin`),
+    at its key's first use (eager, then captured) and as the replay, under
+    torch.profiler. The replay's logits against the eager step's; the
+    launches the capture recorded against the eager step's and the first
+    use's, and the kernels the profiler saw the replay run against them
+    (device_launches). Returns the logits' agreement and the bytes of the
+    graph's static logits, which its pool keeps reserved."""
+    from torch.profiler import ProfilerActivity, profile
+    mgr = model.hbm_block_mgrs[0]
+    for i, (_, cached, _) in enumerate(specs):
+        if cached:
+            mgr.allocate_for_seq(i, cached)
+    out, counts = {}, {}
+    for run, m in (("eager", twin), ("first use", model), ("replay", model)):
+        build.reset_launch_counts()
+        sched = _requests(specs, model.model_config.vocab_size)
+        with (profile(activities=[ProfilerActivity.CUDA]) if run == "replay"
+              else contextlib.nullcontext()) as prof:
+            tokens, rows, lg = m.forward(sched, return_logits=True)
+            torch.cuda.synchronize()
+        counts[run] = {k: v for k, v in build.launch_counts.items() if v}
+        live = [i for i, r in enumerate(rows) if r is not None]
+        out[run] = (tokens[live], torch.from_numpy(lg[live]))
+    entry = [e for k, e in model.graphs.table.items()
+             if k.bucket == model.last_key and k.return_logits]
+    assert len(entry) == 1 and entry[0].replays == 1, entry
+    launches = entry[0].launches
+    assert counts["eager"] == counts["first use"] == launches, (
+        label, counts, launches)
+    seen = device_launches(prof.key_averages(), launches)
+    assert all(n == d for n, d in seen.values()), (label, seen)
+    a, b = out["eager"][1], out["replay"][1]
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    diff = (a - b).abs().max().item()
+    same = torch.equal(a, b)
+    assert (out["eager"][0] == out["replay"][0]).all(), f"{label}: greedy tokens differ"
+    assert diff <= CLEAR_MARGIN / 2, (label, diff)
+    model.free_seqs_resources([x.request for x in sched])
+    log(f"[graphs] {label} step ({model.last_key}): the replay's logits "
+        f"{'bit-identical to' if same else f'{diff:.4g} at most off'} the eager "
+        f"step's ({a.numel()} logits), greedy tokens equal; the capture "
+        f"recorded {launches}, the launches of the eager step and of the first "
+        f"use (eager, then captured); the replay ran "
+        f"{ {k: d for k, (_, d) in seen.items() if d} } on the device ({smi})")
+    return dict(bit_identical=same, max_abs_diff=diff,
+                logits_bytes=entry[0].outputs[1].nbytes)
+
+
+async def phase_graphs(smi: str) -> None:
+    """[graphs], phase 4: the default EngineConfig (swap preemption, 2,048
+    host pages) at 8B width, 32 layers, bf16, seeded weights (std 0.02):
+    the default warm-up's graphs and wall time; a decode step of 8 rows and
+    a mixed step (8 decode rows and a 512-token chunk), each eagerly, at its
+    key's first use and as a replay (_graph_step_check); the 8 requests of
+    the bf16 run (GRAPH_OUT tokens each) served eagerly (the eager twin on
+    the same engine) and from graphs, tokens equal; the table cleared and
+    `warmup(bucket_keys)` with the served buckets: exactly those buckets
+    captured, no step run, and the same requests again capture nothing new
+    and give the same tokens; last, a planted fault: replays whose batch is
+    not copied into the static input (CapturedStep.load made a no-op) must
+    fail the token check."""
+    from swiftllm_tpu_torch.worker import graphs as graphs_mod
+    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    ec = EngineConfig(model_path="", use_dummy=True)
+    t0 = time.perf_counter()
+    engine = Engine(ec, mc, device=DEVICE)
+    with loading(77):
+        await engine.initialize(tokenizer_backend="inline")
+    model = engine.model
+    table = model.graphs.table
+    prof = model.profiled
+    log(f"[graphs] the default EngineConfig's engine up in "
+        f"{time.perf_counter() - t0:.1f} s: {model.num_hbm_blocks} pages of "
+        f"{ec.block_size}; profile: eager scratch {prof['scratch'] / 1e6:.1f} "
+        f"MB, graph pool {prof['graph_pool'] / 1e6:.1f} MB "
+        f"({prof['graph_pool'] / prof['block_bytes']:.1f} pages) ({smi})")
+    twin = loops = None
+    top = min(128000, mc.vocab_size - 1)
+    prompts = [[(13 * i + 5 * j) % top + 1 for j in range(n)]
+               for i, n in enumerate(PROMPT_LENS)]
+    mgr = model.hbm_block_mgrs[0]
+    free0 = mgr.num_free_blocks
+
+    async def serve(m, label):
+        engine.model = m
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        try:
+            toks = await _serve_greedy(engine, prompts, GRAPH_OUT)
+            torch.cuda.synchronize()
+        finally:
+            engine.model = model
+        wall = time.perf_counter() - t_run
+        await _pages_back(mgr, free0)
+        for k in pa.KERNELS:
+            assert build.launch_counts[k] > 0, f"{k} never launched ({label})"
+        return toks, wall
+    try:
+        t0 = time.perf_counter()
+        await engine.warmup()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        log(f"[graphs] the default warm-up: {len(table)} graphs in {warm:.2f} s "
+            f"of wall, {model.graphs.capture_s:.2f} s of it capturing; buckets "
+            f"{sorted({(k.bucket.tokens, k.bucket.q_len) for k in table})} "
+            f"(tokens, q bucket); pool {model.graphs.pool_bytes / 1e6:.1f} MB "
+            f"reserved ({smi})")
+        twin = eager_twin(model)
+        dec = [(64 + 37 * i, 64 + 37 * i, 1) for i in range(8)]
+        pinned = sum(_graph_step_check(model, twin, label, specs, smi)
+                     ["logits_bytes"] for label, specs in (
+                         ("decode", dec), ("mixed", dec + [(512, 0, 512)])))
+        loops = asyncio.create_task(engine.start_all_event_loops())
+        want, wall_e = await serve(twin, "eager")
+        since = graph_state(engine)
+        got, wall_g = await serve(model, "graphs")
+        graph_report(engine, "graphs", since, smi, pinned)
+        assert got == want, "the graph engine's tokens differ from the eager engine's"
+        log(f"[graphs] 8 requests, {GRAPH_OUT} tokens each: the graph engine's "
+            f"tokens equal the eager engine's (request 0 {got[0][:6]}); wall "
+            f"{wall_e:.3f} s eager, {wall_g:.3f} s from graphs, its first uses "
+            f"included ({smi})")
+        keys = sorted({k.bucket for k in table if not k.return_logits},
+                      key=lambda k: (k.tokens, k.q_len, k.sampling))
+        model.graphs.clear()
+        steps0 = engine.stats.num_steps
+        t0 = time.perf_counter()
+        await engine.warmup(keys)
+        torch.cuda.synchronize()
+        warm_keys = time.perf_counter() - t0
+        warmed = dict(table)
+        assert {k.bucket for k in warmed} == set(keys), (keys, list(warmed))
+        assert engine.stats.num_steps == steps0
+        since = graph_state(engine)
+        again, _ = await serve(model, "warmed")
+        graph_report(engine, "warmed", since, smi, pinned)
+        assert table == warmed, "serving the warmed buckets captured more graphs"
+        assert again == want, "tokens after warmup(bucket_keys) differ"
+        log(f"[graphs] warmup(bucket_keys) of the {len(keys)} buckets served "
+            f"({[(k.tokens, k.q_len) for k in keys]}): {len(warmed)} graphs, "
+            f"every plan of each, in {warm_keys:.2f} s, no step run; the same "
+            f"requests again captured nothing new, tokens equal ({smi})")
+        real_load = graphs_mod.CapturedStep.load
+        graphs_mod.CapturedStep.load = lambda self, flat: None
+        try:
+            stale, _ = await serve(model, "fault")
+        finally:
+            graphs_mod.CapturedStep.load = real_load
+        assert stale != want, "the planted fault (batches not copied in) passed"
+        log(f"[graphs] planted fault, replays without their batch copied into "
+            f"the static input: tokens differ from the eager engine's, rejected "
+            f"(request 0 {stale[0][:6]})")
+    finally:
+        if twin is not None:      # it holds the weights and the cache too
+            twin.params = twin.kv_cache = twin.token_feedback = None
+            twin.cpu_cache = None
+        twin = model = table = None
+        await _release(engine, loops)
+
+
+async def compare_graphs(smi: str, rounds: int = 5):
+    """Eager steps against graph replays on ONE engine (Llama-3-8B width, 32
+    layers, bf16, logprobs on), as compare_multi_step: `engine.model` is the
+    model (graphs) or its eager twin (eager_twin: the same weights, cache
+    and block managers), and ec.multi_step_decode 1 or 8, switched between
+    runs. A run is 8 greedy requests of 64 prompt tokens and 65 output
+    tokens, on the host's clock around a synchronise, with no profiler; the
+    modes take turns in mirrored order, after one discarded run of each,
+    ten runs of each in five rounds. Then one run of each mode under
+    torch.profiler for the device's busy
+    share (_profile; tables in OUT_DIR, profile_graphs_<mode>.txt)."""
+    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
+                      preemption_mode="recompute", enable_logprobs=True,
+                      multi_step_decode=PEND_S)
+    engine = Engine(ec, mc, device=DEVICE)
+    await engine.initialize(tokenizer_backend="inline")
+    model = engine.model
+    twin = eager_twin(model)
+    loops = asyncio.create_task(engine.start_all_event_loops())
+    modes = {"eager ms1": (twin, 1), "graphs ms1": (model, 1),
+             "eager ms8": (twin, PEND_S), "graphs ms8": (model, PEND_S)}
+    n_req, prompt, out_len = 8, 64, 65
+    ms_a_token = {m: [] for m in modes}
+
+    def reqs():
+        return [RawRequest("", out_len, prompt_token_ids=[
+            (3 * i + j) % 1000 + 1 for j in range(prompt)]) for i in range(n_req)]
+
+    async def run(mode):
+        engine.model, ec.multi_step_decode = modes[mode]
+        steps0 = engine.stats.num_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*[engine.add_request_and_wait(r) for r in reqs()])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = engine.stats.num_steps - steps0
+        assert steps == (1 + 64 if modes[mode][1] == 1 else 1 + 8), (mode, steps)
+        return 1e3 * wall / out_len, [toks for _, toks in outs]
+
+    try:
+        want = None
+        for mode in modes:                                 # discarded runs
+            _, toks = await run(mode)
+            assert want is None or toks == want, f"{mode}: tokens differ"
+            want = toks
+        order = list(modes) + list(modes)[::-1]
+        for r in range(rounds):
+            for mode in order:
+                ms, toks = await run(mode)
+                assert toks == want, f"{mode}: tokens differ"
+                ms_a_token[mode].append(ms)
+            log(f"[compare graphs] round {r}: " + ", ".join(
+                f"{m} {ms_a_token[m][-2]:.3f} {ms_a_token[m][-1]:.3f}"
+                for m in modes) + " ms of wall a token of a request")
+        for mode in modes:
+            engine.model, ec.multi_step_decode = modes[mode]
+            await _profile(engine, smi, "graphs_" + mode.replace(" ", "_"),
+                           n_req, prompt, out_len)
+        g = model.graphs
+        log(f"[compare graphs] {len(g.table)} graphs, {g.capture_s:.2f} s "
+            f"capturing, pool {g.pool_bytes / 1e6:.1f} MB reserved; profile "
+            f"budget: eager scratch {model.profiled['scratch'] / 1e6:.1f} MB, "
+            f"graph pool {model.profiled['graph_pool'] / 1e6:.1f} MB ({smi})")
+    finally:
+        engine.model = model
+        loops.cancel()
+        await asyncio.wait([loops])
+    for m, v in ms_a_token.items():
+        v = np.array(v)
+        base = np.array(ms_a_token[m.replace("graphs", "eager")])
+        q1, med, q3 = np.percentile(v, [25, 50, 75])
+        log(f"[compare graphs] {m}: {len(v)} runs, wall a token median {med:.3f} "
+            f"ms (quartiles {q1:.3f} to {q3:.3f}, min {v.min():.3f}, max "
+            f"{v.max():.3f}), {n_req * 1e3 / med:.1f} tok/s; faster than the "
+            f"eager run of the same turn in {int((v < base).sum())}/{len(v)} "
+            f"({smi})")
 
 
 async def compare_multi_step(smi: str, rounds: int = 4):
@@ -3909,6 +4300,14 @@ def main() -> int:
             f"== {k}\n{v}" for k, v in reports.items()))
     if sys.argv[1:] == ["--compare-multi-step"]:
         asyncio.run(compare_multi_step(smi))
+        return 0
+    if sys.argv[1:] == ["--compare-graphs"]:
+        asyncio.run(compare_graphs(smi))
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--graphs"]:
+        asyncio.run(phase_graphs(smi))
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] == ["--compare-splits"]:
         compare_splits(smi)

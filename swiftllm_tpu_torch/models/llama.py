@@ -26,6 +26,10 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
 - Multi-LoRA: a projection that an adapter targets adds each token's own
   adapter update (``lora_add``, plain GEMMs, as the JAX package leaves its
   einsums to XLA), in every step kind: mixed, multi-step and verify.
+- ``make_step_fn`` is the counterpart of the JAX package's: one step of a
+  bucket as a function of (params, cache, feedback, packed batch) that reads
+  nothing on the host, so ``worker/graphs.py`` can capture it in a CUDA
+  graph and replay it.
 - Tensor and data parallelism (``mesh``, ``parallel/mesh.py``): the step
   runs on one rank's shard, as the JAX package's ``forward_shard`` runs
   under ``shard_map``: n_q/tp query heads and n_kv_eff/tp KV heads, the
@@ -45,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -343,7 +347,8 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
                          n_kv: int, page_size: int, sm_scale: float,
                          use_kernels: bool, q_bucket: int, window: int = 0,
                          kv_pend=None, npend: int = 0,
-                         live_rows: int | None = None):
+                         live_rows: int | None = None,
+                         bf16_scores: bool | None = None):
     """Store this layer's fresh K‖V (kv_new [T, W], in the cache dtype, with
     the scale lanes when the cache is fp8) into the cache [L, S, W] IN PLACE
     and run attention; returns [T, n_q, hd].
@@ -359,7 +364,9 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
     the prefill-kind spans and the prefill kernel on them; tokens below
     n_dec take the decode output, the rest the prefill output. The kernels
     plan their key splits over the rows below ``live_rows`` (a host
-    integer: rows from it on have no query; None: any row may)."""
+    integer: rows from it on have no query; None: any row may).
+    ``bf16_scores`` picks the prefill kernel's bf16-score variant (None:
+    ``SWIFTLLM_TILE_BF16_SCORES``, read at the call)."""
     T, _, hd = q.shape
     kw = dict(n_kv=n_kv, page_size=page_size, sm_scale=sm_scale, window=window)
     kern = dict(kw, live_rows=live_rows)
@@ -382,7 +389,8 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
         pa.store_kv(cache, kv_new, batch.kv_slots_scatter, layer)
         pre_out = pa.paged_prefill_attention(
             q, cache, batch.page_table, batch.q_starts, q_lens_pre,
-            batch.seq_lens, layer, q_bucket=q_bucket, **kern)
+            batch.seq_lens, layer, q_bucket=q_bucket, bf16_scores=bf16_scores,
+            **kern)
         n_dec = batch.decode_row.sum()
         tok = torch.arange(T, device=q.device)[:, None, None]
         return torch.where(tok < n_dec, dec_out, pre_out)
@@ -409,7 +417,7 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                   return_logits: bool = False, use_sampler: bool = False,
                   return_logprobs: bool = False, kv_pend=None, npend: int = 0,
                   sample_span: int = 0, live_rows: int | None = None,
-                  mesh: Mesh = SINGLE):
+                  mesh: Mesh = SINGLE, bf16_scores: bool | None = None):
     """One step on this rank's shard: embedding, the layers, the final norm,
     the sampling head and the feedback write. ``kv_cache`` [L, S, W] and
     ``feedback`` i32[F] (this rank's) are updated IN PLACE (JAX donates them
@@ -428,7 +436,8 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     ``decode_multi_step``) no layer writes the cache, and each layer's fresh
     rows ``kv_new[:B]`` come back stacked. ``live_rows`` (a host integer:
     rows from it on have no query) bounds the rows the attention kernels
-    plan their key splits over.
+    plan their key splits over. ``bf16_scores``: the prefill kernel's
+    bf16-score variant (None: ``SWIFTLLM_TILE_BF16_SCORES`` at each call).
 
     Returns (tokens i32[dp*B], logits f32[dp*B, V_padded] or None[,
     logprobs f32[dp*B] with ``return_logprobs``][, kv_rows [L, B, W] with
@@ -500,7 +509,8 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
             q, kv_new, kv_cache, layer, batch, n_kv=n_kv,
             page_size=page_size, sm_scale=sm_scale, use_kernels=use_kernels,
             q_bucket=q_bucket, window=cfg.sliding_window or 0,
-            kv_pend=kv_pend, npend=npend, live_rows=live_rows)
+            kv_pend=kv_pend, npend=npend, live_rows=live_rows,
+            bf16_scores=bf16_scores)
         if kv_pend is not None:
             kv_rows.append(kv_new[:batch.q_lens.shape[0]])
         # In-sharded projections: each rank's partial sum (an adapter's
@@ -616,17 +626,21 @@ def advance_decode_batch(batch: StepBatch, s: int, *, page_size: int,
     )
 
 
+def defer_kv_env() -> bool:
+    """``SWIFTLLM_DEFER_KV=1`` (off by default, as in the JAX package)."""
+    return os.environ.get("SWIFTLLM_DEFER_KV", "0") == "1"
+
+
 def _defer_commit_ok(cfg: LlamaModelConfig, *, use_kernels: bool, fp8: bool,
-                     multi_step: int) -> bool:
+                     multi_step: int, asked: bool | None = None) -> bool:
     """Whether multi-step decode runs in deferred-commit mode: the decode
     kernel's path must be on (the gather-based path has no pending-token
     semantics), the cache must hold unscaled rows (no fp8), a sliding window
     must not be narrower than the pending window, and the caller must ask
-    for it with ``SWIFTLLM_DEFER_KV=1`` (off by default, as in the JAX
-    package; the environment is read at each call)."""
+    for it: ``asked``, by default ``defer_kv_env()`` read at each call."""
     if not use_kernels or fp8:
         return False
-    if os.environ.get("SWIFTLLM_DEFER_KV", "0") != "1":
+    if not (defer_kv_env() if asked is None else asked):
         return False
     return not (cfg.sliding_window and cfg.sliding_window < multi_step)
 
@@ -634,14 +648,16 @@ def _defer_commit_ok(cfg: LlamaModelConfig, *, use_kernels: bool, fp8: bool,
 def decode_multi_step(params: dict, kv_cache: torch.Tensor,
                       feedback: torch.Tensor, batch: StepBatch, *,
                       multi_step: int, page_size: int,
-                      return_logprobs: bool = False, **fwd_kwargs):
+                      return_logprobs: bool = False,
+                      defer_kv: bool | None = None, **fwd_kwargs):
     """S pure-decode steps from ONE dispatch: S calls of ``forward_shard``
     queued on the stream with nothing between them that waits for the card.
     The batch build, its copy to the card and the tokens' copy back are paid
     once per S tokens. Tokens come out [B * S] row-major (row b's inner step
     s at ``b * S + s``), and so do the logprobs.
 
-    Deferred KV commit (``_defer_commit_ok``): the inner steps do not write
+    Deferred KV commit (``_defer_commit_ok``, asked by ``defer_kv``, by
+    default ``SWIFTLLM_DEFER_KV`` at the call): the inner steps do not write
     the cache. Each layer's fresh K‖V rows go into a pending buffer
     [L, S, B, W]; the decode kernel's ``pend`` variant reads the window's
     completed tokens from it; and the whole window is committed with one
@@ -651,7 +667,7 @@ def decode_multi_step(params: dict, kv_cache: torch.Tensor,
     cfg = fwd_kwargs["cfg"]
     deferred = _defer_commit_ok(
         cfg, use_kernels=fwd_kwargs.get("use_kernels", False),
-        fp8=kv_cache.dtype == pa.FP8, multi_step=multi_step)
+        fp8=kv_cache.dtype == pa.FP8, multi_step=multi_step, asked=defer_kv)
     L, S_slots, W = kv_cache.shape
     B, Pg = batch.page_table.shape
     P = multi_step
@@ -689,3 +705,56 @@ def decode_multi_step(params: dict, kv_cache: torch.Tensor,
     if return_logprobs:
         out += (torch.stack(logprobs, dim=1).reshape(-1),)
     return out
+
+
+class StepSwitches(NamedTuple):
+    """The two environment switches a step reads: deferred KV commit
+    (``SWIFTLLM_DEFER_KV``) and the prefill kernel's bf16 scores
+    (``SWIFTLLM_TILE_BF16_SCORES``)."""
+    defer_kv: bool
+    bf16_scores: bool
+
+
+def step_switches() -> StepSwitches:
+    """The switches as the environment sets them now."""
+    return StepSwitches(defer_kv_env(), pa.bf16_scores_env())
+
+
+def make_step_fn(cfg: LlamaModelConfig, *, page_size: int, q_bucket: int,
+                 use_kernels: bool, T: int, B: int, Pg: int,
+                 return_logits: bool = False, use_sampler: bool = False,
+                 return_logprobs: bool = False, sample_span: int = 0,
+                 multi_step: int = 1, live_rows: int | None = None,
+                 mesh: Mesh = SINGLE, switches: StepSwitches | None = None):
+    """The step of one bucket (T tokens, B rows, Pg pages, q bucket
+    ``q_bucket``, ``sample_span`` S1 > 0 for a verify step, ``multi_step``
+    S > 1 for a window of S decode steps), the counterpart of the JAX
+    package's ``make_step_fn``: ``step(params, kv_cache, feedback, flat)``
+    unpacks the packed batch on the device and runs ``forward_shard`` or
+    ``decode_multi_step``, updating the cache and the feedback buffer in
+    place. Every int is closed over, the environment switches too (read
+    here, once, unless ``switches`` gives them), so the step reads nothing
+    on the host and a CUDA graph can hold it. Returns (tokens, logits or
+    None, logprobs or None)."""
+    assert multi_step <= 1 or (sample_span == 0 and not return_logits), \
+        "multi_step is a pure-decode variant (no spec spans, no logits)"
+    sw = switches or step_switches()
+    kw = dict(cfg=cfg, page_size=page_size, q_bucket=q_bucket,
+              use_kernels=use_kernels, use_sampler=use_sampler,
+              return_logprobs=return_logprobs, live_rows=live_rows, mesh=mesh,
+              bf16_scores=sw.bf16_scores)
+
+    def step(params, kv_cache, feedback, flat):
+        batch = unpack_step_batch(flat, T, B, Pg, page_size=page_size,
+                                  garbage_slot=kv_cache.shape[1] - page_size)
+        if multi_step > 1:
+            tokens, *rest = decode_multi_step(
+                params, kv_cache, feedback, batch, multi_step=multi_step,
+                defer_kv=sw.defer_kv, **kw)
+            return tokens, None, rest[0] if return_logprobs else None
+        tokens, logits, *rest = forward_shard(
+            params, kv_cache, feedback, batch, return_logits=return_logits,
+            sample_span=sample_span, **kw)
+        return tokens, logits, rest[0] if return_logprobs else None
+
+    return step

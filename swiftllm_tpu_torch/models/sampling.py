@@ -56,6 +56,12 @@ def exact_greedy(logits: torch.Tensor, mesh: Mesh = SINGLE) -> torch.Tensor:
     return arg + win.to(torch.int32) * v_local
 
 
+# Rows whose candidate keys are built at once. A key takes 8 bytes a vocab
+# entry, and a verify step's head samples rows x q bucket positions (1,024
+# rows of 128,256 at 8B: about 4 GB of keys and their temporaries at once).
+TOPK_ROWS = 128
+
+
 def top_candidates(logits: torch.Tensor, k: int):
     """The k largest logits of each row, descending, the lower index first
     among equal values (``jax.lax.top_k``'s order), as (vals f32[B, k],
@@ -64,7 +70,14 @@ def top_candidates(logits: torch.Tensor, k: int):
     Each (value, index) becomes one int64 key: the float's bits mapped to an
     integer that orders as the float does, in the high word, and V-1-index in
     the low word. The keys are distinct, so ``torch.topk`` has no tie to
-    break and the order is the same on every device."""
+    break and the order is the same on every device. ``TOPK_ROWS`` rows at
+    a time, which bounds the step's scratch and its graph's pool; the rows
+    are independent, so the result is the same."""
+    if logits.shape[0] > TOPK_ROWS:
+        parts = [top_candidates(block, k)
+                 for block in logits.split(TOPK_ROWS)]
+        return (torch.cat([v for v, _ in parts]),
+                torch.cat([i for _, i in parts]))
     V = logits.shape[-1]
     bits = (logits.float() + 0.0).view(torch.int32)        # -0.0 -> +0.0
     ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).long()

@@ -12,7 +12,9 @@ is imported: the first launch builds its kernel, or a caller builds them all
 up front. The wrappers in ``paged_attention.py``, ``int4_matmul.py`` and
 ``swap_pages.py`` launch through ``launch``, which runs the C entry on the
 tensors' card and its current stream and adds one to
-``launch_counts[name]``.
+``launch_counts[name]``. Under CUDA graph capture that count is what the
+capture queued; ``worker/graphs.py`` takes it back and adds it again at
+every replay, so ``launch_counts`` always counts launches queued to run.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 
 import torch
@@ -89,8 +92,9 @@ HELPERS = {
 }
 _ENTRIES = {**SOURCES, **HELPERS}
 
-# Launches of each kernel since the last reset_launch_counts(). Only a
-# wrapper that launches its kernel adds to its count.
+# Launches of each kernel queued since the last reset_launch_counts(): a
+# wrapper adds one where it launches its kernel, and a CUDA graph's replay
+# adds the launches its capture recorded (``worker/graphs.py``).
 launch_counts: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -209,20 +213,47 @@ def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
-# Arrival counters of the kernels' split merges, per (owner, device).
+# Arrival counters of the kernels' split merges, per (owner, device), and
+# the live holders (captured CUDA graphs) that pin each device's buffers.
 _counters: dict[tuple[str, torch.device], torch.Tensor] = {}
+_holders: dict[torch.device, weakref.WeakSet] = {}
+
+
+def card(device: torch.device) -> torch.device:
+    """``device`` with its index: "cuda" names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def device_counters(owner: str, device: torch.device, n: int) -> torch.Tensor:
     """``owner``'s int32 counters on ``device``, at least ``n`` of them:
     zeroed when made or grown, and left zero by every launch (the kernels
-    reset what they count)."""
+    reset what they count). A captured CUDA graph writes the buffer it saw
+    at every replay, so the buffer never moves while a holder lives
+    (``hold_counters``) or a capture runs: a request for more then raises,
+    and the caller must size the counters before it captures."""
+    device = card(device)
     cnt = _counters.get((owner, device))
     if cnt is None or cnt.numel() < n:
+        if _holders.get(device) or (device.type == "cuda"
+                                    and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f"{owner}: {n} split counters asked on {device}, "
+                f"{0 if cnt is None else cnt.numel()} held by captured CUDA "
+                "graphs; size them before the first capture")
         cnt = torch.zeros(max(n, 2 * (0 if cnt is None else cnt.numel())),
                           dtype=torch.int32, device=device)
         _counters[(owner, device)] = cnt
     return cnt
+
+
+def hold_counters(device: torch.device, holder: object) -> None:
+    """Pin every counter buffer of ``device`` while ``holder`` (an object
+    whose graphs write them) lives: ``device_counters`` then raises instead
+    of reallocating one."""
+    _holders.setdefault(card(device), weakref.WeakSet()).add(holder)
 
 
 @functools.lru_cache(maxsize=None)

@@ -48,7 +48,11 @@ row's end, walked by separate blocks and merged by the last block to finish.
 the card's SM count and ``live_rows``, the bound on the rows with queries
 that the batch builder knows), so a wrapper never reads a device value on
 the host; ``split_kv_attention_plain`` is the plain version of that
-split-then-merge. The bf16-score variant never splits.
+split-then-merge. The bf16-score variant never splits. ``step_plans`` gives
+a whole step's plans from its bucket and ``live_rows``, the same planners'
+answers, and ``plan_rows`` the most rows that keep them: a CUDA graph of
+the step is keyed by the plans and captured over those rows
+(``worker/graphs.py``).
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 On a CUDA tensor it launches its kernel or raises; it never falls back. The
@@ -60,8 +64,10 @@ adds one to ``build.launch_counts[name]``.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -178,6 +184,71 @@ def prefill_split_plan(B: int, q_bucket: int, group: int, n_kv: int, Pg: int,
     return split_plan(B * cdiv(q_bucket, tokens) * n_kv, Pg * page_size, n_sms,
                       tile=KEY_TILE, min_chunk=PREFILL_MIN_CHUNK,
                       splits=splits, visible=visible)
+
+
+def prefill_units(B: int, q_bucket: int, group: int, n_kv: int,
+                  hd: int) -> int:
+    """Attention units of a prefill launch over ``B`` rows: (row, query
+    tile of prefill_rows / group tokens, kv head)."""
+    tokens = max(prefill_rows(q_bucket, group, hd) // group, 1)
+    return B * cdiv(q_bucket, tokens) * n_kv
+
+
+class StepPlans(NamedTuple):
+    """A step's attention plans, (n_split, chunk) each: the decode kernel's
+    (its deferred-commit variant's too) and the prefill kernel's, None for a
+    step that launches no prefill kernel (q bucket 1)."""
+    decode: tuple[int, int]
+    prefill: tuple[int, int] | None
+
+
+@functools.lru_cache(maxsize=4096)
+def step_plans(key, live_rows: int, *, n_q: int, n_kv: int, hd: int,
+               page_size: int, window: int, n_sms: int) -> StepPlans:
+    """The plans the wrappers choose for every launch of one step of bucket
+    ``key`` (``rows``, ``pages`` and ``q_len`` are read) whose rows from
+    ``live_rows`` on have no query, at a shard's ``n_q`` / ``n_kv`` heads of
+    ``hd`` on a card of ``n_sms`` SMs (0 on the CPU, whose plain versions
+    never split: every plan is one split). The same planners, the same
+    arguments: ``paged_decode_attention`` (and ``_pend``) and
+    ``paged_prefill_attention`` launch these plans. Ints only, cached."""
+    R = split_rows(key.rows, live_rows)
+    decode = decode_split_plan(R, n_kv, key.pages, page_size, n_sms,
+                               window=window)
+    prefill = None
+    if key.q_len > 1:
+        prefill = prefill_split_plan(R, key.q_len, n_q // n_kv, n_kv,
+                                     key.pages, page_size, n_sms,
+                                     window=window, hd=hd)
+    return StepPlans(decode, prefill)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_rows(key, live_rows: int, **widths) -> int:
+    """The most rows (at most ``key.rows``) a step of ``key`` can plan over
+    and keep the plans of ``live_rows`` (``step_plans``' keyword arguments
+    in ``widths``). The split counts only fall as rows grow, so these rows
+    are an interval from ``live_rows`` up. A launch over them splits every
+    live row as a launch over ``live_rows`` does, so its outputs are the
+    same; the rows past ``live_rows`` have no query."""
+    want = step_plans(key, live_rows, **widths)
+    R = split_rows(key.rows, live_rows)
+    while R < key.rows and step_plans(key, R + 1, **widths) == want:
+        R += 1
+    return R
+
+
+def max_split_units(rows: int, max_q: int, *, n_q: int, n_kv: int,
+                    hd: int) -> int:
+    """The most attention units any launch of a bucket of at most ``rows``
+    rows and q bucket ``max_q`` can plan: what the counters
+    (``build.device_counters``) must hold, less the prefill kernel's two
+    work-queue counters."""
+    units, q = rows * n_kv, 2
+    while q <= max(max_q, 2):
+        units = max(units, prefill_units(rows, q, n_q // n_kv, n_kv, hd))
+        q *= 2
+    return units
 
 
 def _split_buffers(device: torch.device, units: int, n_split: int, rows: int,
@@ -349,13 +420,21 @@ def _attend(q: torch.Tensor, kv: torch.Tensor, q_pos: torch.Tensor,
     return (num / den).permute(2, 0, 1, 3).reshape(n, n_q, hd).to(q.dtype)
 
 
-def bf16_scores_on(cache: torch.Tensor, window: int) -> bool:
+def bf16_scores_env() -> bool:
+    """``SWIFTLLM_TILE_BF16_SCORES=1`` (off by default, as in the JAX
+    package)."""
+    return os.environ.get("SWIFTLLM_TILE_BF16_SCORES", "0") == "1"
+
+
+def bf16_scores_on(cache: torch.Tensor, window: int,
+                   asked: bool | None = None) -> bool:
     """Whether a multi-token attention call takes the bf16-score variant:
-    ``SWIFTLLM_TILE_BF16_SCORES=1`` (read at each call, off by default, as in
-    the JAX package), a cache that is not fp8, and no window. An fp8 or a
-    windowed call keeps f32 scores, as the JAX gate does."""
-    return (os.environ.get("SWIFTLLM_TILE_BF16_SCORES", "0") == "1"
-            and cache.dtype != FP8 and not window)
+    ``asked`` (default: ``bf16_scores_env()``, read at each call), a cache
+    that is not fp8, and no window. An fp8 or a windowed call keeps f32
+    scores, as the JAX gate does."""
+    if asked is None:
+        asked = bf16_scores_env()
+    return asked and cache.dtype != FP8 and not window
 
 
 def paged_decode_attention_plain(q, cache, kv_new, page_table, q_lens,
@@ -594,7 +673,8 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
                             layer: int, *, n_kv: int, page_size: int,
                             sm_scale: float, q_bucket: int, window: int = 0,
                             splits: int | None = None,
-                            live_rows: int | None = None):
+                            live_rows: int | None = None,
+                            bf16_scores: bool | None = None):
     """Causal attention of multi-token rows over the cache (their new KV is
     already stored). q [T, n_q, hd]; q_bucket bounds every q_lens[b]; at
     most PREFILL_MAX_ROWS rows. Returns out [T, n_q, hd], zeros at tokens
@@ -608,15 +688,16 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
     seq_lens[b] is read, so slots that still hold rejected drafts of an
     earlier step are invisible once seq_lens[b] stops short of them.
 
-    With ``bf16_scores_on`` (``SWIFTLLM_TILE_BF16_SCORES=1``, a cache that is
-    not fp8, no window) it launches ``paged_prefill_attention_bf16s``, whose
+    With ``bf16_scores_on`` (``bf16_scores``, by default
+    ``SWIFTLLM_TILE_BF16_SCORES=1``; a cache that is not fp8, no window) it
+    launches ``paged_prefill_attention_bf16s``, whose
     launches count under that name, and which never splits. ``splits``
     forces the split count of the f32 kernel (prefill_split_plan's choice
     when None) and ``live_rows`` bounds the rows it plans over, as for
     ``paged_decode_attention``. On CPU tensors the plain version runs,
     unsplit."""
     args = (q, cache, page_table, q_starts, q_lens, seq_lens)
-    bf16s = bf16_scores_on(cache, window)
+    bf16s = bf16_scores_on(cache, window, bf16_scores)
     T, n_q, hd = q.shape
     B, Pg = page_table.shape
     if _on_cpu(*args):
@@ -644,7 +725,7 @@ def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,
                                         page_size, build.sm_count(q.device), splits,
                                         int(window), hd=hd)
     rows = prefill_rows(int(q_bucket), group, hd)
-    units = R * cdiv(int(q_bucket), max(rows // group, 1)) * n_kv
+    units = prefill_units(R, int(q_bucket), group, n_kv, hd)
     bufs = _split_buffers(q.device, units, n_split, rows, hd)
     out = torch.empty_like(q)          # the kernel zeroes tokens of no row
     build.launch(

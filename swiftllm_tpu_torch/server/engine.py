@@ -124,16 +124,25 @@ class Engine:
         if cfg.warmup_at_init:
             await self.warmup()
 
-    async def warmup(self):
+    async def warmup(self, bucket_keys=None):
         """Run the serving working set of step shapes once before traffic:
         prefill-only steps of 1, 2, 4, ... chunk rows, a decode-only step,
         a multi-step window when ``multi_step_decode`` > 1, every pow2 chunk
         size below the full chunk, SARATHI mixed steps, and with
         ``enable_spec_decode`` a verify step of 1, 2, 4, ... spec rows up to
         ``spec_max_rows``. Each is one real step through the normal dispatch
-        path, so the kernels are built and every step shape has run before
-        the first request. (The sampler needs no warm-up of its own here: it
-        builds nothing.)"""
+        path, so the kernels are built, every step shape has run, and with
+        CUDA graphs each step's graph is captured, before the first request.
+        (The sampler needs no warm-up of its own here: it builds nothing.)
+
+        With ``bucket_keys`` it only captures, as the JAX engine's explicit
+        keys only compile: ``model.capture`` of each key, every plan a step
+        of it can meet, and no step runs. That needs graphs (the card, world
+        size 1); elsewhere it raises."""
+        if bucket_keys is not None:
+            for key in bucket_keys:
+                await self._run_on_model_async(self.model.capture, key)
+            return
         cfg = self.engine_config
         chunk = min(cfg.prefill_chunk_size, cfg.max_tokens_in_batch,
                     cfg.max_seq_len - 8)

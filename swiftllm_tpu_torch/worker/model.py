@@ -15,13 +15,25 @@ tokens' logprobs.
 - The model runs on ``device`` ("cuda" unless the caller asks for "cpu"), and
   raises when asked for a GPU it does not find.
 - ``profile_num_blocks`` runs the worst-case bucket once on a small probe
-  cache and takes its scratch from ``torch.cuda.max_memory_allocated()``
-  (the JAX package reads it from the compiled program instead), then sizes
-  the cache from ``torch.cuda.mem_get_info()`` and ``hbm_mem_utilization``.
+  cache, and the other buckets that need the most memory (``profile_keys``:
+  sampled, verify, a window) on empty batches, and takes their scratch from
+  ``torch.cuda.max_memory_allocated()`` (the JAX package reads it from the
+  compiled program instead); with graphs it captures them too, whose pool
+  stays reserved; then it sizes the cache from ``torch.cuda.mem_get_info()``
+  and ``hbm_mem_utilization``.
 - ``forward_async`` never synchronises: the batch goes up through pinned
   memory with ``non_blocking=True``, every write stays on the current
   stream (so step N+1 reads step N's tokens from the feedback buffer in
   order), and the tokens come back through a ``PendingTokens`` handle.
+- CUDA graphs (``worker/graphs.py``): on the card at world size 1 (tp = dp
+  = 1), every step and every multi-step window is the replay of a graph
+  captured once per graph key, the first use of a key running eagerly and
+  capturing after it; ``capture`` captures a bucket ahead of traffic (the
+  JAX package's ``_lower``). Steps run eagerly, as ``models/llama.py``'s
+  step function, on the CPU (no graphs there) and at world size > 1 (gloo's
+  collectives cannot be captured, and NCCL's have not run: one card), and
+  with ``cuda_graphs=False`` (a comparison's and the tests' way to the
+  eager step on the card).
 - Swap preemption: the host pool is one page-locked tensor
   ``[L, num_cpu_blocks * block_size, W]`` in the cache's type, allocated
   when the scheduler can swap (``preemption_mode="swap"`` and
@@ -45,13 +57,17 @@ tokens' logprobs.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
-from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES,
-                                             decode_multi_step, forward_shard,
-                                             unpack_step_batch)
+from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES, make_step_fn,
+                                             step_switches)
+from swiftllm_tpu_torch.ops import build
+from swiftllm_tpu_torch.ops import int4_matmul
+from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.ops.swap_pages import pinned_pool, swap_pages
 from swiftllm_tpu_torch.parallel import distributed
 from swiftllm_tpu_torch.parallel.mesh import (effective_num_kv_heads,
@@ -59,11 +75,13 @@ from swiftllm_tpu_torch.parallel.mesh import (effective_num_kv_heads,
                                               shard_params)
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
-from swiftllm_tpu_torch.utils import GB, cdiv
+from swiftllm_tpu_torch.utils import GB, cdiv, next_power_of_2
 from swiftllm_tpu_torch.worker.batch_builder import (build_step_batch,
                                                      pack_step_batch,
-                                                     packed_len)
+                                                     packed_len,
+                                                     select_buckets)
 from swiftllm_tpu_torch.worker.block_manager import BlockManager
+from swiftllm_tpu_torch.worker.graphs import StepGraphs, graph_key
 
 
 def _assert_decode_prefix(batch_np, key, dp: int):
@@ -93,7 +111,8 @@ class PendingTokens:
     """A step's sampled tokens (or their logprobs) on their way to the host.
     On the GPU the copy into pinned host memory is queued behind the step
     (``non_blocking``) and a CUDA event marks its end; ``numpy()`` waits on
-    that event only."""
+    that event only. The copy is taken at once either way: a graph's static
+    outputs are overwritten by its next replay."""
 
     def __init__(self, tokens: torch.Tensor):
         self._event = None
@@ -104,7 +123,7 @@ class PendingTokens:
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = tokens
+            self._host = tokens.clone()
 
     def is_ready(self) -> bool:
         return self._event is None or self._event.query()
@@ -128,7 +147,8 @@ def bind_device(device) -> None:
 class LlamaModel:
     def __init__(self, engine_config: EngineConfig,
                  model_config: LlamaModelConfig | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 cuda_graphs: bool = True):
         self.engine_config = engine_config
         self.model_config = model_config or LlamaModelConfig.load_from_model_path(
             engine_config.model_path)
@@ -167,10 +187,19 @@ class LlamaModel:
         self.hbm_block_mgrs: list[BlockManager] = []
         self.cpu_block_mgr: BlockManager | None = None
         self.num_blocks_per_shard = 0
+        # The rule for CUDA graphs: on the card, at world size 1, unless the
+        # caller asks for the eager step (``cuda_graphs=False``).
+        self.graphs = (StepGraphs(self.device)
+                       if (cuda_graphs and self.device.type == "cuda"
+                           and distributed.world_size() == 1) else None)
+        self.profiled: dict = {}      # profile_num_blocks' budget, in bytes:
+                                      # step scratch, graph pool, a page
 
     # --- init -----------------------------------------------------------------
     def load_weights(self):
         from swiftllm_tpu_torch.worker.weights import load_params
+        if self.graphs is not None:
+            self.graphs.clear()       # they hold the old weights' addresses
         self.params = load_params(self.engine_config, self.model_config,
                                   self.device, self.mesh)
         if self.engine_config.lora_paths:
@@ -234,6 +263,8 @@ class LlamaModel:
         places every group's pages). The cache starts at zero so a page
         never read before holds no NaN."""
         cfg = self.engine_config
+        if self.graphs is not None:
+            self.graphs.clear()       # they hold the old cache's address
         self.num_blocks_per_shard = num_blocks
         self.kv_cache = torch.zeros(self._cache_shape(num_blocks),
                                     dtype=self.kv_dtype, device=self.device)
@@ -245,17 +276,48 @@ class LlamaModel:
             enable_prefix_caching=cfg.enable_prefix_caching)
             for g in range(self.dp)]
 
+    def profile_keys(self, probe) -> list:
+        """The buckets whose steps need the most memory, ``probe`` (the
+        greedy prefill of the most tokens) first: the same bucket sampled
+        (the sampler's int64 candidate keys over [rows, V] and, with
+        ``enable_logprobs``, the log-softmax), with spec decode a sampled
+        verify step of ``spec_max_rows`` spans (its head over every span
+        position, [rows * q bucket, V]), and with ``multi_step_decode`` S >
+        1 a sampled window of S steps (deferred or not as
+        ``SWIFTLLM_DEFER_KV`` says now). Each key but the probe's is
+        ``select_buckets``' for such a batch."""
+        cfg = self.engine_config
+
+        def sampled(n: int, n_tokens: int, drafts=()) -> list:
+            return [[ScheduledSeq(Request(RawRequest("", 1, temperature=1.0)),
+                                  n_tokens, drafts) for _ in range(n)]]
+        keys = [probe, dataclasses.replace(probe, sampling=1)]
+        if cfg.enable_spec_decode:
+            keys.append(select_buckets(
+                sampled(min(cfg.spec_max_rows, cfg.max_batch_size),
+                        1 + cfg.spec_k, (0,) * cfg.spec_k), cfg))
+        if cfg.multi_step_decode > 1:
+            keys.append(select_buckets(sampled(cfg.max_batch_size, 1), cfg,
+                                       multi_step=cfg.multi_step_decode))
+        return keys
+
     def profile_num_blocks(self) -> int:
-        """KV pages that fit the device: run the worst-case bucket once on a
-        probe cache, take its scratch as the rise of
-        ``max_memory_allocated``, and give the cache what is left of
-        ``mem_get_info()``'s total times ``hbm_mem_utilization`` (right for
-        one rank a card; ranks that share a card take ``num_hbm_blocks``).
-        The probe step runs on every rank at once, as a step does. With
-        quantized weights the probe's bucket (over 256 tokens) runs
-        ``quant.proj``, so the scratch holds its bf16 copy of the largest
-        weight (or ``lm_head`` chunk), more than the INT4 kernel's split-K
-        workspace of a decode bucket needs."""
+        """KV pages that fit the device. On a probe cache, run the
+        worst-case bucket once (a greedy prefill of the most tokens), then
+        the other buckets of ``profile_keys`` on an empty batch of their
+        shape (a step allocates by shape, not by value), all eagerly, and
+        take their scratch as the rise of ``max_memory_allocated``. With
+        graphs, capture each of those steps too: the graph pool keeps what
+        it reserved (``graphs.StepGraphs``), so ``mem_get_info()`` counts it
+        as used, and the captures of serving reuse it (a key's first use
+        runs eagerly, so both pools are needed). Give the cache what is left
+        of ``mem_get_info()``'s total times ``hbm_mem_utilization`` (right
+        for one rank a card; ranks that share a card take
+        ``num_hbm_blocks``). The probe steps run on every rank at once, as a
+        step does. With quantized weights the probe's bucket (over 256
+        tokens) runs ``quant.proj``, so the scratch holds its bf16 copy of
+        the largest weight (or ``lm_head`` chunk), more than the INT4
+        kernel's split-K workspace of a decode bucket needs."""
         cfg, mc = self.engine_config, self.model_config
         if cfg.num_hbm_blocks is not None:
             return cfg.num_hbm_blocks
@@ -281,18 +343,38 @@ class LlamaModel:
         torch.cuda.synchronize(self.device)
         torch.cuda.reset_peak_memory_stats(self.device)
         base = torch.cuda.memory_allocated(self.device)
-        self.forward([s for grp in groups for s in grp], groups)
+        graphs, self.graphs = self.graphs, None       # the probe runs eagerly
+        try:
+            self.forward([s for grp in groups for s in grp], groups)
+            keys = self.profile_keys(self.last_key)
+            for key in keys[1:]:
+                self.execute_packed(
+                    np.zeros(self.dp * packed_len(key), np.int32), key)
+            torch.cuda.synchronize(self.device)
+        finally:
+            self.graphs = graphs
         scratch = torch.cuda.max_memory_allocated(self.device) - base
+        pool = 0
+        if graphs is not None:
+            self.capture(keys[0], live_rows=n_rows)
+            for key in keys[1:]:
+                self.capture(key, live_rows=0)
+            pool = graphs.pool_bytes
+            graphs.clear()   # dropped with the probe cache; the pool stays
         self.kv_cache = self.token_feedback = None
         self.hbm_block_mgrs = []
         torch.cuda.empty_cache()
+        # The graph pool's reserved bytes are used memory here already.
         free, total = torch.cuda.mem_get_info(self.device)
         usable = int(total * cfg.hbm_mem_utilization) - (total - free) - scratch
         num = usable // block_bytes
+        self.profiled = dict(scratch=scratch, graph_pool=pool,
+                             block_bytes=block_bytes)
         if num <= 0:
             raise RuntimeError(
                 f"no device memory left for the KV cache: total={total / GB:.1f}GB "
-                f"free={free / GB:.1f}GB scratch={scratch / GB:.1f}GB")
+                f"free={free / GB:.1f}GB scratch={scratch / GB:.1f}GB "
+                f"graph pool={pool / GB:.1f}GB")
         return int(num)
 
     def init_kvcache_and_swap(self, num_blocks_per_shard: int | None = None):
@@ -365,7 +447,9 @@ class LlamaModel:
         from ``distributed.follower_loop``. Returns the tokens'
         ``PendingTokens`` (and the f32 logits tensor when asked, single
         steps only), every dp group's. With ``enable_logprobs`` the
-        logprobs' copy to the host is queued too, as ``last_logprobs``."""
+        logprobs' copy to the host is queued too, as ``last_logprobs``.
+        With graphs the step is a replay (``_graph_step``), else it runs
+        eagerly."""
         self.last_key = key
         n = packed_len(key)
         local = flat_np[self.mesh.dp_rank * n:(self.mesh.dp_rank + 1) * n]
@@ -377,31 +461,121 @@ class LlamaModel:
         live_rows = int(live[-1]) + 1 if live.size else 0
         flat = torch.from_numpy(np.ascontiguousarray(local))
         if self.device.type == "cuda":
-            flat = flat.pin_memory().to(self.device, non_blocking=True)
-        cfg = self.engine_config
-        batch = unpack_step_batch(flat, key.tokens, key.rows, key.pages,
-                                  page_size=cfg.block_size,
-                                  garbage_slot=self.kv_cache.shape[1] - cfg.block_size)
-        kw = dict(cfg=self.model_config, page_size=cfg.block_size,
-                  q_bucket=key.q_len, use_kernels=cfg.use_pallas,
-                  use_sampler=bool(key.sampling),
-                  return_logprobs=cfg.enable_logprobs, live_rows=live_rows,
-                  mesh=self.mesh)
-        logits = lp = None
-        if key.steps > 1:
-            assert not return_logits, "logits come from single steps only"
-            tokens, *rest = decode_multi_step(
-                self.params, self.kv_cache, self.token_feedback, batch,
-                multi_step=key.steps, **kw)
+            flat = flat.pin_memory()
+        switches = step_switches()
+        if self.graphs is None:
+            tokens, logits, lp = self._step_fn(key, return_logits, live_rows,
+                                               switches)(
+                self.params, self.kv_cache, self.token_feedback,
+                flat.to(self.device, non_blocking=True))
         else:
-            tokens, logits, *rest = forward_shard(
-                self.params, self.kv_cache, self.token_feedback, batch,
-                return_logits=return_logits, sample_span=key.spec, **kw)
-        if cfg.enable_logprobs:
-            lp = PendingTokens(rest[0])
-        self.last_logprobs = lp
+            tokens, logits, lp = self._graph_step(flat, key, return_logits,
+                                                  live_rows, switches)
+        self.last_logprobs = PendingTokens(lp) if lp is not None else None
         pending = PendingTokens(tokens)
         return (pending, logits) if return_logits else pending
+
+    def _step_fn(self, key, return_logits: bool, live_rows: int, switches):
+        """``models/llama.py:make_step_fn`` for bucket ``key``."""
+        cfg = self.engine_config
+        return make_step_fn(
+            self.model_config, page_size=cfg.block_size, q_bucket=key.q_len,
+            use_kernels=cfg.use_pallas, T=key.tokens, B=key.rows, Pg=key.pages,
+            return_logits=return_logits, use_sampler=bool(key.sampling),
+            return_logprobs=cfg.enable_logprobs, sample_span=key.spec,
+            multi_step=key.steps, live_rows=live_rows, mesh=self.mesh,
+            switches=switches)
+
+    def _graph_key_args(self) -> dict:
+        """``graph_key``'s keyword arguments: the engine settings the step
+        reads, and ``step_plans``' for this rank's shard. The CPU has no
+        SMs: its plain versions never split, and neither do its plans."""
+        mc, cfg = self.model_config, self.engine_config
+        return dict(use_kernels=cfg.use_pallas, logprobs=cfg.enable_logprobs,
+                    n_q=mc.num_q_heads // self.tp,
+                    n_kv=self.num_kv_eff // self.tp, hd=mc.head_dim,
+                    page_size=cfg.block_size,
+                    window=mc.sliding_window or 0,
+                    n_sms=(build.sm_count(self.kv_cache.device)
+                           if self.device.type == "cuda" else 0))
+
+    def _graph_step(self, flat: torch.Tensor, key, return_logits: bool,
+                    live_rows: int, switches):
+        """One step from its graph: the batch copied into the graph's static
+        input and the graph replayed. A key's first use runs the step
+        eagerly on its batch, then captures it. Returns (tokens, logits or
+        None, logprobs or None); logits are copied out of the graph."""
+        gkey, rows = graph_key(key, return_logits, live_rows, switches,
+                               **self._graph_key_args())
+        entry = self.graphs.table.get(gkey)
+        if entry is None:
+            out = self._step_fn(key, return_logits, live_rows, switches)(
+                self.params, self.kv_cache, self.token_feedback,
+                flat.to(self.device, non_blocking=True))
+            self._capture(gkey, rows)
+            return out
+        entry.load(flat)
+        tokens, logits, lp = entry.replay()
+        return tokens, None if logits is None else logits.clone(), lp
+
+    def _capture(self, gkey, rows: int):
+        """Capture the step of graph key ``gkey`` over ``rows`` rows, on a
+        static input of its bucket's shape (the capture reads nothing)."""
+        key = gkey.bucket
+        if not self.graphs.table:
+            self._size_counters()
+        flat = torch.zeros(packed_len(key), dtype=torch.int32,
+                           device=self.device)
+        step = self._step_fn(key, gkey.return_logits, rows, gkey.switches)
+        return self.graphs.capture(
+            gkey, lambda f: step(self.params, self.kv_cache,
+                                 self.token_feedback, f),
+            flat, (self.kv_cache, self.token_feedback))
+
+    def _size_counters(self):
+        """Size the kernels' split counters for the largest bucket, once,
+        and pin them while the graph table lives: ``units + 2`` of the
+        widest decode or prefill plan, and one a tile and token tile of the
+        widest INT4 projection."""
+        if self.device.type != "cuda":
+            return
+        cfg, mc = self.engine_config, self.model_config
+        dev = self.kv_cache.device
+        rows = next_power_of_2(cfg.max_batch_size)
+        max_q = next_power_of_2(max(cfg.token_buckets))
+        w = self._graph_key_args()
+        build.device_counters("paged_attention", dev, 2 + pa.max_split_units(
+            rows, max_q, n_q=w["n_q"], n_kv=w["n_kv"], hd=w["hd"]))
+        n_int4 = [v["q4"].shape[1] for v in self.params["layers"].values()
+                  if isinstance(v, dict) and "q4" in v]
+        if n_int4 and cfg.use_pallas:
+            build.device_counters(
+                "int4_matmul", dev, cdiv(max(n_int4), int4_matmul.BM)
+                * cdiv(int4_matmul.MAX_T, int4_matmul.TOKEN_WIDTHS[0]))
+        build.hold_counters(dev, self.graphs)
+
+    def capture(self, key, live_rows: int | None = None) -> int:
+        """Capture bucket ``key``'s step without serving, the counterpart of
+        the JAX package's ``_lower``: for ``live_rows``, or by default for
+        every plan a step of the key can meet (``live_rows`` 1 to
+        ``key.rows``), under the environment's switches now, returning no
+        logits (as serving asks for none). Returns how many graphs it
+        captured (a plan already captured is skipped). Raises where graphs
+        do not run."""
+        if self.graphs is None:
+            raise RuntimeError("this model runs its steps eagerly (CPU, "
+                               "world size > 1 or cuda_graphs=False): "
+                               "nothing to capture")
+        switches = step_switches()
+        n = 0
+        for live in ([live_rows] if live_rows is not None
+                     else range(1, key.rows + 1)):
+            gkey, rows = graph_key(key, False, live, switches,
+                                   **self._graph_key_args())
+            if gkey not in self.graphs.table:
+                self._capture(gkey, rows)
+                n += 1
+        return n
 
     def forward(self, scheduled: list[ScheduledSeq],
                 groups: list[list[ScheduledSeq]] | None = None,

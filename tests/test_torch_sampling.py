@@ -92,10 +92,14 @@ def test_sample_tokens_match_jax_with_injected_noise(exact_topk, kind):
     np.testing.assert_array_equal(want[t <= 0], logits.argmax(-1)[t <= 0])
 
 
-@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "ties"])
-def test_top_candidates_order_is_lax_top_k(ties):
+@pytest.mark.parametrize("ties,rows", [(False, 8), (True, 8),
+                                       (True, 2 * sampling.TOPK_ROWS + 3)],
+                         ids=["distinct", "ties", "row_blocks"])
+def test_top_candidates_order_is_lax_top_k(ties, rows):
+    """lax.top_k's order, ties included; with more rows than TOPK_ROWS (a
+    verify step's head) the keys are built a block of rows at a time."""
     rng = np.random.default_rng(11)
-    logits = (rng.normal(size=(8, 5000)) * 2).astype(np.float32)
+    logits = (rng.normal(size=(rows, 5000)) * 2).astype(np.float32)
     if ties:
         logits = np.round(logits * 4) / 4        # many equal values, and -0.0
         logits[0, :7] = -0.0
