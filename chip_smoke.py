@@ -74,13 +74,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      every profile's launch counts held against the kernels the profiler
      saw on the device, device_launches): first [graphs], the default
      EngineConfig at 8B width, 32 layers, bf16 (phase_graphs): the default
-     warm-up's graphs and wall time, a decode and a mixed step's replay
+     warm-up (every step shape greedy and sampled, every plan of each
+     bucket captured): its graphs, wall time, pool and the device memory
+     its graphs' executables took, each against the profile's budget, a
+     decode and a mixed step's replay
      against the eager step (logits; the capture's launches against the
      eager step's, and the kernels the replay ran on the device against
      the capture's), 8 requests served eagerly
-     and from graphs with equal tokens, warmup(bucket_keys) capturing
-     exactly those buckets, and a planted fault (replays without their
-     batch copied in) that must fail the token check; then the port's
+     and from graphs with equal tokens, greedy and with three sampled, with
+     no graph captured while serving, warmup(bucket_keys) capturing
+     exactly those buckets, and two planted faults (a warm-up without its
+     sampled pass must fail the zero-capture check; replays without their
+     batch copied in must fail the token check); then the port's
      Engine at full width (32 layers, dummy weights), 8 concurrent
      requests, launch counts of every kernel: 8B in
      bf16, with INT4 and with INT8 weights, 8B with an fp8 KV cache (which
@@ -92,7 +97,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      must be equal; each engine released before the next one sizes its
      cache; last, an 8B engine with spec decode (spec_k 4) and prefix
      caching on weights whose greedy continuation is known
-     (`seeded_weights(successor=True)`): a 1,024-token shared prefix (shared pages
+     (`seeded_weights(successor=True)`), warmed up (verify steps too), then
+     serving with no graph captured but for the bf16-score switch's new
+     keys: a 1,024-token shared prefix (shared pages
      byte-unchanged), then, with prefix matching off, the 8 prompts plain,
      with n-gram drafts and with oracle drafts under
      SWIFTLLM_TILE_BF16_SCORES=1 (every draft accepted, fewer steps); on
@@ -2645,15 +2652,25 @@ async def serve_spec(smi: str) -> dict:
         keys.append(key)
         return execute(flat, key, *a)
     model.execute_packed = spy
+    mem0 = memory_mark()
+    t_warm = time.perf_counter()
     await engine.warmup()
+    t_warm = time.perf_counter() - t_warm
+    memory = check_warmup_memory(engine, mem0, "spec warm-up")
     since = graph_state(engine)
     warm = [k for k in keys if k.spec]
     assert warm and {k.q_len for k in warm} == {SPEC_Q}, keys
+    assert not any(k.sampling for k in warm), warm
+    assert since[0] == model.profiled["graphs"] and since[3] == 0, (
+        since, model.profiled["graphs"])
     mgr = model.hbm_block_mgrs[0]
     free0 = mgr.num_free_blocks
     log(f"[serve spec] engine up and warmed in {time.perf_counter() - t0:.1f} s "
-        f"({len(keys)} warm-up steps, {len(warm)} of them verify steps); "
-        f"{model.num_hbm_blocks} pages of {ec.block_size}")
+        f"({len(keys)} warm-up steps, {len(warm)} of them verify steps; the "
+        f"warm-up {t_warm:.2f} s, {since[0]} graphs, "
+        f"{model.graphs.capture_s:.2f} s capturing; pool "
+        f"{model.graphs.pool_bytes / 1e6:.1f} MB{check_pool(engine, 'spec')}; "
+        f"{memory}); {model.num_hbm_blocks} pages of {ec.block_size} ({smi})")
     matched = []
     real_match = model.match_prefix
 
@@ -2668,6 +2685,8 @@ async def serve_spec(smi: str) -> dict:
 
     async def wave(name, prompts, bf16s=False):
         keys.clear()
+        held = set(model.graphs.table)
+        before = graph_state(engine)
         build.reset_launch_counts()
         st0 = engine.stats.snapshot()
         os.environ["SWIFTLLM_TILE_BF16_SCORES"] = "1" if bf16s else "0"
@@ -2711,6 +2730,14 @@ async def serve_spec(smi: str) -> dict:
                 pre: 32 * big}
         want["paged_prefill_attention" if bf16s else "paged_prefill_attention_bf16s"] = 0
         assert {k: launches[k] for k in want} == want, (name, launches, want)
+        # Within the warm-up's switches serving captures nothing; the bf16
+        # scores switch (SWIFTLLM_TILE_BF16_SCORES) is part of a graph's key
+        # and the warm-up ran without it, so that wave's keys are new.
+        new = set(model.graphs.table) - held
+        if bf16s:
+            assert new and all(k.switches.bf16_scores for k in new), new
+        else:
+            assert_no_captures(engine, before, f"spec, {name}")
         for k in totals:
             totals[k] += launches[k]
         outs = [toks for _, _, toks in res]
@@ -2729,7 +2756,8 @@ async def serve_spec(smi: str) -> dict:
             f"{st['num_spec_accepted']}; TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} "
             f"ms, max {1e3 * ttft[-1]:.1f} ms; decode "
             f"{n_after / max(last - first, 1e-9):.1f} tok/s ({n_after} tokens after "
-            f"the last first token); launches {launches} ({smi})")
+            f"the last first token); {len(new)} graphs captured while serving; "
+            f"launches {launches} ({smi})")
         return outs, steps, st, ttft
 
     try:
@@ -3320,12 +3348,25 @@ async def _pages_back(mgr, free0, timeout=10.0):
 
 
 def graph_state(engine) -> tuple:
-    """(graphs captured, replays so far, engine steps so far) of an engine
-    whose model serves from CUDA graphs, as every engine at tp = 1 on the
-    card does."""
+    """(graphs captured, replays so far, engine steps so far, keys first
+    used outside a warm-up so far) of an engine whose model serves from
+    CUDA graphs, as every engine at tp = 1 on the card does."""
     g = engine.model.graphs
     assert g is not None, "the model runs eagerly: at tp = 1 on the card it must not"
-    return len(g.table), sum(e.replays for e in g.table.values()), engine.stats.num_steps
+    return (len(g.table), sum(e.replays for e in g.table.values()),
+            engine.stats.num_steps, g.first_use)
+
+
+def assert_no_captures(engine, since: tuple, label: str) -> None:
+    """Since `since` (graph_state), the engine served every step as a
+    replay: no graph captured, no key first used. What a warm-up owes
+    serving within its buckets."""
+    n0, r0, s0, f0 = since
+    n, r, s, f = graph_state(engine)
+    assert n == n0 and f == f0, (
+        f"{label}: serving captured {n - n0} graphs ({f - f0} keys first used) "
+        f"after the warm-up")
+    assert r - r0 == s - s0 > 0, (label, r - r0, s - s0)
 
 
 # What a graph pool may hold past the profile's budget: the caching
@@ -3348,13 +3389,52 @@ def check_pool(engine, label: str, pinned: int = 0) -> str:
         f"profile budgeted {prof['graph_pool'] / 1e6:.1f} MB (allowed "
         f"{allowed / 1e6:.1f} MB with {len(g.table)} graphs and "
         f"{pinned / 1e6:.1f} MB pinned)")
-    lost = prof["graph_pool"] / prof["block_bytes"]
+    lost = (prof["graph_pool"] + prof["graph_execs"]) / prof["block_bytes"]
     pages = engine.model.num_hbm_blocks
     return (f" (within the {allowed / 1e6:.1f} MB allowed); the profile's "
             f"captures reserved {prof['graph_pool'] / 1e6:.1f} MB of it, "
-            f"beside {prof['scratch'] / 1e6:.1f} MB of eager scratch: "
+            f"beside {prof['scratch'] / 1e6:.1f} MB of eager scratch, and "
+            f"kept {prof['graph_execs'] / 1e6:.1f} MB for the executables of "
+            f"{prof['graphs']} warm-up graphs: pool and executables "
             f"{lost:.1f} KV pages, {100 * lost / (pages + lost):.2f}% of the "
             f"{pages + lost:.0f} the cache had without them")
+
+
+# How far the device memory a warm-up takes outside the allocator may pass
+# the profile's reserve for its graphs' executables: the reserve's bytes a
+# step come from fewer graphs, and the warm-up's eager steps load kernels
+# no step ran before (the decode bucket's GEMMs, the sampler's), also
+# outside the allocator.
+GRAPH_EXECS_SLACK = 1.15
+GRAPH_EXECS_LOADS = 64 << 20
+
+
+def memory_mark() -> tuple:
+    """(free device bytes, bytes the allocator reserved), synchronized."""
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+
+
+def check_warmup_memory(engine, before: tuple, label: str) -> str:
+    """Since `before` (memory_mark, taken just before a default warm-up):
+    the device memory taken outside the allocator, most of it the graphs'
+    executables, must lie within GRAPH_EXECS_SLACK of the profile's reserve
+    for them and GRAPH_EXECS_LOADS. Returns the words for the log."""
+    prof = engine.model.profiled
+    free, held = memory_mark()
+    outside = (before[0] - free) - (held - before[1])
+    allowed = GRAPH_EXECS_SLACK * prof["graph_execs"] + GRAPH_EXECS_LOADS
+    assert outside <= allowed, (
+        f"{label}: the warm-up took {outside / 1e6:.1f} MB outside the "
+        f"allocator, the profile kept {prof['graph_execs'] / 1e6:.1f} MB for "
+        f"{prof['graphs']} graphs")
+    return (f"device memory free {before[0] / 1e9:.3f} GB before, "
+            f"{free / 1e9:.3f} GB after: {outside / 1e6:.1f} MB outside the "
+            f"allocator (the graphs' executables; the profile kept "
+            f"{prof['graph_execs'] / 1e6:.1f} MB for {prof['graphs']} graphs, "
+            f"{allowed / 1e6:.1f} MB allowed), "
+            f"{(before[0] - free) / prof['block_bytes']:.1f} KV pages' worth "
+            f"in all")
 
 
 def graph_report(engine, label: str, since: tuple, smi: str,
@@ -3363,13 +3443,15 @@ def graph_report(engine, label: str, since: tuple, smi: str,
     graph, or a key's first use (run eagerly, then captured); logs the
     table, its capture seconds and pool, and holds the pool to the
     profile's budget (check_pool)."""
-    n0, r0, s0 = since
-    n, r, s = graph_state(engine)
+    n0, r0, s0, f0 = since
+    n, r, s, f = graph_state(engine)
     assert (n - n0) + (r - r0) == s - s0, (label, n - n0, r - r0, s - s0)
+    assert f - f0 == n - n0, (label, f - f0, n - n0)
     assert r > r0, f"{label}: no step was a replay"
     g = engine.model.graphs
-    log(f"[graphs {label}] {s - s0} steps: {n - n0} keys captured at first use, "
-        f"{r - r0} replays; {n} graphs held, {g.capture_s:.2f} s capturing, "
+    log(f"[graphs {label}] {s - s0} steps: {n - n0} keys captured at first use "
+        f"(first_use {f0} -> {f}), {r - r0} replays; {n} graphs held, "
+        f"{g.capture_s:.2f} s capturing, "
         f"pool {g.pool_bytes / 1e6:.1f} MB reserved"
         f"{check_pool(engine, label, pinned)} ({smi})")
 
@@ -3445,16 +3527,24 @@ def _graph_step_check(model, twin, label, specs, smi) -> dict:
 async def phase_graphs(smi: str) -> None:
     """[graphs], phase 4: the default EngineConfig (swap preemption, 2,048
     host pages) at 8B width, 32 layers, bf16, seeded weights (std 0.02):
-    the default warm-up's graphs and wall time; a decode step of 8 rows and
-    a mixed step (8 decode rows and a 512-token chunk), each eagerly, at its
-    key's first use and as a replay (_graph_step_check); the 8 requests of
-    the bf16 run (GRAPH_OUT tokens each) served eagerly (the eager twin on
-    the same engine) and from graphs, tokens equal; the table cleared and
-    `warmup(bucket_keys)` with the served buckets: exactly those buckets
-    captured, no step run, and the same requests again capture nothing new
-    and give the same tokens; last, a planted fault: replays whose batch is
-    not copied into the static input (CapturedStep.load made a no-op) must
-    fail the token check."""
+    the default warm-up (both temperatures, every plan of each bucket): its
+    graphs, wall time, capture seconds, pool against the profile's budget,
+    the device memory it took beside the pool against the profile's
+    reserve for the graphs' executables, and the KV pages both cost; a
+    decode step of 8 rows and a mixed step (8 decode rows and a 512-token
+    chunk), each eagerly, at its key's first use and as a replay
+    (_graph_step_check); the 8 requests of the bf16 run (GRAPH_OUT tokens
+    each) served eagerly (the eager twin on the same engine) and from
+    graphs, greedy and then with three of them sampled (temperature 0.8,
+    top-k 20, seeded, as the logprob engines' are): tokens equal, and no
+    graph captured while serving (assert_no_captures); the table cleared and
+    `warmup(bucket_keys)` with the greedy buckets served: exactly those
+    buckets captured, no step run, and the same requests again capture
+    nothing new and give the same tokens; two planted faults: a warm-up with
+    its sampled pass patched out must fail the zero-capture check on the
+    sampled requests, and replays whose batch is not copied into the static
+    input (CapturedStep.load made a no-op) must fail the token check."""
+    from swiftllm_tpu_torch.server import engine as engine_mod
     from swiftllm_tpu_torch.worker import graphs as graphs_mod
     mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
     ec = EngineConfig(model_path="", use_dummy=True)
@@ -3469,7 +3559,10 @@ async def phase_graphs(smi: str) -> None:
         f"{time.perf_counter() - t0:.1f} s: {model.num_hbm_blocks} pages of "
         f"{ec.block_size}; profile: eager scratch {prof['scratch'] / 1e6:.1f} "
         f"MB, graph pool {prof['graph_pool'] / 1e6:.1f} MB "
-        f"({prof['graph_pool'] / prof['block_bytes']:.1f} pages) ({smi})")
+        f"({prof['graph_pool'] / prof['block_bytes']:.1f} pages), the "
+        f"executables of {prof['graphs']} warm-up graphs "
+        f"{prof['graph_execs'] / 1e6:.1f} MB "
+        f"({prof['graph_execs'] / prof['block_bytes']:.1f} pages) ({smi})")
     twin = loops = None
     top = min(128000, mc.vocab_size - 1)
     prompts = [[(13 * i + 5 * j) % top + 1 for j in range(n)]
@@ -3477,13 +3570,22 @@ async def phase_graphs(smi: str) -> None:
     mgr = model.hbm_block_mgrs[0]
     free0 = mgr.num_free_blocks
 
-    async def serve(m, label):
+    async def serve(m, label, sampled=False):
         engine.model = m
         build.reset_launch_counts()
         torch.cuda.synchronize()
         t_run = time.perf_counter()
         try:
-            toks = await _serve_greedy(engine, prompts, GRAPH_OUT)
+            if sampled:
+                res = await asyncio.gather(*[engine.add_request_and_wait(
+                    RawRequest("", GRAPH_OUT, prompt_token_ids=p,
+                               **(dict(temperature=0.8, top_k=20,
+                                       seed=MS_SAMPLED[i])
+                                  if i in MS_SAMPLED else {})))
+                    for i, p in enumerate(prompts)])
+                toks = [list(t) for _, t in res]
+            else:
+                toks = await _serve_greedy(engine, prompts, GRAPH_OUT)
             torch.cuda.synchronize()
         finally:
             engine.model = model
@@ -3493,15 +3595,56 @@ async def phase_graphs(smi: str) -> None:
             assert build.launch_counts[k] > 0, f"{k} never launched ({label})"
         return toks, wall
     try:
+        mem_w0 = memory_mark()
+        pool_w0 = model.graphs.pool_bytes
+        # Where the device memory outside the allocator goes: the warm-up's
+        # steps (eager first uses and their captures) against its other
+        # captures, each call between two synchronizations.
+        spent = {"forward": [0, 0, 0], "capture": [0, 0, 0]}
+
+        def measured(name):
+            fn = getattr(model, name)
+
+            def call(*a, **kw):
+                f0, h0 = memory_mark()
+                out = fn(*a, **kw)
+                f1, h1 = memory_mark()
+                acc = spent[name]
+                acc[0] += (f0 - f1) - (h1 - h0)
+                acc[1] += h1 - h0
+                acc[2] += out if name == "capture" else 1
+                return out
+            setattr(model, name, call)
+        for name in spent:
+            measured(name)
         t0 = time.perf_counter()
-        await engine.warmup()
-        torch.cuda.synchronize()
+        try:
+            await engine.warmup()
+        finally:
+            for name in spent:
+                delattr(model, name)
         warm = time.perf_counter() - t0
+        log(f"[graphs] the warm-up's device memory outside the allocator: "
+            f"{spent['forward'][0] / 1e6:.1f} MB in its {spent['forward'][2]} "
+            f"steps (eager, each followed by its own capture; the allocator "
+            f"reserved {spent['forward'][1] / 1e6:.1f} MB more), "
+            f"{spent['capture'][0] / 1e6:.1f} MB in its "
+            f"{spent['capture'][2]} other captures (allocator "
+            f"{spent['capture'][1] / 1e6:.1f} MB) ({smi})")
+        buckets = sorted({k.bucket for k in table},
+                         key=lambda k: (k.sampling, k.q_len, k.tokens))
         log(f"[graphs] the default warm-up: {len(table)} graphs in {warm:.2f} s "
-            f"of wall, {model.graphs.capture_s:.2f} s of it capturing; buckets "
-            f"{sorted({(k.bucket.tokens, k.bucket.q_len) for k in table})} "
-            f"(tokens, q bucket); pool {model.graphs.pool_bytes / 1e6:.1f} MB "
-            f"reserved ({smi})")
+            f"of wall, {model.graphs.capture_s:.2f} s of it capturing; "
+            f"{len(buckets)} buckets (tokens, q bucket, sampling) "
+            f"{[(k.tokens, k.q_len, k.sampling) for k in buckets]}; graphs "
+            f"a bucket {[sum(g.bucket == k for g in table) for k in buckets]}; "
+            f"pool {model.graphs.pool_bytes / 1e6:.1f} MB reserved "
+            f"({(model.graphs.pool_bytes - pool_w0) / 1e6:.1f} MB by the "
+            f"warm-up; the profile budgeted {prof['graph_pool'] / 1e6:.1f} "
+            f"MB){check_pool(engine, 'warm-up')}; "
+            f"{check_warmup_memory(engine, mem_w0, 'warm-up')} ({smi})")
+        assert model.graphs.first_use == 0, model.graphs.first_use
+        assert len(table) == prof["graphs"], (len(table), prof["graphs"])
         twin = eager_twin(model)
         dec = [(64 + 37 * i, 64 + 37 * i, 1) for i in range(8)]
         pinned = sum(_graph_step_check(model, twin, label, specs, smi)
@@ -3509,22 +3652,50 @@ async def phase_graphs(smi: str) -> None:
                          ("decode", dec), ("mixed", dec + [(512, 0, 512)])))
         loops = asyncio.create_task(engine.start_all_event_loops())
         want, wall_e = await serve(twin, "eager")
+        want_s, wall_es = await serve(twin, "eager, sampled", sampled=True)
         since = graph_state(engine)
+        replays0 = {k: e.replays for k, e in table.items()}
         got, wall_g = await serve(model, "graphs")
+        served = {k.bucket for k, e in table.items()
+                  if e.replays > replays0.get(k, 0)}
+        assert_no_captures(engine, since, "greedy")
+        since_s = graph_state(engine)
+        got_s, wall_gs = await serve(model, "graphs, sampled", sampled=True)
+        assert_no_captures(engine, since_s, "sampled")
         graph_report(engine, "graphs", since, smi, pinned)
         assert got == want, "the graph engine's tokens differ from the eager engine's"
-        log(f"[graphs] 8 requests, {GRAPH_OUT} tokens each: the graph engine's "
-            f"tokens equal the eager engine's (request 0 {got[0][:6]}); wall "
-            f"{wall_e:.3f} s eager, {wall_g:.3f} s from graphs, its first uses "
-            f"included ({smi})")
-        keys = sorted({k.bucket for k in table if not k.return_logits},
-                      key=lambda k: (k.tokens, k.q_len, k.sampling))
+        assert got_s == want_s, "sampled tokens from graphs differ from eager ones"
+        assert got_s != want, "the sampled requests gave the greedy tokens"
+        log(f"[graphs] 8 requests, {GRAPH_OUT} tokens each, greedy and then "
+            f"{len(MS_SAMPLED)} of them sampled: the graph engine's tokens "
+            f"equal the eager engine's (request 0 {got[0][:6]}, sampled "
+            f"request 1 {got_s[1][:6]}), no graph captured while serving "
+            f"after the warm-up; wall {wall_e:.3f} / {wall_es:.3f} s eager, "
+            f"{wall_g:.3f} / {wall_gs:.3f} s from graphs ({smi})")
+        keys = sorted(served, key=lambda k: (k.tokens, k.q_len, k.sampling))
+        assert not any(k.sampling for k in keys), keys
+        # The graphs' executables apart from eager steps: the device memory
+        # freed outside the allocator when the table is dropped, and taken
+        # there by captures that run no step (warmup(bucket_keys)).
+        dropped = len(table)
+        mem0 = memory_mark()
         model.graphs.clear()
+        gc.collect()
+        mem1 = memory_mark()
         steps0 = engine.stats.num_steps
         t0 = time.perf_counter()
         await engine.warmup(keys)
-        torch.cuda.synchronize()
         warm_keys = time.perf_counter() - t0
+        mem2 = memory_mark()
+        freed = (mem1[0] - mem0[0]) + (mem1[1] - mem0[1])
+        taken = (mem1[0] - mem2[0]) - (mem2[1] - mem1[1])
+        log(f"[graphs] dropping the {dropped} graphs freed {freed / 1e6:.1f} "
+            f"MB outside the allocator, and warmup(bucket_keys)' {len(table)} "
+            f"captures then took {taken / 1e6:.1f} MB there (CUDA keeps "
+            f"the executables' memory: graphs.ExecMemory, "
+            f"{mc.num_layers * graphs_mod.exec_memory(model.device).per_unit / 1e6:.2f} "
+            f"MB a step graph of {mc.num_layers} layers as the profiles "
+            f"measured it) ({smi})")
         warmed = dict(table)
         assert {k.bucket for k in warmed} == set(keys), (keys, list(warmed))
         assert engine.stats.num_steps == steps0
@@ -3533,10 +3704,29 @@ async def phase_graphs(smi: str) -> None:
         graph_report(engine, "warmed", since, smi, pinned)
         assert table == warmed, "serving the warmed buckets captured more graphs"
         assert again == want, "tokens after warmup(bucket_keys) differ"
-        log(f"[graphs] warmup(bucket_keys) of the {len(keys)} buckets served "
-            f"({[(k.tokens, k.q_len) for k in keys]}): {len(warmed)} graphs, "
-            f"every plan of each, in {warm_keys:.2f} s, no step run; the same "
-            f"requests again captured nothing new, tokens equal ({smi})")
+        log(f"[graphs] warmup(bucket_keys) of the {len(keys)} greedy buckets "
+            f"served ({[(k.tokens, k.q_len) for k in keys]}): {len(warmed)} "
+            f"graphs, every plan of each, in {warm_keys:.2f} s, no step run; "
+            f"the same requests again captured nothing new, tokens equal ({smi})")
+        temperatures, engine_mod.WARMUP_TEMPERATURES = (
+            engine_mod.WARMUP_TEMPERATURES, (0.0,))
+        try:
+            await engine.warmup()
+        finally:
+            engine_mod.WARMUP_TEMPERATURES = temperatures
+        since = graph_state(engine)
+        faulty, _ = await serve(model, "greedy-only warm-up", sampled=True)
+        try:
+            assert_no_captures(engine, since, "greedy-only warm-up")
+        except AssertionError as e:
+            caught = str(e)
+        else:
+            raise AssertionError("the planted fault (a warm-up without its "
+                                 "sampled pass) passed the zero-capture check")
+        assert faulty == want_s
+        log(f"[graphs] planted fault, a warm-up with its sampled pass patched "
+            f"out: the sampled requests fail the zero-capture check "
+            f"({caught}), rejected")
         real_load = graphs_mod.CapturedStep.load
         graphs_mod.CapturedStep.load = lambda self, flat: None
         try:

@@ -43,6 +43,103 @@ from swiftllm_tpu_torch.server.structs import RawRequest, Request, StepOutput
 from swiftllm_tpu_torch.server.tokenization import TokenizationEngine
 
 
+# The default warm-up runs every step shape at each of these temperatures,
+# as the JAX engine's warm-up does: a bucket's ``sampling`` bit picks the
+# greedy head or the sampler, so each is a step (a graph) of its own.
+WARMUP_TEMPERATURES = (0.0, 1.0)
+
+
+def warmup_steps(cfg: EngineConfig, temperature: float, new_id, made: list):
+    """The default warm-up's steps at ``temperature``, in order, as (rows,
+    multi_step, requests whose pages go after the step): prefill-only steps
+    of 1, 2, 4, ... chunk rows, a decode-only step, the multi-step window
+    (``multi_step_decode`` > 1), every pow2 chunk size below the full chunk,
+    SARATHI mixed steps, and greedy with ``enable_spec_decode`` verify steps
+    of 1, 2, 4, ... spec rows up to ``spec_max_rows``. Each request made
+    takes its seq id from ``new_id()`` and goes into ``made``, whose pages
+    and ids the caller releases at the end. Nothing runs here: the engine
+    runs each step (``Engine.warmup``), ``warmup_buckets`` only buckets it."""
+    from swiftllm_tpu_torch.utils import next_power_of_2, tile_q_for
+    chunk = min(cfg.prefill_chunk_size, cfg.max_tokens_in_batch,
+                cfg.max_seq_len - 8)
+    max_chunk_rows = max(1, min(cfg.max_tokens_in_batch // max(chunk, 1),
+                                cfg.max_batch_size - 1))
+    chunk_rows = []
+    n = 1
+    while n <= max_chunk_rows:
+        chunk_rows.append(n)
+        n *= 2
+
+    def request(n_prompt):
+        r = Request(RawRequest("", 4, temperature=temperature))
+        r.set_prompt_token_ids([1] * n_prompt)
+        r.seq_id = new_id()
+        made.append(r)
+        return r
+
+    reqs = [request(chunk) for _ in range(chunk_rows[-1] + 1)]
+    ra, rest = reqs[0], reqs[1:]
+    for n_rows in chunk_rows:                              # prefill-only
+        yield [ScheduledSeq(r, chunk) for r in reqs[:n_rows]], 1, reqs[1:n_rows]
+    ra.num_cached_tokens = chunk                           # ra keeps its pages
+    ra.output_token_ids.append(0)
+    yield [ScheduledSeq(ra, 1)], 1, []                     # decode-only
+    ra.num_cached_tokens += 1
+    ra.output_token_ids.append(0)
+    if cfg.multi_step_decode > 1:
+        # The S-step window (and, in deferred-commit mode, the decode
+        # kernel's variant for it).
+        S = cfg.multi_step_decode
+        yield [ScheduledSeq(ra, 1)], S, []
+        ra.num_cached_tokens += S
+        ra.output_token_ids.extend([0] * S)
+    align = tile_q_for(next_power_of_2(chunk))
+    size = align
+    while size < chunk:
+        yield [ScheduledSeq(rest[0], size)], 1, [rest[0]]
+        size *= 2
+    # Mixed steps carry a tile-padded decode block on top of the chunks;
+    # mirror the scheduler's budget.
+    mixed_max = max(1, (cfg.max_tokens_in_batch - align) // max(chunk, 1))
+    for n_rows in [n for n in chunk_rows if n <= mixed_max]:
+        yield ([ScheduledSeq(ra, 1)]                       # SARATHI mixed
+               + [ScheduledSeq(r, chunk) for r in rest[:n_rows]]), 1, rest[:n_rows]
+        ra.num_cached_tokens += 1
+        ra.output_token_ids.append(0)
+    if cfg.enable_spec_decode and temperature == 0.0:
+        # Verify steps: q bucket spec_k + 1 (pinned), the span head; the
+        # token bucket floats with the spec row count, so every pow2 row
+        # count up to spec_max_rows runs.
+        spec_reqs = []
+        n_rows = 1
+        while n_rows <= min(cfg.spec_max_rows, cfg.max_batch_size):
+            while len(spec_reqs) < n_rows:
+                rs = request(4)
+                rs.num_cached_tokens = 4
+                rs.output_token_ids.append(0)
+                spec_reqs.append(rs)
+            yield [ScheduledSeq(rs, 1 + cfg.spec_k,
+                                drafts=tuple([0] * cfg.spec_k))
+                   for rs in spec_reqs[:n_rows]], 1, []
+            n_rows *= 2
+
+
+def warmup_buckets(cfg: EngineConfig) -> list:
+    """The buckets of the default warm-up's steps at every temperature, in
+    the order they first run, without running a step (``select_buckets``
+    of each; ids from a counter, no pages)."""
+    import itertools
+    from swiftllm_tpu_torch.worker.batch_builder import select_buckets
+    keys = []
+    for temperature in WARMUP_TEMPERATURES:
+        for rows, multi_step, _ in warmup_steps(
+                cfg, temperature, itertools.count().__next__, []):
+            key = select_buckets([rows], cfg, multi_step=multi_step)
+            if key not in keys:
+                keys.append(key)
+    return keys
+
+
 class EngineStats:
     """Step-level serving metrics (the reference has only prints, SURVEY.md §5.5)."""
 
@@ -111,7 +208,7 @@ class Engine:
 
         self.model = LlamaModel(cfg, self.model_config, device=self.device)
         self.model.load_weights()
-        self.model.init_kvcache_and_swap()
+        self.model.init_kvcache_and_swap(graph_buckets=warmup_buckets(cfg))
         self.scheduler = Scheduler(self.model_config, cfg,
                                    self.model.num_hbm_blocks,
                                    dp_size=self.model.dp)
@@ -125,15 +222,26 @@ class Engine:
             await self.warmup()
 
     async def warmup(self, bucket_keys=None):
-        """Run the serving working set of step shapes once before traffic:
-        prefill-only steps of 1, 2, 4, ... chunk rows, a decode-only step,
-        a multi-step window when ``multi_step_decode`` > 1, every pow2 chunk
-        size below the full chunk, SARATHI mixed steps, and with
-        ``enable_spec_decode`` a verify step of 1, 2, 4, ... spec rows up to
-        ``spec_max_rows``. Each is one real step through the normal dispatch
-        path, so the kernels are built, every step shape has run, and with
-        CUDA graphs each step's graph is captured, before the first request.
-        (The sampler needs no warm-up of its own here: it builds nothing.)
+        """Run the serving working set of step shapes once before traffic
+        (``warmup_steps``): prefill-only steps of 1, 2, 4, ... chunk rows, a
+        decode-only step, a multi-step window when ``multi_step_decode`` >
+        1, every pow2 chunk size below the full chunk, SARATHI mixed steps,
+        and with ``enable_spec_decode`` a verify step of 1, 2, 4, ... spec
+        rows up to ``spec_max_rows``. Each runs at both
+        ``WARMUP_TEMPERATURES``, greedy and sampled, as the JAX engine's
+        warm-up does (a bucket's ``sampling`` bit is a step of its own);
+        verify steps greedy only, as there. Pages and ids are released
+        after each pass. Each is one real step through the normal dispatch
+        path, so the kernels are built and every step shape has run before
+        the first request.
+
+        With CUDA graphs (the card, world size 1) each step is followed by
+        ``model.capture`` of its bucket: every plan a step of it can meet
+        (live rows 1 to ``key.rows``), under the environment's switches
+        now. Serving within the warmed buckets then captures nothing;
+        a key it does first use is counted in ``model.graphs.first_use``.
+        Where steps run eagerly (the CPU, world size > 1,
+        ``cuda_graphs=False``) the steps run and nothing is captured.
 
         With ``bucket_keys`` it only captures, as the JAX engine's explicit
         keys only compile: ``model.capture`` of each key, every plan a step
@@ -143,93 +251,34 @@ class Engine:
             for key in bucket_keys:
                 await self._run_on_model_async(self.model.capture, key)
             return
-        cfg = self.engine_config
-        chunk = min(cfg.prefill_chunk_size, cfg.max_tokens_in_batch,
-                    cfg.max_seq_len - 8)
-        max_chunk_rows = max(1, min(cfg.max_tokens_in_batch // max(chunk, 1),
-                                    cfg.max_batch_size - 1))
-        chunk_rows = []
-        n = 1
-        while n <= max_chunk_rows:
-            chunk_rows.append(n)
-            n *= 2
+        cfg, model = self.engine_config, self.model
 
-        def fwd(rows, **kw):
-            # Warm-up rows belong to dp group 0; the other groups idle.
-            self.model.forward(rows, groups=[rows] + [[]] * (self.model.dp - 1),
-                               **kw)
+        def run_pass(temperature):
+            mgr_ids = self.scheduler.id_managers[0]
+            made = []
+            try:
+                for rows, multi_step, done in warmup_steps(
+                        cfg, temperature, mgr_ids.get_id, made):
+                    # Warm-up rows belong to dp group 0; the other groups
+                    # idle (graphs run at world size 1 only).
+                    model.forward(rows, groups=[rows] + [[]] * (model.dp - 1),
+                                  multi_step=multi_step)
+                    if model.graphs is not None:
+                        model.capture(model.last_key)
+                    model.free_seqs_resources(done)
+            finally:
+                model.free_seqs_resources(made)
+                mgr_ids.free_ids([r.seq_id for r in made])
 
         def run_steps():
-            mgr_ids = self.scheduler.id_managers[0]
-            ids = [mgr_ids.get_id() for _ in range(chunk_rows[-1] + 1)]
-            reqs = []
-            for i in ids:
-                r = Request(RawRequest("", 4))
-                r.set_prompt_token_ids([1] * chunk)
-                r.seq_id = i
-                reqs.append(r)
-            ra, rest = reqs[0], reqs[1:]
+            if model.graphs is not None:
+                model.graphs.warming = True
             try:
-                for n_rows in chunk_rows:                      # prefill-only
-                    fwd([ScheduledSeq(r, chunk)
-                                        for r in reqs[:n_rows]])
-                    for r in reqs[1:n_rows]:   # keep ra's pages
-                        self.model.free_seqs_resources([r])
-                ra.num_cached_tokens = chunk
-                ra.output_token_ids.append(0)
-                fwd([ScheduledSeq(ra, 1)])      # decode-only
-                ra.num_cached_tokens += 1
-                ra.output_token_ids.append(0)
-                if cfg.multi_step_decode > 1:
-                    # The S-step window (and, in deferred-commit mode, the
-                    # decode kernel's variant for it).
-                    S = cfg.multi_step_decode
-                    fwd([ScheduledSeq(ra, 1)], multi_step=S)
-                    ra.num_cached_tokens += S
-                    ra.output_token_ids.extend([0] * S)
-                from swiftllm_tpu_torch.utils import next_power_of_2, tile_q_for
-                align = tile_q_for(next_power_of_2(chunk))
-                size = align
-                while size < chunk:
-                    fwd([ScheduledSeq(rest[0], size)])
-                    self.model.free_seqs_resources([rest[0]])
-                    size *= 2
-                # Mixed steps carry a tile-padded decode block on top of the
-                # chunks; mirror the scheduler's budget.
-                mixed_max = max(1, (cfg.max_tokens_in_batch - align)
-                                // max(chunk, 1))
-                for n_rows in [n for n in chunk_rows if n <= mixed_max]:
-                    fwd([ScheduledSeq(ra, 1)]   # SARATHI mixed
-                                       + [ScheduledSeq(r, chunk)
-                                          for r in rest[:n_rows]])
-                    ra.num_cached_tokens += 1
-                    ra.output_token_ids.append(0)
-                    for r in rest[:n_rows]:
-                        self.model.free_seqs_resources([r])
-                if cfg.enable_spec_decode:
-                    # Verify steps: q bucket spec_k + 1 (pinned), the span
-                    # head; the token bucket floats with the spec row count,
-                    # so every pow2 row count up to spec_max_rows runs.
-                    n_rows = 1
-                    spec_reqs = []
-                    while n_rows <= min(cfg.spec_max_rows, cfg.max_batch_size):
-                        while len(spec_reqs) < n_rows:
-                            rs = Request(RawRequest("", 4))
-                            rs.set_prompt_token_ids([1] * 4)
-                            rs.seq_id = mgr_ids.get_id()
-                            ids.append(rs.seq_id)
-                            rs.num_cached_tokens = 4
-                            rs.output_token_ids.append(0)
-                            spec_reqs.append(rs)
-                            reqs.append(rs)
-                        fwd([
-                            ScheduledSeq(rs, 1 + cfg.spec_k,
-                                         drafts=tuple([0] * cfg.spec_k))
-                            for rs in spec_reqs[:n_rows]])
-                        n_rows *= 2
+                for temperature in WARMUP_TEMPERATURES:
+                    run_pass(temperature)
             finally:
-                self.model.free_seqs_resources(reqs)
-                mgr_ids.free_ids(ids)
+                if model.graphs is not None:
+                    model.graphs.warming = False
 
         await self._run_on_model_async(run_steps)
 

@@ -31,6 +31,15 @@ way:
   nothing, so the first use of a key runs the step eagerly to serve its
   batch (building the kernels and the INT4 kernel's tensor maps on the
   way), and then captures it.
+- **Warm-up** (``server/engine.py:Engine.warmup``) runs each step shape of
+  serving greedy and sampled and captures every plan of each bucket it
+  runs, so a key's first use while serving is the exception, not the rule:
+  ``first_use`` counts them (a first use inside the warm-up, which sets
+  ``warming``, is not counted).
+- **Executables**: an instantiated graph holds device memory outside the
+  caching allocator, which CUDA keeps for later captures when the
+  graph goes (``ExecMemory``); the KV budget reserves it
+  (``LlamaModel.profile_num_blocks``).
 - **Launch counts**: a capture's launches are taken back out of
   ``build.launch_counts`` and added again at each replay, so the counts
   keep meaning "launches queued".
@@ -49,6 +58,7 @@ replay.
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Callable, NamedTuple
 
 import torch
@@ -168,16 +178,56 @@ def anchor_graph(pool, device: torch.device) -> torch.cuda.CUDAGraph:
     return graph
 
 
+class ExecMemory:
+    """The device memory of one card's graph executables, which lies outside
+    the caching allocator. It grows with a graph's launches, so it is
+    counted in units of one layer of one step (a step of L layers holds L, a
+    window of S such steps S * L). CUDA keeps what it once gave: a
+    graph dropped leaves its bytes to later captures, so what the card holds
+    for them follows the most units ever alive at once in the process
+    (``peak``; ``live`` now), at about ``per_unit`` bytes a unit, which
+    ``LlamaModel.profile_num_blocks`` measures on its captures."""
+
+    def __init__(self):
+        self.per_unit = 0.0
+        self.live = 0
+        self.peak = 0
+
+    def hold(self, units: int) -> None:
+        self.live += units
+        self.peak = max(self.peak, self.live)
+
+    def release(self, units: int) -> None:
+        self.live -= units
+
+    def to_take(self, units: int) -> int:
+        """Bytes the card must still give for ``units`` more alive beside the
+        live ones."""
+        return int(max(0, self.live + units - self.peak) * self.per_unit)
+
+
+_exec_memory: dict[torch.device, ExecMemory] = {}
+
+
+def exec_memory(device) -> ExecMemory:
+    """``device``'s ExecMemory, made once."""
+    return _exec_memory.setdefault(build.card(device), ExecMemory())
+
+
 class StepGraphs:
     """The graph table of one model: ``GraphKey`` -> ``CapturedStep``, their
     shared memory pool, the bytes captures made the pool reserve
-    (``pool_bytes``, since the pool was made) and the seconds spent
-    capturing (``capture_s``). ``capture`` is
-    ``cuda_capture`` on the card; a stand-in takes the same arguments."""
+    (``pool_bytes``, since the pool was made), the seconds spent
+    capturing (``capture_s``) and the keys first used outside a warm-up
+    (``first_use``; ``warming`` is set while one runs). ``capture`` is
+    ``cuda_capture`` on the card; a stand-in takes the same arguments.
+    ``layers``: the model's, what a step's graph holds of ``ExecMemory``."""
 
-    def __init__(self, device: torch.device, capture=cuda_capture):
+    def __init__(self, device: torch.device, capture=cuda_capture,
+                 layers: int = 1):
         self.device = torch.device(device)
         self._capture = capture
+        self.layers = layers
         self.table: dict[GraphKey, CapturedStep] = {}
         self.pool = self._anchor = None
         if capture is cuda_capture:
@@ -185,6 +235,8 @@ class StepGraphs:
             self._anchor = anchor_graph(self.pool, self.device)
         self.pool_bytes = 0
         self.capture_s = 0.0
+        self.first_use = 0
+        self.warming = False
 
     def clear(self) -> None:
         """Drop every graph; the pool and what it reserved stay."""
@@ -211,5 +263,8 @@ class StepGraphs:
             self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         self.capture_s += seconds
         entry = CapturedStep(flat, graph, tuple(outputs), launches, seconds)
+        mem, units = exec_memory(self.device), key.bucket.steps * self.layers
+        mem.hold(units)
+        weakref.finalize(entry, mem.release, units)
         self.table[key] = entry
         return entry

@@ -19,8 +19,9 @@ tokens' logprobs.
   sampled, verify, a window) on empty batches, and takes their scratch from
   ``torch.cuda.max_memory_allocated()`` (the JAX package reads it from the
   compiled program instead); with graphs it captures them too, whose pool
-  stays reserved; then it sizes the cache from ``torch.cuda.mem_get_info()``
-  and ``hbm_mem_utilization``.
+  stays reserved, and keeps room for the executables of every graph the
+  engine's warm-up will take; then it sizes the cache from
+  ``torch.cuda.mem_get_info()`` and ``hbm_mem_utilization``.
 - ``forward_async`` never synchronises: the batch goes up through pinned
   memory with ``non_blocking=True``, every write stays on the current
   stream (so step N+1 reads step N's tokens from the feedback buffer in
@@ -29,7 +30,8 @@ tokens' logprobs.
   = 1), every step and every multi-step window is the replay of a graph
   captured once per graph key, the first use of a key running eagerly and
   capturing after it; ``capture`` captures a bucket ahead of traffic (the
-  JAX package's ``_lower``). Steps run eagerly, as ``models/llama.py``'s
+  JAX package's ``_lower``), every plan of it, as the engine's warm-up does
+  after each of its steps. Steps run eagerly, as ``models/llama.py``'s
   step function, on the CPU (no graphs there) and at world size > 1 (gloo's
   collectives cannot be captured, and NCCL's have not run: one card), and
   with ``cuda_graphs=False`` (a comparison's and the tests' way to the
@@ -81,7 +83,8 @@ from swiftllm_tpu_torch.worker.batch_builder import (build_step_batch,
                                                      packed_len,
                                                      select_buckets)
 from swiftllm_tpu_torch.worker.block_manager import BlockManager
-from swiftllm_tpu_torch.worker.graphs import StepGraphs, graph_key
+from swiftllm_tpu_torch.worker.graphs import (StepGraphs, capture_stream,
+                                              exec_memory, graph_key)
 
 
 def _assert_decode_prefix(batch_np, key, dp: int):
@@ -189,11 +192,13 @@ class LlamaModel:
         self.num_blocks_per_shard = 0
         # The rule for CUDA graphs: on the card, at world size 1, unless the
         # caller asks for the eager step (``cuda_graphs=False``).
-        self.graphs = (StepGraphs(self.device)
+        self.graphs = (StepGraphs(self.device,
+                                  layers=self.model_config.num_layers)
                        if (cuda_graphs and self.device.type == "cuda"
                            and distributed.world_size() == 1) else None)
         self.profiled: dict = {}      # profile_num_blocks' budget, in bytes:
-                                      # step scratch, graph pool, a page
+                                      # step scratch, graph pool, graph
+                                      # executables (and their count), a page
 
     # --- init -----------------------------------------------------------------
     def load_weights(self):
@@ -301,7 +306,7 @@ class LlamaModel:
                                        multi_step=cfg.multi_step_decode))
         return keys
 
-    def profile_num_blocks(self) -> int:
+    def profile_num_blocks(self, graph_buckets=()) -> int:
         """KV pages that fit the device. On a probe cache, run the
         worst-case bucket once (a greedy prefill of the most tokens), then
         the other buckets of ``profile_keys`` on an empty batch of their
@@ -310,8 +315,16 @@ class LlamaModel:
         graphs, capture each of those steps too: the graph pool keeps what
         it reserved (``graphs.StepGraphs``), so ``mem_get_info()`` counts it
         as used, and the captures of serving reuse it (a key's first use
-        runs eagerly, so both pools are needed). Give the cache what is left
-        of ``mem_get_info()``'s total times ``hbm_mem_utilization`` (right
+        runs eagerly, so both pools are needed); the probe's bucket is
+        captured at every plan. The graphs' executables take device memory
+        outside the allocator (some 6.5 MB a step graph at 8B width, 32
+        layers, on an H100), which CUDA keeps once given
+        (``graphs.ExecMemory``): the budget keeps what every graph of
+        ``graph_buckets`` (every plan of each, as the engine's warm-up
+        captures them; ``server/engine.py:warmup_buckets``) will take
+        beyond what the card holds for graphs already, at the bytes a layer
+        of a step that these captures took. Give the cache what is left of
+        ``mem_get_info()``'s total times ``hbm_mem_utilization`` (right
         for one rank a card; ranks that share a card take
         ``num_hbm_blocks``). The probe steps run on every rank at once, as a
         step does. With quantized weights the probe's bucket (over 256
@@ -354,32 +367,54 @@ class LlamaModel:
         finally:
             self.graphs = graphs
         scratch = torch.cuda.max_memory_allocated(self.device) - base
-        pool = 0
+        pool = execs = n_graphs = 0
         if graphs is not None:
-            self.capture(keys[0], live_rows=n_rows)
+            mem = exec_memory(self.device)
+            peak0 = mem.peak
+            capture_stream(self.device)     # its cuBLAS workspace made first
+            torch.cuda.synchronize(self.device)
+            free0 = torch.cuda.mem_get_info(self.device)[0]
+            held0 = torch.cuda.memory_reserved(self.device)
+            self.capture(keys[0])       # every plan of the probe's bucket
             for key in keys[1:]:
                 self.capture(key, live_rows=0)
+            torch.cuda.synchronize(self.device)
+            # What the captures took outside the allocator: the graphs'
+            # executables, for the units they raised the peak by.
+            outside = (free0 - torch.cuda.mem_get_info(self.device)[0]
+                       - (torch.cuda.memory_reserved(self.device) - held0))
+            if outside > 0 and mem.peak > peak0:
+                mem.per_unit = outside / (mem.peak - peak0)
             pool = graphs.pool_bytes
             graphs.clear()   # dropped with the probe cache; the pool stays
+            plans = [len(self._plan_keys(k)) for k in graph_buckets]
+            n_graphs = sum(plans)
+            execs = mem.to_take(graphs.layers * sum(
+                n * k.steps for n, k in zip(plans, graph_buckets)))
         self.kv_cache = self.token_feedback = None
         self.hbm_block_mgrs = []
         torch.cuda.empty_cache()
         # The graph pool's reserved bytes are used memory here already.
         free, total = torch.cuda.mem_get_info(self.device)
-        usable = int(total * cfg.hbm_mem_utilization) - (total - free) - scratch
+        usable = (int(total * cfg.hbm_mem_utilization) - (total - free)
+                  - scratch - execs)
         num = usable // block_bytes
         self.profiled = dict(scratch=scratch, graph_pool=pool,
+                             graph_execs=execs, graphs=n_graphs,
                              block_bytes=block_bytes)
         if num <= 0:
             raise RuntimeError(
                 f"no device memory left for the KV cache: total={total / GB:.1f}GB "
                 f"free={free / GB:.1f}GB scratch={scratch / GB:.1f}GB "
-                f"graph pool={pool / GB:.1f}GB")
+                f"graph pool={pool / GB:.1f}GB graph executables="
+                f"{execs / GB:.1f}GB")
         return int(num)
 
-    def init_kvcache_and_swap(self, num_blocks_per_shard: int | None = None):
+    def init_kvcache_and_swap(self, num_blocks_per_shard: int | None = None,
+                              graph_buckets=()):
         """Allocate the KV cache (sized by ``profile_num_blocks`` unless
-        given, then agreed with rank 0), the feedback buffer and the host
+        given, then agreed with rank 0; ``graph_buckets`` are the buckets
+        whose every plan it budgets graphs for), the feedback buffer and the host
         swap pool's block manager. The pool itself, ``[L, num_cpu_blocks *
         block_size, W]`` at this rank's lanes in the cache's type and
         page-locked on a GPU host (``pinned_pool``), is allocated only when
@@ -390,7 +425,7 @@ class LlamaModel:
         groups, kept in step on every rank."""
         cfg = self.engine_config
         if num_blocks_per_shard is None:
-            num_blocks_per_shard = self.profile_num_blocks()
+            num_blocks_per_shard = self.profile_num_blocks(graph_buckets)
         num_blocks_per_shard = distributed.agree_num_blocks(num_blocks_per_shard)
         self._allocate(num_blocks_per_shard)
         self.cpu_block_mgr = BlockManager(
@@ -503,12 +538,15 @@ class LlamaModel:
                     live_rows: int, switches):
         """One step from its graph: the batch copied into the graph's static
         input and the graph replayed. A key's first use runs the step
-        eagerly on its batch, then captures it. Returns (tokens, logits or
-        None, logprobs or None); logits are copied out of the graph."""
+        eagerly on its batch, then captures it, and outside a warm-up counts
+        in ``graphs.first_use``. Returns (tokens, logits or None, logprobs or
+        None); logits are copied out of the graph."""
         gkey, rows = graph_key(key, return_logits, live_rows, switches,
                                **self._graph_key_args())
         entry = self.graphs.table.get(gkey)
         if entry is None:
+            if not self.graphs.warming:
+                self.graphs.first_use += 1
             out = self._step_fn(key, return_logits, live_rows, switches)(
                 self.params, self.kv_cache, self.token_feedback,
                 flat.to(self.device, non_blocking=True))
@@ -566,16 +604,25 @@ class LlamaModel:
             raise RuntimeError("this model runs its steps eagerly (CPU, "
                                "world size > 1 or cuda_graphs=False): "
                                "nothing to capture")
-        switches = step_switches()
         n = 0
-        for live in ([live_rows] if live_rows is not None
-                     else range(1, key.rows + 1)):
-            gkey, rows = graph_key(key, False, live, switches,
-                                   **self._graph_key_args())
+        for gkey, rows in self._plan_keys(key, live_rows).items():
             if gkey not in self.graphs.table:
                 self._capture(gkey, rows)
                 n += 1
         return n
+
+    def _plan_keys(self, key, live_rows: int | None = None) -> dict:
+        """The graph keys (no logits, the environment's switches now) of a
+        step of bucket ``key`` over ``live_rows``, or over every live row
+        count from 1 to ``key.rows``, each with the rows its graph plans
+        over (``graph_key``)."""
+        switches, widths = step_switches(), self._graph_key_args()
+        out = {}
+        for live in ([live_rows] if live_rows is not None
+                     else range(1, key.rows + 1)):
+            gkey, rows = graph_key(key, False, live, switches, **widths)
+            out.setdefault(gkey, rows)
+        return out
 
     def forward(self, scheduled: list[ScheduledSeq],
                 groups: list[list[ScheduledSeq]] | None = None,
