@@ -10,6 +10,8 @@
     python3 chip_smoke.py --sweep-int4           # a measurement, not the smoke
     python3 chip_smoke.py --sweep-swap           # a measurement, not the smoke
     python3 chip_smoke.py --parallel             # phase 6 alone
+    python3 chip_smoke.py --quant                # the weight and fp8 row
+                                                 # kernels' phases alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. the card's name and power limit, torch and CUDA versions;
@@ -25,7 +27,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      T = 1, 16, 128 and 256 and at ragged ones, against its plain version
      and its plan's split-then-merge, two launches bit-identical, timed at
      every shape and T, with two planted faults (the nibbles unpacked
-     interleaved, a split left out of the merge) that must fail; the
+     interleaved, a split left out of the merge) that must fail; the INT8
+     matmul (int8_matmul, no Pallas kernel: XLA's fusion of the int8 ->
+     bf16 convert into proj's dot) at the four 8B projection shapes and the
+     head (128,256 x 4,096), at T = 1, 16, 128 and 256, at ragged shapes,
+     at the tp = 2 shards' K (2,048 and 7,168) and with forced splits,
+     against its plain version and its plan's split-then-merge, two
+     launches bit-identical, timed at every shape and T beside today's
+     proj route (dequantize, then F.linear) and F.linear on bf16 weights,
+     with three planted faults (a K chunk dropped, the weights of another
+     layer, a split left out of the merge) that must fail; the fp8 KV row
+     build (quantize_kv, no Pallas kernel: XLA's fusion of the quantizing
+     kv_new build) at T = 1, 128 and 2,048, byte-equal to its plain
+     version at magnitudes that reach both ends of the scale clip and on
+     rows of zeros, with a planted fault (the scale lanes swapped) that
+     must fail, timed against the plain version's launches; the
      decode kernel's deferred-commit (`pend`) variant on 16 rows (3 of
      them pad rows) with histories of 1 to 2,048 keys, for npend 1, 2, 4
      and 8 of a window of 8, with a sliding
@@ -53,9 +69,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      round trip of 128 pages timed against the host link's byte bound
      (measured), the plain version and cudaMemcpy2DAsync per run;
   3. one whole mixed step, kernels against plain versions, 4 layers: at 8B
-     width in bf16, with INT4 weights in a bucket of 256 tokens, with an fp8
-     KV cache, and with both; at Mistral-7B width with its window of 4096
-     and rows whose histories exceed it; then 8 decode steps of 8 rows at
+     width in bf16, with INT4 and with INT8 weights in a bucket of 256
+     tokens (every projection and the head through the weight kernel), with
+     an fp8 KV cache (quantize_kv once a layer), and with INT4 and fp8; at
+     Mistral-7B width with its window of 4096 and rows whose histories
+     exceed it; then 8 decode steps of 8 rows at
      8B width, 4 layers, as one multi-step window (fused write, and deferred
      commit) against 8 sequential single steps: tokens and caches; then one
      verify step (2 decode rows, 6 spec rows), kernels against plain, and
@@ -88,8 +106,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      batch copied in must fail the token check); then the port's
      Engine at full width (32 layers, dummy weights), 8 concurrent
      requests, launch counts of every kernel: 8B in
-     bf16, with INT4 and with INT8 weights, 8B with an fp8 KV cache (which
-     also serves one prompt of 16,500 tokens), and Mistral-7B-v0.1 width
+     bf16, with INT4 and with INT8 weights (the weight kernels' launches
+     held to the steps' buckets; the INT8 engine profiled again on the
+     route before int8_matmul, dequantize then F.linear, for the share of
+     device time its copies took), 8B with an fp8 KV cache (which
+     also serves one prompt of 16,500 tokens; quantize_kv's device time a
+     step), and Mistral-7B-v0.1 width
      with its sliding window (prompts of 5,000 and 8,192 tokens among the
      8); then the bf16 8B engine three times more with logprobs on and
      three of the 8 requests sampled (temperature 0.8, top-k 20, seeded):
@@ -122,17 +144,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. tensor and data parallelism: ranks of this script (--rank-phase, the
      torchrun environment), all on the one card over gloo (NCCL refuses
      two ranks on one device). [tp2 step]: 8B width, 4 layers, a mixed step
-     at tp = 2 in bf16, fp8 KV and INT4, each rank's kernels against their
-     plain versions at the shard's widths and every kernel launched on
+     at tp = 2 in bf16, fp8 KV, INT4 and INT8, each rank's kernels against
+     their plain versions at the shard's widths and every kernel launched on
      every rank, the gathered logits against tp = 1's, and a planted fault
      (the decode kernel's last KV head skipped) that every one of those
      checks must reject; [serve tp1], [serve
      tp2] (swapping, a follower replaying the swaps) and [serve dp2 tp2]
-     (four ranks): full-width 8B engines whose tokens must equal tp = 1's,
-     with wall, TTFT, decode tok/s and each rank's memory; [http tp2]: the
+     (four ranks): 8B-width engines of 16 layers whose tokens must equal
+     tp = 1's, with wall, TTFT, decode tok/s and each rank's memory; [http tp2]: the
      api_server command line at tp = 2, /generate, then SIGTERM to rank 0
      ends both ranks;
-then one {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
+then one {"kernels": [...]} line (every C entry that launches a kernel, the
+page mover included) and, last, {"ok": true, "device": {...}}.
 
 With --compare-graphs it builds the kernels and runs only compare_graphs:
 one full-width engine serving the same 8 requests in turns eagerly and from
@@ -156,7 +179,9 @@ plan's model (the evidence for int4_matmul.py's constants). With
 --sweep-swap it builds only swap_pages and times a round trip of 128 pages
 at several grids, alone and beside a decode-like load (the evidence for
 swap_pages.py's MOVER_BLOCKS). With --parallel it builds the kernels and
-runs only phase 6.
+runs only phase 6. With --quant it builds the kernels and runs only the
+[int8] phase, phase 3's INT8 and INT4 steps, the [quantize_kv] phase and
+phase 3's fp8 step.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
 ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
@@ -189,7 +214,9 @@ from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
 from swiftllm_tpu_torch.models.llama import compute_inv_freq, quantize_kv
 from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops import int4_matmul as im
+from swiftllm_tpu_torch.ops import int8_matmul as im8
 from swiftllm_tpu_torch.ops import paged_attention as pa
+from swiftllm_tpu_torch.ops import quantize_kv as qkv
 from swiftllm_tpu_torch.ops.swap_pages import (page_slots, pinned_pool,
                                                swap_pages, swap_pages_plain)
 from swiftllm_tpu_torch.parallel.mesh import SINGLE
@@ -200,7 +227,8 @@ from swiftllm_tpu_torch.server.structs import RawRequest, Request
 from swiftllm_tpu_torch.utils import cdiv, tile_q_for
 from swiftllm_tpu_torch.worker import weights
 from swiftllm_tpu_torch.worker.model import LlamaModel
-from swiftllm_tpu_torch.worker.quant import (nibbles, quantize_int4,
+from swiftllm_tpu_torch.worker.quant import (nibbles, proj, quantize_int4,
+                                             quantize_int8,
                                              quantize_weight_torch)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -217,6 +245,16 @@ ATOL, RTOL = 2e-3, 1e-2
 # (median |y| about 0.8 for these inputs), so atol 1e-3 sits far below them;
 # the interleaved-nibble fault must fail at this tolerance.
 INT4_ATOL = 1e-3
+# The INT8 kernel against its plain version: both sum in f32 (in another
+# order), round to bf16, scale and round again, so the first rounding may
+# land a bf16 step apart and the second add one more: two ulps, up to 2^-6
+# of the value (an ulp is 2^-8 to 2^-7 of it), which rtol 2e-2 allows (the
+# card showed two ulps at 0.6 on the first run of the kernel). Outputs are
+# O(1) (median |y| about 0.8 for N(0, 1) inputs and N(0, 0.02) weights at
+# K = 4,096), so atol 1e-3 sits far below them; a K chunk dropped (128 of
+# 4,096 columns) moves outputs by about 0.2 and another layer's weights
+# move all of them: both faults must fail.
+INT8_ATOL, INT8_RTOL = 1e-3, 2e-2
 REPS = 20
 SLEEP_CYCLES = 20_000_000       # about 10 ms at the H100's clock
 L2_BYTES = 50 * 2**20           # H100 L2: timed weights cycle through more
@@ -232,6 +270,12 @@ REPLACES = {
     "paged_prefill_attention": "swiftllm_tpu/ops/paged_attention.py:843",
     "paged_prefill_attention_bf16s": "swiftllm_tpu/ops/paged_attention.py:1163",
     "int4_matmul": "swiftllm_tpu/ops/int4_matmul.py:61",
+    # No Pallas kernel: XLA's fusions, of the int8 -> bf16 convert into
+    # proj's dot, and of the quantizing kv_new build.
+    "int8_matmul": "swiftllm_tpu/worker/quant.py:112",
+    "quantize_kv": "swiftllm_tpu/models/llama.py:587",
+    # No Pallas kernel: the swap's gather and device_get.
+    "swap_pages": "swiftllm_tpu/worker/model.py:397",
 }
 # The bf16-score variant against its plain version. Both round the scores,
 # the exponent argument and P to bf16, but against different maxima (the
@@ -1083,21 +1127,83 @@ def phase_bf16s(device, smi) -> dict:
     return row
 
 
-def time_quantize(device, smi):
-    """The quantizing kv_new build (plain PyTorch ops, as the JAX package
-    leaves it to XLA) against the bf16 build, per layer at 8B width, in the
-    serving decode bucket (128 tokens) and the prefill bucket (2,048)."""
-    g = torch.Generator(device=device).manual_seed(9)
-    out = {}
-    for T in (128, 2048):
-        k = torch.randn(T, 1024, generator=g, device=device).to(torch.bfloat16)
-        v = torch.randn(T, 1024, generator=g, device=device).to(torch.bfloat16)
-        out[T] = time_ms(lambda: quantize_kv(k, v))
-        plain = time_ms(lambda: torch.cat([k, v], dim=1).to(torch.bfloat16))
-        log(f"[time] quantize_kv T={T} (8 kv heads of 128): {out[T]:.4f} ms a "
-            f"layer, {32 * out[T]:.3f} ms over 32 layers; the bf16 build "
-            f"{plain:.4f} ms a layer ({smi})")
-    return out
+QKV_TS = (1, 128, 2048)          # a decode step, the serving bucket, prefill
+QKV_TABLE = 128                   # the kernel table's row (PERF.md)
+
+
+def qkv_rows(gen, T, KH, device):
+    """K and V rows (bf16) of T tokens whose magnitudes run from 1e-7 to
+    1e7 over the rows (15 decades; V's 5 times K's), so that both ends of
+    the scale clip act (absmax 1e-7: e clipped at 8; 1e7: at -9, where the
+    clip to +-448 acts too), with rows of zeros in K and in V."""
+    mag = 10.0 ** ((torch.arange(T, device=device) % 15) - 7.0)[:, None]
+    k = torch.randn(T, KH, generator=gen, device=device) * mag
+    v = torch.randn(T, KH, generator=gen, device=device) * mag * 5
+    k[3::7] = 0.0
+    v[5::11] = 0.0
+    return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def lanes_swapped(kf, vf):
+    """The planted fault: the plain rows with the K and V scale lanes
+    swapped."""
+    rows = qkv.quantize_kv_plain(kf, vf).view(torch.uint8).clone()
+    KH = kf.shape[1]
+    rows[:, [2 * KH, 2 * KH + 1]] = rows[:, [2 * KH + 1, 2 * KH]]
+    return rows
+
+
+def bytes_diff(got, want, k, v) -> str:
+    """Where two fp8 row builds differ: how many bytes, and the first few
+    (row, lane, got, want, the input value there)."""
+    g, w = got.view(torch.uint8), want.view(torch.uint8)
+    where = (g != w).nonzero()[:6].tolist()
+    kv = torch.cat([k, v], dim=1).float()
+    return f"{int((g != w).sum())} bytes differ: " + ", ".join(
+        f"({r}, {c}: {g[r, c].item():#04x} vs {w[r, c].item():#04x}"
+        f"{f', x {kv[r, c].item():.4g}' if c < kv.shape[1] else ''})"
+        for r, c in where)
+
+
+def phase_quantize_kv(device, smi) -> dict:
+    """quantize_kv against quantize_kv_plain at 8B width (8 kv heads of
+    128) and T in QKV_TS: the bytes equal, at magnitudes that reach both
+    ends of the scale clip and on rows of zeros (qkv_rows); the planted
+    fault (lanes_swapped) must differ. Times the kernel, the plain version
+    (some 17 launches) and the bf16 build (one cat) against the bound.
+    Returns the kernel table's row (T = QKV_TABLE)."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    KH = LLAMA3_8B["num_kv_heads"] * LLAMA3_8B["head_dim"]
+    row = None
+    for T in QKV_TS:
+        k, v = qkv_rows(gen, T, KH, device)
+        got = qkv.quantize_kv(k, v)
+        want = qkv.quantize_kv_plain(k, v)
+        assert got.shape == want.shape == (T, 2 * KH + pa.FP8_SCALE_LANES)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), \
+            f"quantize_kv T={T}: {bytes_diff(got, want, k, v)}"
+        scales = want[:, 2 * KH:2 * KH + 2].float()
+        clip = (want[:, :2 * KH].float().abs() == 448).sum().item()
+        if T > 1:
+            assert scales.max() == 2.0 ** 8 and scales.min() == 2.0 ** -9, scales
+            assert clip > 0
+            bad = lanes_swapped(k, v)
+            assert not torch.equal(got.view(torch.uint8), bad), \
+                "the K and V scale lanes swapped pass"
+        ms = time_ms(lambda: qkv.quantize_kv(k, v))
+        plain_ms = time_ms(lambda: qkv.quantize_kv_plain(k, v))
+        cat_ms = time_ms(lambda: torch.cat([k, v], dim=1))
+        bound_ms, bound_by = bound(T * 2 * KH * 2 + T * (2 * KH + pa.FP8_SCALE_LANES), 0)
+        log(f"[quantize_kv] T={T} (8 kv heads of 128): bytes equal to the plain "
+            f"version (scales {scales.min().item():g} to {scales.max().item():g}, "
+            f"{clip} values at the +-448 clip"
+            f"{', scale lanes swapped: rejected' if T > 1 else ''}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the bf16 build (cat) "
+            f"{cat_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) ({smi})")
+        if T == QKV_TABLE:
+            row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return row
 
 
 def time_sampler(device, smi):
@@ -1439,6 +1545,165 @@ def compare_int4(smi):
         del q4, s
         torch.cuda.empty_cache()
     log(f"[compare] int4_matmul: {'; '.join(out)} ms ({smi})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, INT8: the W8A16 matmul against its plain version
+# ---------------------------------------------------------------------------
+
+# (N, K) of the 8B projections and the head; the tp = 2 shards of the
+# in-sharded projections (wo and w_down: K halved); ragged shapes (N off the
+# 128-row tile, K off the 128-byte chunk).
+INT8_SHAPES = dict(INT4_SHAPES, lm_head=(128256, 4096))
+INT8_TP2_SHAPES = {"wo tp2": (4096, 2048), "w_down tp2": (4096, 7168)}
+INT8_RAGGED = ((200, 272), (1000, 4128))
+INT8_TABLE = ("w_gate/w_up", 128)      # the kernel table's row (PERF.md)
+
+
+def _int8_stack(gen, N, K, L, device):
+    """L layers of N(0, 0.02) weights drawn in f32 on the card and quantized
+    there, one layer at a time."""
+    qs = [quantize_weight_torch(torch.randn(N, K, generator=gen, device=device)
+                                * 0.02, "int8") for _ in range(L)]
+    return torch.stack([q["q"] for q in qs]), torch.stack([q["s"] for q in qs])
+
+
+def _int8_check(x, q, s, label, splits=None):
+    """int8_matmul at one shape (the plan's splits, or `splits` forced)
+    against int8_proj_stacked_plain at its first and last layer (INT8_ATOL /
+    INT8_RTOL), and against the plain split-then-merge of its plan; a second
+    launch must give the same bytes. Returns the worst _compare against the
+    plain version, and the plan."""
+    T, K = x.shape
+    plan = im8.int8_plan(T, q.shape[1], K, build.sm_count(x.device), splits)
+    errs = []
+    for layer in sorted({0, q.shape[0] - 1}):
+        got = im8.int8_proj_stacked(x, q, s, layer, splits=splits)
+        again = im8.int8_proj_stacked(x, q, s, layer, splits=splits)
+        assert torch.equal(got, again), f"int8_matmul {label}: two launches differ"
+        errs.append(_compare(got, im8.int8_proj_stacked_plain(x, q, s, layer),
+                             atol=INT8_ATOL, rtol=INT8_RTOL))
+        split = _compare(got, im8.int8_proj_split_plain(x, q, s, layer, plan),
+                         atol=INT8_ATOL, rtol=INT8_RTOL)
+        assert max(errs[-1][2], split[2]) <= 1, (
+            f"int8_matmul {label} layer {layer} disagrees: {errs[-1]}, split {split}")
+    return max(errs, key=lambda e: e[2]), plan
+
+
+def int8_faults(x, q, s, plan) -> dict:
+    """The planted faults, each a plain product the kernel's output (at the
+    last layer) must disagree with: a K chunk of 128 columns dropped, the
+    weights of the layer before, and (when the plan splits) the second
+    split left out of the merge. Returns each fault's _compare."""
+    L, K = q.shape[0], x.shape[1]
+    got = im8.int8_proj_stacked(x, q, s, L - 1)
+    dropped = x.clone()
+    dropped[:, 128:256] = 0
+    out = {"a K chunk dropped": im8.int8_proj_stacked_plain(dropped, q, s, L - 1),
+           "the layer before's weights": im8.int8_proj_stacked_plain(x, q, s, L - 2)}
+    if plan.splits > 1:
+        parts = im8.int8_split_partials(x, q, L - 1, plan)
+        acc = sum(p for i, p in enumerate(parts) if i != 1)
+        out["a split left out of the merge"] = (
+            acc.to(x.dtype).float() * s[L - 1]).to(x.dtype)
+    assert K >= 256
+    return {k: _compare(got, v, atol=INT8_ATOL, rtol=INT8_RTOL) for k, v in out.items()}
+
+
+def _int8_timings(gen, x, N, K, device):
+    """Kernel, plain and yardstick times at one shape: the kernel, proj's
+    route before it (the layer's weights dequantized to bf16, then F.linear:
+    quant.proj) and F.linear on bf16 weights of the same shape each cycle
+    through more weight bytes than L2 holds."""
+    T = x.shape[0]
+    L8 = max(2, math.ceil(2 * L2_BYTES / (N * K)))
+    q = torch.randint(-127, 128, (L8, N, K), generator=gen, device=device,
+                      dtype=torch.int8)
+    s = torch.rand(L8, N, generator=gen, device=device) * 1e-2
+    it = itertools.count()
+    ms = time_ms(lambda: im8.int8_proj_stacked(x, q, s, next(it) % L8))
+    plain_ms = time_ms(lambda: im8.int8_proj_stacked_plain(x, q, s, next(it) % L8),
+                       reps=3)
+    proj_ms = time_ms(lambda: proj(x, {"q": q[next(it) % L8], "s": s[0]}))
+    del q
+    Lb = max(2, math.ceil(2 * L2_BYTES / (N * K * 2)))
+    wb = torch.randn(Lb, N, K, generator=gen, device=device).to(torch.bfloat16)
+    library_ms = time_ms(lambda: F.linear(x, wb[next(it) % Lb]))
+    del wb
+    torch.cuda.empty_cache()
+    nbytes = T * K * 2 + N * K + N * 4 + T * N * 2
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, proj_ms=proj_ms,
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 2 * T * N * K))))
+
+
+def phase_int8(device, smi) -> dict:
+    """int8_matmul against int8_proj_stacked_plain in bf16: at ragged shapes
+    (T = 3, 37, 200), at the 8B shapes and the head and at the tp = 2
+    shards' K (T in INT4_TS), with forced splits, layers 0 and 3 of a
+    4-layer stack (the head: a one-layer stack, as the model passes it),
+    two launches bit-identical; the planted faults (int8_faults) must fail;
+    times at every 8B shape and T. Returns the kernel table's row."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    # The card's quantizer gives quantize_int8's bytes (the CPU tests hold
+    # it against the JAX package's; here, on the card, once).
+    w = torch.randn(1024, 4096, generator=gen, device=device) * 0.02
+    ref = quantize_int8(w.cpu().numpy())
+    got = quantize_weight_torch(w, "int8")
+    assert np.array_equal(got["q"].cpu().numpy(), ref["q"]), "q bytes differ"
+    assert np.array_equal(got["s"].cpu().numpy(), ref["s"]), "scales differ"
+    log("[int8] quantize_weight_torch on the card: the bytes and scales of "
+        "quantize_int8 (1024 x 4096)")
+    for N, K in INT8_RAGGED:
+        q, s = _int8_stack(gen, N, K, 4, device)
+        for T in (3, 37, 200):
+            x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
+            _int8_check(x, q, s, f"N={N} K={K} T={T}")
+        log(f"[int8] ragged N {N}, K {K}: matches at T = 3, 37, 200, two "
+            "launches bit-identical")
+    row, table, faults = None, [], {}
+    for label, (N, K) in {**INT8_SHAPES, **INT8_TP2_SHAPES}.items():
+        q, s = _int8_stack(gen, N, K, 1 if label == "lm_head" else 4, device)
+        worst, plans = (0.0, 0.0, 0.0), []
+        for T in INT4_TS:
+            x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
+            err, plan = _int8_check(x, q, s, f"{label} T={T}")
+            worst = max(worst, err, key=lambda e: e[2])
+            plans.append(f"T {T}: {plan.nt}x{plan.t_tiles} tokens, {plan.splits} "
+                         f"splits, {plan.units} units")
+            if T in (16, 128) and label != "lm_head":
+                forced = _int8_check(x, q, s, f"{label} T={T} 3 splits", splits=3)
+                worst = max(worst, forced[0], key=lambda e: e[2])
+            if label == "w_down" and T == 16:
+                faults = int8_faults(x, q, s, forced[1])
+            if label in INT8_SHAPES:
+                r = dict(max_abs_err=err[0], **_int8_timings(gen, x, N, K, device))
+                table.append((label, T, r))
+                if (label, T) == INT8_TABLE:
+                    row = {k: v for k, v in r.items() if k != "proj_ms"}
+        log(f"[int8] {label} (N {N}, K {K}): matches the plain version and its "
+            f"plan's split-then-merge at T = {', '.join(map(str, INT4_TS))}"
+            f"{'' if label == 'lm_head' else ' (and 3 splits forced at T = 16, 128)'}, "
+            f"{'one layer' if label == 'lm_head' else 'layers 0 and 3'}, two "
+            f"launches bit-identical: max_abs_err {worst[0]:.3g}, median |want| "
+            f"{worst[1]:.3g}, worst {worst[2]:.3g} of the tolerance (atol "
+            f"{INT8_ATOL}, rtol {INT8_RTOL}); plans: " + "; ".join(plans))
+        del q, s
+        torch.cuda.empty_cache()
+    assert len(faults) == 3, faults
+    for name, err in faults.items():
+        log(f"[int8] planted fault ({name}, w_down T 16): max_abs_err "
+            f"{err[0]:.3g}, median |want| {err[1]:.3g}, worst {err[2]:.3g} of "
+            "the tolerance")
+        assert err[2] > 1, f"the tolerance lets {name} pass"
+    log("[time] int8_matmul library_ms: F.linear on bf16 weights of the same "
+        "shape; proj_ms: quant.proj, the route before the kernel (the layer's "
+        "weights dequantized to bf16, then F.linear); kernel, proj and library "
+        "cycle through more weight bytes than L2 holds")
+    for label, T, r in table:
+        log(f"[time] int8_matmul {label} T={T}: " + ", ".join(
+            f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
+            for a, b in r.items()) + f" ({smi})")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1788,14 +2053,16 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
     the same weights (std 0.02 from a seeded generator, unit norms) and the
     same random cache. Greedy tokens must agree on every row whose top-2
     margin in the plain run exceeds twice the largest logit difference. With
-    INT4 weights the step is 8 decode rows and a 128-token chunk, a bucket of
-    256 tokens, so the kernel run sends every projection through
-    int4_matmul and the plain run through quant.proj; a third run, the
-    attention kernels with int4_matmul's plain version, isolates the INT4
-    kernel, under the same rule. With kv_quant="fp8" the cache holds
-    quantized rows (pages of 32). With `mistral` the widths and the window
-    of 4096 are Mistral-7B-v0.1's, and three rows' histories exceed the
-    window: decode rows of 4,097 and 5,000 keys and a chunk after 5,488."""
+    INT4 or INT8 weights the step is 8 decode rows and a 128-token chunk, a
+    bucket of 256 tokens, so the kernel run sends every projection and the
+    head through the weight kernel (int4_matmul, int8_matmul) and the plain
+    run through quant.proj; a third run, the other kernels with the weight
+    kernel's plain version, isolates it, under the same rule. With
+    kv_quant="fp8" the cache holds quantized rows (pages of 32), and the
+    kernel runs build the step's rows with quantize_kv, once a layer. With
+    `mistral` the widths and the window of 4096 are Mistral-7B-v0.1's, and
+    three rows' histories exceed the window: decode rows of 4,097 and 5,000
+    keys and a chunk after 5,488."""
     mc = LlamaModelConfig(num_layers=4, **(MISTRAL_7B if mistral else LLAMA3_8B))
     ec = dict(model_path="", use_dummy=True, dtype="bfloat16", quant=quant,
               kv_quant=kv_quant, block_size=32 if kv_quant == "fp8" else 16,
@@ -1810,12 +2077,14 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
         specs += [(512, 0, 512), (6000, 5488, 512), (812, 512, 300)]
     what = (f"{'Mistral-7B' if mistral else '8B'} width, 4 layers, quant {quant}, "
             f"kv_quant {kv_quant}, window {mc.sliding_window or 0}")
-    # (run, use_pallas): the kernels; the plain versions; and, with INT4
-    # weights, the attention kernels with int4_matmul's plain version, which
-    # isolates the INT4 kernel (the same f32 sums, one rounding).
+    # (run, use_pallas): the kernels; the plain versions; and, with quantized
+    # weights, the other kernels with the weight kernel's plain version,
+    # which isolates it (the same f32 sums and roundings).
     runs = [("kernels", True), ("plain", False)]
-    if quant == "int4":
-        runs.append(("int4 plain", True))
+    weight_kernel = {"int4": (im, "int4_proj_stacked", "int4_matmul"),
+                     "int8": (im8, "int8_proj_stacked", "int8_matmul")}.get(quant)
+    if weight_kernel:
+        runs.append((f"{quant} plain", True))
     logits, models, launches = {}, {}, {}
     for run, use_kernels in runs:
         m = LlamaModel(EngineConfig(**ec, use_pallas=use_kernels), mc,
@@ -1839,19 +2108,26 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
             if cached:
                 m.hbm_block_mgrs[0].allocate_for_seq(i, cached)
         build.reset_launch_counts()
-        int4_kernel = im.int4_proj_stacked
-        if run == "int4 plain":
-            im.int4_proj_stacked = im.int4_proj_stacked_plain
+        if weight_kernel:
+            mod, fn, kernel = weight_kernel
+            wrapper = getattr(mod, fn)
+        if run.endswith(" plain"):
+            setattr(mod, fn, getattr(mod, fn + "_plain"))
         try:
             tokens, rows, lg = m.forward(_requests(specs, mc.vocab_size),
                                          return_logits=True)
         finally:
-            im.int4_proj_stacked = int4_kernel
+            if weight_kernel:
+                setattr(mod, fn, wrapper)
         torch.cuda.synchronize()
         launches[run] = dict(build.launch_counts)
-        if quant == "int4":
-            want = 7 * mc.num_layers if run == "kernels" else 0
-            assert launches[run]["int4_matmul"] == want, (run, launches[run])
+        if weight_kernel:
+            # Every projection of every layer, and the head.
+            want = 7 * mc.num_layers + 1 if run == "kernels" else 0
+            assert launches[run][kernel] == want, (run, launches[run])
+        if kv_quant == "fp8":
+            want = mc.num_layers if use_kernels else 0
+            assert launches[run]["quantize_kv"] == want, (run, launches[run])
         live = [i for i, r in enumerate(rows) if r is not None]
         logits[run] = torch.from_numpy(lg[live])
         models[run] = m
@@ -2402,20 +2678,50 @@ MS_PREDICTED = {
 
 def serve_kernels(name: str) -> tuple:
     """Kernels the serving run `name` must launch."""
-    return pa.KERNELS + (("int4_matmul",) if name == "int4" else ()) + (
-        ("paged_decode_attention_pend",) if name == "ms8defer" else ())
+    extra = {"int4": ("int4_matmul",), "int8": ("int8_matmul",),
+             "fp8kv": ("quantize_kv",), "ms8defer": ("paged_decode_attention_pend",)}
+    return pa.KERNELS + extra.get(name, ())
 
 
-async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
+def weight_kernel_launches(keys, layers: int) -> int:
+    """The INT4 or INT8 kernel's launches over single steps of buckets
+    `keys`: 7 projections a layer in a bucket of at most MAX_T tokens, and
+    the head in every step (its rows, at most the engine's 128, always
+    take the kernel)."""
+    assert all(k.steps == 1 and not k.spec for k in keys), keys
+    return sum(1 + (7 * layers if k.tokens <= im.MAX_T else 0) for k in keys)
+
+
+def route_before_int8_matmul(x, q, s, layer, **kw):
+    """An INT8 projection as the port computed it before int8_matmul:
+    quant.proj on the layer's weights (dequantized to bf16, then F.linear)."""
+    return proj(x, {"q": q[layer], "s": s[layer]})
+
+
+def copy_share(events) -> tuple:
+    """(device ms, share of device time) of the copy kernels in a profile:
+    PyTorch's copies and dtype conversions (direct_copy_kernel), where an
+    int8 weight's conversion to bf16 runs."""
+    busy = sum(e.self_device_time_total for e in events)
+    copies = sum(e.self_device_time_total for e in events
+                 if "direct_copy_kernel" in e.key)
+    return copies / 1e3, copies / max(busy, 1)
+
+
+async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
                        outputs: dict):
     """The serving path at full width, 32 layers, as SERVE_RUNS[name] sets
     it: 8 concurrent requests, launch counts, pages back, the profile; the
     bf16 engine also answers /generate over HTTP, and the fp8-KV engine
     serves one long prompt more. The MS_RUNS engines get weights of std 0.02
     from one seed, sample three of their requests, collect every token's
-    logprob (outputs[name]) and are held to MS_PREDICTED. The engine is
-    released before this returns, so that the next one sizes its cache on an
-    empty card."""
+    logprob (outputs[name]) and are held to MS_PREDICTED. The INT4 and INT8
+    engines' weight kernels are held to their steps' buckets
+    (weight_kernel_launches), and the INT8 engine is profiled again on the
+    route before int8_matmul (route_before_int8_matmul, eagerly), for the
+    share of device time its copies took. The decode rate goes to
+    rates[name]. The engine is released before this returns, so that the
+    next one sizes its cache on an empty card."""
     widths, ec_kw, prompt_lens, long_prompt = SERVE_RUNS[name]
     multi = name in MS_RUNS
     if name == "ms8defer":
@@ -2458,6 +2764,12 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
             logprobs.setdefault(i, []).append(so.logprob)
         return t_sub, stamps, toks
 
+    keys, execute = [], engine.model.execute_packed
+
+    def spy(flat, key, *a, **kw):
+        keys.append(key)
+        return execute(flat, key, *a, **kw)
+    engine.model.execute_packed = spy
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
@@ -2473,12 +2785,15 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
         assert all(0 <= t < mc.vocab_size for t in toks)
     for k in serve_kernels(name):
         assert launches[k] > 0, f"{k} never launched on the {name} serving path"
-    if name == "int4":
-        n = launches["int4_matmul"]
-        assert n % (7 * mc.num_layers) == 0, n     # one launch a projection
-        log(f"[serve int4] int4_matmul launched {n} times: 7 projections x "
-            f"{mc.num_layers} layers x {n // (7 * mc.num_layers)} steps of at "
-            f"most {im.MAX_T} tokens")
+    engine.model.execute_packed = execute
+    if name in ("int4", "int8"):
+        kernel = f"{name}_matmul"
+        small = sum(k.tokens <= im.MAX_T for k in keys)
+        assert launches[kernel] == weight_kernel_launches(keys, mc.num_layers), (
+            launches[kernel], [k.tokens for k in keys])
+        log(f"[serve {name}] {kernel} launched {launches[kernel]} times: 7 "
+            f"projections x {mc.num_layers} layers in each of the {small} steps "
+            f"of at most {im.MAX_T} tokens, and the head of all {len(keys)} steps")
     if multi:
         got = dict(launches, steps=engine.stats.num_steps)
         assert {k: got[k] for k in MS_PREDICTED[name]} == MS_PREDICTED[name], (
@@ -2503,6 +2818,7 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
     log(f"[serve {name}] 8 requests, prompts {prompt_lens}, {out_len} tokens "
         f"each, in {wall:.3f} s ({smi}); launches {launches}; peak allocated "
         f"{peak / 1e9:.2f} GB of a {budget / 1e9:.2f} GB budget")
+    rates[name] = n_after / (last - first)
     log(f"[serve {name}] TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
         f"{1e3 * ttft[-1]:.1f} ms; decode {n_after / (last - first):.1f} tok/s "
         f"({n_after} tokens after the last first token); output "
@@ -2530,14 +2846,16 @@ async def serve_engine(name: str, smi: str, pools: dict, quantize_ms: dict,
         await _pages_back(mgr, free0)
         log(f"[serve {name}] the long request finished and its pages are back "
             f"({mgr.num_free_blocks} free of {free0})")
-    busy_ms, prof_steps = await _profile(engine, smi, name,
-                                         out_len=65 if multi else 24)
-    if ec.kv_quant == "fp8":
-        q_ms = mc.num_layers * quantize_ms[128]
-        log(f"[profile {name}] the quantizing kv_new build: {q_ms:.3f} ms a "
-            f"decode step (32 layers at the 128-token bucket, timed alone) "
-            f"against {busy_ms / prof_steps:.3f} ms of device time a step in "
-            f"this profile ({prof_steps} steps): {100 * q_ms * prof_steps / busy_ms:.1f}%")
+    await _profile(engine, smi, name, out_len=65 if multi else 24)
+    if name == "int8":
+        # The route before int8_matmul, on the same engine, eagerly (so that
+        # no graph of it joins the pool the profile budgeted).
+        wrapper, graphs = im8.int8_proj_stacked, engine.model.graphs
+        im8.int8_proj_stacked, engine.model.graphs = route_before_int8_matmul, None
+        try:
+            await _profile(engine, smi, "int8_proj")
+        finally:
+            im8.int8_proj_stacked, engine.model.graphs = wrapper, graphs
     if name in ("none", "ms8"):
         await _http(engine, mgr, free0, logprobs=multi)
     g = engine.model.graphs
@@ -3218,15 +3536,18 @@ def http_cli(smi: str, tmp: Path):
         f"finished; exit code {rc} on SIGINT ({smi})")
 
 
-async def phase_serve(smi: str, quantize_ms: dict, adapters: dict) -> dict:
+async def phase_serve(smi: str, adapters: dict) -> dict:
     """Phases 4-5: the engines of SERVE_RUNS, one after another, then the
     speculative-decoding engine, the swapping engines (bf16 and fp8) and the
     LoRA engines (`adapters`: name -> peft dir)."""
-    pools, outputs = {}, {}
+    pools, outputs, rates = {}, {}, {}
     gc.collect()
     await phase_graphs(smi)
-    launches = {name: await serve_engine(name, smi, pools, quantize_ms, outputs)
+    launches = {name: await serve_engine(name, smi, pools, rates, outputs)
                 for name in SERVE_RUNS}
+    log("[serve] decode tok/s from graphs, 8 rows, in this run: " + ", ".join(
+        f"{k} {v:.1f} ({v / rates['none']:.3f} x bf16)" for k, v in rates.items()
+        if k in ("none", "int4", "int8", "fp8kv")) + f" ({smi})")
     launches["spec"] = await serve_spec(smi)
     for kv in SWAP_PAGES:
         launches[f"swap {kv}"] = await serve_swap(smi, kv)
@@ -3255,6 +3576,8 @@ DEVICE_KERNEL = {"paged_decode_attention": "paged_decode_kernel",
                  "paged_prefill_attention": "paged_prefill_kernel",
                  "paged_prefill_attention_bf16s": "paged_prefill_kernel",
                  "int4_matmul": "int4_matmul_kernel",
+                 "int8_matmul": "int8_matmul_kernel",
+                 "quantize_kv": "quantize_kv_kernel",
                  "swap_pages": "swap_pages_kernel"}
 
 
@@ -3328,14 +3651,28 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
         assert launched > 0, "int4_matmul never launched"
         assert all("int4_matmul_kernel" in e.key for e in kern), [e.key for e in kern]
         t_int4 = sum(e.self_device_time_total for e in kern) / 1e3
-        int4_steps = launched // (7 * engine.model_config.num_layers)
+        int4_steps = launched // (7 * engine.model_config.num_layers + 1)
         log(f"[profile {quant}] int4_matmul: {launched} launches, {n_dev} INT4 "
             f"kernels on the device ({launched - n_dev} record(s) lost to the "
             f"profiler; {len(kern)} instance(s), no second pass), "
             f"{t_int4:.3f} ms, {100 * t_int4 / (1e3 * busy):.1f}% of device time; "
             f"{t_int4 / int4_steps:.3f} ms a step in each of the {int4_steps} "
-            "steps that ran it")
-    return 1e3 * busy, engine.stats.num_steps - steps0
+            "steps that ran it (7 projections a layer and the head)")
+    steps = engine.stats.num_steps - steps0
+    if quant.startswith("int8") or quant == "none":
+        c_ms, c_share = copy_share(events)
+        log(f"[profile {quant}] copy kernels (direct_copy_kernel: dtype "
+            f"conversions, where an int8 weight becomes bf16): {c_ms:.3f} ms, "
+            f"{100 * c_share:.1f}% of device time, {c_ms / steps:.3f} ms a "
+            f"dispatch")
+    if quant == "fp8kv":
+        kern = [e for e in events if "quantize_kv_kernel" in e.key]
+        t_q = sum(e.self_device_time_total for e in kern) / 1e3
+        n_q = sum(e.count for e in kern)
+        log(f"[profile {quant}] quantize_kv: {n_q} launches ({n_q / steps:.1f} a "
+            f"dispatch, one a layer), {t_q:.3f} ms of device time, "
+            f"{100 * t_q / (1e3 * busy):.2f}%: {t_q / steps:.4f} ms a dispatch")
+    return 1e3 * busy, steps
 
 
 async def _pages_back(mgr, free0, timeout=10.0):
@@ -3903,15 +4240,16 @@ async def compare_multi_step(smi: str, rounds: int = 4):
 
 DIST_BACKEND = "gloo"
 TP_STEP_VARIANTS = {"bf16": {}, "fp8": dict(kv_quant="fp8", block_size=32),
-                    "int4": dict(quant="int4")}
+                    "int4": dict(quant="int4"), "int8": dict(quant="int8")}
 TP_HISTORIES = [40 + 97 * i for i in range(8)]     # the decode rows' keys
 TP_FED = [(1009 * i + 17) % 120000 + 1 for i in range(8)]
 # [tp2 step]'s checks. The tp = 1 kernels against their plain versions
 # within TP_STEP_LIMIT: CLEAR_MARGIN, the absolute bound of the step phases
-# above (they measure about 0.1 at these widths and weights); with INT4
-# weights twice that, as the plain INT4 projection (quant.proj) rounds each
-# half-product to bf16 where the kernel rounds once (phase_step measures
-# 0.14-0.34 for it, 0.08 for the kernel alone). The tp = 2 step rounds to
+# above (they measure about 0.1 at these widths and weights; INT8's kernel
+# rounds where quant.proj does); with INT4 weights twice that, as the plain
+# INT4 projection (quant.proj) rounds each half-product to bf16 where the
+# kernel rounds once (phase_step measures 0.14-0.34 for it, 0.08 for the
+# kernel alone). The tp = 2 step rounds to
 # bf16 where tp = 1 does not (each all-reduce adds one rounding of the
 # residual stream a layer, and the shards' products are other GEMM shapes),
 # as the kernels do against their plain versions: each rank's kernels
@@ -3920,8 +4258,12 @@ TP_FED = [(1009 * i + 17) % 120000 + 1 for i in range(8)]
 # run (or one bf16 ulp of the largest logit, if more). Greedy tokens agree
 # on every row whose top-2 margin is clear of twice the difference.
 TP_STEP_LIMIT = {"bf16": CLEAR_MARGIN, "fp8": CLEAR_MARGIN,
-                 "int4": 2 * CLEAR_MARGIN}
+                 "int4": 2 * CLEAR_MARGIN, "int8": CLEAR_MARGIN}
 TP_LOGIT_FACTOR = 3.0
+# The tp/dp engines' depth: 8B widths at half its 32 layers, since each
+# layer costs two gloo all-reduces staged through the host (3.3 ms each at
+# tp = 2) and the run's time limit is shared with every phase.
+SERVE_TP_LAYERS = 16
 SERVE_TP_PAGES = 380                 # SWAP_PAGES' bf16 pool: 4 of the 8 fit
 SERVE_TP_OUT = 32                    # the 4 admitted outgrow 380 pages
 SERVE_DP_PAGES = 1024
@@ -3978,8 +4320,8 @@ def tp_step(variant: str, out_path: str, fault: bool = False) -> dict:
     """[tp2 step] on this process's ranks (tp = the world size; 1 in the
     parent): 8B width, 4 layers, seeded_weights (std 0.02). A prefill step writes
     8 histories of 40 to 719 tokens; then one mixed step (the 8 decode rows
-    and a fresh 512-token chunk; with INT4 weights a 128-token chunk, so
-    that the bucket of 256 tokens runs int4_matmul) with the kernels, and
+    and a fresh 512-token chunk; with INT4 or INT8 weights a 128-token
+    chunk, so that the bucket of 256 tokens runs the weight kernel) with the kernels, and
     the same step again from the same cache with their plain versions.
     Every rank runs every step (the primary's batch reaches the followers
     through the control channel). The kernels' logits go to out_path;
@@ -3998,7 +4340,7 @@ def tp_step(variant: str, out_path: str, fault: bool = False) -> dict:
     m = LlamaModel(ec, mc, device=DEVICE)
     m.params = seeded_weights(mc, ec.quant, seed=4321, mesh=m.mesh)
     m.init_kvcache_and_swap()
-    chunk = 128 if ec.quant == "int4" else 512
+    chunk = 512 if ec.quant == "none" else 128
     reqs = []
     for i, n in enumerate(TP_HISTORIES + [chunk]):
         r = Request(RawRequest("", 4))
@@ -4073,7 +4415,9 @@ def tp_step(variant: str, out_path: str, fault: bool = False) -> dict:
 
 
 def tp_step_kernels(variant: str) -> tuple:
-    return pa.KERNELS + (("int4_matmul",) if variant == "int4" else ())
+    extra = {"int4": ("int4_matmul",), "int8": ("int8_matmul",),
+             "fp8": ("quantize_kv",)}
+    return pa.KERNELS + extra.get(variant, ())
 
 
 def greedy_agrees(a, b, diff) -> bool:
@@ -4223,7 +4567,7 @@ def serve_rank(ec_kw: dict, seed: int, smi: str, profile: str = "") -> dict:
     the ops it replayed (followers), or the served tokens, times and
     profile (rank 0)."""
     from swiftllm_tpu_torch.parallel import distributed
-    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    mc = LlamaModelConfig(num_layers=SERVE_TP_LAYERS, **LLAMA3_8B)
     ec = EngineConfig(model_path="", use_dummy=True, **ec_kw)
     if not distributed.is_primary():
         m = LlamaModel(ec, mc, device=DEVICE)
@@ -4295,7 +4639,7 @@ def rank_main(phase: str, args: dict) -> int:
 
 async def serve_tp1_reference(ec_kw: dict, seed: int) -> dict:
     """The tp = 1 engine on the same successor weights and prompts."""
-    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    mc = LlamaModelConfig(num_layers=SERVE_TP_LAYERS, **LLAMA3_8B)
     engine, loops, _ = await _engine(
         EngineConfig(model_path="", use_dummy=True, **ec_kw), mc, seed)
     out = await _serve_timed(engine, serve_prompts(mc), SERVE_TP_OUT)
@@ -4308,7 +4652,8 @@ async def serve_tp1_reference(ec_kw: dict, seed: int) -> dict:
 
 
 def phase_serve_parallel(smi: str) -> None:
-    """[serve tp2] and [serve dp2 tp2]: full-width engines (8B, 32 layers)
+    """[serve tp2] and [serve dp2 tp2]: full-width engines (8B widths,
+    SERVE_TP_LAYERS layers)
     on successor weights (seeded_weights), 8 prompts of 1,500 tokens and 32 output
     tokens each. tp = 2 at the default EngineConfig (swap preemption, 2,048
     host pages) on a pool of 380 pages, which holds four of the eight: the
@@ -4320,7 +4665,7 @@ def phase_serve_parallel(smi: str) -> None:
     from swiftllm_tpu_torch.parallel.distributed import (OP_STEP, OP_STOP,
                                                          OP_SWAP_IN,
                                                          OP_SWAP_OUT)
-    mc = LlamaModelConfig(num_layers=32, **LLAMA3_8B)
+    mc = LlamaModelConfig(num_layers=SERVE_TP_LAYERS, **LLAMA3_8B)
     seed = 93
     cases = [("serve tp2", 2, dict(tp_size=2, num_hbm_blocks=SERVE_TP_PAGES)),
              ("serve dp2 tp2", 4, dict(dp_size=2, tp_size=2,
@@ -4334,7 +4679,7 @@ def phase_serve_parallel(smi: str) -> None:
         while len(chain) < SERVE_TP_OUT:
             chain.append(successor(chain[-1]))
         assert toks == chain, "the tp=1 engine left the successor chain"
-    log(f"[serve tp1] reference: 8B, 32 layers, 8 x {SWAP_PROMPT} prompt tokens, "
+    log(f"[serve tp1] reference: 8B, {SERVE_TP_LAYERS} layers, 8 x {SWAP_PROMPT} prompt tokens, "
         f"{SERVE_TP_OUT} out, {SERVE_TP_PAGES} pages: wall {want['wall']:.3f} s, "
         f"TTFT p50 {1e3 * want['ttft_p50']:.1f} ms, decode "
         f"{want['decode_tok_s']:.1f} tok/s, {want['stats']['num_preemptions']} "
@@ -4365,8 +4710,8 @@ def phase_serve_parallel(smi: str) -> None:
             swaps = ""
         assert ops[-1] == OP_STOP
         assert ops.count(OP_STEP) == primary["stats"]["num_steps"], ops
-        log(f"[{name}] backend {DIST_BACKEND}, {world} ranks on one card, 8B, 32 "
-            f"layers, {kw}: tokens equal tp=1's; wall {primary['wall']:.3f} s, "
+        log(f"[{name}] backend {DIST_BACKEND}, {world} ranks on one card, 8B, "
+            f"{SERVE_TP_LAYERS} layers, {kw}: tokens equal tp=1's; wall {primary['wall']:.3f} s, "
             f"TTFT p50 {1e3 * primary['ttft_p50']:.1f} ms, max "
             f"{1e3 * primary['ttft_max']:.1f} ms, decode "
             f"{primary['decode_tok_s']:.1f} tok/s, "
@@ -4513,6 +4858,14 @@ def main() -> int:
         tmp.cleanup()
         log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--quant"]:
+        phase_int8("cuda", smi)
+        phase_step("int8")
+        phase_step("int4")
+        phase_quantize_kv("cuda", smi)
+        phase_step(kv_quant="fp8")
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -4525,13 +4878,15 @@ def main() -> int:
     results["paged_decode_attention_pend"] = phase_pend("cuda", smi)
     phase_verify("cuda", smi)
     results["paged_prefill_attention_bf16s"] = phase_bf16s("cuda", smi)
-    quantize_ms = time_quantize("cuda", smi)
+    results["quantize_kv"] = phase_quantize_kv("cuda", smi)
     time_sampler("cuda", smi)
     torch.cuda.empty_cache()
     results["int4_matmul"] = phase_int4("cuda", smi)
+    results["int8_matmul"] = phase_int8("cuda", smi)
     swap = phase_swap_mover(smi)
     phase_step()
     phase_step("int4")
+    phase_step("int8")
     phase_step(kv_quant="fp8")
     phase_step("int4", kv_quant="fp8")
     phase_step(mistral=True)
@@ -4544,7 +4899,7 @@ def main() -> int:
         adapters[name] = Path(tmp.name) / name
         write_peft_adapter(adapters[name], LLAMA3_8B, 32, seed)
     phase_lora_step(adapters)
-    launches = asyncio.run(phase_serve(smi, quantize_ms, adapters))
+    launches = asyncio.run(phase_serve(smi, adapters))
     http_cli(smi, Path(tmp.name))
     gc.collect()
     torch.cuda.empty_cache()
@@ -4553,19 +4908,25 @@ def main() -> int:
     http_tp2(smi, Path(tmp.name))
     tmp.cleanup()
     # Launches: the decode kernel's and store_kv's on the bf16 serving run
-    # (the path of the slice that brought them), int4_matmul's on the INT4
+    # (the path of the slice that brought them), int4_matmul's and
+    # int8_matmul's on the INT4 and INT8 runs, quantize_kv's on the fp8 KV
     # run, the `pend` variant's on the deferred multi-step run, the prefill
     # kernel's and its bf16-score variant's on the speculative-decoding
-    # engine's waves; the other runs' counts are asserted and logged by their
-    # runs.
-    run_of = {"int4_matmul": "int4", "paged_decode_attention_pend": "ms8defer",
+    # engine's waves, the page mover's on the bf16 swapping engine; the
+    # other runs' counts are asserted and logged by their runs.
+    run_of = {"int4_matmul": "int4", "int8_matmul": "int8",
+              "quantize_kv": "fp8kv", "paged_decode_attention_pend": "ms8defer",
               "paged_prefill_attention": "spec",
-              "paged_prefill_attention_bf16s": "spec"}
+              "paged_prefill_attention_bf16s": "spec", "swap_pages": "swap bf16"}
+    # The page mover's row: a 128-page round trip (two launches), byte-equal.
+    results["swap_pages"] = dict(
+        max_abs_err=0.0, bound_by="bytes",
+        **{k: swap[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     kernels = [dict(name=n, route="cuda", source=SOURCE_OF[n],
                     replaces=REPLACES[n],
                     launches=launches[run_of.get(n, "none")][n], **results[n])
                for n in REPLACES]
-    # The page mover replaces no TPU kernel: its own line.
+    assert {k["name"] for k in kernels} == set(build.KERNELS), kernels
     log(f"[swap] swap_pages: {json.dumps(dict(swap, launches={k: v['swap_pages'] for k, v in launches.items() if k.startswith('swap ')}))}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

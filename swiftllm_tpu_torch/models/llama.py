@@ -10,8 +10,8 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
   the +1 a garbage page that padding tokens write into) and W = 2*n_kv*hd
   lanes laid out ``[K_all ‖ V_all]``. With ``kv_quant="fp8"`` the cache is
   ``torch.float8_e4m3fn`` and each row ends in ``FP8_SCALE_LANES`` more lanes
-  that hold the token's power-of-two K and V scales (``quantize_kv``), byte
-  for byte the JAX package's layout.
+  that hold the token's power-of-two K and V scales (``ops/quantize_kv.py``),
+  byte for byte the JAX package's layout.
 - A Python loop over layers replaces ``lax.scan``. Where JAX donates the
   cache and the feedback buffer to the step, this port updates both IN PLACE.
 - Attention goes through the hand-written CUDA kernels of
@@ -19,10 +19,13 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
   or through ``_ragged_paged_attention_torch``, the port of the JAX package's
   gather-based reference. Projections, norms, RoPE, SiLU*mul, the embedding
   gather and the argmax are plain PyTorch, as the JAX package leaves them to
-  XLA, with one exception: with ``use_kernels``, the INT4 weights of buckets
-  of at most 256 tokens go through the INT4 kernel of
-  ``ops/int4_matmul.py``. Every other quantized weight (INT8, INT4 in the
-  prefill buckets, the quantized ``lm_head``) goes through ``quant.proj``.
+  XLA, with three exceptions, where XLA fuses what plain PyTorch cannot:
+  with ``use_kernels``, the quantized weights of buckets of at most 256
+  tokens go through the kernel of their format (INT8: ``ops/int8_matmul.py``,
+  INT4: ``ops/int4_matmul.py``), and so does a quantized ``lm_head`` whose
+  rows (B, or B·S1 in a verify step) number at most 256; an fp8 cache's
+  rows are built by the kernel of ``ops/quantize_kv.py``. Larger buckets'
+  quantized weights and larger verify heads go through ``quant.proj``.
 - Multi-LoRA: a projection that an adapter targets adds each token's own
   adapter update (``lora_add``, plain GEMMs, as the JAX package leaves its
   einsums to XLA), in every step kind: mixed, multi-step and verify.
@@ -58,8 +61,13 @@ import torch.nn.functional as F
 from swiftllm_tpu_torch.config import LlamaModelConfig
 from swiftllm_tpu_torch.models.sampling import (chosen_logprobs, exact_greedy,
                                                 sample_tokens)
-from swiftllm_tpu_torch.ops import int4_matmul
+from swiftllm_tpu_torch.ops import int4_matmul, int8_matmul
 from swiftllm_tpu_torch.ops import paged_attention as pa
+from swiftllm_tpu_torch.ops import quantize_kv as qkv
+# The plain fp8 row build under its old names (tests and chip_smoke.py use
+# them); forward_shard takes the kernel's wrapper with use_kernels.
+from swiftllm_tpu_torch.ops.quantize_kv import fp8_scales  # noqa: F401
+from swiftllm_tpu_torch.ops.quantize_kv import quantize_kv_plain as quantize_kv
 from swiftllm_tpu_torch.parallel.distributed import (all_reduce_tp, gather_dp,
                                                      gather_tp)
 from swiftllm_tpu_torch.parallel.mesh import (SINGLE, Mesh,
@@ -211,38 +219,6 @@ def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 FP8_SCALE_LANES = pa.FP8_SCALE_LANES
-
-
-def fp8_scales(x_max: torch.Tensor) -> torch.Tensor:
-    """Per-token power-of-2 scale s = 2^e with |x|*s <= 224 (e4m3's largest
-    value is 448): e = floor(log2(224 / max(x_max, 1e-20))) clipped to
-    [-9, 8], the powers of two that e4m3 holds exactly (2^-9 is its smallest
-    subnormal), so the scale lanes lose nothing.
-
-    The JAX package takes the floor of a float32 ``log2`` of the rounded
-    quotient; this takes it exactly, from the exponent and mantissa of
-    x_max (x = m * 2^ex with m in [0.5, 1): 224 / m lies in (224, 448], at
-    or above 256 when m <= 0.875), so the CPU and the card give the same
-    bytes. The two differ only where the reference's ``log2`` rounds up
-    across an integer: x_max a few float32 ulps above 224 * 2^k, where the
-    reference's scale is twice this one and both keep |x|*s within 448."""
-    m, ex = torch.frexp(x_max.float().clamp(1e-20, torch.finfo(torch.float32).max))
-    e = torch.where(m <= 0.875, 8, 7) - ex
-    return torch.exp2(e.clamp(-9, 8).float())
-
-
-def quantize_kv(kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
-    """One step's K and V rows ([T, n_kv*hd] each, any float dtype) as fp8
-    cache rows [T, 2*n_kv*hd + FP8_SCALE_LANES]: each token's K and V times
-    its own scale (from the row's absmax), clipped to +-448 (e4m3fn has no
-    inf: an overflowing cast would give NaN), then the scale lanes (K scale,
-    V scale, zeros), all cast to e4m3 at once."""
-    kv = torch.stack([kf, vf], dim=1).float()                         # [T, 2, KH]
-    scales = fp8_scales(kv.abs().amax(dim=2))                         # [T, 2]
-    lanes = kv.new_zeros(kv.shape[0], FP8_SCALE_LANES)
-    lanes[:, :2] = scales
-    stored = (kv * scales[:, :, None]).clamp(-448.0, 448.0)
-    return torch.cat([stored.flatten(1), lanes], dim=1).to(pa.FP8)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -411,6 +387,15 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
         sm_scale=sm_scale, q_bucket=q_bucket, window=window)
 
 
+def quantized_proj(x: torch.Tensor, w: dict, layer: int) -> torch.Tensor:
+    """x [T, K] @ layer ``layer`` of the stacked quantized weight ``w``
+    (``{"q": [L, N, K], "s"}`` or ``{"q4": [L, N, K/2], "s"}``), through the
+    kernel of its format: [T, N] in x's dtype."""
+    if "q" in w:
+        return int8_matmul.int8_proj_stacked(x, w["q"], w["s"], layer)
+    return int4_matmul.int4_proj_stacked(x, w["q4"], w["s"], layer)
+
+
 def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                   batch: StepBatch, *, cfg: LlamaModelConfig, page_size: int,
                   q_bucket: int, use_kernels: bool,
@@ -472,10 +457,10 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     # Multi-LoRA: each token's adapter scale, once a step (lora_add).
     sel = (lora_select(batch.lora_ids, params["lora_scale"])
            if "lora_scale" in params else None)
-    # INT4 weights of decode-size buckets go through the INT4 kernel, which
-    # reads the stacked [L, N, K/2] array at the layer's offset (the JAX gate
-    # on T); every other projection through quant.proj.
-    int4_kernel = use_kernels and T <= int4_matmul.MAX_T
+    # Quantized weights of decode-size buckets go through their format's
+    # kernel, which reads the stacked array at the layer's offset (the JAX
+    # gate on T); every other projection through quant.proj.
+    quant_kernel = use_kernels and T <= int4_matmul.MAX_T
     kv_rows = []
     for layer in range(kv_cache.shape[0]):
         w = {name: (t[layer] if torch.is_tensor(t)
@@ -484,8 +469,8 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
         def mproj(h_, name):
             wt = layers[name]
-            if int4_kernel and is_quantized(wt) and "q4" in wt:
-                y = int4_matmul.int4_proj_stacked(h_, wt["q4"], wt["s"], layer)
+            if quant_kernel and is_quantized(wt):
+                y = quantized_proj(h_, wt, layer)
             else:
                 y = proj(h_, w[name])
             lw = w.get("lora_" + name)     # a projection an adapter targets
@@ -502,7 +487,8 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
         q = apply_rope(q_flat.view(T, -1, hd), rope_cs)
         k = apply_rope(k_flat.view(T, -1, hd), rope_cs)
         if kv_cache.dtype == pa.FP8:
-            kv_new = quantize_kv(k.reshape(T, -1), v_flat)
+            kv_new = (qkv.quantize_kv if use_kernels else quantize_kv)(
+                k.reshape(T, -1), v_flat)
         else:
             kv_new = torch.cat([k.reshape(T, -1), v_flat], dim=1).to(kv_cache.dtype)
         attn = _attention_and_store(
@@ -537,7 +523,12 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                                batch.q_starts + batch.q_lens - 1, T).clamp(0, T)
         h_last = x_pad[last_tok]                                     # [B, D]
     lm_head = params["lm_head"]
-    if is_quantized(lm_head):    # [V, D], the [out, in] layout proj takes
+    if (use_kernels and is_quantized(lm_head)
+            and h_last.shape[0] <= int4_matmul.MAX_T):
+        # [V, D] as a one-layer stack (a view) for its format's kernel.
+        logits = quantized_proj(h_last, {k: v[None] for k, v in lm_head.items()},
+                                0).float()                           # [B, V]
+    elif is_quantized(lm_head):  # [V, D], the [out, in] layout proj takes
         logits = proj(h_last, lm_head).float()                       # [B, V]
     else:
         logits = (h_last @ lm_head.to(h_last.dtype).T).float()       # [B, V]

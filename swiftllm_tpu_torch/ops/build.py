@@ -9,8 +9,9 @@ together, under a file lock, so that ranks started together build once),
 names the library by the hash of its source and the headers,
 and loads it with ``ctypes``. Nothing is built when a module
 is imported: the first launch builds its kernel, or a caller builds them all
-up front. The wrappers in ``paged_attention.py``, ``int4_matmul.py`` and
-``swap_pages.py`` launch through ``launch``, which runs the C entry on the
+up front. The wrappers in ``paged_attention.py``, ``int4_matmul.py``,
+``int8_matmul.py``, ``quantize_kv.py`` and ``swap_pages.py`` launch through
+``launch``, which runs the C entry on the
 tensors' card and its current stream and adds one to
 ``launch_counts[name]``. Under CUDA graph capture that count is what the
 capture queued; ``worker/graphs.py`` takes it back and adds it again at
@@ -72,6 +73,11 @@ SOURCES = {
     # x, q4, s, y, partials, counters, T, N, K, L, layer, NT, t_tiles,
     # splits, per, grid, stream
     "int4_matmul": ("int4_matmul.cu", [_P] * 6 + [_I] * 10 + [_P]),
+    # x, q, s, y, partials, counters, T, N, K, L, layer, NT, t_tiles,
+    # splits, per, grid, stream
+    "int8_matmul": ("int8_matmul.cu", [_P] * 6 + [_I] * 10 + [_P]),
+    # kf, vf, out, T, KH, stream
+    "quantize_kv": ("quantize_kv.cu", [_P] * 3 + [_I] * 2 + [_P]),
     # src, dst, pages, n_pages, L, src_layer_bytes, dst_layer_bytes,
     # page_bytes, blocks, stream
     "swap_pages": ("swap_pages.cu", [_P] * 3 + [_I] * 2 + [_LL] * 2 + [_I, _I, _P]),

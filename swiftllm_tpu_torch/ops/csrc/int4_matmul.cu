@@ -38,8 +38,9 @@
 //   in flight, each one chunk: KC packed bytes of 128 weight rows (KC = 128,
 //   or 64 at NT = 128, whose x boxes are large) and the 64-column x boxes
 //   they multiply. Where K/2 is a multiple of 16 bytes it copies them with
-//   TMA (tensor maps cached on the host; the layer is a coordinate of the
-//   weights' map: no per-layer copy), completing on the stage's mbarrier;
+//   TMA (tensor maps cached on the host, tma.cuh; the layer is a coordinate
+//   of the weights' map: no per-layer copy), completing on the stage's
+//   mbarrier;
 //   elsewhere (a ragged K/2, whose rows are not even 4-byte aligned, so
 //   neither TMA nor cp.async can copy them) its 32 lanes load and store the
 //   same swizzled layout, zeros past the edges. The weight rows are swizzled
@@ -68,11 +69,10 @@
 #include <cuda.h>
 
 #include <algorithm>
-#include <mutex>
-#include <unordered_map>
 
 #include "common.cuh"
 #include "splitkv.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace swiftllm {
@@ -417,88 +417,7 @@ int4_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
 
 // ---- host side ----
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (the
-// library links no libcuda).
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-struct MapKey {
-  const void* ptr;
-  int64_t d0, d1, d2;
-  int box;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 && box == o.box;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    size_t h = std::hash<const void*>()(k.ptr);
-    for (int64_t v : {k.d0, k.d1, k.d2, static_cast<int64_t>(k.box)})
-      h = h * 1000003u ^ std::hash<int64_t>()(v);
-    return h;
-  }
-};
-
-// Tensor maps, encoded once per (address, shape, box): a decode step meets
-// the same weights, and mostly the same activation buffers, again and again.
-// The map holds only the address and the shape, so a buffer freed and
-// reallocated at the same address with the same shape reuses it rightly.
-bool tensor_map(CUtensorMap* out, const MapKey& key, bool weights) {
-  static std::mutex mu;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *out = it->second;
-    return true;
-  }
-  const EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return false;
-  CUresult r;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  if (weights) {   // q4 as bytes [L][N][K/2], boxes of KC (key.box) bytes x 128 rows
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(key.d0),
-                                static_cast<cuuint64_t>(key.d1),
-                                static_cast<cuuint64_t>(key.d2)};
-    const cuuint64_t strides[2] = {dims[0], dims[0] * dims[1]};
-    const cuuint32_t box[3] = {static_cast<cuuint32_t>(key.box), kBM, 1};
-    r = enc(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(key.ptr), dims,
-            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            key.box == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  } else {         // x as bf16 [T][K], boxes of 64 columns x NT rows
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(key.d0),
-                                static_cast<cuuint64_t>(key.d1)};
-    const cuuint64_t strides[1] = {dims[0] * 2};
-    const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(key.box)};
-    r = enc(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(key.ptr), dims,
-            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  }
-  if (r != CUDA_SUCCESS) return false;
-  if (cache.size() >= 1024) cache.clear();
-  cache.emplace(key, *out);
-  return true;
-}
+static_assert(kBM == kMapRows, "a weight box is one tile's rows");
 
 template <int NT, bool TMA>
 int launch(const Args& a, int L, int grid, cudaStream_t stream) {

@@ -45,7 +45,7 @@ def chunk_bytes(nt: int) -> int:
     return 64 if nt == 128 else 128
 
 
-class Int4Plan(NamedTuple):
+class MatmulPlan(NamedTuple):
     """A launch's plan, ints only: ``t_tiles`` token tiles of ``nt``
     columns, ``tiles`` tiles of BM weight rows, ``chunks`` K chunks of
     ``kc`` packed bytes cut into ``splits`` splits of ``per`` (the last may
@@ -80,7 +80,7 @@ MERGE_US, MERGE_US_PER_KB = 1.0, 0.02
 PLAN_SLACK = 0.05
 
 
-def plan_us(p: "Int4Plan", n_sms: int) -> float:
+def plan_us(p: "MatmulPlan", n_sms: int) -> float:
     """The modelled time (µs) of a launch by plan ``p`` on ``n_sms`` SMs."""
     chunk_us = (4 * p.kc / 16 * (PRODUCT_CYCLES + NT_CYCLES * p.nt)
                 / (CLOCK_GHZ * 1e3))
@@ -90,46 +90,61 @@ def plan_us(p: "Int4Plan", n_sms: int) -> float:
     return us
 
 
-def _plan_of(T: int, N: int, K: int, n_sms: int, nt: int, splits: int) -> "Int4Plan":
-    t_tiles, tiles, kc = cdiv(T, nt), cdiv(N, BM), chunk_bytes(nt)
-    chunks = cdiv(K // 2, kc)
+def make_plan(T: int, N: int, n_sms: int, nt: int, splits: int, kc: int,
+              chunks: int) -> MatmulPlan:
+    """The plan of ``chunks`` K chunks of ``kc`` bytes at token width ``nt``
+    in about ``splits`` splits, made such that no split is empty."""
+    t_tiles, tiles = cdiv(T, nt), cdiv(N, BM)
     per = cdiv(chunks, max(1, min(splits, chunks)))
     s = cdiv(chunks, per)                # no empty split
     units = tiles * t_tiles * s
-    return Int4Plan(nt, t_tiles, tiles, kc, chunks, s, per, units, min(units, n_sms))
+    return MatmulPlan(nt, t_tiles, tiles, kc, chunks, s, per, units, min(units, n_sms))
 
 
-@functools.lru_cache(maxsize=4096)
-def int4_plan(T: int, N: int, K: int, n_sms: int, splits: int | None = None,
-              nt: int | None = None) -> Int4Plan:
-    """The kernel's plan for x [T, K] and N output channels on a card of
-    ``n_sms`` SMs (one persistent block an SM): the token width (the least
-    of TOKEN_WIDTHS that holds T, or one down to a quarter of it with more
-    token tiles) and the K splits, of those whose modelled time
-    (``plan_us``) is within PLAN_SLACK of the least, the one that fills
-    the most SMs. More splits or token tiles fill more SMs; each split adds
-    a partial to the merge, each token tile the fixed cost of every product
-    again. ``nt`` forces the token width, ``splits`` the count (made such
-    that no split is empty; at the widest token width unless ``nt`` says
-    otherwise). Ints only: no device value reaches the plan. Cached: the
-    search costs the host hundreds of µs, a step's launches a dictionary
-    lookup each."""
+def search_plan(what: str, T: int, N: int, K: int, n_sms: int,
+                splits: int | None, nt: int | None, chunking,
+                cost) -> MatmulPlan:
+    """The plan search of the INT4 and INT8 kernels: over the token widths
+    (the least of TOKEN_WIDTHS that holds T, or one down to a quarter of it
+    with more token tiles) and the K splits (1 to the chunk count), of the
+    plans whose ``cost(plan, n_sms)`` is within PLAN_SLACK of the least,
+    the one that fills the most SMs (then the least cost).
+    ``chunking(width)`` is (bytes a chunk, chunks) at a token width. ``nt``
+    forces the token width, ``splits`` the count (at the widest token width
+    unless ``nt`` says otherwise). Ints only: no device value reaches a
+    plan."""
     for name, v in (("T", T), ("N", N), ("K", K), ("n_sms", n_sms),
                     ("splits", 0 if splits is None else splits),
                     ("nt", 0 if nt is None else nt)):
         if type(v) is not int:
-            raise TypeError(f"int4_plan takes ints, got {name}={v!r}")
+            raise TypeError(f"{what} takes ints, got {name}={v!r}")
     widest = next(w for w in TOKEN_WIDTHS if w >= min(T, TOKEN_WIDTHS[-1]))
     if nt is not None and nt not in TOKEN_WIDTHS:
-        raise ValueError(f"int4_plan: token width {nt} not in {TOKEN_WIDTHS}")
+        raise ValueError(f"{what}: token width {nt} not in {TOKEN_WIDTHS}")
     widths = ([nt] if nt is not None else [widest] if splits is not None
               else [w for w in TOKEN_WIDTHS if widest // 4 <= w <= widest])
-    plans = [_plan_of(T, N, K, n_sms, w, s) for w in widths
+    plans = [make_plan(T, N, n_sms, w, s, *chunking(w)) for w in widths
              for s in ([splits] if splits is not None
-                       else range(1, cdiv(K // 2, chunk_bytes(w)) + 1))]
-    best = min(plan_us(p, n_sms) for p in plans)
-    near = [p for p in plans if plan_us(p, n_sms) <= (1 + PLAN_SLACK) * best]
-    return max(near, key=lambda p: (min(p.units, n_sms), -plan_us(p, n_sms)))
+                       else range(1, chunking(w)[1] + 1))]
+    best = min(cost(p, n_sms) for p in plans)
+    near = [p for p in plans if cost(p, n_sms) <= (1 + PLAN_SLACK) * best]
+    return max(near, key=lambda p: (min(p.units, n_sms), -cost(p, n_sms)))
+
+
+@functools.lru_cache(maxsize=4096)
+def int4_plan(T: int, N: int, K: int, n_sms: int, splits: int | None = None,
+              nt: int | None = None) -> MatmulPlan:
+    """The kernel's plan for x [T, K] and N output channels on a card of
+    ``n_sms`` SMs (one persistent block an SM): the token width and the K
+    splits of ``search_plan`` under this kernel's model (``plan_us``). More
+    splits or token tiles fill more SMs; each split adds a partial to the
+    merge, each token tile the fixed cost of every product again. A forced
+    split count is made such that no split is empty. Cached: the search
+    costs the host hundreds of µs, a step's launches a dictionary lookup
+    each."""
+    return search_plan(
+        "int4_plan", T, N, K, n_sms, splits, nt,
+        lambda w: (chunk_bytes(w), cdiv(K // 2, chunk_bytes(w))), plan_us)
 
 
 def int4_proj_stacked_plain(x: torch.Tensor, q4: torch.Tensor,
@@ -144,7 +159,7 @@ def int4_proj_stacked_plain(x: torch.Tensor, q4: torch.Tensor,
 
 
 def int4_split_partials(x: torch.Tensor, q4: torch.Tensor, layer: int,
-                        plan: Int4Plan) -> list[torch.Tensor]:
+                        plan: MatmulPlan) -> list[torch.Tensor]:
     """The f32 partial sums [T, N] of the plan's splits, in split order:
     split i covers packed columns [i * per * kc, (i + 1) * per * kc) of
     both halves (the last to K/2)."""
@@ -160,7 +175,7 @@ def int4_split_partials(x: torch.Tensor, q4: torch.Tensor, layer: int,
 
 
 def int4_proj_split_plain(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
-                          layer: int, plan: Int4Plan) -> torch.Tensor:
+                          layer: int, plan: MatmulPlan) -> torch.Tensor:
     """Plain version of split-then-merge: the splits' f32 partials summed in
     split order, then the scale and one rounding to x's dtype."""
     acc = torch.zeros(x.shape[0], q4.shape[1], dtype=torch.float32,

@@ -574,7 +574,7 @@ class LlamaModel:
         """Size the kernels' split counters for the largest bucket, once,
         and pin them while the graph table lives: ``units + 2`` of the
         widest decode or prefill plan, and one a tile and token tile of the
-        widest INT4 projection."""
+        widest quantized projection or head (INT8 or INT4)."""
         if self.device.type != "cuda":
             return
         cfg, mc = self.engine_config, self.model_config
@@ -584,11 +584,14 @@ class LlamaModel:
         w = self._graph_key_args()
         build.device_counters("paged_attention", dev, 2 + pa.max_split_units(
             rows, max_q, n_q=w["n_q"], n_kv=w["n_kv"], hd=w["hd"]))
-        n_int4 = [v["q4"].shape[1] for v in self.params["layers"].values()
-                  if isinstance(v, dict) and "q4" in v]
-        if n_int4 and cfg.use_pallas:
+        quantized = [v for v in [*self.params["layers"].values(),
+                                 self.params["lm_head"]]
+                     if isinstance(v, dict) and ("q" in v or "q4" in v)]
+        if quantized and cfg.use_pallas:
+            owner = "int8_matmul" if "q" in quantized[0] else "int4_matmul"
+            n_max = max(v["s"].shape[-1] for v in quantized)
             build.device_counters(
-                "int4_matmul", dev, cdiv(max(n_int4), int4_matmul.BM)
+                owner, dev, cdiv(n_max, int4_matmul.BM)
                 * cdiv(int4_matmul.MAX_T, int4_matmul.TOKEN_WIDTHS[0]))
         build.hold_counters(dev, self.graphs)
 

@@ -12,7 +12,9 @@ tests/test_torch_paged_attention.py).
   ``log2`` rounds up across an integer and its scale is twice the port's
   exact floor; the test pins that (nowhere else, never another factor).
 - ``quantize_kv``: the bytes of the JAX package's quantizing ``kv_new`` build
-  (``swiftllm_tpu/models/llama.py``, ``fp8_scaled``) for the same k and v.
+  (``swiftllm_tpu/models/llama.py``, ``fp8_scaled``) for the same k and v,
+  from the plain version and from the kernel's wrapper
+  (``ops/quantize_kv.py``, its plain version on CPU tensors).
 - The kernels' plain versions against the JAX Pallas kernels in interpret
   mode on the SAME stored bytes, with and without a window: outputs within
   atol 1e-4 / rtol 1e-3 (the JAX file's own fp8 tolerance: f32 on both sides,
@@ -55,6 +57,7 @@ from swiftllm_tpu.worker.model import LlamaModel as JaxLlamaModel
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
 from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES, fp8_scales,
                                              quantize_kv)
+from swiftllm_tpu_torch.ops import quantize_kv as qkv
 from swiftllm_tpu_torch.server.engine import Engine
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
@@ -136,19 +139,26 @@ def jax_quantize_kv(kf, vf):
     return np.asarray(kv_new.astype(jnp.float8_e4m3fn))
 
 
-@pytest.mark.parametrize("magnitude", [1e-4, 1.0, 3e4, 1e7],
-                         ids=["tiny", "unit", "large", "past_the_clip"])
-def test_quantize_kv_bytes_match_jax(magnitude):
+MAGNITUDES = {"tiny": 1e-4, "unit": 1.0, "large": 3e4, "past_the_clip": 1e7}
+
+
+@pytest.mark.parametrize(
+    "magnitude,build", [(m, "plain") for m in MAGNITUDES.values()]
+    + [(m, "wrapper") for m in MAGNITUDES.values()],
+    ids=list(MAGNITUDES) + [f"wrapper_{k}" for k in MAGNITUDES])
+def test_quantize_kv_bytes_match_jax(magnitude, build):
     """Rows of very different magnitudes (dummy weights give K/V near 1e-4;
     1e7 is past the lowest scale, where the clip to +-448 acts), one all-zero
-    row, one row with a single outlier."""
+    row, one row with a single outlier; from ``models.llama.quantize_kv``
+    (the plain version) and from the kernel's wrapper."""
     rng = np.random.default_rng(3)
     k = (rng.normal(size=(64, 96)) * magnitude).astype(np.float32)
     v = (rng.normal(size=(64, 96)) * magnitude * 3).astype(np.float32)
     k[5] = 0.0
     v[7, 11] = 1000.0 * magnitude
     assert FP8_SCALE_LANES == JAX_SCALE_LANES == 128
-    got = quantize_kv(torch.from_numpy(k), torch.from_numpy(v))
+    fn = quantize_kv if build == "plain" else qkv.quantize_kv
+    got = fn(torch.from_numpy(k), torch.from_numpy(v))
     assert got.dtype == torch.float8_e4m3fn and got.shape == (64, 2 * 96 + 128)
     want = jax_quantize_kv(k, v)
     np.testing.assert_array_equal(fp8_to_numpy(got).view(np.uint8),
