@@ -12,6 +12,7 @@
     python3 chip_smoke.py --parallel             # phase 6 alone
     python3 chip_smoke.py --quant                # the weight and fp8 row
                                                  # kernels' phases alone
+    python3 chip_smoke.py --layer-ops            # the [layer_ops] phase alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. the card's name and power limit, torch and CUDA versions;
@@ -41,7 +42,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      kv_new build) at T = 1, 128 and 2,048, byte-equal to its plain
      version at magnitudes that reach both ends of the scale clip and on
      rows of zeros, with a planted fault (the scale lanes swapped) that
-     must fail, timed against the plain version's launches; the
+     must fail, timed against the plain version's launches; the layer's
+     elementwise kernels (layer_ops: add_rms_norm, rope_qkv, silu_mul, no
+     Pallas kernel: XLA's fusions in layer_step) at 8B width and T = 1, 16,
+     128 and 2,048 and at Qwen2-0.5B's (head_dim 64, q/k/v biases) at T = 1
+     and 128, rope_qkv bit-equal to its plain version in both layouts, the
+     other two within one bf16 rounding, four planted faults (eps left out,
+     the residual not written back, a plus in RoPE, gate and up swapped)
+     that must fail, each timed beside its byte bound, its plain version and
+     (add_rms_norm) F.rms_norm; the
      decode kernel's deferred-commit (`pend`) variant on 16 rows (3 of
      them pad rows) with histories of 1 to 2,048 keys, for npend 1, 2, 4
      and 8 of a window of 8, with a sliding
@@ -71,7 +80,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. one whole mixed step, kernels against plain versions, 4 layers: at 8B
      width in bf16, with INT4 and with INT8 weights in a bucket of 256
      tokens (every projection and the head through the weight kernel), with
-     an fp8 KV cache (quantize_kv once a layer), and with INT4 and fp8; at
+     an fp8 KV cache (quantize_kv once a layer), and with INT4 and fp8 (every
+     kernel run: add_rms_norm 2L + 1 times, rope_qkv and silu_mul L times;
+     the plain run none of them); at
      Mistral-7B width with its window of 4096 and rows whose histories
      exceed it; then 8 decode steps of 8 rows at
      8B width, 4 layers, as one multi-step window (fused write, and deferred
@@ -90,7 +101,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      graph pool logged as [graphs <run>], every step a replay or a key's
      first use, the pool within the profile's budget for it, check_pool;
      every profile's launch counts held against the kernels the profiler
-     saw on the device, device_launches): first [graphs], the default
+     saw on the device, device_launches, and PyTorch's own kernels'
+     launches and share of device time logged, aten_share): first
+     [graphs], the default
      EngineConfig at 8B width, 32 layers, bf16 (phase_graphs): the default
      warm-up (every step shape greedy and sampled, every plan of each
      bucket captured): its graphs, wall time, pool and the device memory
@@ -179,7 +192,8 @@ plan's model (the evidence for int4_matmul.py's constants). With
 --sweep-swap it builds only swap_pages and times a round trip of 128 pages
 at several grids, alone and beside a decode-like load (the evidence for
 swap_pages.py's MOVER_BLOCKS). With --parallel it builds the kernels and
-runs only phase 6. With --quant it builds the kernels and runs only the
+runs only phase 6. With --layer-ops it builds only the layer kernels and
+runs only the [layer_ops] phase. With --quant it builds the kernels and runs only the
 [int8] phase, phase 3's INT8 and INT4 steps, the [quantize_kv] phase and
 phase 3's fp8 step.
 
@@ -211,10 +225,12 @@ import torch
 import torch.nn.functional as F
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
-from swiftllm_tpu_torch.models.llama import compute_inv_freq, quantize_kv
+from swiftllm_tpu_torch.models.llama import (compute_inv_freq, quantize_kv,
+                                             rope_tables)
 from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops import int4_matmul as im
 from swiftllm_tpu_torch.ops import int8_matmul as im8
+from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.ops import quantize_kv as qkv
 from swiftllm_tpu_torch.ops.swap_pages import (page_slots, pinned_pool,
@@ -263,6 +279,9 @@ DEVICE = "cuda"
 
 SOURCE_OF = {n: f"swiftllm_tpu_torch/ops/csrc/{src}"
              for n, (src, _) in build.SOURCES.items()}
+# The kernels every step of the kernel path launches: attention and the
+# layer's elementwise work.
+PATH_KERNELS = pa.KERNELS + lo.KERNELS
 REPLACES = {
     "paged_decode_attention": "swiftllm_tpu/ops/paged_attention.py:248",
     "paged_decode_attention_pend": "swiftllm_tpu/ops/paged_attention.py:297",
@@ -274,6 +293,12 @@ REPLACES = {
     # proj's dot, and of the quantizing kv_new build.
     "int8_matmul": "swiftllm_tpu/worker/quant.py:112",
     "quantize_kv": "swiftllm_tpu/models/llama.py:587",
+    # No Pallas kernel: XLA's fusions in layer_step (510) of rms_norm with
+    # the residual add, of the bias adds, apply_rope and the kv_new
+    # concatenation, and of SiLU times up.
+    "add_rms_norm": "swiftllm_tpu/models/llama.py:244",
+    "rope_qkv": "swiftllm_tpu/models/llama.py:208",
+    "silu_mul": "swiftllm_tpu/models/llama.py:619",
     # No Pallas kernel: the swap's gather and device_get.
     "swap_pages": "swiftllm_tpu/worker/model.py:397",
 }
@@ -1206,6 +1231,172 @@ def phase_quantize_kv(device, smi) -> dict:
     return row
 
 
+LAYER_TS = (1, 16, 128, 2048)    # a decode step, a decode bucket, the serving
+                                  # bucket, prefill
+LAYER_TABLE = 128                  # the kernel table's row (PERF.md)
+# Qwen/Qwen2-0.5B's config.json: head_dim 64, q/k/v biases.
+QWEN2_05B = dict(num_q_heads=14, num_kv_heads=2, hidden_size=896, head_dim=64,
+                 ffn_inter_dim=4864, vocab_size=151936,
+                 max_position_embeddings=32768, rms_norm_eps=1e-6,
+                 rope_theta=1000000.0, qkv_bias=True)
+# One bf16 rounding of the output, as tests/test_torch_layer_ops.py states
+# it: add_rms_norm's h (a variance summed in another order, the card's
+# rsqrtf) and silu_mul (expf) may land a bf16 step (2^-8 to 2^-7 of the
+# value) from their plain versions. The planted faults move outputs by
+# O(1): eps left out (on rows of mean square 1e-6, where eps = 1e-5
+# triples the scale), gate and up swapped.
+LAYER_RTOL = 2.0 ** -7
+
+
+def layer_close(got, want) -> tuple[bool, float]:
+    """(within one bf16 rounding: rtol and atol LAYER_RTOL, the atol of the
+    output's largest magnitude; max |got - want|)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool((err <= LAYER_RTOL * (w.abs() + w.abs().max())).all())
+    return ok, err.max().item()
+
+
+def rope_plus_fault(q, k, v, tables, bias=None, split=False):
+    """The planted fault: RoPE with sin negated (x1*cos + x2*sin in place
+    of the minus, and the second half's plus a minus)."""
+    cos, sin = tables
+    return lo.rope_qkv_plain(q, k, v, (cos, -sin), bias, split=split)
+
+
+def layer_inputs(gen, mc, T, device):
+    """One layer's elementwise inputs at mc's widths (bf16): a residual
+    stream x and a branch output r whose rows' mean squares run from 1e-6
+    (the first row: eps acts) to 1, norm weights 1 + N(0, 0.1); q, k, v N(0,
+    1), the tables of T positions drawn in [1, max_position_embeddings), biases
+    N(0, 0.5) when mc has them; gate N(0, 2), up N(0, 1)."""
+    D, inter, hd = mc.hidden_size, mc.ffn_inter_dim, mc.head_dim
+    QH, KH = mc.num_q_heads * hd, mc.num_kv_heads * hd
+
+    def n(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * std
+    mag = 10.0 ** -((torch.arange(T, device=device) + 3) % 4)[:, None]
+    bf = torch.bfloat16
+    pos = torch.randint(1, mc.max_position_embeddings, (T,), generator=gen,
+                        device=device)
+    inv_freq = torch.from_numpy(compute_inv_freq(mc)).to(device)
+    return dict(
+        x=(n(T, D) * mag).to(bf), r=(n(T, D) * mag).to(bf),
+        w=(1 + n(D, std=0.1)).to(bf),
+        q=n(T, QH).to(bf), k=n(T, KH).to(bf), v=n(T, KH).to(bf),
+        tables=rope_tables(pos, inv_freq, bf),
+        bias=(tuple(n(m, std=0.5).to(bf) for m in (QH, KH, KH))
+              if mc.qkv_bias else None),
+        gate=n(T, inter, std=2.0).to(bf), up=n(T, inter).to(bf))
+
+
+def check_layer_ops(a, eps, label) -> dict:
+    """The three kernels against their plain versions on inputs `a`
+    (layer_inputs): add_rms_norm with and without the residual (x' bit-equal,
+    h within one rounding), rope_qkv bit-equal in both layouts, silu_mul
+    within one rounding; the planted faults (eps left out, the residual not
+    written back, the plus in RoPE, gate and up swapped) must fail the same
+    checks. Returns each kernel's max |err|."""
+    x, r, w = a["x"], a["r"], a["w"]
+    h, x2 = lo.add_rms_norm(x, r, w, eps)
+    want_h, want_x = lo.add_rms_norm_plain(x, r, w, eps)
+    ok_h, err_h = layer_close(h, want_h)
+    assert torch.equal(x2, want_x), f"{label}: add_rms_norm's residual differs"
+    assert ok_h, f"{label}: add_rms_norm's h off by {err_h}"
+    h0, x0 = lo.add_rms_norm(x, None, w, eps)
+    ok0, err0 = layer_close(h0, lo.add_rms_norm_plain(x, None, w, eps)[0])
+    assert ok0 and x0 is x, f"{label}: add_rms_norm without residual off by {err0}"
+    no_eps = lo.add_rms_norm_plain(x, r, w, 0.0)[0]
+    assert not layer_close(h, no_eps)[0], f"{label}: eps left out passes"
+    assert not torch.equal(x, want_x), \
+        f"{label}: the residual not written back passes"
+
+    q, k, v, tables, bias = a["q"], a["k"], a["v"], a["tables"], a["bias"]
+    q2, kv = lo.rope_qkv(q, k, v, tables, bias)
+    want_q, want_kv = lo.rope_qkv_plain(q, k, v, tables, bias)
+    assert torch.equal(q2, want_q) and torch.equal(kv, want_kv), \
+        (f"{label}: rope_qkv differs, q {(q2.float() - want_q.float()).abs().max()}, "
+         f"kv {(kv.float() - want_kv.float()).abs().max()}")
+    _, (k3, v3) = lo.rope_qkv(q, k, v, tables, bias, split=True)
+    assert torch.equal(torch.cat([k3, v3], dim=1), want_kv), \
+        f"{label}: rope_qkv's split rows differ"
+    fq, fkv = rope_plus_fault(q, k, v, tables, bias)
+    assert not (torch.equal(q2, fq) or torch.equal(kv, fkv)), \
+        f"{label}: RoPE with the plus passes"
+
+    gate, up = a["gate"], a["up"]
+    out = lo.silu_mul(gate, up)
+    ok_s, err_s = layer_close(out, lo.silu_mul_plain(gate, up))
+    assert ok_s, f"{label}: silu_mul off by {err_s}"
+    assert not layer_close(out, lo.silu_mul_plain(up, gate))[0], \
+        f"{label}: gate and up swapped passes"
+    return dict(add_rms_norm=err_h, rope_qkv=0.0, silu_mul=err_s)
+
+
+def layer_costs(a) -> dict:
+    """Bytes each kernel must move (each input read once, each output
+    written once): (kernel, plain, library) calls and their byte counts."""
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+    x, r, w = a["x"], a["r"], a["w"]
+    q, k, v, (cos, sin), bias = a["q"], a["k"], a["v"], a["tables"], a["bias"]
+    gate, up = a["gate"], a["up"]
+    return {"add_rms_norm": nb(x, r, w) + 2 * nb(x),
+            "rope_qkv": 2 * nb(q, k, v) + nb(cos, sin, *(bias or ())),
+            "silu_mul": 3 * nb(gate)}
+
+
+def phase_layer_ops(device, smi) -> dict:
+    """[layer_ops]: add_rms_norm, rope_qkv and silu_mul against their plain
+    versions (check_layer_ops, planted faults included) at Llama-3-8B width
+    and T in LAYER_TS, and at Qwen2-0.5B's (head_dim 64, biases) at T = 1
+    and 128. Times each kernel, its plain version and, for add_rms_norm,
+    F.rms_norm (the norm alone: no single PyTorch call adds the residual
+    too; none computes rope_qkv or silu_mul) against its byte bound.
+    Returns the kernel table's rows (8B, T = LAYER_TABLE)."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    rows = {}
+    for widths, name, ts in ((LLAMA3_8B, "8B", LAYER_TS),
+                             (QWEN2_05B, "Qwen2-0.5B", (1, 128))):
+        mc = LlamaModelConfig(num_layers=1, **widths)
+        eps = mc.rms_norm_eps
+        for T in ts:
+            a = layer_inputs(gen, mc, T, device)
+            label = f"{name} T={T}"
+            errs = check_layer_ops(a, eps, label)
+            x, r, w = a["x"], a["r"], a["w"]
+            q, k, v, tables, bias = a["q"], a["k"], a["v"], a["tables"], a["bias"]
+            gate, up = a["gate"], a["up"]
+            calls = {
+                "add_rms_norm": (lambda: lo.add_rms_norm(x, r, w, eps),
+                                 lambda: lo.add_rms_norm_plain(x, r, w, eps),
+                                 lambda: F.rms_norm(x, (x.shape[1],), w, eps)),
+                "rope_qkv": (lambda: lo.rope_qkv(q, k, v, tables, bias),
+                             lambda: lo.rope_qkv_plain(q, k, v, tables, bias),
+                             None),
+                "silu_mul": (lambda: lo.silu_mul(gate, up),
+                             lambda: lo.silu_mul_plain(gate, up), None)}
+            nbytes = layer_costs(a)
+            parts = []
+            for kern, (fn, plain, lib) in calls.items():
+                ms, plain_ms = time_ms(fn), time_ms(plain)
+                lib_ms = time_ms(lib) if lib else None
+                bound_ms, bound_by = bound(nbytes[kern], 0)
+                parts.append(
+                    f"{kern} {ms:.4f} ms (bound {bound_ms:.5f}, {bound_by}; "
+                    f"{nbytes[kern] / 2**20:.2f} MiB; plain {plain_ms:.4f}"
+                    f"{f', F.rms_norm {lib_ms:.4f}' if lib else ''}; max |err| "
+                    f"{errs[kern]:.3g})")
+                if name == "8B" and T == LAYER_TABLE:
+                    rows[kern] = dict(max_abs_err=errs[kern], ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, library_ms=lib_ms)
+            log(f"[layer_ops] {label}: within their tolerances (rope_qkv "
+                f"bit-equal), the four planted faults rejected; "
+                + "; ".join(parts) + f" ({smi})")
+    return rows
+
+
 def time_sampler(device, smi):
     """The heads of a step at the serving decode bucket (128 rows) and 8B's
     vocab, each timed alone: the greedy argmax, the sampler (exact top-256
@@ -2048,6 +2239,11 @@ def loading(seed: int, std: float = 0.02, successor: bool = False):
         weights.load_params = real
 
 
+def layer_launches(layers: int) -> dict:
+    """The layer kernels' launches in one step of `layers` layers."""
+    return dict(add_rms_norm=2 * layers + 1, rope_qkv=layers, silu_mul=layers)
+
+
 def phase_step(quant="none", kv_quant="none", mistral=False):
     """One mixed step at 8B width, 4 layers: kernels against plain versions on
     the same weights (std 0.02 from a seeded generator, unit norms) and the
@@ -2059,7 +2255,9 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
     run through quant.proj; a third run, the other kernels with the weight
     kernel's plain version, isolates it, under the same rule. With
     kv_quant="fp8" the cache holds quantized rows (pages of 32), and the
-    kernel runs build the step's rows with quantize_kv, once a layer. With
+    kernel runs build the step's rows with quantize_kv, once a layer. Every
+    kernel run launches add_rms_norm 2L + 1 times, rope_qkv and silu_mul L
+    times (layer_launches), the plain run none of them. With
     `mistral` the widths and the window of 4096 are Mistral-7B-v0.1's, and
     three rows' histories exceed the window: decode rows of 4,097 and 5,000
     keys and a chunk after 5,488."""
@@ -2128,6 +2326,11 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
         if kv_quant == "fp8":
             want = mc.num_layers if use_kernels else 0
             assert launches[run]["quantize_kv"] == want, (run, launches[run])
+        # The layer's elementwise work: two norms a layer and the final
+        # one, one rope_qkv and one silu_mul a layer; none on the plain run.
+        want = layer_launches(mc.num_layers) if use_kernels else dict.fromkeys(
+            lo.KERNELS, 0)
+        assert {k: launches[run][k] for k in lo.KERNELS} == want, (run, launches[run])
         live = [i for i, r in enumerate(rows) if r is not None]
         logits[run] = torch.from_numpy(lg[live])
         models[run] = m
@@ -2680,7 +2883,7 @@ def serve_kernels(name: str) -> tuple:
     """Kernels the serving run `name` must launch."""
     extra = {"int4": ("int4_matmul",), "int8": ("int8_matmul",),
              "fp8kv": ("quantize_kv",), "ms8defer": ("paged_decode_attention_pend",)}
-    return pa.KERNELS + extra.get(name, ())
+    return PATH_KERNELS + extra.get(name, ())
 
 
 def weight_kernel_launches(keys, layers: int) -> int:
@@ -2696,6 +2899,18 @@ def route_before_int8_matmul(x, q, s, layer, **kw):
     """An INT8 projection as the port computed it before int8_matmul:
     quant.proj on the layer's weights (dequantized to bf16, then F.linear)."""
     return proj(x, {"q": q[layer], "s": s[layer]})
+
+
+def aten_share(events) -> tuple:
+    """(launches, device ms, share of device time) of PyTorch's own kernels
+    in a profile (at::native: elementwise, reduction, copy, concatenation,
+    indexing), the work that eager PyTorch runs as small launches between
+    the GEMMs and the port's kernels."""
+    busy = sum(e.self_device_time_total for e in events)
+    mine = [e for e in events
+            if "at::native::" in e.key and e.self_device_time_total > 0]
+    ms = sum(e.self_device_time_total for e in mine)
+    return sum(e.count for e in mine), ms / 1e3, ms / max(busy, 1)
 
 
 def copy_share(events) -> tuple:
@@ -2835,7 +3050,7 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
         assert len(toks) == LONG_OUT_LEN, f"long prompt: {len(toks)} tokens"
         assert all(0 <= t < mc.vocab_size for t in toks)
         long_launches = dict(build.launch_counts)
-        for k in pa.KERNELS:
+        for k in PATH_KERNELS:
             assert long_launches[k] > 0, f"{k} never launched for the long prompt"
         log(f"[serve {name}] one request of {long_prompt} prompt tokens "
             f"({cdiv(long_prompt, ec.block_size)} pages), {LONG_OUT_LEN} output "
@@ -3275,7 +3490,7 @@ async def serve_swap(smi: str, kv: str) -> dict:
     assert engine.stats.num_preemptions >= 1 and not saved, (
         engine.stats.num_preemptions, list(saved))
     assert launches["swap_pages"] == n_swaps, (launches["swap_pages"], n_swaps)
-    for k in pa.KERNELS:
+    for k in PATH_KERNELS:
         assert launches[k] > 0, f"{k} never launched on the swapping engine"
     for p, toks in zip(prompts, got):
         seq = [p[-1]] + toks
@@ -3309,7 +3524,7 @@ async def serve_swap(smi: str, kv: str) -> dict:
     await _pages_back(cpu, ec.num_cpu_blocks)
     assert engine.scheduler.num_free_cpu_blocks == ec.num_cpu_blocks
     assert swaps >= 1 and launches["swap_pages"] >= 2 * swaps, (swaps, launches)
-    for k in pa.KERNELS:
+    for k in PATH_KERNELS:
         assert launches[k] > 0, f"{k} never launched on the swapping engine"
     assert got == want, "the unwrapped swap run's tokens differ from the roomy run's"
     graph_report(engine, f"swap {kv}", since, smi)
@@ -3360,7 +3575,7 @@ async def serve_lora(smi: str, adapters: dict) -> dict:
     mixed = await _serve_greedy(engine, prompts, LORA_OUT, LORA_OF)
     launches = dict(build.launch_counts)
     graph_report(engine, "lora", since, smi)
-    for k in pa.KERNELS:
+    for k in PATH_KERNELS:
         assert launches[k] > 0, f"{k} never launched on the LoRA engine"
     bad = engine.submit(RawRequest("", 4, prompt_token_ids=[1, 2, 3], lora="c"))
     assert bad.aborted and not bad.output_token_ids, "an unknown adapter was served"
@@ -3578,6 +3793,9 @@ DEVICE_KERNEL = {"paged_decode_attention": "paged_decode_kernel",
                  "int4_matmul": "int4_matmul_kernel",
                  "int8_matmul": "int8_matmul_kernel",
                  "quantize_kv": "quantize_kv_kernel",
+                 "add_rms_norm": "add_rms_norm_kernel",
+                 "rope_qkv": "rope_qkv_kernel",
+                 "silu_mul": "silu_mul_kernel",
                  "swap_pages": "swap_pages_kernel"}
 
 
@@ -3638,6 +3856,11 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
     for e in top[:8]:
         log(f"[profile {quant}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    n_at, at_ms, at_share = aten_share(events)
+    steps = engine.stats.num_steps - steps0
+    log(f"[profile {quant}] PyTorch's own elementwise, reduction and copy "
+        f"kernels (at::native): {n_at} launches, {n_at / steps:.1f} a dispatch, "
+        f"{at_ms:.3f} ms, {100 * at_share:.1f}% of device time")
     seen = device_launches(events, build.launch_counts)
     log(f"[profile {quant}] launches counted, and kernels the profiler saw on "
         f"the device: " + ", ".join(f"{k} {n} / {d}" for k, (n, d) in seen.items()
@@ -3658,7 +3881,6 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
             f"{t_int4:.3f} ms, {100 * t_int4 / (1e3 * busy):.1f}% of device time; "
             f"{t_int4 / int4_steps:.3f} ms a step in each of the {int4_steps} "
             "steps that ran it (7 projections a layer and the head)")
-    steps = engine.stats.num_steps - steps0
     if quant.startswith("int8") or quant == "none":
         c_ms, c_share = copy_share(events)
         log(f"[profile {quant}] copy kernels (direct_copy_kernel: dtype "
@@ -3928,7 +4150,7 @@ async def phase_graphs(smi: str) -> None:
             engine.model = model
         wall = time.perf_counter() - t_run
         await _pages_back(mgr, free0)
-        for k in pa.KERNELS:
+        for k in PATH_KERNELS:
             assert build.launch_counts[k] > 0, f"{k} never launched ({label})"
         return toks, wall
     try:
@@ -4417,7 +4639,7 @@ def tp_step(variant: str, out_path: str, fault: bool = False) -> dict:
 def tp_step_kernels(variant: str) -> tuple:
     extra = {"int4": ("int4_matmul",), "int8": ("int8_matmul",),
              "fp8": ("quantize_kv",)}
-    return pa.KERNELS + extra.get(variant, ())
+    return PATH_KERNELS + extra.get(variant, ())
 
 
 def greedy_agrees(a, b, diff) -> bool:
@@ -4691,7 +4913,7 @@ def phase_serve_parallel(smi: str) -> None:
                                  profile=profile_of.get(name, "")), timeout=420)
         assert primary["tokens"] == want["tokens"], f"{name}: tokens differ from tp=1"
         for r, res in enumerate([primary] + followers):
-            for k in pa.KERNELS:
+            for k in PATH_KERNELS:
                 assert res["launches"][k] > 0, (name, r, k, res["launches"])
         assert primary["groups"] == [primary["pages"]] * kw.get("dp_size", 1)
         ops = followers[0]["ops"]
@@ -4822,6 +5044,11 @@ def main() -> int:
         build.build_kernels(("swap_pages",))
         sweep_swap(smi)
         return 0
+    if sys.argv[1:] == ["--layer-ops"]:
+        build.build_kernels(lo.KERNELS)
+        phase_layer_ops("cuda", smi)
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] in (["--compare-int4"], ["--sweep-int4"]):
         build.build_kernels(("int4_matmul",))
         (compare_int4 if sys.argv[1] == "--compare-int4" else sweep_int4)(smi)
@@ -4879,6 +5106,7 @@ def main() -> int:
     phase_verify("cuda", smi)
     results["paged_prefill_attention_bf16s"] = phase_bf16s("cuda", smi)
     results["quantize_kv"] = phase_quantize_kv("cuda", smi)
+    results.update(phase_layer_ops("cuda", smi))
     time_sampler("cuda", smi)
     torch.cuda.empty_cache()
     results["int4_matmul"] = phase_int4("cuda", smi)
@@ -4907,8 +5135,9 @@ def main() -> int:
     phase_serve_parallel(smi)
     http_tp2(smi, Path(tmp.name))
     tmp.cleanup()
-    # Launches: the decode kernel's and store_kv's on the bf16 serving run
-    # (the path of the slice that brought them), int4_matmul's and
+    # Launches: the decode kernel's, store_kv's and the layer kernels' on the
+    # bf16 serving run (the path of the slices that brought them),
+    # int4_matmul's and
     # int8_matmul's on the INT4 and INT8 runs, quantize_kv's on the fp8 KV
     # run, the `pend` variant's on the deferred multi-step run, the prefill
     # kernel's and its bf16-score variant's on the speculative-decoding

@@ -17,15 +17,17 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
 - Attention goes through the hand-written CUDA kernels of
   ``ops/paged_attention.py`` (``use_kernels``, the config's ``use_pallas``),
   or through ``_ragged_paged_attention_torch``, the port of the JAX package's
-  gather-based reference. Projections, norms, RoPE, SiLU*mul, the embedding
-  gather and the argmax are plain PyTorch, as the JAX package leaves them to
-  XLA, with three exceptions, where XLA fuses what plain PyTorch cannot:
-  with ``use_kernels``, the quantized weights of buckets of at most 256
-  tokens go through the kernel of their format (INT8: ``ops/int8_matmul.py``,
-  INT4: ``ops/int4_matmul.py``), and so does a quantized ``lm_head`` whose
-  rows (B, or B·S1 in a verify step) number at most 256; an fp8 cache's
-  rows are built by the kernel of ``ops/quantize_kv.py``. Larger buckets'
-  quantized weights and larger verify heads go through ``quant.proj``.
+  gather-based reference. Projections, the embedding gather and the argmax
+  are plain PyTorch, as the JAX package leaves them to XLA. Where XLA fuses
+  what plain PyTorch cannot, ``use_kernels`` takes hand-written kernels:
+  the layer's elementwise work (``ops/layer_ops.py``: the residual add with
+  the next RMSNorm, the bias adds with RoPE and the K‖V row, SiLU·up); the
+  quantized weights of buckets of at most 256 tokens (INT8:
+  ``ops/int8_matmul.py``, INT4: ``ops/int4_matmul.py``), and a quantized
+  ``lm_head`` whose rows (B, or B·S1 in a verify step) number at most 256;
+  an fp8 cache's rows (``ops/quantize_kv.py``). Larger buckets' quantized
+  weights and larger verify heads go through ``quant.proj``; without
+  ``use_kernels`` everything runs as the kernels' plain versions.
 - Multi-LoRA: a projection that an adapter targets adds each token's own
   adapter update (``lora_add``, plain GEMMs, as the JAX package leaves its
   einsums to XLA), in every step kind: mixed, multi-step and verify.
@@ -62,6 +64,7 @@ from swiftllm_tpu_torch.config import LlamaModelConfig
 from swiftllm_tpu_torch.models.sampling import (chosen_logprobs, exact_greedy,
                                                 sample_tokens)
 from swiftllm_tpu_torch.ops import int4_matmul, int8_matmul
+from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.ops import quantize_kv as qkv
 # The plain fp8 row build under its old names (tests and chip_smoke.py use
@@ -200,18 +203,11 @@ def compute_inv_freq(cfg: LlamaModelConfig) -> np.ndarray:
 
 
 def rope_tables(positions: torch.Tensor, inv_freq: torch.Tensor, dtype):
-    """cos/sin [T, 1, hd/2] in ``dtype``, computed once per step."""
+    """cos/sin [T, 1, hd/2] in ``dtype``, computed once per step (the
+    tables ``ops/layer_ops.py:rope_qkv`` reads)."""
     angles = positions.float()[:, None] * inv_freq[None, :]
     return (torch.cos(angles).to(dtype)[:, None, :],
             torch.sin(angles).to(dtype)[:, None, :])
-
-
-def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
-    """Half-split (rotate_half) rotary embedding, HF convention.
-    x: [T, n_heads, head_dim]; tables: (cos, sin) from rope_tables."""
-    cos, sin = tables
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -219,13 +215,6 @@ def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 FP8_SCALE_LANES = pa.FP8_SCALE_LANES
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """HF LlamaRMSNorm: f32 variance, cast back BEFORE the weight multiply."""
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
 # ---------------------------------------------------------------------------
@@ -453,6 +442,13 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     n_kv = effective_num_kv_heads(cfg.num_kv_heads, mesh.tp) // mesh.tp
 
     rope_cs = rope_tables(batch.positions, params["inv_freq"], x.dtype)
+    # The layer's elementwise work: its kernels, or their plain versions.
+    if use_kernels:
+        add_rms_norm, rope_qkv, silu_mul = lo.add_rms_norm, lo.rope_qkv, lo.silu_mul
+    else:
+        add_rms_norm, rope_qkv, silu_mul = (
+            lo.add_rms_norm_plain, lo.rope_qkv_plain, lo.silu_mul_plain)
+    fp8 = kv_cache.dtype == pa.FP8
     layers = params["layers"]
     # Multi-LoRA: each token's adapter scale, once a step (lora_add).
     sel = (lora_select(batch.lora_ids, params["lora_scale"])
@@ -462,6 +458,7 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     # gate on T); every other projection through quant.proj.
     quant_kernel = use_kernels and T <= int4_matmul.MAX_T
     kv_rows = []
+    r = None   # the branch output the next norm adds to the residual stream
     for layer in range(kv_cache.shape[0]):
         w = {name: (t[layer] if torch.is_tensor(t)
                     else {k: v[layer] for k, v in t.items()})
@@ -476,21 +473,15 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
             lw = w.get("lora_" + name)     # a projection an adapter targets
             return y if lw is None else lora_add(y, h_, lw["A"], lw["B"], sel)
 
-        h = rms_norm(x, w["attn_norm"], eps)
-        q_flat = mproj(h, "wq")
-        k_flat = mproj(h, "wk")
-        v_flat = mproj(h, "wv")
-        if "bq" in w:   # Qwen2-style q/k/v bias
-            q_flat = q_flat + w["bq"].to(q_flat.dtype)
-            k_flat = k_flat + w["bk"].to(k_flat.dtype)
-            v_flat = v_flat + w["bv"].to(v_flat.dtype)
-        q = apply_rope(q_flat.view(T, -1, hd), rope_cs)
-        k = apply_rope(k_flat.view(T, -1, hd), rope_cs)
-        if kv_cache.dtype == pa.FP8:
-            kv_new = (qkv.quantize_kv if use_kernels else quantize_kv)(
-                k.reshape(T, -1), v_flat)
+        h, x = add_rms_norm(x, r, w["attn_norm"], eps)
+        bias = (w["bq"], w["bk"], w["bv"]) if "bq" in w else None  # Qwen2
+        q, kv = rope_qkv(mproj(h, "wq"), mproj(h, "wk"), mproj(h, "wv"),
+                         rope_cs, bias, split=fp8)
+        q = q.view(T, -1, hd)
+        if fp8:
+            kv_new = (qkv.quantize_kv if use_kernels else quantize_kv)(*kv)
         else:
-            kv_new = torch.cat([k.reshape(T, -1), v_flat], dim=1).to(kv_cache.dtype)
+            kv_new = kv.to(kv_cache.dtype)
         attn = _attention_and_store(
             q, kv_new, kv_cache, layer, batch, n_kv=n_kv,
             page_size=page_size, sm_scale=sm_scale, use_kernels=use_kernels,
@@ -500,14 +491,14 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
         if kv_pend is not None:
             kv_rows.append(kv_new[:batch.q_lens.shape[0]])
         # In-sharded projections: each rank's partial sum (an adapter's
-        # included), then the all-reduce.
-        x = x + all_reduce_tp(mproj(attn.reshape(T, -1), "wo"), mesh)
+        # included), then the all-reduce; the next norm adds the result to
+        # the residual stream.
+        h, x = add_rms_norm(x, all_reduce_tp(mproj(attn.reshape(T, -1), "wo"),
+                                             mesh), w["ffn_norm"], eps)
+        gate_up = silu_mul(mproj(h, "w_gate"), mproj(h, "w_up"))
+        r = all_reduce_tp(mproj(gate_up, "w_down"), mesh)
 
-        h = rms_norm(x, w["ffn_norm"], eps)
-        gate = F.silu(mproj(h, "w_gate").float()).to(x.dtype)
-        x = x + all_reduce_tp(mproj(gate * mproj(h, "w_up"), "w_down"), mesh)
-
-    x = rms_norm(x, params["final_norm"], eps)
+    x, _ = add_rms_norm(x, r, params["final_norm"], eps)
 
     # The head reads each row's last fed token (pad rows -> the zero row),
     # or, in a verify step, every position of its span.

@@ -10,7 +10,8 @@ names the library by the hash of its source and the headers,
 and loads it with ``ctypes``. Nothing is built when a module
 is imported: the first launch builds its kernel, or a caller builds them all
 up front. The wrappers in ``paged_attention.py``, ``int4_matmul.py``,
-``int8_matmul.py``, ``quantize_kv.py`` and ``swap_pages.py`` launch through
+``int8_matmul.py``, ``quantize_kv.py``, ``layer_ops.py`` and
+``swap_pages.py`` launch through
 ``launch``, which runs the C entry on the
 tensors' card and its current stream and adds one to
 ``launch_counts[name]``. Under CUDA graph capture that count is what the
@@ -78,6 +79,13 @@ SOURCES = {
     "int8_matmul": ("int8_matmul.cu", [_P] * 6 + [_I] * 10 + [_P]),
     # kf, vf, out, T, KH, stream
     "quantize_kv": ("quantize_kv.cu", [_P] * 3 + [_I] * 2 + [_P]),
+    # x, r, w, x_out, h, T, D, eps, stream
+    "add_rms_norm": ("layer_ops.cu", [_P] * 5 + [_I] * 2 + [_F, _P]),
+    # q, k, v, bq, bk, bv, cos, sin, q_out, k_out, v_out, T, n_q, n_kv, hd,
+    # kv_ld, stream
+    "rope_qkv": ("layer_ops.cu", [_P] * 11 + [_I] * 5 + [_P]),
+    # gate, up, out, T, F, stream
+    "silu_mul": ("layer_ops.cu", [_P] * 3 + [_I] * 2 + [_P]),
     # src, dst, pages, n_pages, L, src_layer_bytes, dst_layer_bytes,
     # page_bytes, blocks, stream
     "swap_pages": ("swap_pages.cu", [_P] * 3 + [_I] * 2 + [_LL] * 2 + [_I, _I, _P]),

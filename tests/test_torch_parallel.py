@@ -792,10 +792,11 @@ def test_every_kernel_launches_through_launch():
     import inspect
 
     from swiftllm_tpu_torch.ops import (build, int4_matmul, int8_matmul,
-                                        paged_attention, quantize_kv, swap_pages)
+                                        layer_ops, paged_attention, quantize_kv,
+                                        swap_pages)
     launched = {}
     for mod in (paged_attention, int4_matmul, int8_matmul, quantize_kv,
-                swap_pages):
+                layer_ops, swap_pages):
         for node in ast.walk(ast.parse(inspect.getsource(mod))):
             if not isinstance(node, ast.Call):
                 continue
