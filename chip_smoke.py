@@ -37,7 +37,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      launches bit-identical, timed at every shape and T beside today's
      proj route (dequantize, then F.linear) and F.linear on bf16 weights,
      with three planted faults (a K chunk dropped, the weights of another
-     layer, a split left out of the merge) that must fail; the fp8 KV row
+     layer, a split left out of the merge) that must fail; both weight
+     kernels' wide configuration (T > 256: tiles of 256 tokens, pairs of
+     blocks sharing x; INT4 with quant.proj's two rounded half-products) at
+     ragged shapes (T = 257, 300, 600), at the four 8B projection shapes
+     (T = 300, 512, 1,024, 2,048; 4 splits forced at 512), INT8's head at
+     640 rows and the tp = 2 shards at T = 512, against its plain version
+     and its plan's split-then-merge, two launches bit-identical, bit-equal
+     on integer inputs, timed beside the proj route, F.linear on bf16
+     weights and the bound (INT8 also at T = 128 and 256 with the wide
+     tile forced beside the narrow plan), with three planted faults (x
+     multicast to the wrong block of the pair, the last partial token tile
+     dropped, INT4's halves summed before rounding) that must fail; the fp8 KV row
      build (quantize_kv, no Pallas kernel: XLA's fusion of the quantizing
      kv_new build) at T = 1, 128 and 2,048, byte-equal to its plain
      version at magnitudes that reach both ends of the scale clip and on
@@ -78,8 +89,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      round trip of 128 pages timed against the host link's byte bound
      (measured), the plain version and cudaMemcpy2DAsync per run;
   3. one whole mixed step, kernels against plain versions, 4 layers: at 8B
-     width in bf16, with INT4 and with INT8 weights in a bucket of 256
-     tokens (every projection and the head through the weight kernel), with
+     width in bf16, with INT4 and with INT8 weights in buckets of 256 and
+     512 tokens (every projection and the head through the weight kernel,
+     no int8 weight converted; quant.proj's plain run converts every one), with
      an fp8 KV cache (quantize_kv once a layer), and with INT4 and fp8 (every
      kernel run: add_rms_norm 2L + 1 times, rope_qkv and silu_mul L times;
      the plain run none of them); at
@@ -120,9 +132,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Engine at full width (32 layers, dummy weights), 8 concurrent
      requests, launch counts of every kernel: 8B in
      bf16, with INT4 and with INT8 weights (the weight kernels' launches
-     held to the steps' buckets; the INT8 engine profiled again on the
-     route before int8_matmul, dequantize then F.linear, for the share of
-     device time its copies took), 8B with an fp8 KV cache (which
+     held to 7 a layer and the head in every step, prefill buckets too;
+     both profiled again on the route before the weight kernels,
+     dequantize then F.linear, for the share of device time its copies
+     took; the prefill step's device ms, TTFT and KV pages of each
+     profile), 8B with an fp8 KV cache (which
      also serves one prompt of 16,500 tokens; quantize_kv's device time a
      step), and Mistral-7B-v0.1 width
      with its sliding window (prompts of 5,000 and 8,192 tokens among the
@@ -186,16 +200,17 @@ checkouts in turns to compare two builds on one card. With --compare-int4
 it builds only int4_matmul and times it once at each 8B shape and T = 1,
 16, 128, 256; it calls nothing the kernel's earlier versions lack, so a copy
 of this script in an earlier checkout times that checkout's kernel. With
---sweep-int4 it builds only int4_matmul and times it at each 8B shape and
-T for every token width and split count its plan chooses from, beside the
-plan's model (the evidence for int4_matmul.py's constants). With
---sweep-swap it builds only swap_pages and times a round trip of 128 pages
+--sweep-int4 it builds only the weight kernels and times int4_matmul at
+each 8B shape and T for every token width and split count its plan chooses
+from, then both formats' wide configuration at T = 512, 1,024 and 2,048 for
+each split count, beside the plans' models (the evidence for
+int4_matmul.py's constants). With --sweep-swap it builds only swap_pages and times a round trip of 128 pages
 at several grids, alone and beside a decode-like load (the evidence for
 swap_pages.py's MOVER_BLOCKS). With --parallel it builds the kernels and
 runs only phase 6. With --layer-ops it builds only the layer kernels and
-runs only the [layer_ops] phase. With --quant it builds the kernels and runs only the
-[int8] phase, phase 3's INT8 and INT4 steps, the [quantize_kv] phase and
-phase 3's fp8 step.
+runs only the [layer_ops] phase. With --quant it builds the kernels and runs
+only the [int4] and [int8] phases, both wide configurations, phase 3's INT8
+and INT4 steps, the [quantize_kv] phase and phase 3's fp8 step.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
 ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
@@ -223,6 +238,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
 from swiftllm_tpu_torch.models.llama import (compute_inv_freq, quantize_kv,
@@ -1684,12 +1700,46 @@ def phase_int4(device, smi) -> dict:
     return row
 
 
+def sweep_wide(smi):
+    """The evidence behind the wide configuration's plan (both formats): its
+    time at each 8B shape and T = 512, 1,024, 2,048 for K splits 1, 2, 3, 4,
+    6, 8 (those that give distinct plans; INT4's are 1 or even), each beside
+    the plan's model of it (int4_matmul.wide_plan_us) and the plan's own
+    choice."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    n_sms = build.sm_count(torch.device(DEVICE, 0))
+    for fmt in ("int8", "int4"):
+        f = wide_fmt(fmt)
+        for label, (N, K) in INT4_SHAPES.items():
+            kb = K if fmt == "int8" else K // 2
+            L8 = max(2, math.ceil(2 * L2_BYTES / (N * kb)))
+            q = torch.randint(-127, 128, (L8, N, kb), generator=gen, device=DEVICE,
+                              dtype=torch.int8)
+            s = torch.rand(L8, N, generator=gen, device=DEVICE) * 1e-2
+            for T in (512, 1024, 2048):
+                x = torch.randn(T, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+                chosen = f["plan"](T, N, K, n_sms)
+                out, seen, it = [], set(), itertools.count()
+                for sp in (1, 2, 3, 4, 6, 8):
+                    p = f["plan"](T, N, K, n_sms, sp)
+                    if p.splits in seen:
+                        continue
+                    seen.add(p.splits)
+                    t = time_ms(lambda: f["kernel"](x, q, s, next(it) % L8, splits=sp))
+                    out.append(f"{p.splits} {t:.4f} ({im.wide_plan_us(p, n_sms) / 1e3:.4f})")
+                log(f"[sweep] {f['name']} wide {label} T={T}, plan {chosen.splits} "
+                    f"splits of {chosen.per} chunks: splits " + ", ".join(out)
+                    + f" ms measured (modelled) ({smi})")
+            del q, s
+            torch.cuda.empty_cache()
+
+
 def sweep_int4(smi):
     """The evidence behind int4_matmul's plan: its time at each 8B shape and
     T in INT4_TS for every token width the plan may take (down to a quarter
     of the widest) and K splits 1, 2, 3, 4, 6, 8, 16 (those that give
     distinct plans), each beside the plan's model of it (int4_matmul.plan_us)
-    and the plan's own choice."""
+    and the plan's own choice; then the wide configuration's (sweep_wide)."""
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     n_sms = build.sm_count(torch.device(DEVICE, 0))
     for label, (N, K) in INT4_SHAPES.items():
@@ -1716,6 +1766,7 @@ def sweep_int4(smi):
                 f"splits): " + ", ".join(out) + f" ms measured (modelled) ({smi})")
         del q4, s
         torch.cuda.empty_cache()
+    sweep_wide(smi)
 
 
 def compare_int4(smi):
@@ -1895,6 +1946,251 @@ def phase_int8(device, smi) -> dict:
             f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
             for a, b in r.items()) + f" ({smi})")
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, the weight kernels' wide configuration (T > 256)
+# ---------------------------------------------------------------------------
+
+WIDE_TS = (300, 512, 1024, 2048)       # a part tile and the prefill buckets
+WIDE_HEAD_T = 640                      # a verify head of 128 rows x 5
+# INT4's wide configuration against its plain version (proj's arithmetic):
+# both round each half's f32 sum (O(100) for these inputs, summed in
+# another order) to bf16, so a half may land a bf16 step apart, 0.25 to 1
+# before the scale, about 0.01 after it, on outputs of O(1): atol 2e-2
+# covers two such steps, rtol 2e-2 the two roundings after them, as INT8's.
+# A dropped token tile or misplaced x rows move outputs by O(1): those
+# faults fail. The roundings themselves are held bit for bit on integer
+# inputs (wide_exact).
+INT4_WIDE_ATOL, INT4_WIDE_RTOL = 2e-2, 2e-2
+
+
+def wide_fmt(fmt: str) -> dict:
+    """A format's wrapper, plain versions, plan and tolerance."""
+    if fmt == "int8":
+        return dict(kernel=im8.int8_proj_stacked, plain=im8.int8_proj_stacked_plain,
+                    split=im8.int8_proj_split_plain, plan=im8.int8_plan,
+                    key="q", tol=(INT8_ATOL, INT8_RTOL), name="int8_matmul")
+    return dict(kernel=im.int4_proj_stacked, plain=im.int4_proj_wide_plain,
+                split=im.int4_wide_split_plain, plan=im.int4_plan, key="q4",
+                tol=(INT4_WIDE_ATOL, INT4_WIDE_RTOL), name="int4_matmul")
+
+
+def _wide_stack(fmt, gen, N, K, L, device):
+    """L layers of N(0, 0.02) weights quantized on the card."""
+    return (_int8_stack if fmt == "int8" else _int4_stack)(gen, N, K, L, device)
+
+
+def wide_tile_halves_swapped(y):
+    """The planted fault "x multicast to the wrong block of the cluster":
+    each block's 128 token rows of x landed in the other block's half of
+    the 256-token tile, so the outputs of the two halves of every whole
+    tile trade places."""
+    f = y.clone()
+    for t0 in range(0, y.shape[0] - 255, 256):
+        f[t0:t0 + 128], f[t0 + 128:t0 + 256] = y[t0 + 128:t0 + 256], y[t0:t0 + 128]
+    return f
+
+
+def wide_last_tile_dropped(y):
+    """The planted fault: the last, partial token tile never stored (zeros)."""
+    f = y.clone()
+    f[y.shape[0] // 256 * 256:] = 0
+    return f
+
+
+def _wide_check(fmt, x, q, s, label, splits=None, faults=False):
+    """The kernel's wide configuration at one shape (its plan's splits, or
+    `splits` forced) against the plain version at its first and last layer
+    and against the plain split-then-merge of its plan, within the format's
+    tolerance; a second launch gives the same bytes. With `faults`, the
+    planted faults of the tiles (wide_tile_halves_swapped, and at a partial
+    last tile wide_last_tile_dropped) must fail. Returns the worst compare,
+    the plan and the faults' compares."""
+    f = wide_fmt(fmt)
+    T, K = x.shape
+    plan = f["plan"](T, q.shape[1], K, build.sm_count(x.device), splits)
+    assert plan.nt == im.WIDE_NT, plan
+    errs, bad = [], {}
+    for layer in sorted({0, q.shape[0] - 1}):
+        got = f["kernel"](x, q, s, layer, splits=splits)
+        again = f["kernel"](x, q, s, layer, splits=splits)
+        assert torch.equal(got, again), f"{f['name']} {label}: two launches differ"
+        want = f["plain"](x, q, s, layer)
+        errs.append(_compare(got, want, *f["tol"]))
+        split = _compare(got, f["split"](x, q, s, layer, plan), *f["tol"])
+        assert max(errs[-1][2], split[2]) <= 1, (
+            f"{f['name']} {label} layer {layer} disagrees: {errs[-1]}, split {split}")
+    if faults:
+        bad["x multicast to the wrong block"] = _compare(
+            got, wide_tile_halves_swapped(want), *f["tol"])
+        if T % 256:
+            bad["the last partial token tile dropped"] = _compare(
+                got, wide_last_tile_dropped(want), *f["tol"])
+        for name, e in bad.items():
+            assert e[2] > 1, f"the tolerance lets '{name}' pass ({fmt} {label})"
+    return max(errs, key=lambda e: e[2]), plan, bad
+
+
+def wide_exact(fmt, gen, N, K, T, device) -> dict:
+    """Integer inputs (x in [-4, 4], any weight byte, scales 2^-10), on which
+    every f32 sum is exact: the wide configuration must equal its plain
+    version bit for bit, unsplit and at the plan's and forced splits. For
+    INT4 the plain version rounds each half to bf16 before their sum, so the
+    planted fault "halves summed before rounding" (the narrow
+    configuration's single rounding, int4_proj_stacked_plain) must differ.
+    Returns the planted fault's share of differing outputs (INT4)."""
+    f = wide_fmt(fmt)
+    x = torch.randint(-4, 5, (T, K), generator=gen, device=device).to(torch.bfloat16)
+    kb = K if fmt == "int8" else K // 2
+    q = torch.randint(-128, 128, (2, N, kb), generator=gen, device=device,
+                      dtype=torch.int8)
+    if fmt == "int8":
+        q.clamp_(min=-127)
+    s = torch.full((2, N), 2.0 ** -10, device=device)
+    n_sms = build.sm_count(x.device)
+    for splits in (None, 1, 4):
+        got = f["kernel"](x, q, s, 1, splits=splits)
+        want = f["split"](x, q, s, 1, f["plan"](T, N, K, n_sms, splits))
+        assert torch.equal(got, want), (
+            f"{f['name']} N={N} K={K} T={T} splits={splits}: not bit-equal on "
+            f"integer inputs ({(got != want).float().mean().item():.4f} differ)")
+    out = {}
+    if fmt == "int4":
+        share = (got != im.int4_proj_stacked_plain(x, q, s, 1)).float().mean().item()
+        assert share > 0.01, f"halves summed before rounding pass ({share})"
+        out["halves summed before rounding"] = share
+    return out
+
+
+def _wide_timings(fmt, gen, x, N, K, device):
+    """Kernel, plain, proj-route and library times at one shape, and the
+    bound: the kernel, quant.proj (the route before the wide configuration:
+    the layer's weights dequantized to bf16, then F.linear) and F.linear on
+    bf16 weights of the same shape each cycle through more weight bytes
+    than L2 holds."""
+    f = wide_fmt(fmt)
+    T = x.shape[0]
+    kb = K if fmt == "int8" else K // 2
+    L8 = max(2, math.ceil(2 * L2_BYTES / (N * kb)))
+    q = torch.randint(-127, 128, (L8, N, kb), generator=gen, device=device,
+                      dtype=torch.int8)
+    s = torch.rand(L8, N, generator=gen, device=device) * 1e-2
+    it = itertools.count()
+    ms = time_ms(lambda: f["kernel"](x, q, s, next(it) % L8))
+    plain_ms = time_ms(lambda: f["plain"](x, q, s, next(it) % L8), reps=3)
+    proj_ms = time_ms(lambda: proj(x, {f["key"]: q[next(it) % L8], "s": s[0]}))
+    del q
+    Lb = max(2, math.ceil(2 * L2_BYTES / (N * K * 2)))
+    wb = torch.randn(Lb, N, K, generator=gen, device=device).to(torch.bfloat16)
+    library_ms = time_ms(lambda: F.linear(x, wb[next(it) % Lb]))
+    del wb
+    torch.cuda.empty_cache()
+    nbytes = T * K * 2 + N * kb + N * 4 + T * N * 2
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, proj_ms=proj_ms,
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 2 * T * N * K))))
+
+
+def phase_wide(fmt: str, device, smi) -> dict:
+    """The wide configuration of int8_matmul or int4_matmul (T > 256):
+    against its plain version at ragged shapes (T = 257, 300, 600), at the
+    four 8B projection shapes (T in WIDE_TS, layers 0 and 3 of a 4-layer
+    stack, with 4 splits forced at T = 512), at INT8's head (640 rows) and
+    at the tp = 2 shards (T = 512); two launches bit-identical; bit-equal on
+    integer inputs (wide_exact); the planted faults must fail (the tiles'
+    at w_gate T = 300 and 512, INT4's rounding in wide_exact); times at
+    every 8B shape and T, and at T = 128 and 256 with the wide tile forced
+    beside the narrow plan's (INT8). Returns {(shape, T): timings}."""
+    f = wide_fmt(fmt)
+    gen = torch.Generator(device=device).manual_seed(14 if fmt == "int8" else 41)
+    # Ragged: N off the 128-row tile and an odd tile count (the last pair's
+    # second block computes past N and writes nothing), K (INT4: K/2) off
+    # the 64-byte chunk, T off the 256-token tile.
+    for N, K in ((300, 1056), (1000, 4128)):
+        q, s = _wide_stack(fmt, gen, N, K, 4, device)
+        for T in (257, 300, 600):
+            x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
+            _wide_check(fmt, x, q, s, f"N={N} K={K} T={T}")
+        log(f"[{fmt} wide] ragged N {N}, K {K}: matches at T = 257, 300, 600, "
+            "two launches bit-identical")
+        del q, s
+    shapes = dict(INT4_SHAPES, **INT8_TP2_SHAPES)
+    if fmt == "int8":
+        shapes["lm_head"] = INT8_SHAPES["lm_head"]
+    table, faults = {}, {}
+    for label, (N, K) in shapes.items():
+        head, tp2 = label == "lm_head", label in INT8_TP2_SHAPES
+        Ts = (WIDE_HEAD_T,) if head else (512,) if tp2 else WIDE_TS
+        q, s = _wide_stack(fmt, gen, N, K, 1 if head else 4, device)
+        worst, plans = (0.0, 0.0, 0.0), []
+        for T in Ts:
+            x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
+            err, plan, bad = _wide_check(fmt, x, q, s, f"{label} T={T}",
+                                         faults=label == "w_gate/w_up" and T in (300, 512))
+            faults.update({(k, T): v for k, v in bad.items()})
+            worst = max(worst, err, key=lambda e: e[2])
+            plans.append(f"T {T}: {plan.t_tiles} token tiles, {plan.splits} "
+                         f"splits of {plan.per} chunks, {plan.grid} blocks")
+            if T == 512 and not head:
+                forced = _wide_check(fmt, x, q, s, f"{label} T={T} 4 splits", splits=4)
+                worst = max(worst, forced[0], key=lambda e: e[2])
+            if not tp2:
+                table[(label, T)] = dict(max_abs_err=err[0],
+                                         **_wide_timings(fmt, gen, x, N, K, device))
+        log(f"[{fmt} wide] {label} (N {N}, K {K}): matches the plain version and "
+            f"its plan's split-then-merge at T = {', '.join(map(str, Ts))}"
+            f"{'' if head else ' (and 4 splits forced at T = 512)'}, "
+            f"{'one layer' if head else 'layers 0 and 3'}, two launches "
+            f"bit-identical: max_abs_err {worst[0]:.3g}, median |want| "
+            f"{worst[1]:.3g}, worst {worst[2]:.3g} of the tolerance (atol "
+            f"{f['tol'][0]}, rtol {f['tol'][1]}); plans: " + "; ".join(plans))
+        del q, s
+        torch.cuda.empty_cache()
+    for N, K in ((14336, 4096), (1024, 4096), (300, 1024)):
+        for T in (512, 300):
+            faults.update({(k, T): v for k, v in wide_exact(fmt, gen, N, K, T, device).items()})
+        log(f"[{fmt} wide] integer inputs, N {N}, K {K}, T 300 and 512: the "
+            "kernel equals its plain version bit for bit (the plan's splits, "
+            "1 and 4)")
+    assert any("multicast" in k for k, _ in faults) and any("dropped" in k for k, _ in faults)
+    assert fmt == "int8" or any("rounding" in k for k, _ in faults)
+    for (name, T), e in faults.items():
+        if isinstance(e, float):
+            log(f"[{fmt} wide] planted fault ({name}, T {T}): {100 * e:.1f}% of "
+                "the outputs differ from the kernel's on integer inputs")
+        else:
+            log(f"[{fmt} wide] planted fault ({name}, w_gate T {T}): max_abs_err "
+                f"{e[0]:.3g}, median |want| {e[1]:.3g}, worst {e[2]:.3g} of the "
+                "tolerance")
+    if fmt == "int8":
+        # The wide tile in the decode buckets, forced, beside the narrow
+        # plan's launch: evidence for a later int8_matmul change, not used.
+        for label, (N, K) in INT4_SHAPES.items():
+            q = torch.randint(-127, 128, (max(2, math.ceil(2 * L2_BYTES / (N * K))), N, K),
+                              generator=gen, device=device, dtype=torch.int8)
+            s = torch.rand(q.shape[:2], generator=gen, device=device) * 1e-2
+            it = itertools.count()
+            for T in (128, 256):
+                x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
+                table[(label, T)] = dict(
+                    narrow_ms=time_ms(lambda: f["kernel"](x, q, s, next(it) % len(q))),
+                    wide_ms=time_ms(lambda: f["kernel"](x, q, s, next(it) % len(q),
+                                                        nt=im.WIDE_NT)),
+                    **dict(zip(("bound_ms", "bound_by"), bound(
+                        T * K * 2 + N * K + N * 4 + T * N * 2, 2 * T * N * K))))
+            del q, s
+            torch.cuda.empty_cache()
+    log(f"[time] {f['name']} wide configuration: library_ms F.linear on bf16 "
+        "weights of the same shape; proj_ms quant.proj, the route before it "
+        "(the layer's weights dequantized to bf16, then F.linear); kernel, "
+        "proj and library cycle through more weight bytes than L2 holds"
+        + ("; at T = 128 and 256 narrow_ms is the plan's launch, wide_ms the "
+           "wide tile forced" if fmt == "int8" else ""))
+    for (label, T), r in table.items():
+        log(f"[time] {f['name']} wide {label} T={T}: " + ", ".join(
+            f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
+            for a, b in r.items()) + f" ({smi})")
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -2244,16 +2540,36 @@ def layer_launches(layers: int) -> dict:
     return dict(add_rms_norm=2 * layers + 1, rope_qkv=layers, silu_mul=layers)
 
 
-def phase_step(quant="none", kv_quant="none", mistral=False):
+class WeightConversions(TorchDispatchMode):
+    """Counts the dtype conversions of int8 tensors of at least 2^20
+    elements (a quantized weight's: no activation is int8) that run while it
+    is on: quant.proj's, which the weight kernels exist to avoid."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default):
+            src = args[1] if func is torch.ops.aten.copy_.default else args[0]
+            if src.dtype == torch.int8 and src.numel() >= 2**20:
+                self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def phase_step(quant="none", kv_quant="none", mistral=False, chunk=None):
     """One mixed step at 8B width, 4 layers: kernels against plain versions on
     the same weights (std 0.02 from a seeded generator, unit norms) and the
     same random cache. Greedy tokens must agree on every row whose top-2
     margin in the plain run exceeds twice the largest logit difference. With
-    INT4 or INT8 weights the step is 8 decode rows and a 128-token chunk, a
-    bucket of 256 tokens, so the kernel run sends every projection and the
-    head through the weight kernel (int4_matmul, int8_matmul) and the plain
-    run through quant.proj; a third run, the other kernels with the weight
-    kernel's plain version, isolates it, under the same rule. With
+    INT4 or INT8 weights two steps: 8 decode rows and a 128-token chunk, a
+    bucket of 256 tokens, then with a 300-token chunk, a bucket of 512 (the
+    weight kernels' wide configuration); the kernel runs send every
+    projection and the head through the weight kernel (int4_matmul,
+    int8_matmul), and no int8 weight is converted (WeightConversions), while
+    the plain runs send them through quant.proj, which converts every one; a
+    third run, the other kernels with the weight kernel's plain version,
+    isolates it, under the same rule. With
     kv_quant="fp8" the cache holds quantized rows (pages of 32), and the
     kernel runs build the step's rows with quantize_kv, once a layer. Every
     kernel run launches add_rms_norm 2L + 1 times, rope_qkv and silu_mul L
@@ -2261,6 +2577,10 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
     `mistral` the widths and the window of 4096 are Mistral-7B-v0.1's, and
     three rows' histories exceed the window: decode rows of 4,097 and 5,000
     keys and a chunk after 5,488."""
+    if quant != "none" and chunk is None:
+        for n in (128, 300):
+            phase_step(quant, kv_quant, chunk=n)
+        return
     mc = LlamaModelConfig(num_layers=4, **(MISTRAL_7B if mistral else LLAMA3_8B))
     ec = dict(model_path="", use_dummy=True, dtype="bfloat16", quant=quant,
               kv_quant=kv_quant, block_size=32 if kv_quant == "fp8" else 16,
@@ -2268,7 +2588,7 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
               max_blocks_per_seq=128, max_batch_size=16)
     specs = [(40 + 97 * i, 40 + 97 * i, 1) for i in range(8)]
     specs += ([(512, 0, 512), (1600, 1024, 512), (812, 512, 300)]
-              if quant == "none" else [(812, 512, 128)])
+              if quant == "none" else [(812, 512, chunk)])
     if mistral:
         ec.update(num_hbm_blocks=2048, max_blocks_per_seq=512, max_batch_size=8)
         specs = [(n, n, 1) for n in (40, 500, 4096, 4999)]
@@ -2283,7 +2603,7 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
                      "int8": (im8, "int8_proj_stacked", "int8_matmul")}.get(quant)
     if weight_kernel:
         runs.append((f"{quant} plain", True))
-    logits, models, launches = {}, {}, {}
+    logits, models, launches, conversions = {}, {}, {}, {}
     for run, use_kernels in runs:
         m = LlamaModel(EngineConfig(**ec, use_pallas=use_kernels), mc,
                        device=DEVICE)
@@ -2310,19 +2630,27 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
             mod, fn, kernel = weight_kernel
             wrapper = getattr(mod, fn)
         if run.endswith(" plain"):
-            setattr(mod, fn, getattr(mod, fn + "_plain"))
+            setattr(mod, fn, {"int8": im8.int8_proj_stacked_plain,
+                              "int4": im.int4_proj_plain}[quant])
+        spy = WeightConversions()
         try:
-            tokens, rows, lg = m.forward(_requests(specs, mc.vocab_size),
-                                         return_logits=True)
+            with spy:
+                tokens, rows, lg = m.forward(_requests(specs, mc.vocab_size),
+                                             return_logits=True)
         finally:
             if weight_kernel:
                 setattr(mod, fn, wrapper)
         torch.cuda.synchronize()
         launches[run] = dict(build.launch_counts)
         if weight_kernel:
-            # Every projection of every layer, and the head.
+            # Every projection of every layer, and the head; on the kernel
+            # route no int8 weight is converted, on quant.proj's every one
+            # (the weight kernel's plain version converts too).
             want = 7 * mc.num_layers + 1 if run == "kernels" else 0
             assert launches[run][kernel] == want, (run, launches[run])
+            assert (spy.n == 0 if run == "kernels" else
+                    run != "plain" or spy.n >= 7 * mc.num_layers), (run, spy.n)
+            conversions[run] = spy.n
         if kv_quant == "fp8":
             want = mc.num_layers if use_kernels else 0
             assert launches[run]["quantize_kv"] == want, (run, launches[run])
@@ -2350,7 +2678,9 @@ def phase_step(quant="none", kv_quant="none", mistral=False):
             f"{launches['kernels']}), kernels against {run}: max |logit diff| "
             f"{diff:.4g} (logit std {b.std().item():.4g}); greedy tokens agree on "
             f"{int(agree.sum())}/{len(agree)} rows, {int(checked.sum())} rows "
-            f"with margin > 2x diff all agree")
+            f"with margin > 2x diff all agree"
+            + (f"; int8 weights converted: kernels {conversions['kernels']}, "
+               f"{run} {conversions[run]}" if weight_kernel else ""))
     del models, logits, cache0
     torch.cuda.empty_cache()
 
@@ -2888,17 +3218,17 @@ def serve_kernels(name: str) -> tuple:
 
 def weight_kernel_launches(keys, layers: int) -> int:
     """The INT4 or INT8 kernel's launches over single steps of buckets
-    `keys`: 7 projections a layer in a bucket of at most MAX_T tokens, and
-    the head in every step (its rows, at most the engine's 128, always
-    take the kernel)."""
+    `keys`: 7 projections a layer and the head in every step, whatever its
+    tokens (above 256 in the wide configuration)."""
     assert all(k.steps == 1 and not k.spec for k in keys), keys
-    return sum(1 + (7 * layers if k.tokens <= im.MAX_T else 0) for k in keys)
+    return len(keys) * (7 * layers + 1)
 
 
-def route_before_int8_matmul(x, q, s, layer, **kw):
-    """An INT8 projection as the port computed it before int8_matmul:
-    quant.proj on the layer's weights (dequantized to bf16, then F.linear)."""
-    return proj(x, {"q": q[layer], "s": s[layer]})
+def proj_route(key: str):
+    """A quantized projection (`key` "q": INT8, "q4": INT4) as the port
+    computed it before the weight kernels took it: quant.proj on the
+    layer's weights (dequantized to bf16, then F.linear)."""
+    return lambda x, q, s, layer, **kw: proj(x, {key: q[layer], "s": s[layer]})
 
 
 def aten_share(events) -> tuple:
@@ -2932,9 +3262,9 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
     from one seed, sample three of their requests, collect every token's
     logprob (outputs[name]) and are held to MS_PREDICTED. The INT4 and INT8
     engines' weight kernels are held to their steps' buckets
-    (weight_kernel_launches), and the INT8 engine is profiled again on the
-    route before int8_matmul (route_before_int8_matmul, eagerly), for the
-    share of device time its copies took. The decode rate goes to
+    (weight_kernel_launches), and each is profiled again on the route before
+    its weight kernel (proj_route, eagerly), for the share of device time
+    its copies took and its prefill step's device ms. The decode rate goes to
     rates[name]. The engine is released before this returns, so that the
     next one sizes its cache on an empty card."""
     widths, ec_kw, prompt_lens, long_prompt = SERVE_RUNS[name]
@@ -3003,12 +3333,13 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
     engine.model.execute_packed = execute
     if name in ("int4", "int8"):
         kernel = f"{name}_matmul"
-        small = sum(k.tokens <= im.MAX_T for k in keys)
+        wide = sorted({k.tokens for k in keys if k.tokens > im.WIDE_ABOVE})
         assert launches[kernel] == weight_kernel_launches(keys, mc.num_layers), (
             launches[kernel], [k.tokens for k in keys])
         log(f"[serve {name}] {kernel} launched {launches[kernel]} times: 7 "
-            f"projections x {mc.num_layers} layers in each of the {small} steps "
-            f"of at most {im.MAX_T} tokens, and the head of all {len(keys)} steps")
+            f"projections x {mc.num_layers} layers and the head in each of the "
+            f"{len(keys)} steps ({sum(k.tokens > im.WIDE_ABOVE for k in keys)} "
+            f"of them in buckets of {wide} tokens, the wide configuration)")
     if multi:
         got = dict(launches, steps=engine.stats.num_steps)
         assert {k: got[k] for k in MS_PREDICTED[name]} == MS_PREDICTED[name], (
@@ -3062,15 +3393,18 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
         log(f"[serve {name}] the long request finished and its pages are back "
             f"({mgr.num_free_blocks} free of {free0})")
     await _profile(engine, smi, name, out_len=65 if multi else 24)
-    if name == "int8":
-        # The route before int8_matmul, on the same engine, eagerly (so that
-        # no graph of it joins the pool the profile budgeted).
-        wrapper, graphs = im8.int8_proj_stacked, engine.model.graphs
-        im8.int8_proj_stacked, engine.model.graphs = route_before_int8_matmul, None
+    if name in ("int8", "int4"):
+        # The route before the weight kernel, on the same engine, eagerly (so
+        # that no graph of it joins the pool the profile budgeted).
+        mod, fn = (im8, "int8_proj_stacked") if name == "int8" else (im, "int4_proj_stacked")
+        wrapper, graphs = getattr(mod, fn), engine.model.graphs
+        setattr(mod, fn, proj_route("q" if name == "int8" else "q4"))
+        engine.model.graphs = None
         try:
-            await _profile(engine, smi, "int8_proj")
+            await _profile(engine, smi, f"{name}_proj")
         finally:
-            im8.int8_proj_stacked, engine.model.graphs = wrapper, graphs
+            setattr(mod, fn, wrapper)
+            engine.model.graphs = graphs
     if name in ("none", "ms8"):
         await _http(engine, mgr, free0, logprobs=multi)
     g = engine.model.graphs
@@ -3234,11 +3568,10 @@ async def serve_spec(smi: str) -> dict:
             return t_sub, stamps, toks
         # The oracle wave runs under the profiler: the kernels it saw on
         # the device against the launches counted (device_launches).
-        prof = (torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA])
-            if bf16s else contextlib.nullcontext())
+        ctx = (profiling(torch.profiler.ProfilerActivity.CUDA)
+               if bf16s else contextlib.nullcontext())
         try:
-            with prof:
+            with ctx as prof:
                 torch.cuda.synchronize()
                 t_run = time.perf_counter()
                 res = await asyncio.gather(*[one(p) for p in prompts])
@@ -3249,6 +3582,8 @@ async def serve_spec(smi: str) -> dict:
         await _pages_back(mgr, free0)
         launches = dict(build.launch_counts)
         if bf16s:
+            if lost := edges_lost(prof):
+                log(f"[serve spec] {name}: {lost}")
             seen = device_launches(prof.key_averages(), launches)
             log(f"[serve spec] {name}: launches counted, and kernels the "
                 f"profiler saw on the device: " + ", ".join(
@@ -3628,20 +3963,19 @@ async def _decode_profile(engine, label, lora, smi, n_req=8, prompt=64, out_len=
     requests of 64 prompt tokens and 24 output tokens (one prefill step,
     then decode steps) under torch.profiler; the table goes to
     chiprun_out/profile_<label>.txt."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     reqs = [RawRequest("", out_len, lora=lora, prompt_token_ids=[
         (3 * i + j) % 1000 + 1 for j in range(prompt)]) for i in range(n_req)]
     torch.cuda.synchronize()
     steps0 = engine.stats.num_steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         await asyncio.gather(*[engine.add_request_and_wait(r) for r in reqs])
         torch.cuda.synchronize()
     steps = engine.stats.num_steps - steps0
     events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    ops = sum(e.count for e in dev) / steps
-    busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    dev = body_records(prof)
+    ops = len(dev) / steps
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps
     assert ops > 0, "the profile shows no device operations"
     (OUT_DIR / f"profile_{label}.txt").write_text(events.table(
         sort_by="self_device_time_total", row_limit=40))
@@ -3797,6 +4131,17 @@ DEVICE_KERNEL = {"paged_decode_attention": "paged_decode_kernel",
                  "rope_qkv": "rope_qkv_kernel",
                  "silu_mul": "silu_mul_kernel",
                  "swap_pages": "swap_pages_kernel"}
+# Device kernels recorded under more than one name: the weight kernels'
+# wide configuration (csrc/wide_matmul.cuh, T > 256) under its own.
+DEVICE_NAMES = {"int4_matmul_kernel": ("int4_matmul_kernel", "wide_matmul_kernel<true"),
+                "int8_matmul_kernel": ("int8_matmul_kernel", "wide_matmul_kernel<false")}
+
+
+def is_kernel(event, kern: str) -> bool:
+    """Whether a profiler event is device kernel `kern` (DEVICE_KERNEL's
+    value) under any of its names."""
+    return (event.self_device_time_total > 0
+            and any(n in event.key for n in DEVICE_NAMES.get(kern, (kern,))))
 
 
 def device_launches(events, counts: dict) -> dict:
@@ -3812,8 +4157,7 @@ def device_launches(events, counts: dict) -> dict:
     out = {}
     for kern in sorted(set(DEVICE_KERNEL.values())):
         counted = sum(n for k, n in counts.items() if DEVICE_KERNEL[k] == kern)
-        on_dev = sum(e.count for e in events
-                     if kern in e.key and e.self_device_time_total > 0)
+        on_dev = sum(e.count for e in events if is_kernel(e, kern))
         lost = counted - on_dev
         assert 0 <= lost and 100 * lost <= counted, (kern, counted, on_dev)
         out[kern] = (counted, on_dev)
@@ -3823,26 +4167,74 @@ def device_launches(events, counts: dict) -> dict:
 async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
                    out_len=24):
     """Where a step's time goes: n_req short requests (so mostly decode
-    steps) under torch.profiler. Prints the kernels with the most device
-    time and the device's busy share of the wall time; the full table goes
-    to chiprun_out/profile_<quant>.txt. Every kernel's launch count is held
+    steps, after one prefill step of n_req x prompt tokens) under
+    torch.profiler. Prints the kernels with the most device time and the
+    device's busy share of the wall time; the full table goes to
+    chiprun_out/profile_<quant>.txt. Every kernel's launch count is held
     against the kernels the profiler saw on the device (device_launches):
     replays count what their captures recorded, and this shows that they
-    ran them."""
-    from torch.profiler import ProfilerActivity, profile
-    reqs = [RawRequest("", out_len, prompt_token_ids=[(3 * i + j) % 1000 + 1
-                                                       for j in range(prompt)])
-            for i in range(n_req)]
-    torch.cuda.synchronize()
-    steps0 = engine.stats.num_steps
-    build.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        await asyncio.gather(*[engine.add_request_and_wait(r) for r in reqs])
+    ran them. The quantized engines' runs (quant int4, int8 and their
+    proj routes) also time each step between CUDA events and stream the
+    requests: the largest step's (the prefill's) device ms, the TTFT and
+    the engine's KV pages. A step of more than 256 tokens (the prefill)
+    runs alone on the card, synchronised before and after, between two
+    sleep kernels that mark it on the device's timeline: its device ms is
+    the sum of the device records between them (step_device_ms). Its CUDA
+    events' span, printed beside it, also takes in any time the card waits
+    for the host, as on the proj route, which runs eagerly."""
+    from torch.profiler import ProfilerActivity
+    quantized = quant in ("int4", "int8", "int4_proj", "int8_proj")
+    step_ms, execute = [], engine.model.execute_packed
+
+    def timed(flat, key, *a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        alone = key.tokens > im.WIDE_ABOVE
+        if alone:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(STEP_MARK_CYCLES)
+        e0.record()
+        out = execute(flat, key, *a, **kw)
+        e1.record()
+        if alone:
+            torch.cuda._sleep(STEP_MARK_CYCLES)
+            torch.cuda.synchronize()
+        step_ms.append((key.tokens, e0, e1, alone))
+        return out
+
+    async def first_token(r):
+        t_sub, first = time.perf_counter(), None
+        async for _ in engine.add_request_and_stream(r):
+            first = first or time.perf_counter() - t_sub
+        return first
+    for attempt in range(2):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        steps0 = engine.stats.num_steps
+        build.reset_launch_counts()
+        step_ms.clear()
+        reqs = [RawRequest("", out_len, prompt_token_ids=[
+            (3 * i + j) % 1000 + 1 for j in range(prompt)]) for i in range(n_req)]
+        if quantized:
+            engine.model.execute_packed = timed
+        try:
+            with profiling(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
+                t0 = time.perf_counter()
+                ttft = await asyncio.gather(*[
+                    first_token(r) if quantized else engine.add_request_and_wait(r)
+                    for r in reqs])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            engine.model.execute_packed = execute
+        lost = edges_lost(prof)
+        if not lost:
+            break
+        # The profiler, not the engine, failed: the same requests once more,
+        # then the checks below on what it kept.
+        log(f"[profile {quant}] {lost}" + ("" if attempt else
+                                          "; profiling the same requests again"))
     events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events) / 1e6
+    busy = sum(e.time_range.elapsed_us() for e in body_records(prof)
+               if not is_mark(e)) / 1e6
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
     (OUT_DIR / f"profile_{quant}.txt").write_text(events.table(
         sort_by="self_device_time_total", row_limit=40))
@@ -3868,11 +4260,11 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
     if quant == "int4":
         # One device kernel per INT4 projection: the split merge runs inside
         # the launch, no second pass.
-        kern = [e for e in events
-                if "int4_matmul" in e.key and e.self_device_time_total > 0]
+        kern = [e for e in events if is_kernel(e, "int4_matmul_kernel")]
         launched, n_dev = seen["int4_matmul_kernel"]
         assert launched > 0, "int4_matmul never launched"
-        assert all("int4_matmul_kernel" in e.key for e in kern), [e.key for e in kern]
+        assert not [e.key for e in events if "int4_matmul" in e.key
+                    and e.self_device_time_total > 0 and e not in kern]
         t_int4 = sum(e.self_device_time_total for e in kern) / 1e3
         int4_steps = launched // (7 * engine.model_config.num_layers + 1)
         log(f"[profile {quant}] int4_matmul: {launched} launches, {n_dev} INT4 "
@@ -3881,12 +4273,32 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
             f"{t_int4:.3f} ms, {100 * t_int4 / (1e3 * busy):.1f}% of device time; "
             f"{t_int4 / int4_steps:.3f} ms a step in each of the {int4_steps} "
             "steps that ran it (7 projections a layer and the head)")
-    if quant.startswith("int8") or quant == "none":
+    if quant.startswith("int") or quant == "none":
         c_ms, c_share = copy_share(events)
         log(f"[profile {quant}] copy kernels (direct_copy_kernel: dtype "
             f"conversions, where an int8 weight becomes bf16): {c_ms:.3f} ms, "
             f"{100 * c_share:.1f}% of device time, {c_ms / steps:.3f} ms a "
             f"dispatch")
+        if quant in ("int4", "int8"):
+            # No weight is converted: the copies are the bf16 engine's (0.06
+            # ms a dispatch: the logits and the tables). One step's weight
+            # conversions took 19.5 ms (PR 12), 0.8 ms a dispatch over 24.
+            assert c_ms / steps < 0.2, f"{quant}: weight conversions ({c_ms:.3f} ms)"
+    if quantized:
+        i = max(range(len(step_ms)), key=lambda j: step_ms[j][0])
+        tokens, e0, e1, alone = step_ms[i]
+        assert alone, tokens
+        kern = "int8_matmul_kernel" if quant.startswith("int8") else "int4_matmul_kernel"
+        dev_ms, n_rec, n_weight = step_device_ms(
+            prof, sum(t[3] for t in step_ms[:i]), sum(t[3] for t in step_ms), kern)
+        span = e0.elapsed_time(e1)
+        assert 0 < dev_ms <= span, (dev_ms, span)
+        ttft = sorted(ttft)
+        log(f"[profile {quant}] the prefill step (the largest, a {tokens}-token bucket): "
+            f"{dev_ms:.3f} ms of device time (the sum of its {n_rec} kernel "
+            f"records, {n_weight} of them {kern}; {span:.3f} ms between its "
+            f"CUDA events); TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
+            f"{1e3 * ttft[-1]:.1f} ms; {engine.model.num_hbm_blocks} KV pages ({smi})")
     if quant == "fp8kv":
         kern = [e for e in events if "quantize_kv_kernel" in e.key]
         t_q = sum(e.self_device_time_total for e in kern) / 1e3
@@ -3895,6 +4307,113 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
             f"dispatch, one a layer), {t_q:.3f} ms of device time, "
             f"{100 * t_q / (1e3 * busy):.2f}%: {t_q / steps:.4f} ms a dispatch")
     return 1e3 * busy, steps
+
+
+STEP_MARK_CYCLES = 1000   # _profile's sleep kernels around a step
+
+
+PROFILE_PAD_S = 0.5          # the card idle before and after a profiled body
+EDGE_MARK_CYCLES = 200_000   # the sleep kernels at a profiled body's edges
+EDGE_MARK_US = 20            # a sleep kernel longer than this is an edge mark
+
+
+def is_mark(event) -> bool:
+    """Whether a profiler record is one of the sleep kernels (PyTorch's
+    spin_kernel, which nothing else launches) that mark a profiled body's
+    edges (long) or a step inside it (short)."""
+    return "spin_kernel" in event.name
+
+
+def device_records(prof) -> list:
+    """The device records (kernels, copies, sets) of profile `prof`, in
+    order of their start."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and getattr(e, "activity_type", None) != "gpu_user_annotation"),
+                  key=lambda e: e.time_range.start)
+
+
+def edge_marks(records: list) -> list:
+    """The indices, in `records` (device_records), of the long sleep
+    kernels that mark a profiled body's edges (profiling)."""
+    return [k for k, e in enumerate(records)
+            if is_mark(e) and e.time_range.elapsed_us() > EDGE_MARK_US]
+
+
+def body_records(prof) -> list:
+    """The device records of profiling's body: those between its marks, or,
+    where the profiler dropped a mark (edges_lost), every record but the
+    sleep kernels."""
+    evs = device_records(prof)
+    edges = edge_marks(evs)
+    if len(edges) != 2:
+        return [e for e in evs if not is_mark(e)]
+    return evs[edges[0] + 1:edges[1]]
+
+
+def edges_lost(prof) -> str:
+    """'' if the profiler kept both of profiling's edge marks; else what it
+    kept. With both kept it kept every record of the body: it drops
+    records by their times only."""
+    evs = device_records(prof)
+    edges = edge_marks(evs)
+    if len(edges) == 2:
+        return ""
+    return (f"the profiler kept {len(edges)} of the body's 2 edge marks "
+            f"(records {edges} of {len(evs)}, "
+            f"{sum(map(is_mark, evs)) - len(edges)} step marks)")
+
+
+@contextlib.contextmanager
+def profiling(*activities):
+    """torch.profiler over the body: first a few small kernels and
+    PROFILE_PAD_S of an idle card, then a long sleep kernel that marks the
+    body's start; after it another that marks its end, and PROFILE_PAD_S
+    more. The profiler keeps only the device records whose times, put on
+    the host's clock, fall between its start and its stop, and on the H100
+    machines the two clocks drift apart (kineto: "GPU op timestamp <
+    runtime timestamp" by up to 18 ms within one profile). Records at a
+    run's edges went missing so: three of a replay's first norms, a step
+    mark, 896 records of the eager `proj` route's profile (kineto's
+    "Out-of-range = 896") and once some four of its steps. The pads keep
+    the body's records away from the edges; the marks show whether they
+    did (edges_lost)."""
+    from torch.profiler import profile
+    with profile(activities=list(activities)) as prof:
+        x = torch.zeros(1024, device=DEVICE)
+        for _ in range(4):
+            x.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        torch.cuda._sleep(EDGE_MARK_CYCLES)
+        yield prof
+        torch.cuda.synchronize()
+        torch.cuda._sleep(EDGE_MARK_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def step_device_ms(prof, j: int, n: int, kern: str) -> tuple:
+    """(device ms, device records, records of device kernel `kern`) of the
+    j-th of the n steps that _profile marked in profile `prof`: the device
+    records (kernels, copies, sets) between the step's two short sleep
+    kernels (is_mark; the long ones mark the profiled body's edges), their
+    durations summed. The step ran alone on the card, synchronised before
+    and after, so every record there is its own. (The marks are kernels,
+    not record_function ranges: the profiler records no host ranges on the
+    engine's model thread, where the step runs.)"""
+    evs = device_records(prof)
+    marks = [k for k, e in enumerate(evs)
+             if is_mark(e) and e.time_range.elapsed_us() <= EDGE_MARK_US]
+    assert len(marks) == 2 * n, (
+        f"{len(marks)} sleep kernels for {n} marked steps, at records {marks} "
+        f"of {len(evs)}; the first records: "
+        f"{[(e.name[:40], e.time_range.start) for e in evs[:6]]}")
+    inside = evs[marks[2 * j] + 1:marks[2 * j + 1]]
+    names = DEVICE_NAMES.get(kern, (kern,))
+    return (sum(e.time_range.elapsed_us() for e in inside) / 1e3, len(inside),
+            sum(any(n in e.name for n in names) for e in inside))
 
 
 async def _pages_back(mgr, free0, timeout=10.0):
@@ -4042,7 +4561,7 @@ def _graph_step_check(model, twin, label, specs, smi) -> dict:
     use's, and the kernels the profiler saw the replay run against them
     (device_launches). Returns the logits' agreement and the bytes of the
     graph's static logits, which its pool keeps reserved."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     mgr = model.hbm_block_mgrs[0]
     for i, (_, cached, _) in enumerate(specs):
         if cached:
@@ -4051,7 +4570,7 @@ def _graph_step_check(model, twin, label, specs, smi) -> dict:
     for run, m in (("eager", twin), ("first use", model), ("replay", model)):
         build.reset_launch_counts()
         sched = _requests(specs, model.model_config.vocab_size)
-        with (profile(activities=[ProfilerActivity.CUDA]) if run == "replay"
+        with (profiling(ProfilerActivity.CUDA) if run == "replay"
               else contextlib.nullcontext()) as prof:
             tokens, rows, lg = m.forward(sched, return_logits=True)
             torch.cuda.synchronize()
@@ -4064,6 +4583,8 @@ def _graph_step_check(model, twin, label, specs, smi) -> dict:
     launches = entry[0].launches
     assert counts["eager"] == counts["first use"] == launches, (
         label, counts, launches)
+    if lost := edges_lost(prof):
+        log(f"[graphs] {label} step: {lost}")
     seen = device_launches(prof.key_averages(), launches)
     assert all(n == d for n, d in seen.values()), (label, seen)
     a, b = out["eager"][1], out["replay"][1]
@@ -4538,13 +5059,16 @@ def spawn_ranks(phase: str, world: int, args: dict, timeout: float) -> list:
             for r in range(world)]
 
 
-def tp_step(variant: str, out_path: str, fault: bool = False) -> dict:
+def tp_step(variant: str, out_path: str, fault: bool = False,
+            chunk: int | None = None) -> dict:
     """[tp2 step] on this process's ranks (tp = the world size; 1 in the
     parent): 8B width, 4 layers, seeded_weights (std 0.02). A prefill step writes
     8 histories of 40 to 719 tokens; then one mixed step (the 8 decode rows
-    and a fresh 512-token chunk; with INT4 or INT8 weights a 128-token
-    chunk, so that the bucket of 256 tokens runs the weight kernel) with the kernels, and
-    the same step again from the same cache with their plain versions.
+    and a fresh chunk: `chunk` tokens, by default 512, and with INT4 or INT8
+    weights 128, a bucket of 256 tokens, which the weight kernels' narrow
+    configuration takes; a chunk of 300 makes a 512-token bucket, their wide
+    configuration) with the kernels, and the same step again from the same
+    cache with their plain versions.
     Every rank runs every step (the primary's batch reaches the followers
     through the control channel). The kernels' logits go to out_path;
     returns the kernels-against-plain difference, whether greedy tokens
@@ -4562,7 +5086,7 @@ def tp_step(variant: str, out_path: str, fault: bool = False) -> dict:
     m = LlamaModel(ec, mc, device=DEVICE)
     m.params = seeded_weights(mc, ec.quant, seed=4321, mesh=m.mesh)
     m.init_kvcache_and_swap()
-    chunk = 512 if ec.quant == "none" else 128
+    chunk = chunk or (512 if ec.quant == "none" else 128)
     reqs = []
     for i, n in enumerate(TP_HISTORIES + [chunk]):
         r = Request(RawRequest("", 4))
@@ -4636,6 +5160,12 @@ def tp_step(variant: str, out_path: str, fault: bool = False) -> dict:
                 std=b.std().item())
 
 
+# [tp2 step]'s cases: (variant, chunk). The quantized variants also with a
+# 300-token chunk, so that the shards run the weight kernels' wide
+# configuration in a whole step.
+TP_STEP_CASES = [(v, None) for v in TP_STEP_VARIANTS] + [("int8", 300), ("int4", 300)]
+
+
 def tp_step_kernels(variant: str) -> tuple:
     extra = {"int4": ("int4_matmul",), "int8": ("int8_matmul",),
              "fp8": ("quantize_kv",)}
@@ -4669,27 +5199,38 @@ def tp_step_checks(variant: str, one: dict, ranks: list, a, b) -> dict:
 
 
 def phase_tp_step(smi: str, tmp: Path):
-    """[tp2 step]: each variant at tp = 1 here, then at tp = 2 in two ranks
-    (one process each, over gloo); every kernel of the step launched on
-    every rank, and tp_step_checks: the tp = 1 kernels against their plain
+    """[tp2 step]: each case of TP_STEP_CASES at tp = 1 here, then at tp = 2
+    in two ranks (one process each, over gloo); every kernel of the step
+    launched on every rank (the quantized variants' weight kernel 7L + 1
+    times, and their 300-token chunks in a bucket of more than 256 tokens,
+    which the wide configuration takes), and tp_step_checks: the tp = 1 kernels against their plain
     versions, each rank's at the shard's widths (16 q and 4 kv heads), and
     the gathered tp = 2 logits against tp = 1's. Then the bf16 step again
     with a planted fault (tp_step's `fault`) at tp = 1 and in both ranks:
     every check must reject it."""
-    for variant in TP_STEP_VARIANTS:
+    for variant, chunk in TP_STEP_CASES:
         t0 = time.perf_counter()
-        one = tp_step(variant, str(tmp / f"tp1_{variant}.pt"))
+        name = variant + (f"_{chunk}" if chunk else "")
+        one = tp_step(variant, str(tmp / f"tp1_{name}.pt"), chunk=chunk)
         gc.collect()
         torch.cuda.empty_cache()
-        ranks = spawn_ranks("tp_step", 2, dict(variant=variant, out_path=str(
-            tmp / f"tp2_{variant}.pt")), timeout=240)
+        ranks = spawn_ranks("tp_step", 2, dict(variant=variant, chunk=chunk, out_path=str(
+            tmp / f"tp2_{name}.pt")), timeout=240)
         for r, res in enumerate(ranks):
             for k in tp_step_kernels(variant):
                 assert res["launches"][k] > 0, (variant, r, k, res["launches"])
-        b = torch.load(tmp / f"tp1_{variant}.pt")
+        weights = {"int4": "int4_matmul", "int8": "int8_matmul"}.get(variant)
+        if weights:
+            # Every projection of the 4 layers and the head through the
+            # format's kernel on every rank, in either configuration.
+            for r, res in enumerate([one] + ranks):
+                assert res["launches"][weights] == 7 * 4 + 1, (name, r, res["launches"])
+        if chunk:
+            assert one["tokens"] > im.WIDE_ABOVE, (name, one["tokens"])
+        b = torch.load(tmp / f"tp1_{name}.pt")
         checks = tp_step_checks(variant, one, ranks,
-                                torch.load(tmp / f"tp2_{variant}.pt"), b)
-        log(f"[tp2 step] {variant}, backend {DIST_BACKEND}, 8B width, 4 layers, "
+                                torch.load(tmp / f"tp2_{name}.pt"), b)
+        log(f"[tp2 step] {name}, backend {DIST_BACKEND}, 8B width, 4 layers, "
             f"{one['rows']} rows ({one['tokens']} tokens): per rank "
             f"{ranks[0]['n_q']} q / {ranks[0]['n_kv']} kv heads, {ranks[0]['lanes']} "
             f"cache lanes (logit std {one['std']:.4g}); max |logit diff| against "
@@ -5050,7 +5591,7 @@ def main() -> int:
         log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] in (["--compare-int4"], ["--sweep-int4"]):
-        build.build_kernels(("int4_matmul",))
+        build.build_kernels(("int4_matmul", "int8_matmul"))
         (compare_int4 if sys.argv[1] == "--compare-int4" else sweep_int4)(smi)
         return 0
     t0 = time.perf_counter()
@@ -5086,7 +5627,10 @@ def main() -> int:
         log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] == ["--quant"]:
+        phase_int4("cuda", smi)
         phase_int8("cuda", smi)
+        for fmt in ("int8", "int4"):
+            phase_wide(fmt, "cuda", smi)
         phase_step("int8")
         phase_step("int4")
         phase_quantize_kv("cuda", smi)
@@ -5111,6 +5655,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     results["int4_matmul"] = phase_int4("cuda", smi)
     results["int8_matmul"] = phase_int8("cuda", smi)
+    for fmt in ("int8", "int4"):
+        phase_wide(fmt, "cuda", smi)
     swap = phase_swap_mover(smi)
     phase_step()
     phase_step("int4")

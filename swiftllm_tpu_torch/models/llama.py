@@ -21,13 +21,13 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
   are plain PyTorch, as the JAX package leaves them to XLA. Where XLA fuses
   what plain PyTorch cannot, ``use_kernels`` takes hand-written kernels:
   the layer's elementwise work (``ops/layer_ops.py``: the residual add with
-  the next RMSNorm, the bias adds with RoPE and the K‖V row, SiLU·up); the
-  quantized weights of buckets of at most 256 tokens (INT8:
-  ``ops/int8_matmul.py``, INT4: ``ops/int4_matmul.py``), and a quantized
-  ``lm_head`` whose rows (B, or B·S1 in a verify step) number at most 256;
-  an fp8 cache's rows (``ops/quantize_kv.py``). Larger buckets' quantized
-  weights and larger verify heads go through ``quant.proj``; without
-  ``use_kernels`` everything runs as the kernels' plain versions.
+  the next RMSNorm, the bias adds with RoPE and the K‖V row, SiLU·up); every
+  quantized weight of every bucket (INT8: ``ops/int8_matmul.py``, INT4:
+  ``ops/int4_matmul.py``; above 256 tokens in their wide configuration) and
+  a quantized ``lm_head`` at any row count (B, or B·S1 in a verify step);
+  an fp8 cache's rows (``ops/quantize_kv.py``). Without ``use_kernels``
+  everything runs as the kernels' plain versions (``quant.proj`` for the
+  quantized weights).
 - Multi-LoRA: a projection that an adapter targets adds each token's own
   adapter update (``lora_add``, plain GEMMs, as the JAX package leaves its
   einsums to XLA), in every step kind: mixed, multi-step and verify.
@@ -453,10 +453,9 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
     # Multi-LoRA: each token's adapter scale, once a step (lora_add).
     sel = (lora_select(batch.lora_ids, params["lora_scale"])
            if "lora_scale" in params else None)
-    # Quantized weights of decode-size buckets go through their format's
-    # kernel, which reads the stacked array at the layer's offset (the JAX
-    # gate on T); every other projection through quant.proj.
-    quant_kernel = use_kernels and T <= int4_matmul.MAX_T
+    # Quantized weights go through their format's kernel, which reads the
+    # stacked array at the layer's offset; bf16 weights, and quantized ones
+    # without kernels, through quant.proj.
     kv_rows = []
     r = None   # the branch output the next norm adds to the residual stream
     for layer in range(kv_cache.shape[0]):
@@ -466,7 +465,7 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
         def mproj(h_, name):
             wt = layers[name]
-            if quant_kernel and is_quantized(wt):
+            if use_kernels and is_quantized(wt):
                 y = quantized_proj(h_, wt, layer)
             else:
                 y = proj(h_, w[name])
@@ -514,8 +513,7 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
                                batch.q_starts + batch.q_lens - 1, T).clamp(0, T)
         h_last = x_pad[last_tok]                                     # [B, D]
     lm_head = params["lm_head"]
-    if (use_kernels and is_quantized(lm_head)
-            and h_last.shape[0] <= int4_matmul.MAX_T):
+    if use_kernels and is_quantized(lm_head):
         # [V, D] as a one-layer stack (a view) for its format's kernel.
         logits = quantized_proj(h_last, {k: v[None] for k, v in lm_head.items()},
                                 0).float()                           # [B, V]

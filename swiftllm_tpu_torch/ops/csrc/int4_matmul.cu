@@ -11,12 +11,16 @@
 // bf16, q4 int8 [L, N, K/2] split-half packed (byte j holds column j in its
 // low nibble and column K/2 + j in its high nibble, each a signed 4-bit
 // value), s f32 [L, N]. One f32 sum per output, times the scale, rounded to
-// bf16 once. T <= 256, any N, any even K.
+// bf16 once, up to T = 256 (any N, any even K). Above 256 tokens the C entry
+// launches the wide configuration of wide_matmul.cuh (tiles of 256 tokens,
+// pairs of blocks sharing x; K/2 a multiple of 16), with the rounding points
+// of the path the JAX package takes there, quant.proj: each nibble half's
+// sum rounded to bf16, added in bf16, then scaled.
 //
 // What bounds it on the H100: at T <= 16 the bytes (an 8B MLP projection,
-// N = 14,336 and K = 4,096, streams 29.4 MB: 8.8 us at 3.35 TB/s); at T =
-// 128 and 256 the operations (15.0 GFLOP at T = 128: 15.2 us at 989
-// TFLOP/s).
+// N = 14,336 and K = 4,096, streams 29.4 MB: 8.8 us at 3.35 TB/s); from T =
+// 128 the operations (15.0 GFLOP at T = 128: 15.2 us at 989 TFLOP/s; 60.8
+// us at T = 512, 243 us at T = 2,048).
 //
 // The design:
 // - The operands are swapped: the kernel computes y^T = W . x^T, so a
@@ -74,6 +78,7 @@
 #include "splitkv.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
+#include "wide_matmul.cuh"
 
 namespace swiftllm {
 namespace {
@@ -127,17 +132,6 @@ template <int KC>
 __device__ __forceinline__ int w_off(int r, int j) {
   const int c = KC == 128 ? (j >> 4) ^ (r & 7) : ((j >> 4) ^ (r >> 1)) & 3;
   return r * KC + (c << 4) + (j & 15);
-}
-
-// Two nibbles at bits 0-3 and 16-19 of v -> their signed values as bf16x2.
-__device__ __forceinline__ uint32_t nib2(uint32_t v) {
-  uint32_t b;
-  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"   // (v & mask) ^ magic
-      : "=r"(b)
-      : "r"(v), "r"(0x000F000Fu), "r"(0x43084308u));
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&b);
-  h = __hsub2(h, __nv_bfloat162(__float2bfloat16(136.f), __float2bfloat16(136.f)));
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 template <int NT>
@@ -446,23 +440,33 @@ int dispatch(bool tma, const Args& a, int L, int grid, cudaStream_t stream) {
 }  // namespace
 }  // namespace swiftllm
 
-// C entry, bound with ctypes. 0 < T <= 256, K even, 0 <= layer < L; x, q4, s
-// and y contiguous and 16-byte aligned (the wrapper checks all of it). The
-// plan (ops/int4_matmul.py:int4_plan): NT token columns a tile (16, 32, 64
-// or 128; t_tiles = ceil(T / NT)), splits of `per` chunks of KC packed
-// bytes (128, or 64 at NT = 128), units = ceil(N / 128) * t_tiles * splits, grid blocks. ws holds
-// units x 128 x NT f32 partials when splits > 1; counters holds ceil(N /
-// 128) * t_tiles int32, zero (every launch leaves them zero). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+// C entry, bound with ctypes. T > 0, K even, 0 <= layer < L; x, q4, s and y
+// contiguous and 16-byte aligned (the wrapper checks all of it). The plan
+// (ops/int4_matmul.py:int4_plan): NT token columns a tile (16, 32, 64 or
+// 128, chunks of KC packed bytes, 128 or 64 at NT = 128, both halves at
+// once; or 256, the wide configuration of wide_matmul.cuh, which takes K/2
+// a multiple of 16 and walks chunks of 64 bytes of the low half, then of
+// the high half; t_tiles = ceil(T / NT)), splits of `per` chunks (at NT =
+// 256: 1, or an even count, half of them in each half), grid blocks (at NT
+// = 256 an even count, pairs of a cluster). ws holds ceil(N / 128) *
+// t_tiles * splits x 128 x NT f32 partials when splits > 1; counters holds
+// ceil(N / 128) * t_tiles int32, zero (every launch leaves them zero).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
 extern "C" int int4_matmul(const void* x, const void* q4, const void* s, void* y,
                            void* ws, void* counters, int T, int N, int K, int L,
                            int layer, int NT, int t_tiles, int splits, int per,
                            int grid, void* stream) {
   using namespace swiftllm;
-  if (T <= 0 || T > 256 || N <= 0 || K <= 0 || K % 2 || layer < 0 || layer >= L ||
+  if (T <= 0 || N <= 0 || K <= 0 || K % 2 || layer < 0 || layer >= L ||
       splits < 1 || per < 1 || grid < 1 || t_tiles * NT < T ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (NT == wide::kNT)
+    return wide::launch<true>(static_cast<const bf16*>(x), static_cast<const int8_t*>(q4),
+                              static_cast<const float*>(s), static_cast<bf16*>(y),
+                              static_cast<float*>(ws), static_cast<int*>(counters), T,
+                              N, K, L, layer, t_tiles, splits, per, grid, st);
   const int KH = K / 2;
   const int tiles = (N + kBM - 1) / kBM;
   Args a{static_cast<const bf16*>(x), static_cast<const int8_t*>(q4),
@@ -472,7 +476,6 @@ extern "C" int int4_matmul(const void* x, const void* q4, const void* s, void* y
   // TMA needs 16-byte strides and 16-byte-aligned bases.
   const bool tma = KH % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(q4) % 16 == 0;
-  const auto st = static_cast<cudaStream_t>(stream);
   grid = std::min(grid, a.units);
   switch (NT) {
     case 16: return dispatch<16>(tma, a, L, grid, st);

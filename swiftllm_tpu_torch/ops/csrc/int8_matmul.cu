@@ -12,12 +12,14 @@
 // [L, N, K] (the stacked {"q", "s"} of worker/quant.py, read at the layer's
 // offset), s f32 [L, N]. With proj's rounding points: one f32 sum an output,
 // rounded to bf16 (the product in x's dtype), back to f32 times the scale,
-// rounded to bf16 again. T <= 256, any N, K a multiple of 16.
+// rounded to bf16 again. Any T > 0, any N, K a multiple of 16: up to 256
+// tokens the configuration below; above, the wide one of wide_matmul.cuh
+// (tiles of 256 tokens, pairs of blocks sharing x), with the same roundings.
 //
 // What bounds it on the H100: the bytes, at T <= 128. An 8B MLP projection
 // (N = 14,336, K = 4,096) streams 58.7 MB of weights: 17.5 us at 3.35 TB/s,
-// against 15.2 us of bf16 operations at T = 128; at T = 256 the operations
-// (30.4 us).
+// against 15.2 us of bf16 operations at T = 128; from T = 256 the operations
+// (30.4 us; 60.8 us at T = 512, 243 us at T = 2,048).
 //
 // The design is int4_matmul.cu's (its notes say why each part is there):
 // the operands swapped (y^T = W . x^T: 64-row slices of N are wgmma's M,
@@ -55,6 +57,7 @@
 #include "splitkv.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
+#include "wide_matmul.cuh"
 
 namespace swiftllm {
 namespace {
@@ -102,22 +105,6 @@ struct Args {
 // TMA's 128-byte swizzle lays them: 16-byte chunk c at c ^ (r & 7).
 __device__ __forceinline__ int w_off(int r, int j) {
   return r * kKC + ((((j >> 4) ^ r) & 7) << 4) + (j & 15);
-}
-
-// Byte k of u (a weight plus 128) as the f32 value of the weight: the byte
-// in the low mantissa byte of 2^23 (sel = 0x744k), less 2^23 + 128.
-__device__ __forceinline__ float s8_f32(uint32_t u, uint32_t sel) {
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - 8388736.f;
-}
-
-// Four int8 weights, the bytes of p, as two bf16x2: bytes 0 and 2 (low and
-// high half) in b02, bytes 1 and 3 in b13.
-__device__ __forceinline__ void s8x4(uint32_t p, uint32_t& b02, uint32_t& b13) {
-  const uint32_t u = p ^ 0x80808080u;
-  __nv_bfloat162 h02 = __floats2bfloat162_rn(s8_f32(u, 0x7440), s8_f32(u, 0x7442));
-  __nv_bfloat162 h13 = __floats2bfloat162_rn(s8_f32(u, 0x7441), s8_f32(u, 0x7443));
-  b02 = *reinterpret_cast<uint32_t*>(&h02);
-  b13 = *reinterpret_cast<uint32_t*>(&h13);
 }
 
 template <int NT>
@@ -371,30 +358,37 @@ int launch(const Args& a, int L, int grid, cudaStream_t stream) {
 }  // namespace
 }  // namespace swiftllm
 
-// C entry, bound with ctypes. 0 < T <= 256, K a multiple of 16, 0 <= layer <
-// L; x, q, s and y contiguous and 16-byte aligned (the wrapper checks all of
-// it). The plan (ops/int8_matmul.py:int8_plan): NT token columns a tile (16,
-// 32, 64 or 128; t_tiles = ceil(T / NT)), splits of `per` chunks of 128
-// weight bytes, units = ceil(N / 128) * t_tiles * splits, grid blocks. ws
-// holds units x 128 x NT f32 partials when splits > 1; counters holds
-// ceil(N / 128) * t_tiles int32, zero (every launch leaves them zero).
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+// C entry, bound with ctypes. T > 0, K a multiple of 16, 0 <= layer < L; x,
+// q, s and y contiguous and 16-byte aligned (the wrapper checks all of it).
+// The plan (ops/int8_matmul.py:int8_plan): NT token columns a tile (16, 32,
+// 64 or 128, chunks of 128 weight bytes; or 256, the wide configuration of
+// wide_matmul.cuh, chunks of 64; t_tiles = ceil(T / NT)), splits of `per`
+// chunks, grid blocks (at NT = 256 an even count, pairs of a cluster). ws
+// holds ceil(N / 128) * t_tiles * splits x 128 x NT f32 partials when
+// splits > 1; counters holds ceil(N / 128) * t_tiles int32, zero (every
+// launch leaves them zero). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue.
 extern "C" int int8_matmul(const void* x, const void* q, const void* s, void* y,
                            void* ws, void* counters, int T, int N, int K, int L,
                            int layer, int NT, int t_tiles, int splits, int per,
                            int grid, void* stream) {
   using namespace swiftllm;
-  if (T <= 0 || T > 256 || N <= 0 || K <= 0 || K % 16 || layer < 0 || layer >= L ||
+  if (T <= 0 || N <= 0 || K <= 0 || K % 16 || layer < 0 || layer >= L ||
       splits < 1 || per < 1 || grid < 1 || t_tiles * NT < T ||
       (splits > 1 && (ws == nullptr || counters == nullptr)) ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(q) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (NT == wide::kNT)
+    return wide::launch<false>(static_cast<const bf16*>(x), static_cast<const int8_t*>(q),
+                               static_cast<const float*>(s), static_cast<bf16*>(y),
+                               static_cast<float*>(ws), static_cast<int*>(counters), T,
+                               N, K, L, layer, t_tiles, splits, per, grid, st);
   const int tiles = (N + kBM - 1) / kBM;
   Args a{static_cast<const bf16*>(x), static_cast<const int8_t*>(q),
          static_cast<const float*>(s), static_cast<bf16*>(y), static_cast<float*>(ws),
          static_cast<int*>(counters), T, N, K, layer, t_tiles, splits, per,
          tiles * t_tiles * splits};
-  const auto st = static_cast<cudaStream_t>(stream);
   grid = std::min(grid, a.units);
   switch (NT) {
     case 16: return launch<16>(a, L, grid, st);

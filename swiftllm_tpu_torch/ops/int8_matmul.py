@@ -15,11 +15,14 @@ weight, and x stays bf16 (no activation is quantized).
 The kernel reads the stacked weights at the layer's offset: no per-layer
 slice is copied, and a single weight (the quantized ``lm_head``) goes in as
 a one-layer stack, ``q[None]``, a view. It takes any N, K a multiple of 16
-and T <= 256 (the decode buckets; the model sends larger buckets through
-``proj``). It cuts K into chunks of KC bytes and may split the chunks of a
-tile over several blocks; the last block of a tile to finish sums the
-splits' f32 partials in split order (``int8_proj_split_plain`` is the plain
-version of that).
+and any T > 0: up to 256 tokens in tiles of 16 to 128 (the decode
+buckets), above that in its wide configuration (``csrc/wide_matmul.cuh``:
+tiles of 256 tokens, pairs of blocks sharing x; prefill buckets and large
+verify heads), with the same rounding points. It cuts K into chunks of KC
+bytes (64 in the wide configuration) and may split the chunks of a tile
+over several blocks; the last block of a tile to finish sums the splits'
+f32 partials in split order (``int8_proj_split_plain`` is the plain version
+of that).
 
 The wrapper takes the plain version for tensors on the CPU, and only then. On
 a CUDA tensor it launches the kernel or raises; it never falls back.
@@ -34,10 +37,10 @@ import torch.nn.functional as F
 
 from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops.int4_matmul import (BM, CLOCK_GHZ, LAUNCH_US,
-                                                MAX_T, MERGE_US,
-                                                MERGE_US_PER_KB, NT_CYCLES,
-                                                PRODUCT_CYCLES, UNIT_US,
-                                                MatmulPlan, search_plan)
+                                                MERGE_US, MERGE_US_PER_KB,
+                                                NT_CYCLES, PRODUCT_CYCLES,
+                                                UNIT_US, MatmulPlan,
+                                                search_plan)
 from swiftllm_tpu_torch.utils import cdiv
 
 KC = 128                       # weight bytes a K chunk (csrc/int8_matmul.cu:kKC)
@@ -66,11 +69,12 @@ def int8_plan(T: int, N: int, K: int, n_sms: int, splits: int | None = None,
     """The kernel's plan for x [T, K] and N output channels on a card of
     ``n_sms`` SMs (one persistent block an SM): the token width and the K
     splits of ``int4_matmul.search_plan`` under this kernel's model
-    (``plan_us``), K in chunks of KC bytes. ``nt`` and ``splits`` force
-    the token width and the split count (made such that no split is
+    (``plan_us``, K in chunks of KC bytes; above 256 tokens the wide
+    configuration's, one pass over the weights). ``nt`` and ``splits``
+    force the token width and the split count (made such that no split is
     empty). Ints only, and cached."""
     return search_plan("int8_plan", T, N, K, n_sms, splits, nt,
-                       lambda w: (KC, cdiv(K, KC)), plan_us)
+                       lambda w: (KC, cdiv(K, KC)), plan_us, 1)
 
 
 def _scaled(acc: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
@@ -114,7 +118,8 @@ def int8_proj_stacked(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     """x [T, K] @ q[layer]^T * s[layer] → [T, N] in x's dtype, with
     ``proj``'s rounding. q int8 [L, N, K], s f32 [L, N]. ``splits`` and
     ``nt`` force the kernel's split count and token width (a measurement's
-    knobs; the plan chooses by default)."""
+    knobs; ``nt=256`` takes the wide configuration at any T; the plan
+    chooses by default)."""
     if build.on_cpu("int8_matmul", x, q, s):
         return int8_proj_stacked_plain(x, q, s, layer)
     T, K = x.shape
@@ -122,11 +127,10 @@ def int8_proj_stacked(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if x.dtype != torch.bfloat16 or q.dtype != torch.int8 or s.dtype != torch.float32:
         raise TypeError(f"int8_matmul takes bf16 x, int8 q, f32 s; got "
                         f"{x.dtype}, {q.dtype}, {s.dtype}")
-    if (K != Kq or K % 16 or s.shape != (L, N) or not 0 < T <= MAX_T
-            or not 0 <= layer < L):
+    if K != Kq or K % 16 or s.shape != (L, N) or T <= 0 or not 0 <= layer < L:
         raise ValueError(f"int8_matmul shapes: x {tuple(x.shape)}, q "
                          f"{tuple(q.shape)}, s {tuple(s.shape)}, layer {layer} "
-                         f"(K a multiple of 16, T <= {MAX_T})")
+                         "(K a multiple of 16)")
     p = int8_plan(T, N, K, build.sm_count(x.device), splits, nt)
     y = torch.empty(T, N, dtype=x.dtype, device=x.device)
     ws = cnt = None

@@ -110,6 +110,29 @@ def _assert_decode_prefix(batch_np, key, dp: int):
                 "first (see worker/batch_builder.build_step_batch)")
 
 
+def quantized_stacks(params) -> dict:
+    """The quantized weights of ``params`` (INT8 ``q`` or INT4 ``q4``
+    stacks, and the head), by name."""
+    named = {**params["layers"], "lm_head": params["lm_head"]}
+    return {k: v for k, v in named.items()
+            if isinstance(v, dict) and ("q" in v or "q4" in v)}
+
+
+def check_quantized_widths(params, t_max: int) -> None:
+    """Refuse quantized weights that the weight kernels cannot take in a
+    step of up to ``t_max`` rows: K a multiple of 16 (INT8), and for INT4
+    K/2 a multiple of 16 once a step can pass ``int4_matmul.WIDE_ABOVE``
+    tokens (the wide configuration copies its rows by TMA). Raises
+    ``ValueError`` naming the weight and its shape."""
+    for name, v in quantized_stacks(params).items():
+        q = v.get("q", v.get("q4"))
+        if q.shape[-1] % 16 and ("q" in v or t_max > int4_matmul.WIDE_ABOVE):
+            kind = "INT8 K" if "q" in v else (
+                f"INT4 K/2 (steps of up to {t_max} rows)")
+            raise ValueError(f"{name}: quantized weight {tuple(q.shape)}; the "
+                             f"weight kernels take {kind} only in multiples of 16")
+
+
 class PendingTokens:
     """A step's sampled tokens (or their logprobs) on their way to the host.
     On the GPU the copy into pinned host memory is queued behind the step
@@ -422,8 +445,12 @@ class LlamaModel:
         ``num_cpu_blocks`` > 0; otherwise it preempts by recompute and never
         touches it). It is left uninitialised: a page is read only after a
         swap-out wrote it. The host pages' block manager is one for all dp
-        groups, kept in step on every rank."""
+        groups, kept in step on every rank. On the card it first refuses
+        quantized weights that the weight kernels cannot take
+        (``check_quantized_widths``)."""
         cfg = self.engine_config
+        if self.device.type == "cuda" and cfg.use_pallas:
+            check_quantized_widths(self.params, self._max_weight_rows())
         if num_blocks_per_shard is None:
             num_blocks_per_shard = self.profile_num_blocks(graph_buckets)
         num_blocks_per_shard = distributed.agree_num_blocks(num_blocks_per_shard)
@@ -570,11 +597,20 @@ class LlamaModel:
                                  self.token_feedback, f),
             flat, (self.kv_cache, self.token_feedback))
 
+    def _max_weight_rows(self) -> int:
+        """The most rows a quantized projection or the head takes in a step:
+        the largest bucket, or a verify step's spans."""
+        cfg = self.engine_config
+        return max(next_power_of_2(max(cfg.token_buckets)),
+                   next_power_of_2(cfg.max_batch_size) * next_power_of_2(cfg.spec_k + 1))
+
     def _size_counters(self):
         """Size the kernels' split counters for the largest bucket, once,
         and pin them while the graph table lives: ``units + 2`` of the
         widest decode or prefill plan, and one a tile and token tile of the
-        widest quantized projection or head (INT8 or INT4)."""
+        widest quantized projection or head (INT8 or INT4): 16-token tiles
+        up to 256 tokens, 256-token tiles of the largest bucket or verify
+        head above."""
         if self.device.type != "cuda":
             return
         cfg, mc = self.engine_config, self.model_config
@@ -584,15 +620,14 @@ class LlamaModel:
         w = self._graph_key_args()
         build.device_counters("paged_attention", dev, 2 + pa.max_split_units(
             rows, max_q, n_q=w["n_q"], n_kv=w["n_kv"], hd=w["hd"]))
-        quantized = [v for v in [*self.params["layers"].values(),
-                                 self.params["lm_head"]]
-                     if isinstance(v, dict) and ("q" in v or "q4" in v)]
+        quantized = list(quantized_stacks(self.params).values())
         if quantized and cfg.use_pallas:
             owner = "int8_matmul" if "q" in quantized[0] else "int4_matmul"
             n_max = max(v["s"].shape[-1] for v in quantized)
             build.device_counters(
-                owner, dev, cdiv(n_max, int4_matmul.BM)
-                * cdiv(int4_matmul.MAX_T, int4_matmul.TOKEN_WIDTHS[0]))
+                owner, dev, cdiv(n_max, int4_matmul.BM) * max(
+                    cdiv(int4_matmul.WIDE_ABOVE, int4_matmul.TOKEN_WIDTHS[0]),
+                    cdiv(self._max_weight_rows(), int4_matmul.WIDE_NT)))
         build.hold_counters(dev, self.graphs)
 
     def capture(self, key, live_rows: int | None = None) -> int:

@@ -13,13 +13,14 @@ with the same layouts and the same rounding points:
 - ``x @ dequant(w)^T == (x @ q^T) * s``: the scale is constant along the
   contraction, so ``proj`` multiplies the product, not the weight.
 
-``proj`` is the path outside the weight kernels (``ops/int8_matmul.py``,
-``ops/int4_matmul.py``), which take every quantized projection of a bucket
-of at most 256 tokens and a quantized ``lm_head`` of at most 256 rows:
-``proj`` serves the larger buckets (prefill), verify heads of more rows and
-the plain path. Where the JAX package leaves the products to XLA, which
-fuses the int8 → bf16 convert into the dot, this is ``F.linear`` on the
-dequantized weight, so it writes and reads a bf16 copy of the weight.
+``proj`` is the plain path: bf16 weights, CPU tensors, and quantized weights
+when the model runs without kernels. With kernels every quantized projection
+and a quantized ``lm_head``, in every bucket, go through the weight kernels
+(``ops/int8_matmul.py``, ``ops/int4_matmul.py``), which stream the weights as
+stored, as XLA fuses the int8 → bf16 convert into the dot. ``proj`` is
+``F.linear`` on the dequantized weight, so it writes and reads a bf16 copy
+of the weight; above 256 tokens the INT4 kernel computes its arithmetic
+(``int4_matmul.int4_proj_wide_plain``).
 """
 
 from __future__ import annotations

@@ -56,9 +56,11 @@ def stack(rng, L, N, K):
 
 
 # (T, N, K): token tiles of 16 to 128 and two of 128, N off the 128-row
-# tile, K off the 128-byte chunk.
+# tile, K off the 128-byte chunk; above 256 tokens (the wide configuration,
+# same rounding points) a token tile of 256 and a part of one, N and K off
+# the tile and the 64-byte chunk.
 CASES = [(1, 128, 256), (16, 200, 512), (37, 96, 1040), (128, 384, 256),
-         (256, 130, 4096)]
+         (256, 130, 4096), (300, 200, 272), (512, 130, 1040)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -102,9 +104,11 @@ def test_int8_plain_is_port_proj(dtype):
 
 
 # (T, N, K, forced splits): ragged N, K off the chunk, a last split shorter
-# than the others, every token width.
+# than the others, every token width (256: the wide configuration's chunks
+# of 64 bytes).
 SPLIT_CASES = [(3, 200, 400, 2), (16, 256, 1280, 3), (37, 96, 1040, 4),
-               (64, 128, 2304, 5), (128, 200, 1280, 4), (200, 64, 640, 3)]
+               (64, 128, 2304, 5), (128, 200, 1280, 4), (200, 64, 640, 3),
+               (300, 200, 1040, 3), (512, 96, 640, 4)]
 
 
 @pytest.mark.parametrize("T,N,K,splits", SPLIT_CASES)
@@ -115,7 +119,7 @@ def test_int8_split_plain_matches_unsplit(T, N, K, splits):
     x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32))
     q, s, _ = stack(rng, 2, N, K)
     p = im8.int8_plan(T, N, K, 132, splits)
-    assert p.splits > 1 and p.kc == im8.KC
+    assert p.splits > 1 and p.kc == (im4.WIDE_KC if T > im4.WIDE_ABOVE else im8.KC)
     parts = im8.int8_split_partials(x, q, 1, p)
     assert len(parts) == p.splits
     got = im8.int8_proj_split_plain(x, q, s, 1, p)
@@ -128,7 +132,7 @@ def test_int8_split_plain_matches_unsplit(T, N, K, splits):
     assert np.abs(dropped - want.numpy()).max() > 1e-3 * scale
 
 
-@pytest.mark.parametrize("T", [1, 16, 128, 256])
+@pytest.mark.parametrize("T", [1, 16, 128, 256, 300, 512, 1024, 2048])
 @pytest.mark.parametrize("N,K", [(4096, 4096), (1024, 4096), (14336, 4096),
                                  (4096, 14336), (128256, 4096), (2048, 4096),
                                  (4096, 7168)])
@@ -136,16 +140,66 @@ def test_int8_plan_fills_the_card(T, N, K):
     """At the 8B shapes, the head and the tp = 2 shard widths, on cards of
     132 and 114 SMs: every K chunk lies in exactly one split, no split is
     empty, the token tiles hold T, and there are enough units for the SM
-    count: 80% of it at N >= 4096, half of it below."""
+    count: 80% of it at N >= 4096, half of it below (above 256 tokens,
+    the wide configuration's, ``test_torch_quant.wide_fill_ok``)."""
     for n_sms in (132, 114):
         p = im8.int8_plan(T, N, K, n_sms)
-        assert p.kc == im8.KC and p.chunks == -(-K // im8.KC)
         owner = [c // p.per for c in range(p.chunks)]
         assert owner == sorted(owner) and set(owner) == set(range(p.splits))
-        assert p.nt in im4.TOKEN_WIDTHS and p.t_tiles * p.nt >= T > (p.t_tiles - 1) * p.nt
         assert p.units == p.tiles * p.t_tiles * p.splits
-        assert p.units >= (0.8 if N >= 4096 else 0.5) * n_sms
-        assert p.grid == min(p.units, n_sms)
+        assert p.t_tiles * p.nt >= T > (p.t_tiles - 1) * p.nt
+        if T <= im4.WIDE_ABOVE:
+            assert p.kc == im8.KC and p.chunks == -(-K // im8.KC)
+            assert p.nt in im4.TOKEN_WIDTHS
+            assert p.units >= (0.8 if N >= 4096 else 0.5) * n_sms
+            assert p.grid == min(p.units, n_sms)
+        else:
+            from tests.test_torch_quant import wide_fill_ok
+            assert wide_fill_ok(p, T, N, K, n_sms, halves=1)
+
+
+# Every narrow plan (T <= 256) as the kernels chose it before the wide
+# configuration existed, "token width/splits" at T = 1, 16, 37, 128, 200,
+# 256: decode buckets keep their launches.
+NARROW_PLANS = {
+    ("int4", 132): {(4096, 4096): "16/4 16/4 64/4 64/2 128/2 128/2",
+                    (1024, 4096): "16/16 16/16 32/8 32/4 64/4 64/4",
+                    (14336, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
+                    (4096, 14336): "16/4 16/4 64/4 128/4 128/2 128/2",
+                    (128256, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
+                    (4096, 2048): "16/4 16/4 32/2 64/2 64/1 64/1",
+                    (4096, 7168): "16/4 16/4 64/4 128/4 128/2 128/2"},
+    ("int4", 114): {(4096, 4096): "16/3 16/3 64/3 128/3 128/3 128/3",
+                    (1024, 4096): "16/8 16/8 16/4 32/3 32/2 64/3",
+                    (14336, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
+                    (4096, 14336): "16/7 16/7 64/7 128/3 128/5 128/5",
+                    (128256, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
+                    (4096, 2048): "16/3 16/3 64/3 128/3 128/1 128/1",
+                    (4096, 7168): "16/3 16/3 64/3 128/3 128/3 128/3"},
+    ("int8", 132): {(4096, 4096): "16/4 16/4 64/4 128/4 128/2 128/2",
+                    (1024, 4096): "16/11 16/11 16/5 32/4 64/4 64/4",
+                    (14336, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
+                    (4096, 14336): "16/4 16/4 64/4 128/4 128/2 128/2",
+                    (128256, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
+                    (4096, 2048): "16/4 16/4 64/4 64/2 128/2 128/2",
+                    (4096, 7168): "16/4 16/4 64/4 128/4 128/2 128/2"},
+    ("int8", 114): {(4096, 4096): "16/3 16/3 64/3 128/3 128/3 128/3",
+                    (1024, 4096): "16/11 16/11 16/4 32/3 64/3 64/3",
+                    (14336, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
+                    (4096, 14336): "16/3 16/3 64/7 128/3 128/5 128/5",
+                    (128256, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
+                    (4096, 2048): "16/3 16/3 64/3 128/3 128/1 128/1",
+                    (4096, 7168): "16/3 16/3 64/3 128/3 128/3 128/3"},
+}
+
+
+@pytest.mark.parametrize("fmt,n_sms", list(NARROW_PLANS))
+def test_narrow_plans_are_unchanged(fmt, n_sms):
+    plan = im4.int4_plan if fmt == "int4" else im8.int8_plan
+    for (N, K), want in NARROW_PLANS[(fmt, n_sms)].items():
+        got = " ".join(f"{p.nt}/{p.splits}" for p in (
+            plan(T, N, K, n_sms) for T in (1, 16, 37, 128, 200, 256)))
+        assert got == want, (fmt, n_sms, N, K)
 
 
 def test_int8_plan_takes_ints_and_forced_splits():
@@ -159,6 +213,15 @@ def test_int8_plan_takes_ints_and_forced_splits():
     assert (p.nt, p.t_tiles, p.kc, p.splits) == (64, 2, 128, 2)
     with pytest.raises(ValueError, match="token width"):
         im8.int8_plan(128, 4096, 4096, 132, nt=48)
+    # The wide configuration: above 256 tokens, or forced at any T (64
+    # chunks of 64 bytes: 22, 22, 20 in 3 splits); cached.
+    p = im8.int8_plan(2048, 4096, 4096, 132, splits=3)
+    assert (p.nt, p.t_tiles, p.kc, p.splits, p.per) == (256, 8, 64, 3, 22)
+    p = im8.int8_plan(128, 4096, 4096, 132, nt=256)
+    assert (p.nt, p.t_tiles, p.kc) == (256, 1, 64)
+    assert im8.int8_plan(1024, 4096, 4096, 132) is im8.int8_plan(1024, 4096, 4096, 132)
+    with pytest.raises(TypeError, match="ints"):
+        im8.int8_plan(torch.tensor(512), 4096, 4096, 132)
 
 
 def test_int8_wrapper_cpu_plain_and_device_rules(monkeypatch):
@@ -187,7 +250,7 @@ def test_int8_wrapper_cpu_plain_and_device_rules(monkeypatch):
         im8.int8_proj_stacked(xb, q.float(), s, 1)
     for bad in ((xb[:, :24], q[:, :, :24], s, 1),               # K off 16
                 (xb, q[:, :, :16], s, 1),                        # K differs
-                (xb.repeat(86, 1), q, s, 1),                     # T = 258
+                (xb[:0], q, s, 1),                               # T = 0
                 (xb, q, s[:, :8], 1),                            # scales' shape
                 (xb, q, s, 2)):                                  # layer
         with pytest.raises(ValueError, match="int8_matmul shapes"):
@@ -198,6 +261,12 @@ def test_int8_wrapper_cpu_plain_and_device_rules(monkeypatch):
     assert y.shape == (3, 16) and y.dtype == torch.bfloat16
     assert launched[0][6:] == (3, 16, 32, 2, 1, p.nt, p.t_tiles, p.splits,
                                p.per, p.grid)
+    # More than 256 tokens: the wide configuration's plan, no refusal.
+    y = im8.int8_proj_stacked(xb.repeat(100, 1), q, s, 1)        # T = 300
+    p = im8.int8_plan(300, 16, 32, 132)
+    assert y.shape == (300, 16) and p.nt == im4.WIDE_NT
+    assert launched[1][6:] == (300, 16, 32, 2, 1, 256, 2, p.splits, p.per,
+                               p.grid)
 
 
 def test_int4_head_through_the_kernel_matches_jax_proj():
@@ -247,17 +316,17 @@ def _model(quant: str, **ec) -> LlamaModel:
 
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_quantized_weights_dispatch(quant, monkeypatch):
-    """With kernels on, a step in a bucket of at most 256 tokens sends every
-    projection of every layer and the head through its format's kernel; a
-    512-token bucket sends the projections through ``proj`` and its head
-    (one row) through the kernel."""
+    """With kernels on, every projection of every layer and the head go
+    through their format's kernel, and none through ``proj``: in a bucket
+    of at most 256 tokens, and in a 512-token bucket (the wide
+    configuration) too."""
     spy = Spy(monkeypatch)
     other = "int4" if quant == "int8" else "int8"
     L = tl.MC["num_layers"]
     m = _model(quant)
     tl.preallocate(m.hbm_block_mgrs[0])
     m.forward(tl.schedule("torch"))
-    assert m.last_key.tokens <= im8.MAX_T
+    assert m.last_key.tokens <= im4.WIDE_ABOVE
     assert len(spy.calls[quant]) == 7 * L + 1 and not spy.calls["proj"]
     assert spy.calls[quant][-1] == m.last_key.rows     # the head's B rows
     assert not spy.calls[other]
@@ -270,5 +339,144 @@ def test_quantized_weights_dispatch(quant, monkeypatch):
     r.seq_id = 1
     m.forward([ScheduledSeq(r, 300)])
     assert m.last_key.tokens == 512
-    assert spy.calls["proj"] == [512] * (7 * L)
-    assert spy.calls[quant] == [m.last_key.rows] and not spy.calls[other]
+    assert spy.calls[quant] == [512] * (7 * L) + [m.last_key.rows]
+    assert not spy.calls["proj"] and not spy.calls[other]
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_verify_head_over_256_rows_through_the_kernel(quant, monkeypatch):
+    """A verify step whose head reads more than 256 rows (8 rows x spans of
+    64 at spec_k = 63) sends the head through its format's kernel, as it
+    does every projection, and nothing through ``proj``."""
+    spy = Spy(monkeypatch)
+    L = tl.MC["num_layers"]
+    m = _model(quant, max_tokens_in_batch=512, prefill_chunk_size=16,
+               num_hbm_blocks=64, max_blocks_per_seq=16, max_batch_size=8,
+               enable_spec_decode=True, spec_k=63)
+    seqs = []
+    for i in range(5):
+        r = Request(RawRequest("", 80))
+        r.set_prompt_token_ids([(5 * i + j) % 120 + 1 for j in range(6 + i)])
+        r.output_token_ids = [3 + i]
+        r.num_cached_tokens = 6 + i
+        r.seq_id = i + 1
+        m.hbm_block_mgrs[0].allocate_for_seq(i + 1, 6 + i)
+        drafts = tuple((7 * i + j) % 120 + 1 for j in range(40))
+        seqs.append(ScheduledSeq(r, 1 + len(drafts), drafts=drafts))
+    m.forward(seqs)
+    key = m.last_key
+    assert key.spec == 64 and key.rows * key.spec > im4.WIDE_ABOVE
+    assert spy.calls[quant] == [key.tokens] * (7 * L) + [key.rows * key.spec]
+    assert not spy.calls["proj"]
+
+
+# A 512-token bucket: two decode rows beside a 300-token prefill chunk.
+EC512 = dict(tl.EC, max_tokens_in_batch=512, prefill_chunk_size=512,
+             num_hbm_blocks=64, max_blocks_per_seq=64)
+ROWS512 = [(10, 10, [5], 1), (13, 14, [7, None], 1), (300, 0, [], 300)]
+
+
+def schedule512(pkg):
+    from swiftllm_tpu.server.scheduler import ScheduledSeq as JaxScheduledSeq
+    from swiftllm_tpu.server.structs import (RawRequest as JaxRawRequest,
+                                             Request as JaxRequest)
+    Req, Raw, Sched = ((JaxRequest, JaxRawRequest, JaxScheduledSeq) if pkg == "jax"
+                       else (Request, RawRequest, ScheduledSeq))
+    out = []
+    for i, (plen, cached, outputs, n) in enumerate(ROWS512):
+        r = Req(Raw("", 4))
+        r.set_prompt_token_ids([(5 * i + j) % 120 + 1 for j in range(plen)])
+        r.output_token_ids = list(outputs)
+        r.num_cached_tokens = cached
+        r.seq_id = i + 1
+        out.append(Sched(r, n))
+    return out
+
+
+def preallocate512(mgr):
+    for i, (_, cached, _, _) in enumerate(ROWS512):
+        if cached:
+            mgr.allocate_for_seq(i + 1, cached)
+
+
+@pytest.fixture(scope="module", params=["int8", "int4"])
+def jax_step512(request):
+    from swiftllm_tpu.config import EngineConfig as JaxEngineConfig
+    from swiftllm_tpu.config import LlamaModelConfig as JaxModelConfig
+    from swiftllm_tpu.worker.model import LlamaModel as JaxLlamaModel
+    from tests.test_torch_quant import put_tree, scaled_quantized_tree
+    quant = request.param
+    tree = scaled_quantized_tree(tl.MC, EC512, quant, seed=3)
+    rng = np.random.default_rng(4)
+    m = JaxLlamaModel(JaxEngineConfig(**dict(EC512, quant=quant)),
+                      JaxModelConfig(**tl.MC))
+    m.load_weights()
+    m.init_kvcache_and_swap()
+    m.params = put_tree(m.params, tree)
+    cache = rng.normal(size=m.kv_cache.shape).astype(np.float32)
+    feedback = rng.integers(0, 128, size=m.token_feedback.shape).astype(np.int32)
+    m.kv_cache = jax.device_put(cache, m.kv_cache.sharding)
+    m.token_feedback = jax.device_put(feedback, m.token_feedback.sharding)
+    preallocate512(m.hbm_block_mgrs[0])
+    tokens, rows, logits = m.forward(schedule512("jax"), return_logits=True)
+    return dict(quant=quant, tree=tree, cache=cache, feedback=feedback,
+                tokens=tokens, logits=logits, rows=[r is not None for r in rows])
+
+
+def test_quantized_512_bucket_step_matches_jax(jax_step512, monkeypatch):
+    """A mixed INT8 or INT4 step in a 512-token bucket with kernels on (the
+    wide configuration's plain versions on the CPU) against the JAX model's
+    step: logits within test_quantized_mixed_step_matches_jax's bounds
+    (atol/rtol 1e-4), greedy tokens equal, every projection through the
+    kernel's wrapper."""
+    from swiftllm_tpu_torch.worker.weights import params_from_numpy
+    ref = jax_step512
+    spy = Spy(monkeypatch)
+    m = LlamaModel(EngineConfig(**dict(EC512, quant=ref["quant"], use_pallas=True)),
+                   LlamaModelConfig(**tl.MC), device="cpu")
+    m.params = params_from_numpy(ref["tree"], "cpu")
+    m.init_kvcache_and_swap()
+    m.kv_cache.copy_(torch.from_numpy(ref["cache"]))
+    m.token_feedback.copy_(torch.from_numpy(ref["feedback"]))
+    preallocate512(m.hbm_block_mgrs[0])
+    tokens, rows, logits = m.forward(schedule512("torch"), return_logits=True)
+    assert m.last_key.tokens == 512
+    assert len(spy.calls[ref["quant"]]) == 7 * tl.MC["num_layers"] + 1
+    assert not spy.calls["proj"]
+    live = np.asarray(ref["rows"])
+    assert [r is not None for r in rows] == ref["rows"]
+    np.testing.assert_allclose(logits[live], ref["logits"][live],
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(tokens[live], ref["tokens"][live])
+
+
+@pytest.mark.parametrize("fmt,kbytes,t_max,refused", [
+    ("q4", 24, 512, True),     # INT4 K/2 off 16 where the wide configuration runs
+    ("q4", 24, 256, False),    # the narrow configuration's ragged copy takes it
+    ("q4", 32, 2048, False),
+    ("q", 24, 16, True),       # INT8 K off 16 at any width
+    ("q", 32, 2048, False),
+])
+def test_quantized_widths_checked_at_start_up(fmt, kbytes, t_max, refused):
+    """LlamaModel checks its quantized weights' widths before it serves
+    (``check_quantized_widths``, called by ``init_kvcache_and_swap`` on the
+    card): a width the weight kernels cannot take at the steps' largest
+    rows is refused with the weight's name and shape, not at the first
+    prefill bucket."""
+    from swiftllm_tpu_torch.worker.model import check_quantized_widths
+    stack = {fmt: torch.zeros(2, 16, kbytes, dtype=torch.int8),
+             "s": torch.ones(2, 16)}
+    params = {"layers": {"w_up": stack, "ln": torch.ones(2, 8)},
+              "lm_head": torch.zeros(16, 8, dtype=torch.bfloat16)}
+    if refused:
+        with pytest.raises(ValueError, match=rf"w_up: quantized weight \(2, 16, {kbytes}\)"):
+            check_quantized_widths(params, t_max)
+    else:
+        check_quantized_widths(params, t_max)
+    # The head is held to the same rule.
+    head = {"layers": {}, "lm_head": stack}
+    if refused:
+        with pytest.raises(ValueError, match="lm_head"):
+            check_quantized_widths(head, t_max)
+    else:
+        check_quantized_widths(head, t_max)

@@ -196,7 +196,7 @@ def test_int4_plain_is_split_half_not_interleaved():
     assert (wrong - got).abs().max() > got.abs().median()
 
 
-@pytest.mark.parametrize("T", [1, 16, 128, 256])
+@pytest.mark.parametrize("T", [1, 16, 128, 256, 300, 512, 1024, 2048])
 @pytest.mark.parametrize("N,K", [(4096, 4096), (1024, 4096), (14336, 4096),
                                  (4096, 14336)])
 def test_split_k_fills_the_card(T, N, K):
@@ -204,9 +204,13 @@ def test_split_k_fills_the_card(T, N, K):
     exactly one split, no split is empty, the token tiles hold T, and there
     are enough units (tiles x token tiles x splits) for the SM count: 80% of
     it at N >= 4096, half of it at N = 1,024 (whose 8 tiles would need a
-    merge of many partials to fill more; the plan weighs that)."""
+    merge of many partials to fill more; the plan weighs that). Above 256
+    tokens, the wide configuration (``wide_fill_ok``)."""
     for n_sms in (132, 114):
         p = im.int4_plan(T, N, K, n_sms)
+        if T > im.WIDE_ABOVE:
+            assert wide_fill_ok(p, T, N, K, n_sms, halves=2)
+            continue
         assert p.chunks == -(-(K // 2) // p.kc)
         owner = [c // p.per for c in range(p.chunks)]
         assert owner == sorted(owner) and set(owner) == set(range(p.splits))
@@ -285,6 +289,125 @@ def test_int4_split_plain_matches_pallas(T, N, K, splits):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
+def wide_plan_ok(p, T, N, K, n_sms, halves) -> bool:
+    """The wide configuration's plan: 256-token tiles, chunks of 64 bytes of
+    each of ``halves`` passes, every split within one pass, and an even grid
+    of at most one block an SM and no more pairs than units."""
+    cph = -(-(K // halves) // im.WIDE_KC)
+    pairs = -(-p.tiles // im.CLUSTER) * p.t_tiles * p.splits
+    per_split = p.chunks if p.splits == 1 else p.per
+    return (p.nt == im.WIDE_NT and p.kc == im.WIDE_KC
+            and p.chunks == halves * cph and p.tiles == -(-N // im.BM)
+            and (p.splits == 1 or (p.splits % halves == 0
+                                   and (p.splits // halves - 1) * p.per < cph
+                                   <= p.splits // halves * p.per))
+            and per_split >= 1 and p.grid % im.CLUSTER == 0
+            and p.grid == im.CLUSTER * min(pairs, n_sms // im.CLUSTER))
+
+
+def wide_fill_ok(p, T, N, K, n_sms, halves) -> bool:
+    """A wide plan's token tiles hold T, its units are tiles x token tiles
+    x splits, every split lies within one nibble half (``wide_plan_ok``),
+    and its pairs of blocks fill the card: on 132 SMs 80% of it at N >=
+    2,048 and 40% at N = 1,024 (4 pairs of tiles: more would need a merge
+    of many 256-token partials); on 114 SMs half of it (57 pairs, which the
+    32 or 64 pairs of units at N = 4,096 do not divide: one wave of 32 beats
+    two of 64)."""
+    fill = (0.8 if N >= 2048 else 0.4) if n_sms == 132 else 0.5
+    return (p.t_tiles * p.nt >= T > (p.t_tiles - 1) * p.nt
+            and p.units == p.tiles * p.t_tiles * p.splits
+            and wide_plan_ok(p, T, N, K, n_sms, halves)
+            and p.grid >= fill * n_sms)
+
+
+@pytest.mark.parametrize("T", [300, 512, 1024, 2048])
+@pytest.mark.parametrize("N,K", [(4096, 2048), (4096, 7168), (2048, 4096),
+                                 (7168, 4096), (128256, 4096)])
+def test_wide_plan_fills_the_card_at_tp2_and_the_head(T, N, K):
+    """The INT4 wide plans of the tp = 2 shards (in-sharded K of 2,048 and
+    7,168, out-sharded N of 2,048 and 7,168) and of the head, as above."""
+    for n_sms in (132, 114):
+        assert wide_fill_ok(im.int4_plan(T, N, K, n_sms), T, N, K, n_sms, 2)
+
+
+# --- (c2) the wide configuration's plain versions (T > 256) -------------------
+
+# (T, N, K): a token tile of 256 and part of one, N off the 128-row tile,
+# K/2 off the 64-byte chunk (and, at K = 272, off TMA's 16 bytes: the plain
+# versions take it, the kernel's wrapper refuses it on the card).
+WIDE_CASES = [(300, 200, 272), (512, 130, 1040), (300, 96, 2304)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,N,K", WIDE_CASES)
+def test_int4_wide_plain_matches_jax_proj(T, N, K, dtype):
+    """Above 256 tokens the INT4 kernel computes ``proj``'s arithmetic (two
+    half products, each rounded, added and scaled in x's dtype): its plain
+    version against the JAX package's ``quant.proj``, with test_proj_matches
+    _jax's bounds (f32 atol/rtol 1e-5 of the largest output, as the sums run
+    to 1,152 terms; bf16 rtol 2e-2, atol 2e-2 of the output's std), and
+    bit for bit the port's ``proj``; the wrapper on CPU tensors is it."""
+    rng = np.random.default_rng(T + N + K)
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    qw = jq.quantize_int4(weights(rng, 3, N, K))
+    q4, s = torch.from_numpy(qw["q4"]), torch.from_numpy(qw["s"])
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    jd = getattr(jnp, dtype)
+    for layer in (0, 2):
+        want = np.asarray(jq.proj(jnp.asarray(x, jd), {
+            "q4": jnp.asarray(qw["q4"][layer]), "s": jnp.asarray(qw["s"][layer])}),
+            np.float32)
+        got = im.int4_proj_wide_plain(xt, q4, s, layer)
+        assert got.dtype == xt.dtype and got.shape == (T, N)
+        assert torch.equal(got, tq.proj(xt, {"q4": q4[layer], "s": s[layer]}))
+        assert torch.equal(im.int4_proj_stacked(xt, q4, s, layer), got)
+        got = got.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max())
+        else:
+            np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * want.std())
+
+
+@pytest.mark.parametrize("T,N,K,splits", [(300, 200, 1040, 2), (512, 96, 640, 4),
+                                          (300, 130, 2304, 6), (512, 64, 1280, 1)])
+def test_int4_wide_split_plain_matches_unsplit(T, N, K, splits):
+    """The wide configuration's split-then-merge (each half's f32 partials
+    summed in split order, then the roundings) against its unsplit plain
+    version in f32: only the order of the f32 sums differs, so 1e-6 of the
+    output's scale. Each split lies in one nibble half."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32))
+    qw = jq.quantize_int4(rng.standard_normal((2, N, K)).astype(np.float32))
+    q4, s = torch.from_numpy(qw["q4"]), torch.from_numpy(qw["s"])
+    p = im.int4_plan(T, N, K, 132, splits)
+    assert p.nt == im.WIDE_NT and p.splits % 2 == 0 or p.splits == 1
+    got = im.int4_wide_split_plain(x, q4, s, 1, p)
+    want = im.int4_proj_wide_plain(x, q4, s, 1)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6 * scale)
+
+
+def test_int4_wide_rounds_each_half():
+    """On integer inputs every f32 sum is exact, so the wide configuration's
+    plain versions agree bit for bit in bf16, and differ from the narrow
+    configuration's single rounding of both halves' sum (the fault
+    chip_smoke.py plants against the kernel, where it holds the kernel to
+    the same bits)."""
+    rng = np.random.default_rng(10)
+    T, N, K = 300, 64, 1024
+    x = torch.from_numpy(rng.integers(-4, 5, (T, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    q4 = torch.from_numpy(rng.integers(-128, 128, (1, N, K // 2)).astype(np.int8))
+    s = torch.full((1, N), 2.0 ** -10)
+    want = im.int4_proj_wide_plain(x, q4, s, 0)
+    for splits in (1, 2, 4):
+        got = im.int4_wide_split_plain(x, q4, s, 0, im.int4_plan(T, N, K, 132, splits))
+        assert torch.equal(got, want)
+    single = im.int4_proj_stacked_plain(x, q4, s, 0)
+    assert (single != want).float().mean() > 0.05
+
+
 # --- (g) the wrapper ----------------------------------------------------------
 
 def test_int4_wrapper_cpu_plain_and_device_rules():
@@ -295,9 +418,50 @@ def test_int4_wrapper_cpu_plain_and_device_rules():
     build.reset_launch_counts()
     got = im.int4_proj_stacked(x, q4, s, 1)
     assert torch.equal(got, im.int4_proj_stacked_plain(x, q4, s, 1))
+    xw = x.repeat(100, 1)                                         # T = 300
+    assert torch.equal(im.int4_proj_stacked(xw, q4, s, 1),
+                       im.int4_proj_wide_plain(xw, q4, s, 1))
+    assert torch.equal(im.int4_proj_stacked(x, q4, s, 1, nt=im.WIDE_NT),
+                       im.int4_proj_wide_plain(x, q4, s, 1))
     assert build.launch_counts["int4_matmul"] == 0
     with pytest.raises(ValueError, match="all-CPU or all-CUDA"):
         im.int4_proj_stacked(x.to("meta"), q4, s, 1)
+
+
+def test_int4_wrapper_device_rules(monkeypatch):
+    """On the card (simulated: the device test and the launch stubbed) the
+    wrapper refuses what the kernel does not take (wrong types, T = 0, odd
+    K, K/2 off TMA's 16 bytes above 256 tokens) and launches with its
+    plan's ints, the wide configuration's above 256 tokens."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    qw = jq.quantize_int4(rng.standard_normal((2, 16, 64)).astype(np.float32))
+    q4, s = torch.from_numpy(qw["q4"]), torch.from_numpy(qw["s"])
+    launched = []
+    monkeypatch.setattr(build, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(build, "launch", lambda name, dev, *a: launched.append(a))
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16 x"):
+        im.int4_proj_stacked(x, q4, s, 1)
+    with pytest.raises(TypeError, match="int8 q4"):
+        im.int4_proj_stacked(xb, q4.to(torch.uint8), s, 1)
+    with pytest.raises(TypeError, match="f32 s"):
+        im.int4_proj_stacked(xb, q4, s.double(), 1)
+    x24 = xb[:, :48].repeat(100, 1)                   # T = 300, K/2 = 24
+    for bad in ((xb[:0], q4, s, 1), (xb[:, :63], q4, s, 1), (xb, q4, s, 2),
+                (x24, q4[:, :, :24], s, 1)):
+        with pytest.raises(ValueError, match="int4_matmul shapes"):
+            im.int4_proj_stacked(*bad)
+    assert not launched
+    im.int4_proj_stacked(xb[:, :48], q4[:, :, :24], s, 1)    # narrow: any even K
+    for T in (3, 300, 2048):
+        y = im.int4_proj_stacked(xb[:1].repeat(T, 1), q4, s, 1)
+        p = im.int4_plan(T, 16, 64, 132)
+        assert y.shape == (T, 16) and y.dtype == torch.bfloat16
+        assert launched[-1][6:] == (T, 16, 64, 2, 1, p.nt, p.t_tiles, p.splits,
+                                    p.per, p.grid)
+        assert (p.nt == im.WIDE_NT) == (T > im.WIDE_ABOVE)
 
 
 # --- (d) one mixed step -------------------------------------------------------
