@@ -46,9 +46,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and its plan's split-then-merge, two launches bit-identical, bit-equal
      on integer inputs, timed beside the proj route, F.linear on bf16
      weights and the bound (INT8 also at T = 128 and 256 with the wide
-     tile forced beside the narrow plan), with three planted faults (x
+     tile forced beside the narrow plan), with five planted faults (x
      multicast to the wrong block of the pair, the last partial token tile
-     dropped, INT4's halves summed before rounding) that must fail; the fp8 KV row
+     dropped, INT4's halves summed before rounding, one chunk's products
+     dropped at a unit's start or end, a segment of a cut unit left out
+     of the merge) that must fail, and no build whose ptxas report says
+     it serialised the wide kernel's wgmmas; the fp8 KV row
      build (quantize_kv, no Pallas kernel: XLA's fusion of the quantizing
      kv_new build) at T = 1, 128 and 2,048, byte-equal to its plain
      version at magnitudes that reach both ends of the scale clip and on
@@ -203,8 +206,8 @@ of this script in an earlier checkout times that checkout's kernel. With
 --sweep-int4 it builds only the weight kernels and times int4_matmul at
 each 8B shape and T for every token width and split count its plan chooses
 from, then both formats' wide configuration at T = 512, 1,024 and 2,048 for
-each split count, beside the plans' models (the evidence for
-int4_matmul.py's constants). With --sweep-swap it builds only swap_pages and times a round trip of 128 pages
+its plan and each forced schedule, beside the plans' models (the evidence
+for int4_matmul.py's constants). With --sweep-swap it builds only swap_pages and times a round trip of 128 pages
 at several grids, alone and beside a decode-like load (the evidence for
 swap_pages.py's MOVER_BLOCKS). With --parallel it builds the kernels and
 runs only phase 6. With --layer-ops it builds only the layer kernels and
@@ -1700,16 +1703,28 @@ def phase_int4(device, smi) -> dict:
     return row
 
 
+def wide_plan_text(p) -> str:
+    """A wide plan in words: pairs, whole units, the most segments a cut
+    unit has."""
+    return (f"{p.grid // 2} pairs, {p.per} of {p.units} units whole, cut units "
+            f"of at most {p.splits} segments")
+
+
 def sweep_wide(smi):
     """The evidence behind the wide configuration's plan (both formats): its
-    time at each 8B shape and T = 512, 1,024, 2,048 for K splits 1, 2, 3, 4,
-    6, 8 (those that give distinct plans; INT4's are 1 or even), each beside
-    the plan's model of it (int4_matmul.wide_plan_us) and the plan's own
-    choice."""
+    time at each 8B shape and T = 512, 1,024, 2,048 for its plan, the
+    schedules that splits 1, 2, 4 and 8 force (every unit whole; every unit
+    cut into that many pieces, stream-K) and the schedules its search weighs
+    on every pair that fits (the units of every full wave whole, of one wave
+    less, or none, the rest stream-K), those that differ, each beside the
+    plan's model of it (int4_matmul.wide_plan_us); then the model's
+    constants fitted to those times (fit_wide_model)."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     n_sms = build.sm_count(torch.device(DEVICE, 0))
+    fit, rows = n_sms // im.CLUSTER, []
     for fmt in ("int8", "int4"):
         f = wide_fmt(fmt)
+        halves = 2 if fmt == "int4" else 1
         for label, (N, K) in INT4_SHAPES.items():
             kb = K if fmt == "int8" else K // 2
             L8 = max(2, math.ceil(2 * L2_BYTES / (N * kb)))
@@ -1718,20 +1733,66 @@ def sweep_wide(smi):
             s = torch.rand(L8, N, generator=gen, device=DEVICE) * 1e-2
             for T in (512, 1024, 2048):
                 x = torch.randn(T, K, generator=gen, device=DEVICE).to(torch.bfloat16)
-                chosen = f["plan"](T, N, K, n_sms)
+                plans = {"plan": f["plan"](T, N, K, n_sms)}
+                plans.update({f"splits {sp}": f["plan"](T, N, K, n_sms, sp)
+                              for sp in (1, 2, 4, 8)})
+                units = plans["plan"].units
+                for whole in (units // fit * fit, max(0, units // fit - 1) * fit, 0):
+                    if (units - whole) * plans["plan"].chunks >= im.WIDE_MIN_RANGE * fit:
+                        plans[f"whole {whole}"] = im.make_wide_plan(T, N, K, halves, fit,
+                                                                     whole)
                 out, seen, it = [], set(), itertools.count()
-                for sp in (1, 2, 3, 4, 6, 8):
-                    p = f["plan"](T, N, K, n_sms, sp)
-                    if p.splits in seen:
+                for name, p in plans.items():
+                    if p in seen:
                         continue
-                    seen.add(p.splits)
-                    t = time_ms(lambda: f["kernel"](x, q, s, next(it) % L8, splits=sp))
-                    out.append(f"{p.splits} {t:.4f} ({im.wide_plan_us(p, n_sms) / 1e3:.4f})")
-                log(f"[sweep] {f['name']} wide {label} T={T}, plan {chosen.splits} "
-                    f"splits of {chosen.per} chunks: splits " + ", ".join(out)
+                    seen.add(p)
+                    t = time_ms(lambda: wide_launch(fmt, x, q, s, next(it) % L8, p))
+                    rows.append((p, halves, t, name == "plan", f"{fmt} {label} T={T}"))
+                    out.append(f"{name} ({wide_plan_text(p)}) {t:.4f} "
+                               f"({im.wide_plan_us(p, n_sms, halves) / 1e3:.4f})")
+                log(f"[sweep] {f['name']} wide {label} T={T}: " + "; ".join(out)
                     + f" ms measured (modelled) ({smi})")
             del q, s
             torch.cuda.empty_cache()
+    fit_wide_model(rows, n_sms)
+
+
+def fit_wide_model(rows, n_sms) -> None:
+    """Fits int4_matmul.wide_plan_us's constants to the sweep's rows (plan,
+    halves, measured ms, whether it is the plan's own, label) whose pairs
+    all fit at once: least squares of the relative error, the plans' own
+    rows weighted 3. Logs the constants (int4_matmul.py takes them from
+    here) and the worst error of the plans' own rows under them, and
+    leaves the module's constants as they were."""
+    from scipy.optimize import least_squares
+    rows = [r for r in rows if r[0].grid // im.CLUSTER <= n_sms // im.CLUSTER]
+    names = ("WIDE_LAUNCH_US", "WIDE_CHUNK_US", "WIDE_UNIT_US", "WIDE_PART_US",
+             "WIDE_MERGE_US")
+    saved = {k: getattr(im, k) for k in names}
+
+    def put(v):
+        im.WIDE_LAUNCH_US, c1, c2, im.WIDE_UNIT_US, im.WIDE_PART_US, im.WIDE_MERGE_US = v
+        im.WIDE_CHUNK_US = {1: c1, 2: c2}
+
+    def err(r):
+        return im.wide_plan_us(r[0], n_sms, r[1]) / (1e3 * r[2]) - 1
+    try:
+        v = least_squares(lambda v: (put(v), [(3 if r[3] else 1) * err(r) for r in rows])[1],
+                          [saved["WIDE_LAUNCH_US"], saved["WIDE_CHUNK_US"][1],
+                           saved["WIDE_CHUNK_US"][2], saved["WIDE_UNIT_US"],
+                           saved["WIDE_PART_US"], saved["WIDE_MERGE_US"]],
+                          bounds=(0, 100)).x
+        put(v)
+        worst = max((r for r in rows if r[3]), key=lambda r: abs(err(r)))
+        log(f"[fit] wide model, {len(rows)} rows whose pairs fit (plans weighted 3): "
+            f"WIDE_LAUNCH_US {v[0]:.3g}, WIDE_CHUNK_US {{1: {v[1]:.3g}, 2: {v[2]:.3g}}}, "
+            f"WIDE_UNIT_US {v[3]:.3g}, WIDE_PART_US {v[4]:.3g}, WIDE_MERGE_US "
+            f"{v[5]:.3g}; the plans' rows within {100 * abs(err(worst)):.1f}% (worst "
+            f"{worst[4]}), every row within "
+            f"{100 * max(abs(err(r)) for r in rows):.1f}%")
+    finally:
+        for k, val in saved.items():
+            setattr(im, k, val)
 
 
 def sweep_int4(smi):
@@ -1959,10 +2020,61 @@ WIDE_HEAD_T = 640                      # a verify head of 128 rows x 5
 # another order) to bf16, so a half may land a bf16 step apart, 0.25 to 1
 # before the scale, about 0.01 after it, on outputs of O(1): atol 2e-2
 # covers two such steps, rtol 2e-2 the two roundings after them, as INT8's.
-# A dropped token tile or misplaced x rows move outputs by O(1): those
-# faults fail. The roundings themselves are held bit for bit on integer
-# inputs (wide_exact).
+# Where the two halves nearly cancel, one such step is more than that of a
+# small output: int4_flip_compare counts an output within the tolerance
+# also where it equals, within it, proj's arithmetic with a half one bf16
+# step off, and reports how many needed that. A dropped token tile or
+# misplaced x rows move outputs by O(1): those faults fail. The roundings
+# themselves are held bit for bit on integer inputs (wide_exact).
 INT4_WIDE_ATOL, INT4_WIDE_RTOL = 2e-2, 2e-2
+WIDE_SEEDS = (101, 202, 303, 404)      # the cut units' readings over seeds
+
+
+def int4_wide_halves(x, q4, layer, plan=None, drop=None):
+    """The two half sums [T, N] of the INT4 wide configuration, each rounded
+    to x's dtype: proj's (one product of each half), or as `plan`'s
+    schedule takes them (int4_matmul.wide_half_sums: a cut unit's segments
+    summed in K order, `drop` one left out)."""
+    lo, hi = nibbles(q4[layer])
+    half = q4.shape[2]
+    if plan is None:
+        return (F.linear(x[:, :half], lo.to(x.dtype)),
+                F.linear(x[:, half:], hi.to(x.dtype)))
+    xf = x.float()
+    return tuple(t.to(x.dtype) for t in im.wide_half_sums(
+        [xf[:, :half], xf[:, half:]], [lo.float(), hi.float()], plan, drop))
+
+
+def bf16_step(t, d: int):
+    """t with every element d bf16 steps away from it (its bit pattern plus
+    d; a step below zero gives NaN, which no comparison takes)."""
+    return t if d == 0 else (t.view(torch.int16) + d).view(t.dtype)
+
+
+def int4_flip_compare(got, halves, s_row, tol) -> tuple:
+    """got against proj's arithmetic on `halves` (each half's sum rounded to
+    bf16; their bf16 sum times the scale s_row, rounded): _compare's triple,
+    then the worst ratio once each half may be one bf16 step off (each
+    output held to the nearest of the nine), and how many outputs were
+    outside the tolerance before that. The check takes the fourth."""
+    lo, hi = halves
+    want = ((lo + hi).float() * s_row).to(got.dtype)
+    base = _compare(got, want, *tol)
+    g = got.float()
+
+    def ratio(w):
+        w = w.float()
+        return (g - w).abs() / (tol[0] + tol[1] * w.abs())
+    best = ratio(want)
+    n_out = int((best > 1).sum().item())
+    if n_out:
+        for dl in (-1, 0, 1):
+            for dh in (-1, 0, 1):
+                if dl or dh:
+                    w = ((bf16_step(lo, dl) + bf16_step(hi, dh)).float() * s_row).to(got.dtype)
+                    best = torch.fmin(best, ratio(w))
+    worst = best.max().item() if bool(torch.isfinite(g).all()) else math.inf
+    return base + (worst, n_out)
 
 
 def wide_fmt(fmt: str) -> dict:
@@ -1974,6 +2086,51 @@ def wide_fmt(fmt: str) -> dict:
     return dict(kernel=im.int4_proj_stacked, plain=im.int4_proj_wide_plain,
                 split=im.int4_wide_split_plain, plan=im.int4_plan, key="q4",
                 tol=(INT4_WIDE_ATOL, INT4_WIDE_RTOL), name="int4_matmul")
+
+
+def wide_launch(fmt, x, q, s, layer, plan):
+    """The wide configuration launched by `plan` through the format's C
+    entry, as its wrapper launches the plan it chooses: a schedule that the
+    plan would not choose (make_wide_plan's), for a measurement or a check.
+    The plan must be one for these shapes."""
+    T, K = x.shape
+    N, name = q.shape[1], wide_fmt(fmt)["name"]
+    assert (plan.nt, plan.t_tiles, plan.tiles) == (im.WIDE_NT, cdiv(T, im.WIDE_NT),
+                                                   cdiv(N, im.BM)), plan
+    y = torch.empty(T, N, dtype=x.dtype, device=x.device)
+    ws = cnt = None
+    if plan.splits > 1:
+        ws = torch.empty(im.partials(plan), dtype=torch.float32, device=x.device)
+        cnt = build.device_counters(name, x.device, plan.tiles * plan.t_tiles)
+    build.launch(name, x.device, x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
+                 None if cnt is None else cnt.data_ptr(), T, N, K, q.shape[0], layer,
+                 plan.nt, plan.t_tiles, plan.splits, plan.per, plan.grid)
+    return y
+
+
+@contextlib.contextmanager
+def equal_cuts():
+    """The wide plans without stream-K, as before it: every unit whole, or
+    every unit cut into 2, 3, 4, 6 or 8 equal pieces (wide_plan's forced
+    splits), whichever the plan's model times least. The plan caches are
+    cleared on entry and on exit."""
+    plan = im.wide_plan
+
+    def cuts(T, N, K, n_sms, splits, halves):
+        if splits is not None:
+            return plan(T, N, K, n_sms, splits, halves)
+        return min((plan(T, N, K, n_sms, sp, halves) for sp in (1, 2, 3, 4, 6, 8)),
+                   key=lambda p: im.wide_plan_us(p, n_sms, halves))
+    im.wide_plan = cuts
+    im.int4_plan.cache_clear()
+    im8.int8_plan.cache_clear()
+    try:
+        yield
+    finally:
+        im.wide_plan = plan
+        im.int4_plan.cache_clear()
+        im8.int8_plan.cache_clear()
 
 
 def _wide_stack(fmt, gen, N, K, L, device):
@@ -1999,44 +2156,68 @@ def wide_last_tile_dropped(y):
     return f
 
 
-def _wide_check(fmt, x, q, s, label, splits=None, faults=False):
-    """The kernel's wide configuration at one shape (its plan's splits, or
-    `splits` forced) against the plain version at its first and last layer
-    and against the plain split-then-merge of its plan, within the format's
-    tolerance; a second launch gives the same bytes. With `faults`, the
-    planted faults of the tiles (wide_tile_halves_swapped, and at a partial
-    last tile wide_last_tile_dropped) must fail. Returns the worst compare,
-    the plan and the faults' compares."""
+def wide_compare(fmt, got, x, q, s, layer, plan=None, drop=None,
+                 fault=lambda t: t) -> tuple:
+    """got against the format's plain version (plan None) or its plain
+    split-then-merge of `plan` (`drop`: a segment left out), each output
+    moved by `fault` (a planted fault's expected output), within the
+    format's tolerance: (max_abs_err, median |want|, the worst ratio with no
+    half a step off, the worst ratio the check takes, outputs that needed a
+    step). INT8 takes the ratio as it is (one f32 sum, rounded); INT4
+    allows each half one bf16 step (int4_flip_compare)."""
+    f = wide_fmt(fmt)
+    if fmt == "int4":
+        return int4_flip_compare(got, [fault(h) for h in int4_wide_halves(
+            x, q, layer, plan, drop)], s[layer].float(), f["tol"])
+    want = (f["plain"](x, q, s, layer) if plan is None
+            else f["split"](x, q, s, layer, plan, drop))
+    e = _compare(got, fault(want), *f["tol"])
+    return e + (e[2], 0)
+
+
+def _wide_check(fmt, x, q, s, label, splits=None, faults=False, plan=None):
+    """The kernel's wide configuration at one shape (its plan's schedule,
+    `splits` forced, or `plan` launched through wide_launch) against the
+    plain version at its first and last layer and against the plain
+    split-then-merge of its plan (wide_compare); a second launch gives the
+    same bytes. With `faults`, the planted faults of the tiles
+    (wide_tile_halves_swapped, and at a partial last tile
+    wide_last_tile_dropped) must fail. Returns the worst compare, the plan
+    and the faults' compares."""
     f = wide_fmt(fmt)
     T, K = x.shape
-    plan = f["plan"](T, q.shape[1], K, build.sm_count(x.device), splits)
+    if plan is None:
+        plan = f["plan"](T, q.shape[1], K, build.sm_count(x.device), splits)
+        run = lambda layer: f["kernel"](x, q, s, layer, splits=splits)
+    else:
+        run = lambda layer: wide_launch(fmt, x, q, s, layer, plan)
     assert plan.nt == im.WIDE_NT, plan
     errs, bad = [], {}
     for layer in sorted({0, q.shape[0] - 1}):
-        got = f["kernel"](x, q, s, layer, splits=splits)
-        again = f["kernel"](x, q, s, layer, splits=splits)
-        assert torch.equal(got, again), f"{f['name']} {label}: two launches differ"
-        want = f["plain"](x, q, s, layer)
-        errs.append(_compare(got, want, *f["tol"]))
-        split = _compare(got, f["split"](x, q, s, layer, plan), *f["tol"])
-        assert max(errs[-1][2], split[2]) <= 1, (
+        got = run(layer)
+        assert torch.equal(got, run(layer)), f"{f['name']} {label}: two launches differ"
+        errs.append(wide_compare(fmt, got, x, q, s, layer))
+        split = wide_compare(fmt, got, x, q, s, layer, plan)
+        assert max(errs[-1][3], split[3]) <= 1, (
             f"{f['name']} {label} layer {layer} disagrees: {errs[-1]}, split {split}")
+        errs.append(split)
     if faults:
-        bad["x multicast to the wrong block"] = _compare(
-            got, wide_tile_halves_swapped(want), *f["tol"])
+        layer = q.shape[0] - 1
+        bad["x multicast to the wrong block"] = wide_compare(
+            fmt, got, x, q, s, layer, fault=wide_tile_halves_swapped)
         if T % 256:
-            bad["the last partial token tile dropped"] = _compare(
-                got, wide_last_tile_dropped(want), *f["tol"])
+            bad["the last partial token tile dropped"] = wide_compare(
+                fmt, got, x, q, s, layer, fault=wide_last_tile_dropped)
         for name, e in bad.items():
-            assert e[2] > 1, f"the tolerance lets '{name}' pass ({fmt} {label})"
-    return max(errs, key=lambda e: e[2]), plan, bad
+            assert e[3] > 1, f"the tolerance lets '{name}' pass ({fmt} {label})"
+    return max(errs, key=lambda e: e[3]), plan, bad
 
 
 def wide_exact(fmt, gen, N, K, T, device) -> dict:
     """Integer inputs (x in [-4, 4], any weight byte, scales 2^-10), on which
     every f32 sum is exact: the wide configuration must equal its plain
-    version bit for bit, unsplit and at the plan's and forced splits. For
-    INT4 the plain version rounds each half to bf16 before their sum, so the
+    version bit for bit at the plan's schedule, at splits 1 and 4 forced
+    and with stream-K on every pair. For INT4 the plain version rounds each half to bf16 before their sum, so the
     planted fault "halves summed before rounding" (the narrow
     configuration's single rounding, int4_proj_stacked_plain) must differ.
     Returns the planted fault's share of differing outputs (INT4)."""
@@ -2049,18 +2230,98 @@ def wide_exact(fmt, gen, N, K, T, device) -> dict:
         q.clamp_(min=-127)
     s = torch.full((2, N), 2.0 ** -10, device=device)
     n_sms = build.sm_count(x.device)
-    for splits in (None, 1, 4):
-        got = f["kernel"](x, q, s, 1, splits=splits)
-        want = f["split"](x, q, s, 1, f["plan"](T, N, K, n_sms, splits))
+    everywhere = stream_k_everywhere(fmt, T, N, K, n_sms)
+    for splits in (None, 1, 4, everywhere):
+        if isinstance(splits, im.MatmulPlan):
+            got, plan = wide_launch(fmt, x, q, s, 1, splits), splits
+        else:
+            got = f["kernel"](x, q, s, 1, splits=splits)
+            plan = f["plan"](T, N, K, n_sms, splits)
+        want = f["split"](x, q, s, 1, plan)
         assert torch.equal(got, want), (
-            f"{f['name']} N={N} K={K} T={T} splits={splits}: not bit-equal on "
-            f"integer inputs ({(got != want).float().mean().item():.4f} differ)")
+            f"{f['name']} N={N} K={K} T={T} {wide_plan_text(plan)}: not bit-equal "
+            f"on integer inputs ({(got != want).float().mean().item():.4f} differ)")
     out = {}
     if fmt == "int4":
         share = (got != im.int4_proj_stacked_plain(x, q, s, 1)).float().mean().item()
         assert share > 0.01, f"halves summed before rounding pass ({share})"
         out["halves summed before rounding"] = share
     return out
+
+
+def stream_k_everywhere(fmt, T, N, K, n_sms):
+    """The wide schedule with every unit stream-K on every pair that fits
+    (make_wide_plan, no unit whole; fewer pairs where they would have less
+    than WIDE_MIN_RANGE chunks each): the cuts fall where the balance puts
+    them, not at a split's equal bounds."""
+    halves = 2 if fmt == "int4" else 1
+    chunks = halves * cdiv(K // halves, im.WIDE_KC)
+    units = cdiv(cdiv(N, im.BM), im.CLUSTER) * cdiv(T, im.WIDE_NT)
+    pairs = max(1, min(n_sms // im.CLUSTER, units * chunks // im.WIDE_MIN_RANGE))
+    return im.make_wide_plan(T, N, K, halves, pairs, 0)
+
+
+def wide_schedule_faults(fmt, x, q, s) -> dict:
+    """The planted faults of the wide kernel's schedule, each an expected
+    output that the kernel's (at the last layer) must disagree with: one
+    chunk's products dropped at a unit's start (its first chunk: x's first
+    64 columns, INT4's low half) and at its end (its last: x's last 64,
+    INT4's high half), as an in-flight pipeline off by one chunk would drop
+    them; and, every unit stream-K on every pair (stream_k_everywhere), the
+    second segment of the first cut unit left out of the merge. Returns
+    each fault's wide_compare."""
+    L, (T, K) = q.shape[0], x.shape
+    got = wide_fmt(fmt)["kernel"](x, q, s, L - 1)
+    res = {}
+    for end, cols in (("start", slice(0, 64)), ("end", slice(K - 64, K))):
+        xd = x.clone()
+        xd[:, cols] = 0
+        res[f"one chunk's products dropped at a unit's {end}"] = wide_compare(
+            fmt, got, xd, q, s, L - 1)
+    plan = stream_k_everywhere(fmt, T, q.shape[1], K, build.sm_count(x.device))
+    cut = im.wide_cut_units(plan, 2 if fmt == "int4" else 1)
+    assert cut, plan
+    res["a segment of a cut unit left out of the merge"] = wide_compare(
+        fmt, wide_launch(fmt, x, q, s, L - 1, plan), x, q, s, L - 1, plan,
+        drop=(min(cut), 1))
+    for k, e in res.items():
+        assert e[3] > 1, f"the tolerance lets '{k}' pass ({fmt} T={T})"
+    return res
+
+
+def wide_seed_readings(fmt, device) -> None:
+    """The plan's schedule of wq and w_down (cut units, stream-K, at T =
+    300 and 512), every unit whole, and stream-K on every pair
+    (stream_k_everywhere), over WIDE_SEEDS: each launch against the plain version and its plan's
+    split-then-merge (wide_compare, which the check holds to 1); logs the
+    worst reading before a half's step, the worst the check takes and the
+    outputs that needed a step."""
+    f = wide_fmt(fmt)
+    n_sms = build.sm_count(torch.device(device, 0))
+    for label in ("wq/wo", "w_down"):
+        N, K = INT4_SHAPES[label]
+        for sched in ("the plan", "every unit whole", "stream-K on every pair"):
+            base = check = 0.0
+            flips, cut = 0, set()
+            for seed in WIDE_SEEDS:
+                gen = torch.Generator(device=device).manual_seed(seed)
+                q, s = _wide_stack(fmt, gen, N, K, 1, device)
+                for T in (300, 512):
+                    x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
+                    plan = (f["plan"](T, N, K, n_sms) if sched == "the plan" else
+                            f["plan"](T, N, K, n_sms, 1) if sched == "every unit whole"
+                            else stream_k_everywhere(fmt, T, N, K, n_sms))
+                    cut.add((T, len(im.wide_cut_units(plan, 2 if fmt == "int4" else 1))))
+                    got = wide_launch(fmt, x, q, s, 0, plan)
+                    for p in (None, plan):
+                        e = wide_compare(fmt, got, x, q, s, 0, p)
+                        assert e[3] <= 1, (f["name"], label, sched, seed, T, e)
+                        base, check, flips = max(base, e[2]), max(check, e[3]), flips + e[4]
+                del q, s
+            log(f"[{fmt} wide] {label}, {sched} (cut units at T, count: {sorted(cut)}), "
+                f"{len(WIDE_SEEDS)} seeds x T = 300, 512 against the plain version and "
+                f"the split-then-merge: worst {base:.3g} of the tolerance before a half's "
+                f"step, {check:.3g} after; {flips} outputs needed a step")
 
 
 def _wide_timings(fmt, gen, x, N, K, device):
@@ -2096,11 +2357,15 @@ def phase_wide(fmt: str, device, smi) -> dict:
     against its plain version at ragged shapes (T = 257, 300, 600), at the
     four 8B projection shapes (T in WIDE_TS, layers 0 and 3 of a 4-layer
     stack, with 4 splits forced at T = 512), at INT8's head (640 rows) and
-    at the tp = 2 shards (T = 512); two launches bit-identical; bit-equal on
-    integer inputs (wide_exact); the planted faults must fail (the tiles'
-    at w_gate T = 300 and 512, INT4's rounding in wide_exact); times at
-    every 8B shape and T, and at T = 128 and 256 with the wide tile forced
-    beside the narrow plan's (INT8). Returns {(shape, T): timings}."""
+    at the tp = 2 shards (T = 512), and at T = 512 also with every unit
+    stream-K on every pair (stream_k_everywhere); the plan's cut units of
+    wq and w_down at T = 300 and 512 over WIDE_SEEDS (wide_seed_readings);
+    two launches bit-identical; bit-equal on integer inputs (wide_exact);
+    the planted faults must fail (the tiles' at w_gate T = 300 and 512, the
+    schedule's at T = 512, wide_schedule_faults, INT4's rounding in
+    wide_exact); times at every 8B shape and T, and at T = 128 and 256 with
+    the wide tile forced beside the narrow plan's (INT8). Returns {(shape,
+    T): timings}."""
     f = wide_fmt(fmt)
     gen = torch.Generator(device=device).manual_seed(14 if fmt == "int8" else 41)
     # Ragged: N off the 128-row tile and an odd tile count (the last pair's
@@ -2122,37 +2387,50 @@ def phase_wide(fmt: str, device, smi) -> dict:
         head, tp2 = label == "lm_head", label in INT8_TP2_SHAPES
         Ts = (WIDE_HEAD_T,) if head else (512,) if tp2 else WIDE_TS
         q, s = _wide_stack(fmt, gen, N, K, 1 if head else 4, device)
-        worst, plans = (0.0, 0.0, 0.0), []
+        worst, plans = (0.0, 0.0, 0.0, 0.0, 0), []
         for T in Ts:
             x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
             err, plan, bad = _wide_check(fmt, x, q, s, f"{label} T={T}",
                                          faults=label == "w_gate/w_up" and T in (300, 512))
             faults.update({(k, T): v for k, v in bad.items()})
-            worst = max(worst, err, key=lambda e: e[2])
-            plans.append(f"T {T}: {plan.t_tiles} token tiles, {plan.splits} "
-                         f"splits of {plan.per} chunks, {plan.grid} blocks")
+            if label == "w_gate/w_up" and T == 512:
+                faults.update({(k, T): v for k, v in
+                               wide_schedule_faults(fmt, x, q, s).items()})
+            flips = err[4]
+            worst = max(worst, err, key=lambda e: e[3])
+            plans.append(f"T {T}: {wide_plan_text(plan)}")
             if T == 512 and not head:
-                forced = _wide_check(fmt, x, q, s, f"{label} T={T} 4 splits", splits=4)
-                worst = max(worst, forced[0], key=lambda e: e[2])
+                for forced in (_wide_check(fmt, x, q, s, f"{label} T={T} 4 splits", splits=4),
+                               _wide_check(fmt, x, q, s, f"{label} T={T} stream-K everywhere",
+                                           plan=stream_k_everywhere(
+                                               fmt, T, N, K, build.sm_count(x.device)))):
+                    worst = max(worst, forced[0], key=lambda e: e[3])
+                    flips = max(flips, forced[0][4])
             if not tp2:
-                table[(label, T)] = dict(max_abs_err=err[0],
-                                         **_wide_timings(fmt, gen, x, N, K, device))
+                table[(label, T)] = dict(
+                    max_abs_err=err[0], **_wide_timings(fmt, gen, x, N, K, device),
+                    model_ms=im.wide_plan_us(plan, build.sm_count(x.device),
+                                             2 if fmt == "int4" else 1) / 1e3)
         log(f"[{fmt} wide] {label} (N {N}, K {K}): matches the plain version and "
             f"its plan's split-then-merge at T = {', '.join(map(str, Ts))}"
-            f"{'' if head else ' (and 4 splits forced at T = 512)'}, "
+            f"{'' if head else ' (and at T = 512 4 splits forced, and stream-K on every pair)'}, "
             f"{'one layer' if head else 'layers 0 and 3'}, two launches "
             f"bit-identical: max_abs_err {worst[0]:.3g}, median |want| "
-            f"{worst[1]:.3g}, worst {worst[2]:.3g} of the tolerance (atol "
-            f"{f['tol'][0]}, rtol {f['tol'][1]}); plans: " + "; ".join(plans))
+            f"{worst[1]:.3g}, worst {worst[3]:.3g} of the tolerance (atol "
+            f"{f['tol'][0]}, rtol {f['tol'][1]}; before a half's step "
+            f"{worst[2]:.3g}, outputs that needed one at most {flips}); plans: "
+            + "; ".join(plans))
         del q, s
         torch.cuda.empty_cache()
+    wide_seed_readings(fmt, device)
     for N, K in ((14336, 4096), (1024, 4096), (300, 1024)):
         for T in (512, 300):
             faults.update({(k, T): v for k, v in wide_exact(fmt, gen, N, K, T, device).items()})
         log(f"[{fmt} wide] integer inputs, N {N}, K {K}, T 300 and 512: the "
-            "kernel equals its plain version bit for bit (the plan's splits, "
-            "1 and 4)")
-    assert any("multicast" in k for k, _ in faults) and any("dropped" in k for k, _ in faults)
+            "kernel equals its plain version bit for bit (the plan's schedule, "
+            "splits 1 and 4 forced, stream-K on every pair)")
+    for fault in ("multicast", "tile dropped", "unit's start", "unit's end", "merge"):
+        assert any(fault in k for k, _ in faults), fault
     assert fmt == "int8" or any("rounding" in k for k, _ in faults)
     for (name, T), e in faults.items():
         if isinstance(e, float):
@@ -2160,7 +2438,7 @@ def phase_wide(fmt: str, device, smi) -> dict:
                 "the outputs differ from the kernel's on integer inputs")
         else:
             log(f"[{fmt} wide] planted fault ({name}, w_gate T {T}): max_abs_err "
-                f"{e[0]:.3g}, median |want| {e[1]:.3g}, worst {e[2]:.3g} of the "
+                f"{e[0]:.3g}, median |want| {e[1]:.3g}, worst {e[3]:.3g} of the "
                 "tolerance")
     if fmt == "int8":
         # The wide tile in the decode buckets, forced, beside the narrow
@@ -2182,7 +2460,8 @@ def phase_wide(fmt: str, device, smi) -> dict:
             torch.cuda.empty_cache()
     log(f"[time] {f['name']} wide configuration: library_ms F.linear on bf16 "
         "weights of the same shape; proj_ms quant.proj, the route before it "
-        "(the layer's weights dequantized to bf16, then F.linear); kernel, "
+        "(the layer's weights dequantized to bf16, then F.linear); model_ms "
+        "the plan's modelled time (int4_matmul.wide_plan_us); kernel, "
         "proj and library cycle through more weight bytes than L2 holds"
         + ("; at T = 128 and 256 narrow_ms is the plan's launch, wide_ms the "
            "wide tile forced" if fmt == "int8" else ""))
@@ -3405,6 +3684,24 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
         finally:
             setattr(mod, fn, wrapper)
             engine.model.graphs = graphs
+        # The prefill step with the wide plans as they are (stream-K where
+        # the model says it pays) and with equal_cuts' schedules, eagerly
+        # (so that the graphs keep the plans they captured), in turns.
+        steps = {}
+        engine.model.graphs = None
+        try:
+            for label in ("plan", "cuts", "cuts", "plan"):
+                with equal_cuts() if label == "cuts" else contextlib.nullcontext():
+                    got = {}
+                    await _profile(engine, smi, f"{name}_{label}", prefill_ms=got)
+                    steps.setdefault(label, []).extend(got.values())
+        finally:
+            engine.model.graphs = graphs
+        log(f"[profile {name}] the prefill step's device ms, eagerly, in turns "
+            f"(plan, cuts, cuts, plan): the plan's wide schedules "
+            f"{' / '.join(f'{t:.3f}' for t in steps['plan'])}, equal_cuts' (every "
+            f"unit whole or cut into equal pieces, no stream-K) "
+            f"{' / '.join(f'{t:.3f}' for t in steps['cuts'])} ({smi})")
     if name in ("none", "ms8"):
         await _http(engine, mgr, free0, logprobs=multi)
     g = engine.model.graphs
@@ -3415,7 +3712,10 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
     await asyncio.wait([loops])
     assert loops.cancelled()
     engine.model.params = engine.model.kv_cache = engine.model.token_feedback = None
-    del engine, mgr, loops
+    # Every local that holds the graphs goes too: they pin the split
+    # counters (build.hold_counters) until they are collected.
+    del engine, mgr, loops, g, execute
+    graphs = None
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated()
@@ -4165,7 +4465,7 @@ def device_launches(events, counts: dict) -> dict:
 
 
 async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
-                   out_len=24):
+                   out_len=24, prefill_ms=None):
     """Where a step's time goes: n_req short requests (so mostly decode
     steps, after one prefill step of n_req x prompt tokens) under
     torch.profiler. Prints the kernels with the most device time and the
@@ -4179,12 +4479,14 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
     the engine's KV pages. A step of more than 256 tokens (the prefill)
     runs alone on the card, synchronised before and after, between two
     sleep kernels that mark it on the device's timeline: its device ms is
-    the sum of the device records between them (step_device_ms). Its CUDA
-    events' span, printed beside it, also takes in any time the card waits
-    for the host, as on the proj route, which runs eagerly."""
+    the sum of the device records between them (step_device_ms), also put
+    in prefill_ms[quant] when given. Its CUDA events' span, printed beside
+    it, also takes in any time the card waits for the host, as on the proj
+    route, which runs eagerly."""
     from torch.profiler import ProfilerActivity
-    quantized = quant in ("int4", "int8", "int4_proj", "int8_proj")
+    quantized = quant.startswith(("int4", "int8"))
     step_ms, execute = [], engine.model.execute_packed
+    prefill_ms = {} if prefill_ms is None else prefill_ms
 
     def timed(flat, key, *a, **kw):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -4294,6 +4596,7 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
         span = e0.elapsed_time(e1)
         assert 0 < dev_ms <= span, (dev_ms, span)
         ttft = sorted(ttft)
+        prefill_ms[quant] = dev_ms
         log(f"[profile {quant}] the prefill step (the largest, a {tokens}-token bucket): "
             f"{dev_ms:.3f} ms of device time (the sum of its {n_rec} kernel "
             f"records, {n_weight} of them {kern}; {span:.3f} ms between its "
@@ -5562,6 +5865,42 @@ def http_tp2(smi: str, tmp: Path):
         f"ranks exited 0 in {down:.1f} s ({smi})")
 
 
+def check_ptxas(reports: dict) -> None:
+    """Logs every line of the kernels' ptxas reports that says wgmmas were
+    serialised, and each instance of the wide configuration's kernel
+    (csrc/wide_matmul.cuh) with its registers and spills. Fails unless both
+    weight kernels' reports are there, each with that kernel, and neither
+    instance had its wgmmas serialised (named in the line, or the entry
+    function being compiled when ptxas said it) or spilled a register."""
+    bad, wide = [], {}
+    for k, v in reports.items():
+        fn = ""
+        for line in v.splitlines():
+            m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
+            if m:
+                fn = m.group(1)
+            if "serializ" in line.lower():
+                log(f"[ptxas] {k}: {line.strip()} (compiling {fn})")
+                if "wide_matmul_kernel" in (line if "function '" in line else fn):
+                    bad.append(line.strip())
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and "wide_matmul_kernel" in fn:
+                wide[(k, fn)] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and (k, fn) in wide and len(wide[(k, fn)]) == 2:
+                wide[(k, fn)].append(int(m.group(1)))
+    for (k, fn), r in wide.items():
+        log(f"[ptxas] {k}: {'INT4' if 'ILb1E' in fn else 'INT8'} wide_matmul_kernel: "
+            f"{r[2:] and r[2]} registers, {r[0]} bytes spill stores, {r[1]} bytes "
+            "spill loads")
+        if r[0] or r[1]:
+            bad.append(f"{k}: the wide kernel spills ({r[0]} / {r[1]} bytes)")
+    for k in ("int4_matmul", "int8_matmul"):
+        if not any(kk == k for kk, _ in wide):
+            bad.append(f"no ptxas report of {k}'s wide kernel")
+    assert not bad, f"ptxas report of the wide kernel: {bad}"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -5591,16 +5930,19 @@ def main() -> int:
         log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] in (["--compare-int4"], ["--sweep-int4"]):
-        build.build_kernels(("int4_matmul", "int8_matmul"))
+        reports = build.build_kernels(("int4_matmul", "int8_matmul"))
+        (OUT_DIR / "ptxas.txt").write_text("\n".join(
+            f"== {k}\n{v}" for k, v in reports.items()))
+        check_ptxas(reports)
         (compare_int4 if sys.argv[1] == "--compare-int4" else sweep_int4)(smi)
         return 0
     t0 = time.perf_counter()
     reports = build.build_kernels()
     log(f"[build] {len(build.KERNELS)} kernels ({len(reports)} sources) built "
         f"in {time.perf_counter() - t0:.1f} s")
-    if reports:     # a run that built nothing keeps the last report
-        (OUT_DIR / "ptxas.txt").write_text("\n".join(
-            f"== {k}\n{v}" for k, v in reports.items()))
+    (OUT_DIR / "ptxas.txt").write_text("\n".join(
+        f"== {k}\n{v}" for k, v in reports.items()))
+    check_ptxas(reports)
     if sys.argv[1:] == ["--compare-multi-step"]:
         asyncio.run(compare_multi_step(smi))
         return 0

@@ -154,9 +154,11 @@ def _nvcc() -> str:
 
 def build_kernels(names=KERNELS) -> dict[str, str]:
     """Compile every missing kernel library, one ``nvcc`` per source, all
-    started together, and load them. Returns each newly built source's
-    ``-Xptxas -v`` report (registers, shared memory, spills), under the name
-    of the first kernel asked for that it holds."""
+    started together, and load them. Returns the ``-Xptxas -v`` report
+    (registers, shared memory, spills, warnings) of every source that holds
+    a kernel asked for, under the name of the first such kernel: the
+    report is kept beside its library, so a source built by an earlier run
+    gives the report of that build."""
     reports = {}
     with _locked():
         todo = [n for n in names if n not in _libs]
@@ -172,19 +174,26 @@ def build_kernels(names=KERNELS) -> dict[str, str]:
                    "-Xptxas", "-v", "-o", str(tmp), str(CSRC_DIR / src)]
             procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True),
-                          tmp, out, n)
-        for src, (p, tmp, out, n) in procs.items():
+                          tmp, out)
+        for src, (p, tmp, out) in procs.items():
             log, _ = p.communicate()
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+            out.with_suffix(".ptxas.txt").write_text(log)
             os.replace(tmp, out)
-            reports[n] = log
         for n in todo:
             lib = ctypes.CDLL(str(_lib_path(_ENTRIES[n][0])))
             fn = getattr(lib, n)
             fn.argtypes = _ENTRIES[n][1]
             fn.restype = ctypes.c_int
             _libs[n] = lib
+        seen = set()
+        for n in names:
+            src = _ENTRIES[n][0]
+            report = _lib_path(src).with_suffix(".ptxas.txt")
+            if src not in seen and report.exists():
+                seen.add(src)
+                reports[n] = report.read_text()
     return reports
 
 

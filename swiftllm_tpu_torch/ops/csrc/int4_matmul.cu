@@ -324,8 +324,15 @@ int4_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
 
     // Two sets of fragments in turn: the next chunk's are loaded and
     // dequantized while this chunk's products run. Each chunk's products
-    // are waited for before the next are issued: keeping them in flight
-    // across the next issue (wgmma_wait<1>) gave wrong sums on the card.
+    // are waited for before the next are issued. With a wgmma_wait<1> here
+    // instead, this order loads chunk c + 1's fragments into the set that
+    // chunk c - 1's products, still in flight, read, and keep_live then
+    // holds those registers only to the wait that retires chunk c - 2: the
+    // compiler may give them away early. That, not keeping products in
+    // flight, is why it gave wrong sums on the card. The wide configuration
+    // (wide_matmul.cuh) keeps products in flight with the order that avoids
+    // it (wait, then load into the retired slot), and measured no gain
+    // from it there: its chunks are bound by the fragments' conversion.
     Frag la, ha, lb, hb;
     mbar_wait(full(st), ph);
     load_a(st, la, ha);
@@ -446,11 +453,13 @@ int dispatch(bool tma, const Args& a, int L, int grid, cudaStream_t stream) {
 // 128, chunks of KC packed bytes, 128 or 64 at NT = 128, both halves at
 // once; or 256, the wide configuration of wide_matmul.cuh, which takes K/2
 // a multiple of 16 and walks chunks of 64 bytes of the low half, then of
-// the high half; t_tiles = ceil(T / NT)), splits of `per` chunks (at NT =
-// 256: 1, or an even count, half of them in each half), grid blocks (at NT
-// = 256 an even count, pairs of a cluster). ws holds ceil(N / 128) *
-// t_tiles * splits x 128 x NT f32 partials when splits > 1; counters holds
-// ceil(N / 128) * t_tiles int32, zero (every launch leaves them zero).
+// the high half; t_tiles = ceil(T / NT)), splits of `per` chunks, grid
+// blocks. At NT = 256: `per` units walked whole, `splits` the most segments
+// a cut unit has, grid an even count (pairs of a cluster, over which the
+// stream-K part is balanced). ws holds ceil(N / 128) * t_tiles * splits x
+// 128 x NT f32 partials when splits > 1 (at NT = 256, units - per stream-K
+// units x 2 blocks x splits); counters holds ceil(N / 128) * t_tiles int32,
+// zero (every launch leaves them zero).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
 extern "C" int int4_matmul(const void* x, const void* q4, const void* s, void* y,
                            void* ws, void* counters, int T, int N, int K, int L,
@@ -458,7 +467,7 @@ extern "C" int int4_matmul(const void* x, const void* q4, const void* s, void* y
                            int grid, void* stream) {
   using namespace swiftllm;
   if (T <= 0 || N <= 0 || K <= 0 || K % 2 || layer < 0 || layer >= L ||
-      splits < 1 || per < 1 || grid < 1 || t_tiles * NT < T ||
+      splits < 1 || per < (NT == wide::kNT ? 0 : 1) || grid < 1 || t_tiles * NT < T ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);

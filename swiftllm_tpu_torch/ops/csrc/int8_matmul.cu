@@ -363,18 +363,20 @@ int launch(const Args& a, int L, int grid, cudaStream_t stream) {
 // The plan (ops/int8_matmul.py:int8_plan): NT token columns a tile (16, 32,
 // 64 or 128, chunks of 128 weight bytes; or 256, the wide configuration of
 // wide_matmul.cuh, chunks of 64; t_tiles = ceil(T / NT)), splits of `per`
-// chunks, grid blocks (at NT = 256 an even count, pairs of a cluster). ws
-// holds ceil(N / 128) * t_tiles * splits x 128 x NT f32 partials when
-// splits > 1; counters holds ceil(N / 128) * t_tiles int32, zero (every
-// launch leaves them zero). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue.
+// chunks, grid blocks. At NT = 256: `per` units walked whole, `splits` the
+// most segments a cut unit has, grid an even count (pairs of a cluster,
+// over which the stream-K part is balanced). ws holds ceil(N / 128) *
+// t_tiles * splits x 128 x NT f32 partials when splits > 1 (at NT = 256,
+// units - per stream-K units x 2 blocks x splits); counters holds
+// ceil(N / 128) * t_tiles int32, zero (every launch leaves them zero).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
 extern "C" int int8_matmul(const void* x, const void* q, const void* s, void* y,
                            void* ws, void* counters, int T, int N, int K, int L,
                            int layer, int NT, int t_tiles, int splits, int per,
                            int grid, void* stream) {
   using namespace swiftllm;
   if (T <= 0 || N <= 0 || K <= 0 || K % 16 || layer < 0 || layer >= L ||
-      splits < 1 || per < 1 || grid < 1 || t_tiles * NT < T ||
+      splits < 1 || per < (NT == wide::kNT ? 0 : 1) || grid < 1 || t_tiles * NT < T ||
       (splits > 1 && (ws == nullptr || counters == nullptr)) ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(q) % 16)
     return static_cast<int>(cudaErrorInvalidValue);

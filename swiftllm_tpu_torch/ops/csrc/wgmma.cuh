@@ -2,7 +2,8 @@
 // cp.async copies into shared memory, the 128-byte swizzle that wgmma reads,
 // shared-memory matrix descriptors, the warpgroup fences, and the
 // wgmma.mma_async shapes paged_prefill.cu and the weight kernels issue, and
-// the cluster primitives of the weight kernels' wide configuration.
+// the cluster primitives, stmatrix and TMA stores of the weight kernels' wide
+// configuration.
 #pragma once
 
 #include <stdint.h>
@@ -402,6 +403,45 @@ __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const void* 
       ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
+}
+
+// ---- the wide configuration's epilogue: stmatrix and TMA stores ----
+
+// Four 8 x 8 bf16 matrices of the warp's accumulator fragments (register k
+// of a lane: the pair of row lane / 4, columns 2 (lane % 4) and + 1, of
+// matrix k), each stored transposed: row c of the stored matrix k (its
+// column c) at the 16-byte address that lane 8k + c gives.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.x4.trans.m8n8.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+                   "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// A TMA store of one box of a tensor map from shared memory, in this
+// thread's bulk group: parts of the box outside the tensor are not written.
+// The threads that wrote the box fence (fence_proxy_async) and synchronise
+// first.
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk stores have read their shared memory (READ)
+// or have completed.
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace swiftllm

@@ -39,8 +39,9 @@ from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops.int4_matmul import (BM, CLOCK_GHZ, LAUNCH_US,
                                                 MERGE_US, MERGE_US_PER_KB,
                                                 NT_CYCLES, PRODUCT_CYCLES,
-                                                UNIT_US, MatmulPlan,
-                                                search_plan)
+                                                UNIT_US, WIDE_NT, MatmulPlan,
+                                                partials, search_plan,
+                                                wide_half_sums)
 from swiftllm_tpu_torch.utils import cdiv
 
 KC = 128                       # weight bytes a K chunk (csrc/int8_matmul.cu:kKC)
@@ -92,9 +93,9 @@ def int8_proj_stacked_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 def int8_split_partials(x: torch.Tensor, q: torch.Tensor, layer: int,
                         plan: MatmulPlan) -> list[torch.Tensor]:
-    """The f32 partial sums [T, N] of the plan's splits, in split order:
-    split i covers columns [i * per * kc, (i + 1) * per * kc) (the last to
-    K)."""
+    """The f32 partial sums [T, N] of a narrow plan's splits, in split
+    order: split i covers columns [i * per * kc, (i + 1) * per * kc) (the
+    last to K)."""
     xf, w = x.float(), q[layer]
     step = plan.per * plan.kc
     return [F.linear(xf[:, a:a + step], w[:, a:a + step].float())
@@ -102,9 +103,15 @@ def int8_split_partials(x: torch.Tensor, q: torch.Tensor, layer: int,
 
 
 def int8_proj_split_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                          layer: int, plan: MatmulPlan) -> torch.Tensor:
+                          layer: int, plan: MatmulPlan,
+                          drop: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain version of split-then-merge: the splits' f32 partials summed in
-    split order, then ``_scaled``."""
+    split order, then ``_scaled``; in the wide configuration the f32 sums
+    as its schedule takes them (``int4_matmul.wide_half_sums``: a cut
+    unit's segments summed in K order, ``drop`` one left out)."""
+    if plan.nt == WIDE_NT:
+        acc, = wide_half_sums([x.float()], [q[layer].float()], plan, drop)
+        return _scaled(acc, s[layer], x.dtype)
     acc = torch.zeros(x.shape[0], q.shape[1], dtype=torch.float32,
                       device=x.device)
     for p in int8_split_partials(x, q, layer, plan):
@@ -135,7 +142,7 @@ def int8_proj_stacked(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     y = torch.empty(T, N, dtype=x.dtype, device=x.device)
     ws = cnt = None
     if p.splits > 1:
-        ws = torch.empty(p.units * BM * p.nt, dtype=torch.float32, device=x.device)
+        ws = torch.empty(partials(p), dtype=torch.float32, device=x.device)
         # One arrival counter a (tile, token tile); the merging block resets
         # its own, so every launch leaves them zero.
         cnt = build.device_counters("int8_matmul", x.device, p.tiles * p.t_tiles)

@@ -120,15 +120,20 @@ def test_int8_split_plain_matches_unsplit(T, N, K, splits):
     q, s, _ = stack(rng, 2, N, K)
     p = im8.int8_plan(T, N, K, 132, splits)
     assert p.splits > 1 and p.kc == (im4.WIDE_KC if T > im4.WIDE_ABOVE else im8.KC)
-    parts = im8.int8_split_partials(x, q, 1, p)
-    assert len(parts) == p.splits
     got = im8.int8_proj_split_plain(x, q, s, 1, p)
     want = im8.int8_proj_stacked_plain(x, q, s, 1)
     scale = float(want.abs().max())
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6 * scale)
-    # Leaving one split out moves the product far past that bound (the
-    # fault chip_smoke.py plants against the kernel's merge).
-    dropped = (sum(parts[1:]) * s[1]).numpy()
+    # Leaving one split out (in the wide configuration a segment of a cut
+    # unit) moves the product far past that bound (the fault chip_smoke.py
+    # plants against the kernel's merge).
+    if p.nt == im4.WIDE_NT:
+        dropped = im8.int8_proj_split_plain(
+            x, q, s, 1, p, drop=(min(im4.wide_cut_units(p, 1)), 1)).numpy()
+    else:
+        parts = im8.int8_split_partials(x, q, 1, p)
+        assert len(parts) == p.splits
+        dropped = (sum(parts[1:]) * s[1]).numpy()
     assert np.abs(dropped - want.numpy()).max() > 1e-3 * scale
 
 
@@ -141,14 +146,15 @@ def test_int8_plan_fills_the_card(T, N, K):
     132 and 114 SMs: every K chunk lies in exactly one split, no split is
     empty, the token tiles hold T, and there are enough units for the SM
     count: 80% of it at N >= 4096, half of it below (above 256 tokens,
-    the wide configuration's, ``test_torch_quant.wide_fill_ok``)."""
+    the wide configuration's schedule, ``test_torch_quant.wide_fill_ok``:
+    every chunk in one piece, its pairs filling the card)."""
     for n_sms in (132, 114):
         p = im8.int8_plan(T, N, K, n_sms)
-        owner = [c // p.per for c in range(p.chunks)]
-        assert owner == sorted(owner) and set(owner) == set(range(p.splits))
-        assert p.units == p.tiles * p.t_tiles * p.splits
         assert p.t_tiles * p.nt >= T > (p.t_tiles - 1) * p.nt
         if T <= im4.WIDE_ABOVE:
+            owner = [c // p.per for c in range(p.chunks)]
+            assert owner == sorted(owner) and set(owner) == set(range(p.splits))
+            assert p.units == p.tiles * p.t_tiles * p.splits
             assert p.kc == im8.KC and p.chunks == -(-K // im8.KC)
             assert p.nt in im4.TOKEN_WIDTHS
             assert p.units >= (0.8 if N >= 4096 else 0.5) * n_sms
@@ -213,10 +219,12 @@ def test_int8_plan_takes_ints_and_forced_splits():
     assert (p.nt, p.t_tiles, p.kc, p.splits) == (64, 2, 128, 2)
     with pytest.raises(ValueError, match="token width"):
         im8.int8_plan(128, 4096, 4096, 132, nt=48)
-    # The wide configuration: above 256 tokens, or forced at any T (64
-    # chunks of 64 bytes: 22, 22, 20 in 3 splits); cached.
+    # The wide configuration: above 256 tokens, or forced at any T (3
+    # splits: each of the 128 units' 64 chunks of 64 bytes cut into pieces of
+    # 21 or 22, stream-K on 384 pairs, every unit cut, none whole); cached.
     p = im8.int8_plan(2048, 4096, 4096, 132, splits=3)
-    assert (p.nt, p.t_tiles, p.kc, p.splits, p.per) == (256, 8, 64, 3, 22)
+    assert (p.nt, p.t_tiles, p.kc, p.units, p.per, p.grid) == (256, 8, 64, 128, 0, 768)
+    assert p.splits in (3, 4) and len(im4.wide_cut_units(p, 1)) == 128
     p = im8.int8_plan(128, 4096, 4096, 132, nt=256)
     assert (p.nt, p.t_tiles, p.kc) == (256, 1, 64)
     assert im8.int8_plan(1024, 4096, 4096, 132) is im8.int8_plan(1024, 4096, 4096, 132)
@@ -267,6 +275,36 @@ def test_int8_wrapper_cpu_plain_and_device_rules(monkeypatch):
     assert y.shape == (300, 16) and p.nt == im4.WIDE_NT
     assert launched[1][6:] == (300, 16, 32, 2, 1, 256, 2, p.splits, p.per,
                                p.grid)
+
+
+# The wide configuration's cases of CASES and the ragged T of
+# chip_smoke.py's wide phase.
+WIDE_SPLIT_CASES = [(300, 200, 272), (512, 130, 1040), (257, 200, 1040),
+                    (600, 130, 1040)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [None, 4])
+@pytest.mark.parametrize("T,N,K", WIDE_SPLIT_CASES)
+def test_int8_wide_split_plain_matches_jax_proj(T, N, K, splits, dtype):
+    """The wide configuration's split-then-merge as its plan (or 4 splits
+    forced: every unit cut, stream-K) takes it, against the JAX package's
+    ``quant.proj`` (INT8), with test_int8_plain_matches_jax_proj's bounds."""
+    rng = np.random.default_rng(T * 7 + N + 1)
+    q, s, qw = stack(rng, 2, N, K)
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    p = im8.int8_plan(T, N, K, 132, splits)
+    assert p.nt == im4.WIDE_NT and (splits is None or p.per == 0)
+    want = np.asarray(jq.proj(jnp.asarray(x, getattr(jnp, dtype)), {
+        "q": jnp.asarray(qw["q"][1]), "s": jnp.asarray(qw["s"][1])}), np.float32)
+    got = im8.int8_proj_split_plain(xt, q, s, 1, p)
+    assert got.dtype == xt.dtype and got.shape == (T, N)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2 * want.std())
 
 
 def test_int4_head_through_the_kernel_matches_jax_proj():

@@ -289,34 +289,69 @@ def test_int4_split_plain_matches_pallas(T, N, K, splits):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
+def wide_covers_once(p, halves) -> bool:
+    """A wide plan's work (``im.wide_work``, the kernel's walk) covers every
+    chunk of every unit exactly once, both nibble halves; every segment of
+    a cut unit (``im.wide_cut_units``) lies in one half, a cut unit's
+    segments are its pieces cut again at the half boundary, and ``splits``
+    is the most segments a cut unit has."""
+    C, cph = p.chunks, p.chunks // halves
+    seen = [0] * (p.units * C)
+    pieces: dict[int, list] = {}
+    for pair in im.wide_work(p):
+        for u, c0, c1 in pair:
+            for c in range(c0, c1):
+                seen[u * C + c] += 1
+            if c1 - c0 < C:
+                pieces.setdefault(u, []).append((c0, c1))
+    cut = im.wide_cut_units(p, halves)
+    want = {u: sorted(seg for c0, c1 in ps for seg in (
+        [(c0, cph), (cph, c1)] if halves == 2 and c0 < cph < c1 else [(c0, c1)]))
+        for u, ps in pieces.items()}
+    return (seen == [1] * (p.units * C) and cut == want
+            and all(b <= cph or a >= cph for segs in cut.values() for a, b in segs)
+            and p.splits == max(map(len, cut.values()), default=1))
+
+
 def wide_plan_ok(p, T, N, K, n_sms, halves) -> bool:
-    """The wide configuration's plan: 256-token tiles, chunks of 64 bytes of
-    each of ``halves`` passes, every split within one pass, and an even grid
-    of at most one block an SM and no more pairs than units."""
+    """The wide configuration's plan: 256-token tiles that hold T, chunks of
+    64 bytes of each of ``halves`` passes, units of a pair of weight tiles
+    and a token tile, an even grid of at most one block an SM, the whole
+    units full waves of the pairs (or every unit), a stream-K part of at
+    least WIDE_MIN_RANGE chunks a pair, balanced to a chunk, and every chunk
+    covered once (``wide_covers_once``)."""
     cph = -(-(K // halves) // im.WIDE_KC)
-    pairs = -(-p.tiles // im.CLUSTER) * p.t_tiles * p.splits
-    per_split = p.chunks if p.splits == 1 else p.per
+    P = p.grid // im.CLUSTER
+    starts = im.wide_starts(p)
+    ranges = [b - a for a, b in zip(starts, starts[1:])]
+    rest = (p.units - p.per) * p.chunks
     return (p.nt == im.WIDE_NT and p.kc == im.WIDE_KC
+            and p.t_tiles * p.nt >= T > (p.t_tiles - 1) * p.nt
             and p.chunks == halves * cph and p.tiles == -(-N // im.BM)
-            and (p.splits == 1 or (p.splits % halves == 0
-                                   and (p.splits // halves - 1) * p.per < cph
-                                   <= p.splits // halves * p.per))
-            and per_split >= 1 and p.grid % im.CLUSTER == 0
-            and p.grid == im.CLUSTER * min(pairs, n_sms // im.CLUSTER))
+            and p.units == -(-p.tiles // im.CLUSTER) * p.t_tiles
+            and p.grid % im.CLUSTER == 0 and 1 <= P <= n_sms // im.CLUSTER
+            and (p.per == p.units or p.per % P == 0)
+            and (rest == 0 or min(ranges) >= im.WIDE_MIN_RANGE)
+            and max(ranges) - min(ranges) <= 1
+            and wide_covers_once(p, halves))
 
 
 def wide_fill_ok(p, T, N, K, n_sms, halves) -> bool:
-    """A wide plan's token tiles hold T, its units are tiles x token tiles
-    x splits, every split lies within one nibble half (``wide_plan_ok``),
-    and its pairs of blocks fill the card: on 132 SMs 80% of it at N >=
-    2,048 and 40% at N = 1,024 (4 pairs of tiles: more would need a merge
-    of many 256-token partials); on 114 SMs half of it (57 pairs, which the
-    32 or 64 pairs of units at N = 4,096 do not divide: one wave of 32 beats
-    two of 64)."""
+    """A wide plan as ``wide_plan_ok`` says, the least modelled time of the
+    schedules its search weighs (``im.wide_plan``), whose pairs fill the
+    card: on 132 SMs 80% of it at N >= 2,048 and 40% at N = 1,024 (4 pairs
+    of tiles: more would need a merge of many 256-token partials); on 114
+    SMs half of it. The plan walks every unit whole only where the model
+    finds a stream-K part dearer (PERF.md §6: a partial costs more
+    than the last wave's idle pairs at w_gate, T = 512)."""
     fill = (0.8 if N >= 2048 else 0.4) if n_sms == 132 else 0.5
-    return (p.t_tiles * p.nt >= T > (p.t_tiles - 1) * p.nt
-            and p.units == p.tiles * p.t_tiles * p.splits
-            and wide_plan_ok(p, T, N, K, n_sms, halves)
+    fit = n_sms // im.CLUSTER
+    cands = [im.make_wide_plan(T, N, K, halves, P, w) for P in (fit, p.grid // im.CLUSTER)
+             for w in {p.units, p.units // P * P, 0}
+             if (p.units - w) * p.chunks >= im.WIDE_MIN_RANGE * P or w == p.units]
+    us = im.wide_plan_us(p, n_sms, halves)
+    return (wide_plan_ok(p, T, N, K, n_sms, halves)
+            and all(us <= im.wide_plan_us(c, n_sms, halves) for c in cands)
             and p.grid >= fill * n_sms)
 
 
@@ -381,11 +416,83 @@ def test_int4_wide_split_plain_matches_unsplit(T, N, K, splits):
     qw = jq.quantize_int4(rng.standard_normal((2, N, K)).astype(np.float32))
     q4, s = torch.from_numpy(qw["q4"]), torch.from_numpy(qw["s"])
     p = im.int4_plan(T, N, K, 132, splits)
-    assert p.nt == im.WIDE_NT and p.splits % 2 == 0 or p.splits == 1
+    assert p.nt == im.WIDE_NT and wide_covers_once(p, 2)
+    assert (p.splits == 1) == (splits == 1)
     got = im.int4_wide_split_plain(x, q4, s, 1, p)
     want = im.int4_proj_wide_plain(x, q4, s, 1)
     scale = float(want.abs().max())
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6 * scale)
+    # Leaving a segment of a cut unit out of the merge moves that unit's
+    # outputs far past that bound (the fault chip_smoke.py plants against
+    # the kernel's merge).
+    if p.splits > 1:
+        u = min(im.wide_cut_units(p, 2))
+        dropped = im.int4_wide_split_plain(x, q4, s, 1, p, drop=(u, 1))
+        assert np.abs(dropped.numpy() - want.numpy()).max() > 1e-3 * scale
+
+
+# The wide schedule at every 8B shape, the tp = 2 shards and the head, for
+# both formats (INT8: one pass; INT4: two nibble halves), on cards of 132
+# and 114 SMs, as the plan chooses it and forced (1: every unit whole; 2,
+# 3, 4: every unit cut, stream-K).
+WORK_SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+               (4096, 2048), (2048, 4096), (128256, 4096)]
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2, 3, 4])
+@pytest.mark.parametrize("halves", [1, 2])
+@pytest.mark.parametrize("N,K", WORK_SHAPES)
+def test_wide_work_covers_every_chunk_once(N, K, halves, splits):
+    """Every chunk of both halves in exactly one piece, no segment across
+    the nibble boundary, the stream-K ranges balanced to a chunk, ints only
+    (``wide_covers_once``); a forced count of more than 1 cuts every unit
+    into pieces of chunks / splits."""
+    for T, n_sms in ((300, 132), (512, 114), (1024, 132), (2048, 114)):
+        if N == 128256 and splits not in (None, 1):
+            continue          # thousands of pairs: the head is never forced
+        p = (im.int4_plan if halves == 2 else
+             __import__("swiftllm_tpu_torch.ops.int8_matmul",
+                        fromlist=["int8_plan"]).int8_plan)(T, N, K, n_sms, splits)
+        assert all(type(v) is int for v in p)
+        assert wide_covers_once(p, halves), (T, n_sms, p)
+        if splits is None:
+            assert wide_fill_ok(p, T, N, K, n_sms, halves), (T, n_sms, p)
+        elif splits == 1:
+            assert p.per == p.units and p.splits == 1
+        else:
+            # One more range where pieces of chunks / splits start inside a
+            # unit, one more segment where a piece crosses the half boundary.
+            assert p.per == 0 and splits <= p.splits <= splits + halves
+            if p.chunks % splits == 0 and halves == 1:
+                assert p.splits == splits
+
+
+# The ragged T of chip_smoke.py's wide phase, beside WIDE_CASES.
+WIDE_RAGGED = [(257, 200, 1040), (300, 96, 2304), (600, 130, 1040)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [None, 4])
+@pytest.mark.parametrize("T,N,K", WIDE_CASES + WIDE_RAGGED)
+def test_int4_wide_split_plain_matches_jax_proj(T, N, K, splits, dtype):
+    """The wide configuration's split-then-merge as its plan (or 4 splits
+    forced) takes it, against the JAX package's ``quant.proj``, with
+    test_int4_wide_plain_matches_jax_proj's bounds."""
+    rng = np.random.default_rng(T + N + K + 1)
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    qw = jq.quantize_int4(weights(rng, 2, N, K))
+    q4, s = torch.from_numpy(qw["q4"]), torch.from_numpy(qw["s"])
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    p = im.int4_plan(T, N, K, 132, splits)
+    want = np.asarray(jq.proj(jnp.asarray(x, getattr(jnp, dtype)), {
+        "q4": jnp.asarray(qw["q4"][1]), "s": jnp.asarray(qw["s"][1])}), np.float32)
+    got = im.int4_wide_split_plain(xt, q4, s, 1, p)
+    assert got.dtype == xt.dtype and got.shape == (T, N)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * want.std())
 
 
 def test_int4_wide_rounds_each_half():
