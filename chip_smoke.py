@@ -6,8 +6,11 @@
     python3 chip_smoke.py --graphs               # the [graphs] phase alone
     python3 chip_smoke.py --compare-splits       # a measurement, not the smoke
     python3 chip_smoke.py --compare-prefill      # a measurement, not the smoke
-    python3 chip_smoke.py --compare-int4         # a measurement, not the smoke
     python3 chip_smoke.py --sweep-int4           # a measurement, not the smoke
+    python3 chip_smoke.py --compare-int8         # a measurement, not the smoke
+    python3 chip_smoke.py --sweep-int8           # a measurement, not the smoke
+    python3 chip_smoke.py --groups               # [groups], [step qwen2] and
+                                                 # [serve qwen2]
     python3 chip_smoke.py --sweep-swap           # a measurement, not the smoke
     python3 chip_smoke.py --parallel             # phase 6 alone
     python3 chip_smoke.py --quant                # the weight and fp8 row
@@ -24,7 +27,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      attention kernels' variants on the same cases (an fp8 cache, a sliding
      window of 4096 and of 50, and both), each with its times and bounds,
      with two more planted faults (the V scale left out, the window off by
-     one); the INT4 dequant-matmul at the four 8B projection shapes and
+     one); both attention kernels at every GQA group from 1 to 8, head_dim
+     64 and 128 ([groups]: every variant, 3 splits forced, the planted
+     faults at group 7, group 7 timed against group 8 in turns); the INT4 dequant-matmul at the four 8B projection shapes and
      T = 1, 16, 128 and 256 and at ragged ones, against its plain version
      and its plan's split-then-merge, two launches bit-identical, timed at
      every shape and T, with two planted faults (the nibbles unpacked
@@ -34,9 +39,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      head (128,256 x 4,096), at T = 1, 16, 128 and 256, at ragged shapes,
      at the tp = 2 shards' K (2,048 and 7,168) and with forced splits,
      against its plain version and its plan's split-then-merge, two
-     launches bit-identical, timed at every shape and T beside today's
-     proj route (dequantize, then F.linear) and F.linear on bf16 weights,
-     with three planted faults (a K chunk dropped, the weights of another
+     launches bit-identical, no register spilled (ptxas), timed at every
+     shape and T beside the proj route (dequantize, then F.linear) and
+     F.linear on bf16 weights, with three planted faults (a K chunk dropped, the weights of another
      layer, a split left out of the merge) that must fail; both weight
      kernels' wide configuration (T > 256: tiles of 256 tokens, pairs of
      blocks sharing x; INT4 with quant.proj's two rounded half-products) at
@@ -157,7 +162,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      SWIFTLLM_TILE_BF16_SCORES=1 (every draft accepted, fewer steps); on
      these weights the next token is a function of the last one alone, so
      this engine checks paths, launches and the accept loop, not attention
-     values (phase 3 checks those); then swap preemption at the default
+     values (phase 3 checks those); then Qwen2-0.5B at full width (24
+     layers, GQA group 7, head_dim 64, biases) on successor weights, from
+     graphs after its warm-up, its tokens equal to an eager plain-path
+     engine's; then swap preemption at the default
      EngineConfig (2,048 host pages) on a device pool too small for the 8
      requests of 1,500-token prompts, in bf16 and with an fp8 cache: every
      swapped page back byte-identical, tokens equal to a roomy engine's,
@@ -199,15 +207,21 @@ decode rows (also in a bucket of 128 rows) at one split and at the
 planner's choice, timed in turn. With --compare-prefill it times the prefill
 kernel once on the cases of its kernel-table rows (mixed step, deep chunk
 under a window, verify spans at the plan and at one split): run it from two
-checkouts in turns to compare two builds on one card. With --compare-int4
-it builds only int4_matmul and times it once at each 8B shape and T = 1,
-16, 128, 256; it calls nothing the kernel's earlier versions lack, so a copy
-of this script in an earlier checkout times that checkout's kernel. With
+checkouts in turns to compare two builds on one card. With
 --sweep-int4 it builds only the weight kernels and times int4_matmul at
 each 8B shape and T for every token width and split count its plan chooses
 from, then both formats' wide configuration at T = 512, 1,024 and 2,048 for
 its plan and each forced schedule, beside the plans' models (the evidence
-for int4_matmul.py's constants). With --sweep-swap it builds only swap_pages and times a round trip of 128 pages
+for int4_matmul.py's constants). With --compare-int8 it builds every
+kernel (logging this checkout's build seconds) and times int8_matmul at
+each 8B shape and the head, int4_matmul at each 8B shape, T = 1, 16, 128,
+256 (and both at w_gate T = 512, 1,024), through the wrappers alone, so a
+copy in an earlier checkout times that checkout's kernels; the narrow
+configuration (T <= 256) both back to back and alone (time_alone_ms). With --sweep-int8 it
+times int8_matmul at each 8B shape and T = 1, 16, 128, 256 for every token
+width and split count its plan chooses from and fits the plan's model (the
+evidence for int8_matmul.py's constants). With --groups it builds the
+kernels and runs only [groups], [step qwen2] and [serve qwen2]. With --sweep-swap it builds only swap_pages and times a round trip of 128 pages
 at several grids, alone and beside a decode-like load (the evidence for
 swap_pages.py's MOVER_BLOCKS). With --parallel it builds the kernels and
 runs only phase 6. With --layer-ops it builds only the layer kernels and
@@ -362,6 +376,19 @@ def time_ms(fn, reps=REPS, warmup=3) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def time_alone_ms(fn, reps=REPS) -> float:
+    """Time of fn() on the card with an empty kernel queued before each
+    call, less that kernel's own time (timed alone, the same way). An
+    int8_matmul launch is programmatic: its prologue may overlap the kernel
+    before it when that kernel allows it, as the previous int8_matmul does,
+    so back-to-back launches (time_ms) overlap each other. The empty kernel
+    is an ordinary launch: it starts after the call before it has ended,
+    and the next call's kernels start after it has ended, so each call runs
+    alone, as one after a kernel of another kind does in a step."""
+    gap = lambda: torch.cuda._sleep(0)
+    return time_ms(lambda: (gap(), fn()), reps) - time_ms(gap, reps)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -649,8 +676,9 @@ def check_planted_fault(case):
     """The tolerance must catch a subtly wrong kernel. Run the decode kernel
     with the longest row's seq_len cut by one page, so that it skips the 16
     history keys before the new one, and require that its output for that
-    row fails the comparison with the plain version on the true inputs."""
-    b = int(case["seq_lens"].argmax())
+    row fails the comparison with the plain version on the true inputs (the
+    longest decode row)."""
+    b = int((case["seq_lens"] * (case["dec_lens"] > 0)).argmax())
     cut = dict(case, seq_lens=case["seq_lens"].clone())
     cut["seq_lens"][b] -= case["page_size"]
     got = _decode(cut, case["cache"].clone(), pa.paged_decode_attention)
@@ -703,8 +731,9 @@ def check_fault_window_edge(case, window):
 PEND_S = 8
 
 
-def pend_case(gen, device, hists, npend, n_pad=0):
-    """A deferred-commit decode case at 8B width, at inner step npend - 1 of
+def pend_case(gen, device, hists, npend, n_pad=0, heads=None):
+    """A deferred-commit decode case at 8B width (or `heads`: n_q, n_kv,
+    hd), at inner step npend - 1 of
     a window: row b has hists[b] keys in the cache (on scattered pages),
     npend - 1 completed window tokens in kv_pend[layer, :npend - 1, b] and
     the current one in kv_new[b]; the last n_pad rows of the row axis are pad
@@ -712,7 +741,7 @@ def pend_case(gen, device, hists, npend, n_pad=0):
     window is not committed), and the pending slots from npend - 1 on hold
     stale rows of three times the magnitude."""
     case = paged_case(gen, device, rows=[(1, h + npend) for h in hists],
-                      n_q=32, n_kv=8, hd=128, page_size=16)
+                      page_size=16, **(heads or dict(n_q=32, n_kv=8, hd=128)))
     L, _, W = case["cache"].shape
     B = case["page_table"].shape[0]
     assert B - len(hists) == n_pad, (B, len(hists), n_pad)
@@ -1008,7 +1037,9 @@ def compare_splits(smi):
 def compare_prefill(smi):
     """The prefill kernel's (f32 scores) time on the cases of its kernel
     table rows: the mixed step, the deep chunk under a window of 4096, and
-    the verify spans at the planner's split and at one split; one process
+    the verify spans at the planner's split and at one split; then the
+    decode kernel on its table's 16 rows, and both on the mixed step and the
+    16 rows at GQA group 8 (64 query heads over the 8 kv heads); one process
     times each once, so that two builds can be compared in turns."""
     gen = torch.Generator().manual_seed(8)
     w8b = dict(n_q=32, n_kv=8, hd=128, page_size=16)
@@ -1027,6 +1058,18 @@ def compare_prefill(smi):
         for splits in ((None, 1) if label == "verify spans" else (None,)):
             t = time_ms(lambda: _bf16s(case, c, False, window=window, splits=splits))
             out.append(f"{label}{'' if splits is None else ', one split'} {t:.4f}")
+    seq = [1 + round(i * 2047 / 15) for i in range(16)]
+    for group in (4, 8):
+        w = dict(w8b, n_q=8 * group)
+        dec = paged_case(gen, "cuda", rows=[(1, s) for s in seq], **w)
+        cd = dec["cache"].clone()
+        out.append(f"decode 16 rows, group {group} "
+                   f"{time_ms(lambda: _decode(dec, cd, pa.paged_decode_attention)):.4f}")
+        if group == 8:
+            pre = paged_case(gen, "cuda", rows=mixed, q_bucket=512, **w)
+            cp = pre["cache"].clone()
+            _store(pre, cp, pa.store_kv)
+            out.append(f"mixed step, group 8 {time_ms(lambda: _bf16s(pre, cp, False)):.4f}")
     log(f"[compare] prefill kernel: {'; '.join(out)} ms ({smi})")
 
 
@@ -1512,11 +1555,99 @@ def phase_kernels(device) -> dict:
     check_kernels(paged_case(gen, device, q_bucket=4096, rows_bucket=128, rows=(
         [(1, 700), (1, 2)] + [(2048, 2048), (1024, 3072), (1000, 1000)]), **w1b),
         name="1B q bucket 4096, 128 rows", results=None)
-    for group in (1, 2, 8):      # the other GQA instances, tiny
-        check_kernels(paged_case(gen, device, q_bucket=64, rows=(
-            [(1, 5), (1, 70), (33, 33), (20, 100)]), n_q=2 * group, n_kv=2,
-            hd=128, page_size=16), name=f"group {group}", results=None)
     return results
+
+
+# F2: every GQA group from 1 to 8, at head_dim 64 and 128. Decode rows
+# first, then chunks (one of 77 tokens after 512 keys), at q bucket 128; the
+# verify spans at q bucket SPEC_Q start and end mid-page.
+GROUP_ROWS = [(1, 5), (1, 70), (1, 300), (33, 33), (20, 100), (77, 589)]
+GROUP_SPANS = [(1, 40), (1, 333), (3, 22), (5, 105), (2, 260), (4, 611)]
+GROUP_HISTS = [1, 30, 200, 700]          # the pend variant's cached keys
+
+
+def check_forced_splits(case, kind, label, n=3):
+    """The decode or prefill kernel at `n` splits forced against one split
+    and against the unsplit plain version (ATOL / RTOL), over the case's
+    tokens of `kind`: the partial states' layout at the case's group."""
+    kernel, _, c = _split_calls(case, kind)
+    idx = _valid_tokens(case, kind)
+    one, forced = kernel(1, c.clone())[idx], kernel(n, c.clone())[idx]
+    want = (_decode(case, c.clone(), pa.paged_decode_attention_plain) if kind == "decode"
+            else _prefill(case, c.clone(), pa.paged_prefill_attention_plain))[idx]
+    for what, a, b in ((f"{n} splits against 1", forced, one),
+                       (f"{n} splits against the plain version", forced, want)):
+        err, _, ratio = _compare(a, b)
+        assert ratio <= 1, f"{label} {kind}: {what}: worst {ratio:.3g} of the tolerance"
+    return err
+
+
+def phase_groups(device, smi) -> None:
+    """Fault F2: both attention kernels at every GQA group from 1 to 8, head
+    dims 64 and 128, two kv heads (the kernels run a group under the least
+    of 1, 2, 4, 8 at or above it; bands of dead rows at 3, 5, 6, 7), each
+    against its plain version (ATOL / RTOL; caches bit-identical): the
+    decode kernel in bf16, fp8, window 50 and fp8 with window 50, 3 splits
+    forced, and its `pend` variant (npend 1 and 8, also under window 50);
+    the prefill kernel on the same rows in the same variants, 3 splits
+    forced, on verify spans that start and end mid-page (store_kv, then the
+    kernel: the unfused mode) and in its bf16-score variant on those spans.
+    At group 7 the planted faults (a decode row's last page skipped, each
+    span's first query one position late) must fail. Then the decode and
+    prefill kernels' times at group 7 against group 8 on the same kv heads
+    (Qwen2-7B's 4 at head_dim 128, Qwen2-0.5B's 2 at 64), in turns."""
+    gen = torch.Generator().manual_seed(11)
+    for hd in (64, 128):
+        for group in range(1, 9):
+            heads = dict(n_q=2 * group, n_kv=2, hd=hd)
+            tag = f"group {group} (gmax {pa.group_bound(group)}) hd {hd}"
+            for fp8 in (False, True):
+                case = paged_case(gen, device, rows=GROUP_ROWS, q_bucket=128, fp8=fp8,
+                                  page_size=16, **heads)
+                for window in (0, 50):
+                    check_kernels(case, name=f"{tag}{' fp8' if fp8 else ''} window "
+                                  f"{window}", results=None, window=window)
+                for kind in ("decode", "prefill"):
+                    check_forced_splits(case, kind, tag)
+                if group == 7 and not fp8:
+                    check_planted_fault(case)
+            spans = paged_case(gen, device, rows=GROUP_SPANS, q_bucket=SPEC_Q,
+                               page_size=16, **heads)
+            check_kernels(spans, name=f"{tag} verify spans", results=None)
+            check_bf16s(spans, f"{tag} verify spans")
+            if group == 7:
+                check_fault_span_start(spans)
+            for npend in (1, PEND_S):
+                pc = pend_case(gen, device, GROUP_HISTS, npend, heads=heads)
+                check_pend(pc, name=f"{tag} pend")
+                if npend == PEND_S:
+                    check_pend(pc, name=f"{tag} pend window 50", window=50)
+            log(f"[groups] {tag}: decode and prefill kernels, every variant, "
+                f"against their plain versions")
+    mixed = ([(1, 40 + 97 * i) for i in range(8)]
+             + [(512, 512), (512, 1536), (300, 812)])
+    seq = [1 + round(i * 2047 / 15) for i in range(16)]
+    for hd, n_kv in ((128, 4), (64, 2)):
+        cases = {}
+        for group in (8, 7):
+            g = torch.Generator().manual_seed(12)
+            w = dict(n_q=group * n_kv, n_kv=n_kv, hd=hd, page_size=16)
+            dec = paged_case(g, device, rows=[(1, s) for s in seq], **w)
+            pre = paged_case(g, device, rows=mixed, q_bucket=512, **w)
+            cp = pre["cache"].clone()
+            _store(pre, cp, pa.store_kv)
+            cases[group] = (dec, pre, cp)
+        t = {8: [], 7: []}
+        for group in (8, 7, 7, 8):
+            dec, pre, cp = cases[group]
+            cd = dec["cache"].clone()
+            t[group].append((time_ms(lambda: _decode(dec, cd, pa.paged_decode_attention)),
+                             time_ms(lambda: _prefill(pre, cp, pa.paged_prefill_attention))))
+        fmt = lambda g, i: " / ".join(f"{x[i]:.4f}" for x in t[g])
+        log(f"[groups] time, {n_kv} kv heads of head_dim {hd}, in turns (8, 7, 7, 8): "
+            f"decode (16 rows to 2,048 keys) group 8 {fmt(8, 0)} ms, group 7 "
+            f"{fmt(7, 0)} ms; prefill (the mixed case: 8 decode rows, chunks of 512, "
+            f"512, 300) group 8 {fmt(8, 1)} ms, group 7 {fmt(7, 1)} ms ({smi})")
 
 
 # ---------------------------------------------------------------------------
@@ -1547,15 +1678,16 @@ def _int4_stack(gen, N, K, L, device):
     return (torch.stack([q["q4"] for q in qs]), torch.stack([q["s"] for q in qs]))
 
 
-def _int4_cycle(gen, N, K, device):
-    """Random int8 weights and scales for timing at one shape: enough layers
-    that a run cycling through them reads more weight bytes than L2 holds,
-    as a step meets each layer's weights cold. Returns (q4, s, layers)."""
-    L4 = max(2, math.ceil(2 * L2_BYTES / (N * K // 2)))
-    q4 = torch.randint(-128, 128, (L4, N, K // 2), generator=gen,
-                       device=device, dtype=torch.int8)
-    s = torch.rand(L4, N, generator=gen, device=device) * 1e-2
-    return q4, s, L4
+def _weight_cycle(fmt, gen, N, K, device):
+    """Random weight bytes (a byte a weight for "int8", two for "int4") and
+    scales for timing at one shape: enough layers that a run cycling
+    through them reads more weight bytes than L2 holds, as a step meets each
+    layer's weights cold. Returns (q, s, layers)."""
+    kb = K if fmt == "int8" else K // 2
+    L = max(2, math.ceil(2 * L2_BYTES / (N * kb)))
+    q = torch.randint(-127, 128, (L, N, kb), generator=gen, device=device,
+                      dtype=torch.int8)
+    return q, torch.rand(L, N, generator=gen, device=device) * 1e-2, L
 
 
 def _int4_timings(gen, x, N, K, device):
@@ -1564,7 +1696,7 @@ def _int4_timings(gen, x, N, K, device):
     Library: F.linear on the weight dequantized to bf16 beforehand (the
     dequantization is not timed)."""
     T = x.shape[0]
-    q4, s, L4 = _int4_cycle(gen, N, K, device)
+    q4, s, L4 = _weight_cycle("int4", gen, N, K, device)
     it = itertools.count()
     ms = time_ms(lambda: im.int4_proj_stacked(x, q4, s, next(it) % L4))
     plain_ms = time_ms(lambda: im.int4_proj_stacked_plain(x, q4, s, next(it) % L4),
@@ -1726,11 +1858,7 @@ def sweep_wide(smi):
         f = wide_fmt(fmt)
         halves = 2 if fmt == "int4" else 1
         for label, (N, K) in INT4_SHAPES.items():
-            kb = K if fmt == "int8" else K // 2
-            L8 = max(2, math.ceil(2 * L2_BYTES / (N * kb)))
-            q = torch.randint(-127, 128, (L8, N, kb), generator=gen, device=DEVICE,
-                              dtype=torch.int8)
-            s = torch.rand(L8, N, generator=gen, device=DEVICE) * 1e-2
+            q, s, L8 = _weight_cycle(fmt, gen, N, K, DEVICE)
             for T in (512, 1024, 2048):
                 x = torch.randn(T, K, generator=gen, device=DEVICE).to(torch.bfloat16)
                 plans = {"plan": f["plan"](T, N, K, n_sms)}
@@ -1795,59 +1923,60 @@ def fit_wide_model(rows, n_sms) -> None:
             setattr(im, k, val)
 
 
-def sweep_int4(smi):
-    """The evidence behind int4_matmul's plan: its time at each 8B shape and
-    T in INT4_TS for every token width the plan may take (down to a quarter
-    of the widest) and K splits 1, 2, 3, 4, 6, 8, 16 (those that give
-    distinct plans), each beside the plan's model of it (int4_matmul.plan_us)
-    and the plan's own choice; then the wide configuration's (sweep_wide)."""
+def sweep_narrow(fmt, smi) -> list:
+    """The evidence behind a weight kernel's narrow plan (T <= 256; fmt
+    "int8" or "int4"): its time at each 8B projection shape and T in
+    INT4_TS for every token width the plan may take (down to a quarter of
+    the widest) and K splits 1, 2, 3, 4, 6, 8, 16 (those that give distinct
+    plans), each beside the plan's model of it (plan_us) and the plan's own
+    choice; each launch alone (time_alone_ms), as a step runs most of them.
+    Returns the rows (plan, measured ms, whether it is the plan's own,
+    label)."""
+    mod, fn = ((im8, im8.int8_proj_stacked) if fmt == "int8"
+               else (im, im.int4_proj_stacked))
+    plan_of = im8.int8_plan if fmt == "int8" else im.int4_plan
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     n_sms = build.sm_count(torch.device(DEVICE, 0))
+    rows = []
     for label, (N, K) in INT4_SHAPES.items():
-        q4, s, L4 = _int4_cycle(gen, N, K, DEVICE)
+        q, s, L = _weight_cycle(fmt, gen, N, K, DEVICE)
         for T in INT4_TS:
             x = torch.randn(T, K, generator=gen, device=DEVICE).to(torch.bfloat16)
-            chosen = im.int4_plan(T, N, K, n_sms)
-            widest = max(w for w in im.TOKEN_WIDTHS
-                         if w <= max(chosen.nt, min(T, im.TOKEN_WIDTHS[-1])))
-            out, it = [], itertools.count()
+            chosen = plan_of(T, N, K, n_sms)
+            widest = next(w for w in im.TOKEN_WIDTHS if w >= min(T, im.TOKEN_WIDTHS[-1]))
+            out, it, times = [], itertools.count(), {}
             for nt in (w for w in im.TOKEN_WIDTHS if widest // 4 <= w <= widest):
                 seen = set()
                 for sp in (1, 2, 3, 4, 6, 8, 16):
-                    p = im.int4_plan(T, N, K, n_sms, sp, nt)
+                    p = plan_of(T, N, K, n_sms, sp, nt)
                     if p.splits in seen:
                         continue
                     seen.add(p.splits)
-                    t = time_ms(lambda: im.int4_proj_stacked(
-                        x, q4, s, next(it) % L4, splits=sp, nt=nt))
+                    t = time_alone_ms(lambda: fn(x, q, s, next(it) % L, splits=sp, nt=nt))
+                    times[p] = t
+                    rows.append((p, t, p == chosen, f"{label} T={T}"))
                     out.append(f"{nt}x{p.t_tiles}/{p.splits} {t:.4f} "
-                               f"({im.plan_us(p, n_sms) / 1e3:.4f})")
-            log(f"[sweep] int4_matmul {label} T={T}, plan {chosen.nt}x"
-                f"{chosen.t_tiles}/{chosen.splits} (token width x tiles / "
-                f"splits): " + ", ".join(out) + f" ms measured (modelled) ({smi})")
-        del q4, s
+                               f"({mod.plan_us(p, n_sms) / 1e3:.4f})")
+            if chosen not in times:
+                times[chosen] = time_alone_ms(lambda: fn(x, q, s, next(it) % L))
+                rows.append((chosen, times[chosen], True, f"{label} T={T}"))
+                out.append(f"plan {times[chosen]:.4f} "
+                           f"({mod.plan_us(chosen, n_sms) / 1e3:.4f})")
+            best = min(times.values())
+            log(f"[sweep] {fmt}_matmul {label} T={T}, plan {chosen.nt}x"
+                f"{chosen.t_tiles}/{chosen.splits} (token width x tiles / splits) "
+                f"{times[chosen] / best:.3f}x the best measured: "
+                + ", ".join(out) + f" ms measured (modelled) ({smi})")
+        del q, s
         torch.cuda.empty_cache()
+    return rows
+
+
+def sweep_int4(smi):
+    """int4_matmul's narrow sweep (sweep_narrow), then the wide
+    configuration's, both formats (sweep_wide)."""
+    sweep_narrow("int4", smi)
     sweep_wide(smi)
-
-
-def compare_int4(smi):
-    """int4_matmul's time at each 8B shape and T in INT4_TS, once each in one
-    process, cycling through more weight bytes than L2 holds. It calls only
-    int4_proj_stacked(x, q4, s, layer), so this script, copied into an
-    earlier checkout, times that checkout's kernel: run the two in turns
-    (parent, change, change, parent) to compare builds on one card."""
-    gen = torch.Generator(device=DEVICE).manual_seed(5)
-    out = []
-    for label, (N, K) in INT4_SHAPES.items():
-        q4, s, L4 = _int4_cycle(gen, N, K, DEVICE)
-        for T in INT4_TS:
-            x = torch.randn(T, K, generator=gen, device=DEVICE).to(torch.bfloat16)
-            it = itertools.count()
-            t = time_ms(lambda: im.int4_proj_stacked(x, q4, s, next(it) % L4))
-            out.append(f"{label} T={T} {t:.4f}")
-        del q4, s
-        torch.cuda.empty_cache()
-    log(f"[compare] int4_matmul: {'; '.join(out)} ms ({smi})")
 
 
 # ---------------------------------------------------------------------------
@@ -1917,25 +2046,26 @@ def _int8_timings(gen, x, N, K, device):
     """Kernel, plain and yardstick times at one shape: the kernel, proj's
     route before it (the layer's weights dequantized to bf16, then F.linear:
     quant.proj) and F.linear on bf16 weights of the same shape each cycle
-    through more weight bytes than L2 holds."""
+    through more weight bytes than L2 holds. The kernel and F.linear are
+    timed alone (time_alone_ms: ms, library_ms) and back to back (time_ms:
+    ms_b2b, where one int8_matmul's prologue overlaps the one before)."""
     T = x.shape[0]
-    L8 = max(2, math.ceil(2 * L2_BYTES / (N * K)))
-    q = torch.randint(-127, 128, (L8, N, K), generator=gen, device=device,
-                      dtype=torch.int8)
-    s = torch.rand(L8, N, generator=gen, device=device) * 1e-2
+    q, s, L8 = _weight_cycle("int8", gen, N, K, device)
     it = itertools.count()
-    ms = time_ms(lambda: im8.int8_proj_stacked(x, q, s, next(it) % L8))
+    ms = time_alone_ms(lambda: im8.int8_proj_stacked(x, q, s, next(it) % L8))
+    ms_b2b = time_ms(lambda: im8.int8_proj_stacked(x, q, s, next(it) % L8))
     plain_ms = time_ms(lambda: im8.int8_proj_stacked_plain(x, q, s, next(it) % L8),
                        reps=3)
     proj_ms = time_ms(lambda: proj(x, {"q": q[next(it) % L8], "s": s[0]}))
     del q
     Lb = max(2, math.ceil(2 * L2_BYTES / (N * K * 2)))
     wb = torch.randn(Lb, N, K, generator=gen, device=device).to(torch.bfloat16)
-    library_ms = time_ms(lambda: F.linear(x, wb[next(it) % Lb]))
+    library_ms = time_alone_ms(lambda: F.linear(x, wb[next(it) % Lb]))
     del wb
     torch.cuda.empty_cache()
     nbytes = T * K * 2 + N * K + N * 4 + T * N * 2
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, proj_ms=proj_ms,
+                ms_b2b=ms_b2b,
                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 2 * T * N * K))))
 
 
@@ -1982,7 +2112,7 @@ def phase_int8(device, smi) -> dict:
                 r = dict(max_abs_err=err[0], **_int8_timings(gen, x, N, K, device))
                 table.append((label, T, r))
                 if (label, T) == INT8_TABLE:
-                    row = {k: v for k, v in r.items() if k != "proj_ms"}
+                    row = {k: v for k, v in r.items() if k not in ("proj_ms", "ms_b2b")}
         log(f"[int8] {label} (N {N}, K {K}): matches the plain version and its "
             f"plan's split-then-merge at T = {', '.join(map(str, INT4_TS))}"
             f"{'' if label == 'lm_head' else ' (and 3 splits forced at T = 16, 128)'}, "
@@ -2001,12 +2131,99 @@ def phase_int8(device, smi) -> dict:
     log("[time] int8_matmul library_ms: F.linear on bf16 weights of the same "
         "shape; proj_ms: quant.proj, the route before the kernel (the layer's "
         "weights dequantized to bf16, then F.linear); kernel, proj and library "
-        "cycle through more weight bytes than L2 holds")
+        "cycle through more weight bytes than L2 holds; ms and library_ms each "
+        "call alone (time_alone_ms), ms_b2b the kernel's launches back to back")
     for label, T, r in table:
         log(f"[time] int8_matmul {label} T={T}: " + ", ".join(
             f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
             for a, b in r.items()) + f" ({smi})")
     return row
+
+
+def compare_int8(smi):
+    """The weight kernels' times, once each in one process, cycling through
+    more weight bytes than L2 holds: int8_matmul at each shape of
+    INT8_SHAPES and T in INT4_TS (the narrow configuration), int4_matmul at
+    INT4_SHAPES and INT4_TS, and both at w_gate T = 512 and 1,024 (the wide
+    configuration); at T <= 256 launches back to back (time_ms) and each
+    alone (time_alone_ms), since an int8_matmul launch may overlap the one
+    before it. It calls only the wrappers (int8_proj_stacked and
+    int4_proj_stacked with (x, q, s, layer)), so this script copied into an
+    earlier checkout times that checkout's kernels: run the two in turns
+    (parent, change, change, parent) to compare builds on one card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    out = {"int8_matmul": [], "int4_matmul": []}
+    for fmt, shapes in (("int8", INT8_SHAPES), ("int4", INT4_SHAPES)):
+        fn = im8.int8_proj_stacked if fmt == "int8" else im.int4_proj_stacked
+        for label, (N, K) in shapes.items():
+            q, s, L = _weight_cycle(fmt, gen, N, K, DEVICE)
+            ts = INT4_TS + ((512, 1024) if label == "w_gate/w_up" else ())
+            for T in ts:
+                x = torch.randn(T, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+                it = itertools.count()
+                t = time_ms(lambda: fn(x, q, s, next(it) % L))
+                alone = (f" (alone {time_alone_ms(lambda: fn(x, q, s, next(it) % L)):.4f})"
+                         if T <= 256 else "")
+                out[f"{fmt}_matmul"].append(f"{label} T={T} {t:.4f}{alone}")
+            del q, s
+            torch.cuda.empty_cache()
+    for k, v in out.items():
+        log(f"[compare] {k}: {'; '.join(v)} ms ({smi})")
+
+
+def sweep_int8(smi):
+    """int8_matmul's narrow sweep (sweep_narrow), then the plan's model
+    constants fitted to its times (fit_int8_model)."""
+    fit_int8_model(sweep_narrow("int8", smi), build.sm_count(torch.device(DEVICE, 0)))
+
+
+def fit_int8_model(rows, n_sms) -> None:
+    """Fits int8_matmul.plan_us's constants to the sweep's rows (plan,
+    measured ms, whether it is the plan's own, label) within 1.5 times the
+    best of their shape and T (the plans worth choosing between; many
+    splits of a wide token tile write partials the model does not weigh):
+    least squares of the relative error. Logs the constants (int8_matmul.py
+    takes them from here) and, at each shape and T, the time of the plan
+    int8_plan then chooses against the best measured, and leaves the
+    module's constants as they were."""
+    from scipy.optimize import least_squares
+    best_of = {}
+    for r in rows:
+        best_of[r[3]] = min(best_of.get(r[3], math.inf), r[1])
+    timed = {(r[3], r[0]): r[1] for r in rows}
+    rows = [r for r in rows if r[1] <= 1.5 * best_of[r[3]]]
+    names = ("LAUNCH_US", "UNIT_US", "PRODUCT_CYCLES", "NT_CYCLES", "MERGE_US",
+             "MERGE_US_PER_KB", "BYTES_PER_US")
+    saved = {k: getattr(im8, k) for k in names}
+
+    def put(v):
+        for k, val in zip(names, v):
+            setattr(im8, k, float(val))
+
+    def err(r):
+        return im8.plan_us(r[0], n_sms) / (1e3 * r[1]) - 1
+    try:
+        lo = [0, 0, 0, 0, 0, 0, 1e5]
+        hi = [50, 50, 500, 10, 50, 1, 1e7]
+        v = least_squares(lambda v: (put(v), [err(r) for r in rows])[1],
+                          [saved[k] for k in names], bounds=(lo, hi)).x
+        put(v)
+        im8.int8_plan.cache_clear()
+        picks = []
+        for label, (N, K) in INT4_SHAPES.items():
+            for T in INT4_TS:
+                p = im8.int8_plan(T, N, K, n_sms)
+                t = timed.get((f"{label} T={T}", p))
+                picks.append(f"{label} T={T} {p.nt}x{p.t_tiles}/{p.splits} "
+                             + (f"{t / best_of[f'{label} T={T}']:.3f}x" if t else "not timed"))
+        log("[fit] int8 narrow model: " + ", ".join(
+            f"{k} {val:.4g}" for k, val in zip(names, v))
+            + f"; {len(rows)} rows within 1.5x of their best, each within "
+            f"{100 * max(abs(err(r)) for r in rows):.1f}%; int8_plan under it "
+            f"chooses (against the best measured): " + "; ".join(picks))
+    finally:
+        put([saved[k] for k in names])
+        im8.int8_plan.cache_clear()
 
 
 # ---------------------------------------------------------------------------
@@ -2333,10 +2550,7 @@ def _wide_timings(fmt, gen, x, N, K, device):
     f = wide_fmt(fmt)
     T = x.shape[0]
     kb = K if fmt == "int8" else K // 2
-    L8 = max(2, math.ceil(2 * L2_BYTES / (N * kb)))
-    q = torch.randint(-127, 128, (L8, N, kb), generator=gen, device=device,
-                      dtype=torch.int8)
-    s = torch.rand(L8, N, generator=gen, device=device) * 1e-2
+    q, s, L8 = _weight_cycle(fmt, gen, N, K, device)
     it = itertools.count()
     ms = time_ms(lambda: f["kernel"](x, q, s, next(it) % L8))
     plain_ms = time_ms(lambda: f["plain"](x, q, s, next(it) % L8), reps=3)
@@ -2444,16 +2658,14 @@ def phase_wide(fmt: str, device, smi) -> dict:
         # The wide tile in the decode buckets, forced, beside the narrow
         # plan's launch: evidence for a later int8_matmul change, not used.
         for label, (N, K) in INT4_SHAPES.items():
-            q = torch.randint(-127, 128, (max(2, math.ceil(2 * L2_BYTES / (N * K))), N, K),
-                              generator=gen, device=device, dtype=torch.int8)
-            s = torch.rand(q.shape[:2], generator=gen, device=device) * 1e-2
+            q, s, L8 = _weight_cycle(fmt, gen, N, K, device)
             it = itertools.count()
             for T in (128, 256):
                 x = torch.randn(T, K, generator=gen, device=device).to(torch.bfloat16)
                 table[(label, T)] = dict(
-                    narrow_ms=time_ms(lambda: f["kernel"](x, q, s, next(it) % len(q))),
-                    wide_ms=time_ms(lambda: f["kernel"](x, q, s, next(it) % len(q),
-                                                        nt=im.WIDE_NT)),
+                    narrow_ms=time_alone_ms(lambda: f["kernel"](x, q, s, next(it) % L8)),
+                    wide_ms=time_alone_ms(lambda: f["kernel"](x, q, s, next(it) % L8,
+                                                              nt=im.WIDE_NT)),
                     **dict(zip(("bound_ms", "bound_by"), bound(
                         T * K * 2 + N * K + N * 4 + T * N * 2, 2 * T * N * K))))
             del q, s
@@ -2464,7 +2676,7 @@ def phase_wide(fmt: str, device, smi) -> dict:
         "the plan's modelled time (int4_matmul.wide_plan_us); kernel, "
         "proj and library cycle through more weight bytes than L2 holds"
         + ("; at T = 128 and 256 narrow_ms is the plan's launch, wide_ms the "
-           "wide tile forced" if fmt == "int8" else ""))
+           "wide tile forced, each launch alone (time_alone_ms)" if fmt == "int8" else ""))
     for (label, T), r in table.items():
         log(f"[time] {f['name']} wide {label} T={T}: " + ", ".join(
             f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
@@ -2941,6 +3153,18 @@ def phase_step(quant="none", kv_quant="none", mistral=False, chunk=None):
         live = [i for i, r in enumerate(rows) if r is not None]
         logits[run] = torch.from_numpy(lg[live])
         models[run] = m
+        if run == "kernels" and quant == "int8":
+            # The same step again is its graph's replay (its first use ran
+            # eagerly, then was captured): int8_matmul's programmatic
+            # launches must give the eager step's bits under the graph too.
+            replays = lambda: sum(e.replays for e in m.graphs.table.values())
+            r0 = replays()
+            _, _, lg2 = m.forward(_requests(specs, mc.vocab_size), return_logits=True)
+            torch.cuda.synchronize()
+            assert replays() == r0 + 1, (r0, replays())
+            assert np.array_equal(lg2[live], lg[live]), "the INT8 step's replay differs"
+            log(f"[step] {quant} step, {m.last_key.tokens} tokens: the graph's replay "
+                f"gives the eager step's logits bit for bit")
     a = logits["kernels"]
     assert torch.isfinite(a).all()
     for run, _ in runs[1:]:
@@ -2968,6 +3192,97 @@ def phase_step(quant="none", kv_quant="none", mistral=False, chunk=None):
 # kernels-against-plain logit difference the step phases above measure
 # (about 0.1 at these widths and weights).
 CLEAR_MARGIN = 0.2
+
+
+def last_head_zeroed(fn, group):
+    """The planted fault of phase_qwen2_step: attention `fn` with the output
+    of each kv head's last query head (the group's last head row, the one
+    that a kernel tiled for a group of 8 holds beside its dead row) zero."""
+    def call(*a, **kw):
+        out = fn(*a, **kw)
+        out[:, group - 1::group] = 0
+        return out
+    return call
+
+
+def phase_qwen2_step():
+    """Fault F2 in a step's values: Qwen2-0.5B's widths (QWEN2_05B: 14 query
+    heads over 2 kv heads, a GQA group of 7, head_dim 64, q/k/v biases),
+    4 layers, bf16, weights std 0.02 from a seeded generator (seeded_weights,
+    biases included), a random cache. Two steps: 8 decode rows (a decode
+    bucket: the decode kernel alone), then the 8 rows and two prefill
+    chunks (a prefill bucket: both attention kernels and store_kv), each
+    with the kernels and with their plain versions from the same cache.
+    Logits within CLEAR_MARGIN / 2 of the plain step's (the bound of the
+    verify and graph steps), greedy tokens equal on every row whose top-2
+    margin is clear of twice the difference; a planted fault
+    (last_head_zeroed in both attention kernels) must exceed the bound."""
+    mc = LlamaModelConfig(num_layers=4, **QWEN2_05B)
+    group = mc.num_q_heads // mc.num_kv_heads
+    ec = dict(model_path="", use_dummy=True, dtype="bfloat16",
+              preemption_mode="recompute", num_hbm_blocks=1024,
+              max_blocks_per_seq=128, max_batch_size=16)
+    decode = [(40 + 97 * i, 40 + 97 * i, 1) for i in range(8)]
+    steps = {"decode step": decode,
+             "mixed step": decode + [(512, 0, 512), (812, 512, 300)]}
+    params = cache0 = None
+    for name, specs in steps.items():
+        logits, tokens, launches = {}, {}, {}
+        for run in ("kernels", "plain", "fault"):
+            m = LlamaModel(EngineConfig(**ec, use_pallas=run != "plain"), mc,
+                           device=DEVICE)
+            if params is None:
+                params = seeded_weights(mc, seed=777)
+                assert "bq" in params["layers"], "no q/k/v biases"
+            m.params = params
+            m.init_kvcache_and_swap()
+            if cache0 is None:
+                g = torch.Generator(device=DEVICE).manual_seed(777)
+                m.kv_cache.normal_(0.0, 1.0, generator=g)
+                cache0 = m.kv_cache.clone()
+            m.kv_cache.copy_(cache0)
+            for i, (_, cached, _) in enumerate(specs):
+                if cached:
+                    m.hbm_block_mgrs[0].allocate_for_seq(i, cached)
+            real = pa.paged_decode_attention, pa.paged_prefill_attention
+            if run == "fault":
+                pa.paged_decode_attention = last_head_zeroed(real[0], group)
+                pa.paged_prefill_attention = last_head_zeroed(real[1], group)
+            build.reset_launch_counts()
+            try:
+                _, rows, lg = m.forward(_requests(specs, mc.vocab_size),
+                                        return_logits=True)
+            finally:
+                pa.paged_decode_attention, pa.paged_prefill_attention = real
+            torch.cuda.synchronize()
+            launches[run] = {k: v for k, v in build.launch_counts.items() if v}
+            live = [i for i, r in enumerate(rows) if r is not None]
+            logits[run] = torch.from_numpy(lg[live])
+            tokens[run] = m.last_key.tokens
+            del m
+        a, b, f = logits["kernels"], logits["plain"], logits["fault"]
+        assert torch.isfinite(a).all() and torch.isfinite(b).all()
+        diff = (a - b).abs().max().item()
+        fault = (f - b).abs().max().item()
+        limit = CLEAR_MARGIN / 2
+        log(f"[step qwen2] Qwen2-0.5B width (14 / 2 heads, group {group}, head_dim "
+            f"64, biases), 4 layers, {name} of {len(specs)} rows "
+            f"({tokens['kernels']} tokens; launches {launches['kernels']}), "
+            f"kernels against plain: max |logit diff| {diff:.4g} (logit std "
+            f"{b.std().item():.4g}, bound {limit}); greedy tokens agree on "
+            f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{len(a)} rows; the "
+            f"planted fault (each group's last head zero): {fault:.4g}")
+        want = {"paged_decode_attention": mc.num_layers}
+        if name == "mixed step":
+            want.update(store_kv=mc.num_layers, paged_prefill_attention=mc.num_layers)
+        got = {k: launches["kernels"].get(k, 0) for k in
+               ("paged_decode_attention", "store_kv", "paged_prefill_attention")}
+        assert got == dict.fromkeys(got, 0) | want, launches["kernels"]
+        assert not launches["plain"], launches["plain"]
+        assert diff <= limit and greedy_agrees(a, b, diff), (name, diff)
+        assert fault > limit, f"the bound lets the planted fault pass ({name}, {fault})"
+    del params, cache0
+    torch.cuda.empty_cache()
 
 
 def phase_multi_step():
@@ -3686,19 +4001,20 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
             engine.model.graphs = graphs
         # The prefill step with the wide plans as they are (stream-K where
         # the model says it pays) and with equal_cuts' schedules, eagerly
-        # (so that the graphs keep the plans they captured), in turns.
+        # (so that the graphs keep the plans they captured), one after the
+        # other.
         steps = {}
         engine.model.graphs = None
         try:
-            for label in ("plan", "cuts", "cuts", "plan"):
+            for label in ("plan", "cuts"):
                 with equal_cuts() if label == "cuts" else contextlib.nullcontext():
                     got = {}
                     await _profile(engine, smi, f"{name}_{label}", prefill_ms=got)
                     steps.setdefault(label, []).extend(got.values())
         finally:
             engine.model.graphs = graphs
-        log(f"[profile {name}] the prefill step's device ms, eagerly, in turns "
-            f"(plan, cuts, cuts, plan): the plan's wide schedules "
+        log(f"[profile {name}] the prefill step's device ms, eagerly, one after "
+            f"the other (plan, cuts): the plan's wide schedules "
             f"{' / '.join(f'{t:.3f}' for t in steps['plan'])}, equal_cuts' (every "
             f"unit whole or cut into equal pieces, no stream-K) "
             f"{' / '.join(f'{t:.3f}' for t in steps['cuts'])} ({smi})")
@@ -3781,6 +4097,120 @@ def successor(t: int) -> int:
 
 SPEC_PREFIX = 1024
 SPEC_OUT_LEN = 32
+
+
+QWEN_OUT = 16
+
+
+@contextlib.contextmanager
+def eager_models():
+    """Every LlamaModel built meanwhile runs its steps eagerly
+    (cuda_graphs=False): the plain path reads device values on the host, which
+    no CUDA graph can capture."""
+    real = LlamaModel.__init__
+
+    def init(self, *a, cuda_graphs=True, **kw):
+        real(self, *a, cuda_graphs=False, **kw)
+    LlamaModel.__init__ = init
+    try:
+        yield
+    finally:
+        LlamaModel.__init__ = real
+
+
+async def serve_qwen2(smi: str) -> dict:
+    """Fault F2 end to end: Qwen2-0.5B at full width (24 layers, QWEN2_05B:
+    14 query heads over 2 kv heads, a GQA group of 7, head_dim 64, q/k/v
+    biases), bf16, 16 rows a step, weights from seeded_weights(successor=True),
+    warmed up (every step from a CUDA graph), serving the 8 prompts of the bf16 run
+    greedily, QWEN_OUT tokens each; then an engine on the plain path
+    (use_pallas=False, eager, a pool of 1,024 pages) on the same weights
+    serving them again: every
+    request's tokens equal, every token the successor of the one before,
+    pages back, and the kernel engine's attention kernels launched once a
+    layer a step (its decode tok/s from graphs logged). The weights make the
+    next token a function of the last one, so the tokens hold the paths and
+    launches at group 7, not attention's values: phase_groups holds those
+    kernel by kernel, and phase_qwen2_step a step's logits at this width.
+    Returns the kernel engine's launches."""
+    mc = LlamaModelConfig(num_layers=24, **QWEN2_05B)
+    top = min(128000, mc.vocab_size - 1)
+    prompts = [[(13 * i + 5 * j) % top + 1 for j in range(n)]
+               for i, n in enumerate(PROMPT_LENS)]
+    outs, launches = {}, {}
+    # The plain path's attention gathers every row's pages dense (a row's
+    # most pages, at the rows and query buckets): its engine takes a pool
+    # and a page table sized for these requests.
+    # The kernel engine takes 16 rows a step (its warm-up then captures the
+    # plans of up to 16 live rows, not 128).
+    small = dict(num_hbm_blocks=1024, max_blocks_per_seq=128, max_batch_size=8)
+    for run, use_kernels in (("kernels", True), ("plain", False)):
+        ec = EngineConfig(model_path="", use_dummy=True, dtype="bfloat16",
+                          preemption_mode="recompute", use_pallas=use_kernels,
+                          **(dict(max_batch_size=16) if use_kernels else small))
+        t0 = time.perf_counter()
+        engine = Engine(ec, mc, device=DEVICE)
+        with loading(66, std=0.002, successor=True), (
+                contextlib.nullcontext() if use_kernels else eager_models()):
+            await engine.initialize(tokenizer_backend="inline")
+        warm = ""
+        if use_kernels:
+            t_w = time.perf_counter()
+            await engine.warmup()
+            warm = (f", warm-up {time.perf_counter() - t_w:.1f} s, "
+                    f"{graph_state(engine)[0]} graphs")
+        mgr = engine.model.hbm_block_mgrs[0]
+        free0 = mgr.num_free_blocks
+        loops = asyncio.create_task(engine.start_all_event_loops())
+
+        async def one(ids):
+            stamps, toks = [], []
+            async for so in engine.add_request_and_stream(
+                    RawRequest("", QWEN_OUT, prompt_token_ids=ids)):
+                stamps.append(time.perf_counter())
+                toks.append(so.token_id)
+            return stamps, toks
+        build.reset_launch_counts()
+        since = graph_state(engine) if use_kernels else None
+        steps0 = engine.stats.num_steps
+        t_run = time.perf_counter()
+        res = await asyncio.gather(*[one(p) for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        steps = engine.stats.num_steps - steps0
+        launches[run] = dict(build.launch_counts)
+        outs[run] = [toks for _, toks in res]
+        for p, toks in zip(prompts, outs[run]):
+            assert len(toks) == QWEN_OUT, (run, len(toks))
+            assert [successor(t) for t in [p[-1]] + toks[:-1]] == toks, (run, p[-1], toks)
+        await _pages_back(mgr, free0)
+        first = max(st[0] for st, _ in res)
+        last = max(st[-1] for st, _ in res)
+        n_after = sum(1 for st, _ in res for x in st if x > first)
+        if use_kernels:
+            graph_report(engine, "qwen2", since, smi)
+            for k in ("paged_decode_attention", "store_kv", "paged_prefill_attention"):
+                assert launches[run][k] > 0, f"{k} never launched on the Qwen2 engine"
+            assert launches[run]["paged_decode_attention"] == mc.num_layers * steps, (
+                launches[run], steps)
+        else:
+            assert not any(launches[run].values()), launches[run]
+        log(f"[serve qwen2 {run}] Qwen2-0.5B width (14 / 2 heads, group 7, head_dim "
+            f"64, biases), 24 layers, up in {t_run - t0:.1f} s{warm}: 8 requests, "
+            f"{QWEN_OUT} tokens each, in {wall:.3f} s, {steps} steps; decode "
+            f"{n_after / (last - first):.1f} tok/s"
+            f"{' from graphs' if use_kernels else ' (plain path, eager)'}; "
+            f"launches {launches[run]} ({smi})")
+        loops.cancel()
+        await asyncio.wait([loops])
+        engine.model.params = engine.model.kv_cache = engine.model.token_feedback = None
+        del engine, mgr, loops
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert outs["kernels"] == outs["plain"], (outs["kernels"], outs["plain"])
+    log(f"[serve qwen2] the kernel engine's tokens equal the plain path's on all "
+        f"8 requests (request 0 begins {outs['kernels'][0][:6]})")
+    return launches["kernels"]
 
 
 async def serve_spec(smi: str) -> dict:
@@ -4398,6 +4828,7 @@ async def phase_serve(smi: str, adapters: dict) -> dict:
         f"{k} {v:.1f} ({v / rates['none']:.3f} x bf16)" for k, v in rates.items()
         if k in ("none", "int4", "int8", "fp8kv")) + f" ({smi})")
     launches["spec"] = await serve_spec(smi)
+    launches["qwen2"] = await serve_qwen2(smi)
     for kv in SWAP_PAGES:
         launches[f"swap {kv}"] = await serve_swap(smi, kv)
     launches["lora"] = await serve_lora(smi, adapters)
@@ -5868,10 +6299,13 @@ def http_tp2(smi: str, tmp: Path):
 def check_ptxas(reports: dict) -> None:
     """Logs every line of the kernels' ptxas reports that says wgmmas were
     serialised, and each instance of the wide configuration's kernel
-    (csrc/wide_matmul.cuh) with its registers and spills. Fails unless both
-    weight kernels' reports are there, each with that kernel, and neither
-    instance had its wgmmas serialised (named in the line, or the entry
-    function being compiled when ptxas said it) or spilled a register."""
+    (csrc/wide_matmul.cuh) and of the narrow INT8 kernel
+    (int8_matmul_kernel) with its registers and spills. Fails unless both
+    weight kernels' reports are there, each with the wide kernel and INT8's
+    with its narrow one, and no instance of either had its wgmmas
+    serialised (named in the line, or the entry function being compiled
+    when ptxas said it) or spilled a register."""
+    checked = ("wide_matmul_kernel", "int8_matmul_kernel")
     bad, wide = [], {}
     for k, v in reports.items():
         fn = ""
@@ -5881,24 +6315,28 @@ def check_ptxas(reports: dict) -> None:
                 fn = m.group(1)
             if "serializ" in line.lower():
                 log(f"[ptxas] {k}: {line.strip()} (compiling {fn})")
-                if "wide_matmul_kernel" in (line if "function '" in line else fn):
+                if any(c in (line if "function '" in line else fn) for c in checked):
                     bad.append(line.strip())
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and "wide_matmul_kernel" in fn:
+            if m and any(c in fn for c in checked):
                 wide[(k, fn)] = [int(m.group(1)), int(m.group(2))]
             m = re.search(r"Used (\d+) registers", line)
             if m and (k, fn) in wide and len(wide[(k, fn)]) == 2:
                 wide[(k, fn)].append(int(m.group(1)))
     for (k, fn), r in wide.items():
-        log(f"[ptxas] {k}: {'INT4' if 'ILb1E' in fn else 'INT8'} wide_matmul_kernel: "
-            f"{r[2:] and r[2]} registers, {r[0]} bytes spill stores, {r[1]} bytes "
-            "spill loads")
+        what = ("int8_matmul_kernel<" + re.search(r"Li(\d+)E", fn).group(1) + ">"
+                if "int8_matmul_kernel" in fn else
+                f"{'INT4' if 'ILb1E' in fn else 'INT8'} wide_matmul_kernel")
+        log(f"[ptxas] {k}: {what}: {r[2:] and r[2]} registers, {r[0]} bytes spill "
+            f"stores, {r[1]} bytes spill loads")
         if r[0] or r[1]:
-            bad.append(f"{k}: the wide kernel spills ({r[0]} / {r[1]} bytes)")
+            bad.append(f"{k}: {what} spills ({r[0]} / {r[1]} bytes)")
     for k in ("int4_matmul", "int8_matmul"):
-        if not any(kk == k for kk, _ in wide):
+        if not any(kk == k and "wide_matmul_kernel" in fn for kk, fn in wide):
             bad.append(f"no ptxas report of {k}'s wide kernel")
-    assert not bad, f"ptxas report of the wide kernel: {bad}"
+    if sum(kk == "int8_matmul" and "int8_matmul_kernel" in fn for kk, fn in wide) != 4:
+        bad.append("no ptxas report of each narrow INT8 kernel (NT = 16, 32, 64, 128)")
+    assert not bad, f"ptxas report of the weight kernels: {bad}"
 
 
 def main() -> int:
@@ -5929,12 +6367,21 @@ def main() -> int:
         phase_layer_ops("cuda", smi)
         log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
-    if sys.argv[1:] in (["--compare-int4"], ["--sweep-int4"]):
+    if sys.argv[1:] in (["--sweep-int4"], ["--sweep-int8"]):
         reports = build.build_kernels(("int4_matmul", "int8_matmul"))
         (OUT_DIR / "ptxas.txt").write_text("\n".join(
             f"== {k}\n{v}" for k, v in reports.items()))
         check_ptxas(reports)
-        (compare_int4 if sys.argv[1] == "--compare-int4" else sweep_int4)(smi)
+        {"--sweep-int4": sweep_int4, "--sweep-int8": sweep_int8}[sys.argv[1]](smi)
+        return 0
+    if sys.argv[1:] == ["--compare-int8"]:
+        # Every kernel, so that the log gives this checkout's build seconds
+        # (none when an earlier run in it built them); then the weight kernels.
+        t0 = time.perf_counter()
+        build.build_kernels()
+        log(f"[build] {len(build.KERNELS)} kernels built in "
+            f"{time.perf_counter() - t0:.1f} s ({Path.cwd()})")
+        compare_int8(smi)
         return 0
     t0 = time.perf_counter()
     reports = build.build_kernels()
@@ -5959,6 +6406,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--compare-prefill"]:
         compare_prefill(smi)
+        return 0
+    if sys.argv[1:] == ["--groups"]:
+        phase_groups("cuda", smi)
+        phase_qwen2_step()
+        asyncio.run(serve_qwen2(smi))
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] == ["--parallel"]:
         tmp = tempfile.TemporaryDirectory()
@@ -5987,18 +6440,30 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {k}: {line.strip()}")
 
+    t_mark = [time.perf_counter()]
+
+    def mark(what):
+        """Logs the seconds since the last mark: where a full run's time goes."""
+        now = time.perf_counter()
+        log(f"[phase] {what}: {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
     results = phase_kernels("cuda")
+    mark("kernels")
+    phase_groups("cuda", smi)
+    mark("groups")
     results["paged_decode_attention_pend"] = phase_pend("cuda", smi)
     phase_verify("cuda", smi)
     results["paged_prefill_attention_bf16s"] = phase_bf16s("cuda", smi)
     results["quantize_kv"] = phase_quantize_kv("cuda", smi)
     results.update(phase_layer_ops("cuda", smi))
     time_sampler("cuda", smi)
+    mark("pend, verify, bf16 scores, quantize_kv, layer_ops, sampler")
     torch.cuda.empty_cache()
     results["int4_matmul"] = phase_int4("cuda", smi)
     results["int8_matmul"] = phase_int8("cuda", smi)
     for fmt in ("int8", "int4"):
         phase_wide(fmt, "cuda", smi)
+    mark("int4, int8, wide")
     swap = phase_swap_mover(smi)
     phase_step()
     phase_step("int4")
@@ -6006,6 +6471,7 @@ def main() -> int:
     phase_step(kv_quant="fp8")
     phase_step("int4", kv_quant="fp8")
     phase_step(mistral=True)
+    phase_qwen2_step()
     phase_multi_step()
     phase_verify_step()
     phase_prefix_step()
@@ -6015,13 +6481,16 @@ def main() -> int:
         adapters[name] = Path(tmp.name) / name
         write_peft_adapter(adapters[name], LLAMA3_8B, 32, seed)
     phase_lora_step(adapters)
+    mark("swap mover, steps")
     launches = asyncio.run(phase_serve(smi, adapters))
     http_cli(smi, Path(tmp.name))
+    mark("engines, http")
     gc.collect()
     torch.cuda.empty_cache()
     phase_tp_step(smi, Path(tmp.name))
     phase_serve_parallel(smi)
     http_tp2(smi, Path(tmp.name))
+    mark("tp/dp")
     tmp.cleanup()
     # Launches: the decode kernel's, store_kv's and the layer kernels' on the
     # bf16 serving run (the path of the slices that brought them),

@@ -24,6 +24,17 @@ constexpr float kNegBig = -1e30f;
 template <typename KV> struct ScaleLanes { static constexpr int value = 0; };
 template <> struct ScaleLanes<fp8> { static constexpr int value = 128; };
 
+// The GQA group bound an attention kernel is compiled for: the least of 1,
+// 2, 4, 8 at or above the group n_q / n_kv (the kernels take the real group
+// as an argument), or 0 for a shape they cannot take (a group that is not a
+// whole number from 1 to 8). ops/paged_attention.py:group_bound is the
+// host's copy.
+inline int gqa_bound(int n_q, int n_kv) {
+  if (n_kv < 1 || n_q < n_kv || n_q % n_kv) return 0;
+  const int group = n_q / n_kv;
+  return group == 1 ? 1 : group <= 2 ? 2 : group <= 4 ? 4 : group <= 8 ? 8 : 0;
+}
+
 // x rounded to the nearest bf16 (ties to even), back in an f32.
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));

@@ -29,29 +29,74 @@
 // warpgroups of 64 weight rows each, persistent blocks, split-K merged in
 // split order by the tile's last block, and the epilogue staged through
 // shared memory so that the stores run along N. What differs:
+// - Products in flight across chunks (since the redesign for Hopper). A
+//   chunk's eight products are one wgmma group, its fragments in one of two
+//   sets in turn. A warpgroup converts chunk c + 1's fragments while chunk
+//   c's products run, issues chunk c + 1's group behind them at once, and
+//   only then waits until at most one group is in flight (wgmma_wait<1>):
+//   chunk c's products are retired, its stage goes back to the producer,
+//   and its fragment set takes chunk c + 2's. So the tensor cores always
+//   find the next chunk queued, and no fragment register is written while
+//   a product may still read it (the set is kept live, keep_live, up to
+//   the wait that retires its reader). A loop that waits for every product
+//   before it issues the next chunk's measures the same (below).
+// - A prologue that overlaps the kernel before it (programmatic dependent
+//   launch: the launch allows it, griddepcontrol orders it). The producer
+//   requests the weights of the first unit's first two stages, which no
+//   kernel writes, then waits for the grid before it (griddepcontrol.wait),
+//   then requests their x boxes. Two, not the ring: the first x box queues
+//   behind the weights requested before it, and with the ring's eight
+//   first a unit of eight chunks (wq at T <= 16) started only once all its
+//   weights were in (measured, below). Every global read of x and every
+//   write of this kernel comes after that wait (the consumers write only
+//   after the stages that x filled), so the overlap changes no value.
+//   Each block allows the next launch to start at once (launch_dependents):
+//   at one block an SM its blocks only take SMs this grid leaves, and wait
+//   there.
 // - A byte holds one weight: a chunk is 128 bytes (128 columns of K) of 128
 //   weight rows and the two 64-column x boxes it multiplies, and a k16 step
 //   is one product a warpgroup.
-// - The conversion goes through f32: the INT4 nibble trick ((n & 15) ^ 8 |
-//   0x4300, then 136 subtracted, in bf16) has no room for a byte, as 128 + b
-//   needs 9 significant bits and bf16 has 8. A byte b, flipped to b + 128,
-//   becomes the low mantissa byte of 2^23 (one prmt), 2^23 + 128 is
-//   subtracted (one f32 add), and cvt.rn.bf16x2.f32 packs two values (every
-//   b in [-128, 127] is exact in bf16). A thread's four bytes of a row and
-//   k16 step are gathered by one prmt from two 32-bit shared loads, as in
-//   the INT4 kernel.
+// - The conversion stays in bf16 (since the redesign; before, through f32:
+//   a prmt and an f32 add a byte, one cvt.rn.bf16x2.f32 a pair, 11
+//   instructions for four bytes). The INT4 nibble trick has no room for a
+//   whole byte (128 + b needs 9 significant bits, bf16 has 8), so a byte
+//   b = l - 128 h (l its low 7 bits, h its sign bit) is taken as
+//   (128 + l) - (128 + 128 h): both terms are bf16 integers in [128, 256]
+//   that one lop3 each builds from the byte's bits under 0x4300 (128.0), and
+//   one hsub2 subtracts them exactly, two bytes at a time: 7 instructions
+//   for four bytes. A thread's four bytes of a row and k16 step are gathered
+//   by one prmt from two 32-bit shared loads, as in the INT4 kernel.
 // - TMA only: K a multiple of 16 makes every weight row 16-byte aligned (the
 //   wrapper refuses other K), so there is no ragged copy path.
 // - The epilogue rounds twice (the product, then the scaled product), where
 //   int4_matmul's rounds once: one more conversion an output.
 // The plan (ops/int8_matmul.py:int8_plan, host integers only) picks the
-// token width and the splits from int4_matmul's model of this design's time
-// with a floor of bytes: a chunk takes at least its weight bytes over the
-// card's rate shared by the blocks that stream at once.
+// token width and the splits from a model of this design's time fitted on
+// the card (chip_smoke.py --sweep-int8), with a floor of bytes: a chunk
+// takes at least its weight bytes over the card's rate shared by the blocks
+// that stream at once.
+//
+// Measured on the H100 (NVIDIA H100 80GB HBM3, 700 W), with builds that
+// each took one part out (a measurement tool since removed: PERF.md keeps
+// its readings), w_gate (N = 14,336, K = 4,096) at T = 128, 112 units on
+// 112 SMs: 0.034 ms as built against a byte bound of 0.019. Products
+// drained before each chunk: the same. The conversion skipped: -11%; no x
+// staged: -6%; no weights staged: -9%; no products at all: -24%; no
+// programmatic launch: +9% (launches back to back); an empty launch
+// 0.0009 ms. At T = 1 the products cost 0.0072 of 0.028 ms and the rest is
+// the chunks' shared loads, conversion and waits, with the weights' bytes
+// not the limit (no weights staged: -16%). So each SM's consumer warps pace
+// a chunk, and a chunk's products and the next chunk's conversion overlap
+// little. The prologue (copies of this file with another depth, timed by
+// chip_smoke.py --compare-int8, each launch alone, after an ordinary
+// kernel): with the ring's eight stages of weights requested first, wq
+// (N = K = 4,096) at T = 1 took 0.0155 ms against 0.0123 with two, and
+// no 8B shape was faster with the ring's, alone or back to back.
 
 #include <cuda.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "splitkv.cuh"
@@ -73,6 +118,17 @@ static_assert(kBM == kMapRows, "a weight box is one tile's rows");
 constexpr int kEpiBar = 1;              // the consumers' named barrier
 constexpr int kKC = 128;                // weight bytes (columns of K) a chunk
 constexpr int kSteps = kKC / 16;        // k16 steps a chunk
+constexpr int kPrefetch = 2;            // stages whose weights precede the wait
+
+// Programmatic dependent launch: waits until the grids this one depends on
+// have completed and their writes are visible; lets the next grid launch.
+// Both are no-ops for a launch without the programmatic dependency.
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
 template <int NT>
 struct Cfg {
@@ -116,6 +172,24 @@ __device__ __forceinline__ void wgmma_x(float (&d)[NT / 2], const uint32_t (&a)[
   else wgmma_rs_n128<0>(d, a, db);
 }
 
+// Four int8 weights, the bytes of p, as two bf16x2: bytes 0 and 2 (low and
+// high half) in b02, bytes 1 and 3 in b13 (the notes above: (128 + l) less
+// (128 + 128 h), each term one lop3, their difference exact).
+__device__ __forceinline__ uint32_t s8x2(uint32_t v) {
+  uint32_t lo, hi;
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n"   // (v & 0x007f007f) | 0x43004300
+      : "=r"(lo) : "r"(v), "r"(0x007F007Fu), "r"(0x43004300u));
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n"   // (v & 0x00800080) | 0x43004300
+      : "=r"(hi) : "r"(v), "r"(0x00800080u), "r"(0x43004300u));
+  __nv_bfloat162 d = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&lo),
+                             *reinterpret_cast<__nv_bfloat162*>(&hi));
+  return *reinterpret_cast<uint32_t*>(&d);
+}
+__device__ __forceinline__ void s8x4_bf16(uint32_t p, uint32_t& b02, uint32_t& b13) {
+  b02 = s8x2(p);
+  b13 = s8x2(p >> 8);
+}
+
 // Keeps registers live across an asynchronous product that reads them.
 __device__ __forceinline__ void keep_live(uint32_t (&r)[kSteps][4]) {
 #pragma unroll
@@ -157,6 +231,7 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
   auto full = [&](int st) { return bars + 8 * st; };
   auto empty = [&](int st) { return bars + 8 * (C::kStages + st); };
 
+  grid_dep_launch();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int i = 0; i < C::kStages; ++i) {
@@ -171,20 +246,43 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
     // ---- the producer warpgroup: lane 0 of its first warp fills the ring ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp != kConsumers / 32 || lane != 0) return;
+    auto load_x = [&](int stage_i, int c, int t0) {
+      const uint32_t dst = smem_addr(smem + stage_i * C::kStage);
+#pragma unroll
+      for (int b = 0; b < kKC / 64; ++b)
+        tma_load_2d(dst + b * C::kXBlock, &tm_x, full(stage_i), c * kKC + 64 * b, t0);
+    };
+    // The weights of the first unit's first kPrefetch stages go out before
+    // the grid waits on the kernel before it (the ring's stages are free at
+    // first); their x boxes after.
+    int pre = 0;
+    if (static_cast<int>(blockIdx.x) < a.units) {
+      const Unit w = unit_of(a, blockIdx.x);
+      pre = min(w.c_end - w.c_begin, kPrefetch);
+      for (int i = 0; i < pre; ++i) {
+        mbar_arrive_expect_tx(full(i), C::kStage);
+        tma_load_3d(smem_addr(smem + i * C::kStage + C::kX), &tm_w, full(i),
+                    (w.c_begin + i) * kKC, w.tile * kBM, a.layer);
+      }
+    }
+    grid_dep_wait();
     int st = 0, ph = 0;
     for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
       const Unit w = unit_of(a, u);
       const int n0 = w.tile * kBM, t0 = w.mt * NT;
       for (int c = w.c_begin; c < w.c_end; ++c) {
-        mbar_wait(empty(st), ph ^ 1);
-        const uint32_t dst = smem_addr(smem + st * C::kStage);
-        mbar_arrive_expect_tx(full(st), C::kStage);
-#pragma unroll
-        for (int b = 0; b < kKC / 64; ++b)
-          tma_load_2d(dst + b * C::kXBlock, &tm_x, full(st), c * kKC + 64 * b, t0);
-        tma_load_3d(dst + C::kX, &tm_w, full(st), c * kKC, n0, a.layer);
+        if (c - w.c_begin < pre) {   // the first unit's prefetched stages
+          load_x(st, c, t0);
+        } else {
+          mbar_wait(empty(st), ph ^ 1);
+          mbar_arrive_expect_tx(full(st), C::kStage);
+          load_x(st, c, t0);
+          tma_load_3d(smem_addr(smem + st * C::kStage + C::kX), &tm_w, full(st),
+                      c * kKC, n0, a.layer);
+        }
         if (++st == C::kStages) { st = 0; ph ^= 1; }
       }
+      pre = 0;
     }
     return;
   }
@@ -213,11 +311,12 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
         const uint32_t wa = *reinterpret_cast<const uint32_t*>(row + wofs);
         const uint32_t wb = *reinterpret_cast<const uint32_t*>(row + 8 + wofs);
         // Columns 2q, 2q+1 -> a[h]; 2q+8, 2q+9 -> a[2 + h].
-        s8x4(__byte_perm(wa, wb, sel), f[s][h], f[s][2 + h]);
+        s8x4_bf16(__byte_perm(wa, wb, sel), f[s][h], f[s][2 + h]);
       }
     }
   };
-  // The chunk's products: with wgmma, eight, in flight when this returns.
+  // The chunk's products: with wgmma, eight, one group, queued behind any
+  // group still in flight when this returns.
   auto issue = [&](int stage_i, Frag& f) {
     const uint32_t xs = smem_addr(smem + stage_i * C::kStage);
     fence_regs(acc);
@@ -229,17 +328,25 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
     }
     wgmma_commit();
   };
-  // Waits for a chunk's products, keeping the fragments they read live
-  // until then, and gives the stage back to the producer.
-  auto retire = [&](int stage_i, Frag& f) {
-    wgmma_wait<0>();
+  // Waits until at most N groups are in flight, which retires the group
+  // that read fragments f (keeping them live until then), and gives that
+  // group's stage back to the producer.
+  auto retire = [&](auto n, int stage_i, Frag& f) {
+    wgmma_wait<decltype(n)::value>();
     fence_regs(acc);
     keep_live(f);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(stage_i));
   };
-  auto next = [&](int& stage_i, int& parity) {
-    if (++stage_i == C::kStages) { stage_i = 0; parity ^= 1; }
+  using One = std::integral_constant<int, 1>;
+  using None = std::integral_constant<int, 0>;
+  // The next chunk's stage: waits for it and converts its fragments.
+  auto take = [&](Frag& f) {
+    const int stage_i = st;
+    mbar_wait(full(st), ph);
+    load_a(st, f);
+    if (++st == C::kStages) { st = 0; ph ^= 1; }
+    return stage_i;
   };
 
   for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
@@ -248,32 +355,27 @@ int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
 
-    // Two sets of fragments in turn: the next chunk's are loaded and
-    // converted while this chunk's products run.
+    // Two sets of fragments in turn: chunk c + 1's are converted while
+    // chunk c's products run, its group is issued behind them, and then
+    // chunk c's group is retired (at most one left in flight).
     Frag fa, fb;
-    mbar_wait(full(st), ph);
-    load_a(st, fa);
-    for (int c = w.c_begin;;) {
-      int cur = st;
-      next(st, ph);
-      issue(cur, fa);
-      bool more = ++c < w.c_end;
-      if (more) {
-        mbar_wait(full(st), ph);
-        load_a(st, fb);
+    int sa = take(fa), sb = 0;
+    issue(sa, fa);
+    for (int c = w.c_begin + 1;; c += 2) {
+      if (c == w.c_end) {
+        retire(None{}, sa, fa);
+        break;
       }
-      retire(cur, fa);
-      if (!more) break;
-      cur = st;
-      next(st, ph);
-      issue(cur, fb);
-      more = ++c < w.c_end;
-      if (more) {
-        mbar_wait(full(st), ph);
-        load_a(st, fa);
+      sb = take(fb);
+      issue(sb, fb);
+      retire(One{}, sa, fa);
+      if (c + 1 == w.c_end) {
+        retire(None{}, sb, fb);
+        break;
       }
-      retire(cur, fb);
-      if (!more) break;
+      sa = take(fa);
+      issue(sa, fa);
+      retire(One{}, sb, fb);
     }
 
     // ---- split-K merge: the last split of the tile sums them in order ----
@@ -351,8 +453,18 @@ int launch(const Args& a, int L, int grid, cudaStream_t stream) {
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     attr_set[dev] = true;
   }
-  int8_matmul_kernel<NT><<<grid, kThreads, smem, stream>>>(tw, tx, a);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, int8_matmul_kernel<NT>, tw, tx, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace

@@ -5,7 +5,7 @@
 //
 // What it computes: for every valid decode row b (q_lens[b] > 0; flat token b
 // is row b) it writes the kv heads' K and V lanes of kv_new[b] into
-// cache[layer, kv_slots[b]], and attends each kv head's GROUP query heads over
+// cache[layer, kv_slots[b]], and attends each kv head's `group` query heads over
 // the row's seq_lens[b] keys: positions 0 .. seq_len-2 come from the pages in
 // page_table[b], position seq_len-1 (the new token) straight from kv_new[b].
 // Rows that are not valid decode rows, and tokens past the row axis, get
@@ -34,8 +34,15 @@
 //   slots from npend - 1 on hold stale rows and are never addressed. npend
 //   is the same for every row. bf16 rows only; `window` is honoured.
 //
+// GQA groups: any group from 1 to 8. The kernel is compiled for a bound
+// GMAX in {1, 2, 4, 8} (its register arrays and vector widths) and takes the
+// real group, the least GMAX at or above it, as an argument: head rows
+// g >= group are never loaded or written (their query is zero, so their
+// scores and sums stay finite and are dropped), and the partial states are
+// laid out by the real group. A group that is a power of two runs as before.
+//
 // What bounds it on the H100: bytes. Each key costs 2*HD*2 bytes of K and V
-// per kv head in bf16 (half that in fp8) and 4*GROUP*HD flops, far below the
+// per kv head in bf16 (half that in fp8) and 4*group*HD flops, far below the
 // ~295 flops/byte at which the tensor cores would become the limit, so the
 // kernel's job is to keep every SM streaming the rows' pages at once.
 //
@@ -48,14 +55,14 @@
 //   grid is one block for every (token, kv head), split 0, and then one for
 //   every further split of the rows below split_rows, so rows past them (as
 //   a decode bucket's empty rows) cost one block each. A row past them that
-//   is valid all the same walks its keys as one split. All GROUP query heads
+//   is valid all the same walks its keys as one split. All the query heads
 //   of the kv head share every K/V byte a block reads.
 // - Bytes in flight. Each key is read by HD/kVec lanes, 16 bytes each (8
 //   bf16, or 16 e4m3); a warp covers 32*kVec/HD keys a step and issues the
-//   loads of U steps before it uses any (U = 4 in bf16, 2 in fp8 and at GQA
-//   group 8), so each lane has 64 or 32 bytes of K and V in flight ahead of
+//   loads of U steps before it uses any (U = 4 in bf16, 2 in fp8 and at a group
+//   bound of 8), so each lane has 64 or 32 bytes of K and V in flight ahead of
 //   the softmax. The U keys of a lane then take one online-softmax update.
-//   (At GQA group 8 an fp8 lane loads 8 bytes: 16 values of 8 heads would
+//   (At a group bound of 8 an fp8 lane loads 8 bytes: 16 values of 8 heads would
 //   not fit the registers.) Page ids are read a step ahead of the loads
 //   they address. A block has 8 warps where its (row, kv head) is not
 //   split (its one walk gets the most keys in flight), 4 where it is (more
@@ -104,12 +111,12 @@ __device__ __forceinline__ void cvt(const Raw& u, const fp8*, float* f) {
 // the 2*HALF dims a lane holds in acc[g][0 .. 2*HALF), it keeps the upper
 // half if `upper`, else the lower, adds its partner's (lane ^ off) copy of
 // them, and leaves the sums in acc[g][0 .. HALF).
-template <int HALF, int GROUP, int VEC>
-__device__ __forceinline__ void scatter_half(float (&acc)[GROUP][VEC], bool upper,
+template <int HALF, int GMAX, int VEC>
+__device__ __forceinline__ void scatter_half(float (&acc)[GMAX][VEC], bool upper,
                                              int off, int& part) {
   part += upper ? HALF : 0;
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g)
+  for (int g = 0; g < GMAX; ++g)
 #pragma unroll
     for (int e = 0; e < HALF; ++e) {
       const float lo = acc[g][e], hi = acc[g][e + HALF];
@@ -118,7 +125,7 @@ __device__ __forceinline__ void scatter_half(float (&acc)[GROUP][VEC], bool uppe
     }
 }
 
-template <int HD, int GROUP, typename KV, bool PEND, int WARPS>
+template <int HD, int GMAX, typename KV, bool PEND, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32, 1)
 paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
                     const KV* __restrict__ kv_new,
@@ -130,16 +137,17 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
                     int B, int Pg, int n_kv, int S, int layer, int page_size,
                     int window, int npend, int P, float sm_scale, int n_split,
                     int chunk, int split_rows, float* __restrict__ part_acc,
-                    float* __restrict__ part_ml, int* __restrict__ counters) {
+                    float* __restrict__ part_ml, int* __restrict__ counters,
+                    int group) {
   constexpr int SL = ScaleLanes<KV>::value;
   constexpr bool FP8 = SL > 0;
-  constexpr int kVec = (FP8 && GROUP <= 4) ? 16 : 8;  // cache values a lane
+  constexpr int kVec = (FP8 && GMAX <= 4) ? 16 : 8;  // cache values a lane
   using Raw = typename std::conditional<kVec * sizeof(KV) == 16, uint4, uint2>::type;
   constexpr int LPK = HD / kVec;  // lanes per key
   constexpr int KPW = 32 / LPK;   // keys per warp per step
-  // Steps whose loads are in flight at once (fewer where GROUP x kVec
+  // Steps whose loads are in flight at once (fewer where GMAX x kVec
   // accumulators fill the registers).
-  constexpr int U = (FP8 || GROUP >= 8) ? 2 : 4;
+  constexpr int U = (FP8 || GMAX >= 8) ? 2 : 4;
   // Blocks [0, T * n_kv): (token b, kv head h), split 0; then (row b <
   // split_rows, kv head h, split 1 + ...).
   const int n_first = gridDim.x - split_rows * n_kv * (n_split - 1);
@@ -154,7 +162,7 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
     b = (r / n_kv) % split_rows;
     h = r % n_kv;
   }
-  const int n_q = n_kv * GROUP;
+  const int n_q = n_kv * group;
   const int KH = n_kv * HD;
   const int W = 2 * KH + SL;
   const int tid = threadIdx.x;
@@ -162,11 +170,11 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
   const int lane = tid % 32;
   const int sub = lane / LPK;
   const int li = lane % LPK;
-  bf16* o = out + (static_cast<int64_t>(b) * n_q + h * GROUP) * HD;
+  bf16* o = out + (static_cast<int64_t>(b) * n_q + h * group) * HD;
 
   if (b >= B || q_lens[b] <= 0 || seq_lens[b] <= 0) {
     if (split == 0)
-      for (int i = tid; i < GROUP * HD; i += blockDim.x) o[i] = __float2bfloat16(0.f);
+      for (int i = tid; i < group * HD; i += blockDim.x) o[i] = __float2bfloat16(0.f);
     return;
   }
   const int seq_len = seq_lens[b];
@@ -213,23 +221,24 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
 
   if (!active) return;
 
-  // 3. This lane's slice of the GROUP query heads, scaled into log2 space.
+  // 3. This lane's slice of the group's query heads, scaled into log2
+  //    space; rows from `group` on are zero.
   const float qscale = sm_scale * kLog2e;
-  float qf[GROUP][kVec];
+  float qf[GMAX][kVec];
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
-    const bf16* qg = q + (static_cast<int64_t>(b) * n_q + h * GROUP + g) * HD + li * kVec;
+  for (int g = 0; g < GMAX; ++g) {
+    const bf16* qg = q + (static_cast<int64_t>(b) * n_q + h * group + g) * HD + li * kVec;
 #pragma unroll
     for (int e = 0; e < kVec; e += 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(qg + e);
+      const uint4 u = g < group ? *reinterpret_cast<const uint4*>(qg + e) : uint4{};
       cvt(u, qg, &qf[g][e]);
     }
 #pragma unroll
     for (int e = 0; e < kVec; ++e) qf[g][e] *= qscale;
   }
-  float m[GROUP], l[GROUP], acc[GROUP][kVec];
+  float m[GMAX], l[GMAX], acc[GMAX][kVec];
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
+  for (int g = 0; g < GMAX; ++g) {
     m[g] = kNegBig;
     l[g] = 0.f;
 #pragma unroll
@@ -283,13 +292,13 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
         iv[u] = inv_scale(static_cast<fp8>(v >> 8));
       }
     }
-    float s[U][GROUP];
+    float s[U][GMAX];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[kVec];
       cvt(kr[u], static_cast<const KV*>(nullptr), kf);
 #pragma unroll
-      for (int g = 0; g < GROUP; ++g) {
+      for (int g = 0; g < GMAX; ++g) {
         float d = 0.f;
 #pragma unroll
         for (int e = 0; e < kVec; ++e) d += qf[g][e] * kf[e];
@@ -301,10 +310,10 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int g = 0; g < GROUP; ++g) s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
-    float p[U][GROUP];
+        for (int g = 0; g < GMAX; ++g) s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
+    float p[U][GMAX];
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
+    for (int g = 0; g < GMAX; ++g) {
       float tmax = kNegBig;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -330,7 +339,7 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
       float vf[kVec];
       cvt(vr[u], static_cast<const KV*>(nullptr), vf);
 #pragma unroll
-      for (int g = 0; g < GROUP; ++g)
+      for (int g = 0; g < GMAX; ++g)
 #pragma unroll
         for (int e = 0; e < kVec; ++e) acc[g][e] += p[u][g] * vf[e];
     }
@@ -344,7 +353,7 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
   //    warp's sum, from li*kVec + `part`.
   constexpr int kKeep = kVec / KPW;
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
+  for (int g = 0; g < GMAX; ++g) {
     float mw = m[g];
 #pragma unroll
     for (int off = LPK; off < 32; off <<= 1)
@@ -366,12 +375,12 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
   // 6. Merge the warps through shared memory: the split's state (M, L, A)
   //    of every head and dim; the output itself when this is the row's only
   //    active split.
-  __shared__ float sm_m[WARPS][GROUP];
-  __shared__ float sm_l[WARPS][GROUP];
-  __shared__ float sm_acc[WARPS][GROUP][HD];
-  __shared__ float sm_w[kMaxSplits * GROUP];
+  __shared__ float sm_m[WARPS][GMAX];
+  __shared__ float sm_l[WARPS][GMAX];
+  __shared__ float sm_acc[WARPS][GMAX][HD];
+  __shared__ float sm_w[kMaxSplits * GMAX];
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
+  for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
     for (int e = 0; e < kKeep; ++e) sm_acc[warp][g][li * kVec + part + e] = acc[g][e];
     if (lane == 0) {
@@ -381,9 +390,9 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
   }
   __syncthreads();
   const int64_t unit = static_cast<int64_t>(b) * n_kv + h;
-  float* pacc = part_acc + unit * ns * GROUP * HD;  // rows below split_rows
-  float* pml = part_ml + unit * ns * GROUP * 2;
-  for (int i = tid; i < GROUP * HD; i += blockDim.x) {
+  float* pacc = part_acc + unit * ns * group * HD;  // rows below split_rows
+  float* pml = part_ml + unit * ns * group * 2;
+  for (int i = tid; i < group * HD; i += blockDim.x) {
     const int g = i / HD;
     const int d = i % HD;
     float M = kNegBig;
@@ -399,28 +408,28 @@ paged_decode_kernel(const bf16* __restrict__ q, KV* __restrict__ cache,
     if (act.count == 1) {
       o[i] = __float2bfloat16(A / L);  // L > 0: the new key is always counted
     } else {
-      pacc[(static_cast<int64_t>(split) * GROUP + g) * HD + d] = A;
+      pacc[(static_cast<int64_t>(split) * group + g) * HD + d] = A;
       if (d == 0)
-        *reinterpret_cast<float2*>(pml + (static_cast<int64_t>(split) * GROUP + g) * 2) =
+        *reinterpret_cast<float2*>(pml + (static_cast<int64_t>(split) * group + g) * 2) =
             make_float2(M, L);
     }
   }
   if (act.count > 1 && arrive_last(counters + unit, act.count))
-    merge_splits<HD>(pacc, pml, act.first, act.count, GROUP, sm_w,
+    merge_splits<HD>(pacc, pml, act.first, act.count, group, sm_w,
                      [&](int g) { return o + g * HD; });
 }
 
-template <int HD, int GROUP, typename KV, bool PEND, int WARPS>
+template <int HD, int GMAX, typename KV, bool PEND, int WARPS>
 void launch_warps(const void* q, void* cache, const void* kv_new,
                   const void* kv_pend, const void* pt, const void* q_lens,
                   const void* seq_lens, const void* kv_slots, void* out, int T,
                   int B, int Pg, int n_kv, int S, int layer, int page_size,
                   int window, int npend, int P, float sm_scale, int n_split,
                   int chunk, int split_rows, void* part_acc, void* part_ml,
-                  void* counters, cudaStream_t stream) {
+                  void* counters, int group, cudaStream_t stream) {
   const int64_t grid = (static_cast<int64_t>(T) + static_cast<int64_t>(split_rows) *
                         (n_split - 1)) * n_kv;
-  paged_decode_kernel<HD, GROUP, KV, PEND, WARPS>
+  paged_decode_kernel<HD, GMAX, KV, PEND, WARPS>
       <<<static_cast<unsigned>(grid), WARPS * 32, 0, stream>>>(
           static_cast<const bf16*>(q), static_cast<KV*>(cache),
           static_cast<const KV*>(kv_new), static_cast<const KV*>(kv_pend),
@@ -428,40 +437,43 @@ void launch_warps(const void* q, void* cache, const void* kv_new,
           static_cast<const int*>(seq_lens), static_cast<const int*>(kv_slots),
           static_cast<bf16*>(out), B, Pg, n_kv, S, layer, page_size, window,
           npend, P, sm_scale, n_split, chunk, split_rows, static_cast<float*>(part_acc),
-          static_cast<float*>(part_ml), static_cast<int*>(counters));
+          static_cast<float*>(part_ml), static_cast<int*>(counters), group);
 }
 
 // One launch. A (row, kv head) walked by one block (n_split 1) takes 8
 // warps, for the most keys in flight on its one walk; split units take 4,
 // for more blocks on each SM.
-template <int HD, int GROUP, typename KV, bool PEND>
+template <int HD, int GMAX, typename KV, bool PEND>
 int launch(const void* q, void* cache, const void* kv_new, const void* kv_pend,
            const void* pt, const void* q_lens, const void* seq_lens,
            const void* kv_slots, void* out, int T, int B, int Pg, int n_kv,
            int S, int layer, int page_size, int window, int npend, int P,
            float sm_scale, int n_split, int chunk, int split_rows,
-           void* part_acc, void* part_ml, void* counters, cudaStream_t stream) {
+           void* part_acc, void* part_ml, void* counters, int group,
+           cudaStream_t stream) {
   if (n_split < 1 || n_split > kMaxSplits || chunk < 1 || split_rows < 0 ||
       (static_cast<int64_t>(T) + static_cast<int64_t>(split_rows) * (n_split - 1)) *
               n_kv >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   split_rows = n_split > 1 ? min(split_rows, B) : 0;
   if (n_split == 1)
-    launch_warps<HD, GROUP, KV, PEND, 8>(
+    launch_warps<HD, GMAX, KV, PEND, 8>(
         q, cache, kv_new, kv_pend, pt, q_lens, seq_lens, kv_slots, out, T, B,
         Pg, n_kv, S, layer, page_size, window, npend, P, sm_scale, n_split,
-        chunk, split_rows, part_acc, part_ml, counters, stream);
+        chunk, split_rows, part_acc, part_ml, counters, group, stream);
   else
-    launch_warps<HD, GROUP, KV, PEND, 4>(
+    launch_warps<HD, GMAX, KV, PEND, 4>(
         q, cache, kv_new, kv_pend, pt, q_lens, seq_lens, kv_slots, out, T, B,
         Pg, n_kv, S, layer, page_size, window, npend, P, sm_scale, n_split,
-        chunk, split_rows, part_acc, part_ml, counters, stream);
+        chunk, split_rows, part_acc, part_ml, counters, group, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace swiftllm
 
+// (head_dim, GMAX) instances; every group from 1 to 8 runs under the least
+// GMAX at or above it (gqa_bound).
 #define SWIFTLLM_DECODE_INSTANCES(CASE) \
   CASE(64, 1) CASE(64, 2) CASE(64, 4) CASE(64, 8)   \
   CASE(128, 1) CASE(128, 2) CASE(128, 4) CASE(128, 8)
@@ -470,11 +482,12 @@ int launch(const void* q, void* cache, const void* kv_new, const void* kv_pend,
 // with the scale lanes; else bf16. window: 0 = full causal. n_split, chunk:
 // the split plan (n_split 1: no split), for rows below split_rows (R, at
 // most B; rows from R on are walked as one split); part_acc (f32 [R * n_kv *
-// n_split * GROUP * hd]) and part_ml (f32 [R * n_kv * n_split * GROUP * 2])
+// n_split * group * hd]) and part_ml (f32 [R * n_kv * n_split * group * 2])
 // the partial states, unused when n_split is 1; counters (int32 [R * n_kv],
 // zero) the arrival counters, left zero. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a head_dim / GQA group it has no
-// instance for or a plan it cannot take.
+// the launch, or cudaErrorInvalidValue for a head_dim other than 64 and 128,
+// a GQA group (n_q / n_kv) that is not a whole number from 1 to 8, or a plan
+// it cannot take.
 extern "C" int paged_decode_attention(
     const void* q, void* cache, const void* kv_new, const void* page_table,
     const void* q_lens, const void* seq_lens, const void* kv_slots, void* out,
@@ -483,19 +496,20 @@ extern "C" int paged_decode_attention(
     int chunk, int split_rows, void* part_acc, void* part_ml, void* counters,
     void* stream) {
   using namespace swiftllm;
-  const int group = n_q / n_kv;
+  const int group = n_kv > 0 ? n_q / n_kv : 0;
+  const int gmax = gqa_bound(n_q, n_kv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWIFTLLM_DECODE_CASE(HD_, G_)                                            \
-  if (hd == HD_ && group == G_) {                                                \
+  if (hd == HD_ && gmax == G_) {                                                 \
     if (kv_fp8)                                                                  \
       return launch<HD_, G_, fp8, false>(                                        \
           q, cache, kv_new, nullptr, page_table, q_lens, seq_lens, kv_slots,     \
           out, T, B, Pg, n_kv, S, layer, page_size, window, 0, 0, sm_scale,      \
-          n_split, chunk, split_rows, part_acc, part_ml, counters, st);          \
+          n_split, chunk, split_rows, part_acc, part_ml, counters, group, st);   \
     return launch<HD_, G_, bf16, false>(                                         \
         q, cache, kv_new, nullptr, page_table, q_lens, seq_lens, kv_slots, out,  \
         T, B, Pg, n_kv, S, layer, page_size, window, 0, 0, sm_scale, n_split,    \
-        chunk, split_rows, part_acc, part_ml, counters, st);                     \
+        chunk, split_rows, part_acc, part_ml, counters, group, st);              \
   }
   SWIFTLLM_DECODE_INSTANCES(SWIFTLLM_DECODE_CASE)
 #undef SWIFTLLM_DECODE_CASE
@@ -515,16 +529,17 @@ extern "C" int paged_decode_attention_pend(
     int n_split, int chunk, int split_rows, void* part_acc, void* part_ml,
     void* counters, void* stream) {
   using namespace swiftllm;
-  const int group = n_q / n_kv;
+  const int group = n_kv > 0 ? n_q / n_kv : 0;
+  const int gmax = gqa_bound(n_q, n_kv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (npend < 1 || npend > P) return static_cast<int>(cudaErrorInvalidValue);
 #define SWIFTLLM_PEND_CASE(HD_, G_)                                              \
-  if (hd == HD_ && group == G_)                                                  \
+  if (hd == HD_ && gmax == G_)                                                   \
     return launch<HD_, G_, bf16, true>(                                          \
         q, const_cast<void*>(cache), kv_new, kv_pend, page_table, q_lens,        \
         seq_lens, nullptr, out, T, B, Pg, n_kv, S, layer, page_size, window,     \
         npend, P, sm_scale, n_split, chunk, split_rows, part_acc, part_ml,       \
-        counters, st);
+        counters, group, st);
   SWIFTLLM_DECODE_INSTANCES(SWIFTLLM_PEND_CASE)
 #undef SWIFTLLM_PEND_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -57,16 +57,26 @@
 // past the 0.1 that chip_smoke.py allows it.) l sums the f32 p. The
 // bf16-score variant's P is bf16 by definition: one product.
 //
+// GQA groups: any group from 1 to 8. The kernel is compiled for a bound
+// GMAX in {1, 2, 4, 8} and takes the real group, the least GMAX at or above
+// it, as an argument. A block's rows are GMAX bands of TQ = ROWS / GMAX
+// tokens (row r = g * TQ + token); bands g >= group are dead: their query
+// is zero, they are masked as rows of no token, and nothing of them is
+// written (no output; their partial rows are never merged into one). So at
+// group 7 a tile holds 8 tokens of 7 heads, 56 of its 64 rows live; a group
+// that is a power of two runs as before. The host plans the same tiles
+// (ops/paged_attention.py:prefill_rows, prefill_tokens).
+//
 // What bounds it on the H100: for a long prefill, operations (4*HD flops per
 // query-key pair and head, against K/V bytes that every query tile re-reads);
 // for a short chunk or a verify span over a long history, bytes.
 //
 // What this design does about it:
-// - Tensor cores. A block holds 64 or 128 query rows (ROWS/GROUP tokens
-//   times the GROUP query heads of one kv head, the row r = g *
-//   (ROWS/GROUP) + token), a warpgroup (128 threads) for every 64, so every
+// - Tensor cores. A block holds 64 or 128 query rows (ROWS/GMAX tokens
+//   times the GMAX query head bands of one kv head, the row r = g *
+//   (ROWS/GMAX) + token), a warpgroup (128 threads) for every 64, so every
 //   K/V tile it stages serves all of them; 128 at head_dim 128 when the
-//   bucket fills them (q_bucket * GROUP >= 128), else 64. Q.K^T is wgmma
+//   bucket fills them (q_bucket * GMAX >= 128), else 64. Q.K^T is wgmma
 //   m64n64k16 with Q (staged once) and the K tile [keys][hd] both K-major
 //   in 128-byte-swizzled shared memory; P.V is
 //   wgmma m64n{HD}k16 with P from registers (the score accumulator's
@@ -235,7 +245,7 @@ __device__ __noinline__ int2 find_tile(RowMeta row, int r, int TQ, int tiles,
 // split's keys are tk.beg .. tk.end - 1; n_split (the plan's) places the
 // partial states of a split row. Every thread of the block takes the same
 // path through it.
-template <int HD, int GROUP, typename KV, bool BF16S, int ROWS>
+template <int HD, int GMAX, typename KV, bool BF16S, int ROWS>
 __device__ __forceinline__ void prefill_unit(
     const bf16* __restrict__ q, const KV* __restrict__ cache,
     const int* __restrict__ page_table, const RowMeta& row,
@@ -243,20 +253,20 @@ __device__ __forceinline__ void prefill_unit(
     int window, float sm_scale, int n_split,
     float* __restrict__ part_acc, float* __restrict__ part_ml,
     int* __restrict__ counters, int b, int tile, int h, int split, int q_tiles,
-    const TileKeys& tk, uint8_t* smem_raw) {
+    int group, const TileKeys& tk, uint8_t* smem_raw) {
   constexpr int SL = ScaleLanes<KV>::value;
   constexpr bool FP8 = SL > 0;
   static_assert(!BF16S || !FP8, "bf16 scores take a bf16 cache");
   using SM = Smem<HD, FP8, ROWS>;
   constexpr int kThreads = ROWS * 2;   // a warpgroup for every 64 rows
   constexpr int TPK = kThreads / kTK;  // threads that copy one key's rows
-  constexpr int TQ = ROWS / GROUP;     // query tokens of a block
+  constexpr int TQ = ROWS / GMAX;      // query tokens of a block
   constexpr int VPR = HD / 8;        // 16-byte chunks of a bf16 head row
   constexpr int NK = HD / 16;        // k16 steps of Q.K^T
   constexpr int NO = HD / 2;         // output accumulators a thread
   const SplitRange act = tk.act;
   if (tk.n_tok <= 0 || split < act.first || split >= act.first + act.count) return;
-  const int n_q = n_kv * GROUP;
+  const int n_q = n_kv * group;
   const int KH = n_kv * HD;
   const int W = 2 * KH + SL;
   const int tok0 = row.q_start + tile * TQ;  // flat token of query 0
@@ -276,16 +286,16 @@ __device__ __forceinline__ void prefill_unit(
 
   const int tid = threadIdx.x;
 
-  // Q: row r = g * TQ + qi is token qi of the tile, query head h*GROUP + g;
-  // rows of no token are zero.
+  // Q: row r = g * TQ + qi is token qi of the tile, query head h*group + g;
+  // rows of no token, and the dead bands g >= group, are zero.
   for (int i = tid; i < ROWS * VPR; i += kThreads) {
     const int r = i / VPR;
     const int c = i % VPR;
     const int g = r / TQ;
     const int qi = r % TQ;
-    const bool ok = qi < n_tok;
+    const bool ok = qi < n_tok && g < group;
     const bf16* src =
-        ok ? q + (static_cast<int64_t>(tok0 + qi) * n_q + h * GROUP + g) * HD + c * 8 : q;
+        ok ? q + (static_cast<int64_t>(tok0 + qi) * n_q + h * group + g) * HD + c * 8 : q;
     cp_async16(sQ + swz<ROWS>(r, c), src, ok);
   }
 
@@ -336,7 +346,7 @@ __device__ __forceinline__ void prefill_unit(
   for (int i = 0; i < 2; ++i) {
     const int qi = (r0 + 8 * i) % TQ;
     qpos[i] = first_pos + qi;
-    rok[i] = qi < n_tok;
+    rok[i] = qi < n_tok && (r0 + 8 * i) / TQ < group;
   }
   float m[2] = {kNegBig, kNegBig};
   float l[2] = {0.f, 0.f};  // this thread's columns only; summed at the end
@@ -426,7 +436,8 @@ __device__ __forceinline__ void prefill_unit(
     // split's keys, zero-filled here). A tile whose keys every query of the
     // block sees (all at or before the first query, none below the last
     // query's window, none past k_end) takes no mask; rows of no token then
-    // compute on zero queries, finite and never written.
+    // compute on zero queries, finite and never written (so do the dead
+    // bands of a group below GMAX).
     const int k0 = k_beg + t * kTK;
     const bool full = k0 + kTK - 1 <= first_pos && k0 + kTK <= k_end &&
                       (window <= 0 || k0 >= kv_end - window);
@@ -563,8 +574,8 @@ __device__ __forceinline__ void prefill_unit(
   }
   auto out_row = [&](int r) -> bf16* {
     const int qi = r % TQ;
-    if (qi >= n_tok) return nullptr;
-    return out + (static_cast<int64_t>(tok0 + qi) * n_q + h * GROUP + r / TQ) * HD;
+    if (qi >= n_tok || r / TQ >= group) return nullptr;
+    return out + (static_cast<int64_t>(tok0 + qi) * n_q + h * group + r / TQ) * HD;
   };
   if (act.count == 1) {
     // The output: each warp stages its 16 rows in bf16 in its own rows of
@@ -619,7 +630,7 @@ __device__ __forceinline__ void prefill_unit(
 // working units, numbered in (row, tile, split, kv head) order, are then
 // handed out as the blocks free up. Rows from split_rows on are not split
 // (their tiles walk all their keys as one split).
-template <int HD, int GROUP, typename KV, bool BF16S, int ROWS>
+template <int HD, int GMAX, typename KV, bool BF16S, int ROWS>
 __global__ void __launch_bounds__(ROWS * 2)
 paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
                      const int* __restrict__ page_table,
@@ -630,9 +641,9 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
                      int layer, int page_size, int window, float sm_scale,
                      int n_split, int chunk, int split_rows,
                      float* __restrict__ part_acc, float* __restrict__ part_ml,
-                     int* __restrict__ counters, int q_at) {
+                     int* __restrict__ counters, int q_at, int group) {
   using SM = Smem<HD, (ScaleLanes<KV>::value > 0), ROWS>;
-  constexpr int TQ = ROWS / GROUP;
+  constexpr int TQ = ROWS / GMAX;
   extern __shared__ uint8_t smem_raw[];
   RowMeta* rows = reinterpret_cast<RowMeta*>(smem_raw + SM::kAlloc);
   int* start = reinterpret_cast<int*>(rows + B);  // [B + 1]
@@ -644,7 +655,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
   __syncthreads();
   // Tokens of no row (T > 0): zero, written here, a warp a token in turn.
   if (T > 0) {
-    const int n_vec = n_kv * GROUP * HD / 8;  // 16-byte stores a token
+    const int n_vec = n_kv * group * HD / 8;  // 16-byte stores a token
     for (int t = blockIdx.x * n_warps + warp; t < T; t += gridDim.x * n_warps) {
       bool row_tok = false;
       for (int i = lane; i < B; i += 32)
@@ -719,10 +730,10 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ cache,
     TileKeys k = tile_keys(row, tile, TQ, window, ns, chunk);
     const int split = k.act.first + r / n_kv;
     split_keys(split, ns, chunk, k.lo, k.kv_end, k.beg, k.end);
-    prefill_unit<HD, GROUP, KV, BF16S, ROWS>(
+    prefill_unit<HD, GMAX, KV, BF16S, ROWS>(
         q, cache, page_table, row, out, Pg, n_kv, S, layer, page_size, window,
         sm_scale, n_split, part_acc, part_ml, counters, b, tile, r % n_kv,
-        split, q_tiles, k, smem_raw);
+        split, q_tiles, group, k, smem_raw);
     if (threadIdx.x == 0)
       next_unit = queue ? gridDim.x + atomicAdd(queue, 1) : a + gridDim.x;
     __syncthreads();  // the unit's shared memory is free for the next
@@ -744,16 +755,16 @@ struct LaunchState {
 };
 constexpr int kMaxDevices = 64;
 
-template <int HD, int GROUP, typename KV, bool BF16S, int ROWS>
+template <int HD, int GMAX, typename KV, bool BF16S, int ROWS>
 int launch_rows(const void* q, const void* cache, const void* pt,
                 const void* q_starts, const void* q_lens, const void* seq_lens,
                 void* out, int T, int B, int q_bucket, int Pg, int n_kv, int S,
                 int layer, int page_size, int window, float sm_scale,
                 int n_split, int chunk, int split_rows, void* part_acc,
-                void* part_ml, void* counters, cudaStream_t stream) {
-  constexpr int TQ = ROWS / GROUP;
+                void* part_ml, void* counters, int group, cudaStream_t stream) {
+  constexpr int TQ = ROWS / GMAX;
   constexpr int kBase = Smem<HD, (ScaleLanes<KV>::value > 0), ROWS>::kAlloc;
-  auto kernel = paged_prefill_kernel<HD, GROUP, KV, BF16S, ROWS>;
+  auto kernel = paged_prefill_kernel<HD, GMAX, KV, BF16S, ROWS>;
   if (B < 1 || n_split < 1 || n_split > kMaxSplits || chunk < kTK ||
       chunk % kTK || split_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -792,44 +803,47 @@ int launch_rows(const void* q, const void* cache, const void* pt,
       static_cast<bf16*>(out), T, B, q_tiles, Pg, n_kv, S, layer, page_size,
       window, sm_scale, n_split, chunk, split_rows, static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), static_cast<int*>(counters),
-      split_rows * q_tiles * n_kv);
+      split_rows * q_tiles * n_kv, group);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One launch. Blocks of 128 query rows (two warpgroups sharing every K/V
-// tile) at head_dim 128 when the bucket fills them (q_bucket * GROUP >=
+// tile) at head_dim 128 when the bucket fills them (q_bucket * GMAX >=
 // 128), else of 64 (ops/paged_attention.py:prefill_rows, the same rule).
-template <int HD, int GROUP, typename KV, bool BF16S = false>
+template <int HD, int GMAX, typename KV, bool BF16S = false>
 int launch(const void* q, const void* cache, const void* pt,
            const void* q_starts, const void* q_lens, const void* seq_lens,
            void* out, int T, int B, int q_bucket, int Pg, int n_kv, int S,
            int layer, int page_size, int window, float sm_scale, int n_split,
            int chunk, int split_rows, void* part_acc, void* part_ml,
-           void* counters, cudaStream_t stream) {
+           void* counters, int group, cudaStream_t stream) {
   if constexpr (HD == 128) {
-    if (q_bucket * GROUP >= 128)
-      return launch_rows<HD, GROUP, KV, BF16S, 128>(
+    if (q_bucket * GMAX >= 128)
+      return launch_rows<HD, GMAX, KV, BF16S, 128>(
           q, cache, pt, q_starts, q_lens, seq_lens, out, T, B, q_bucket, Pg,
           n_kv, S, layer, page_size, window, sm_scale, n_split, chunk,
-          split_rows, part_acc, part_ml, counters, stream);
+          split_rows, part_acc, part_ml, counters, group, stream);
   }
-  return launch_rows<HD, GROUP, KV, BF16S, 64>(
+  return launch_rows<HD, GMAX, KV, BF16S, 64>(
       q, cache, pt, q_starts, q_lens, seq_lens, out, T, B, q_bucket, Pg, n_kv,
       S, layer, page_size, window, sm_scale, n_split, chunk, split_rows,
-      part_acc, part_ml, counters, stream);
+      part_acc, part_ml, counters, group, stream);
 }
 
 }  // namespace
 }  // namespace swiftllm
 
+// (head_dim, GMAX) instances; every group from 1 to 8 runs under the least
+// GMAX at or above it (gqa_bound).
 #define SWIFTLLM_PREFILL_INSTANCES(CASE) \
   CASE(64, 1) CASE(64, 2) CASE(64, 4) CASE(64, 8)   \
   CASE(128, 1) CASE(128, 2) CASE(128, 4) CASE(128, 8)
 
 // C entries, bound with ctypes. q_bucket bounds every row's q_len; it sets
-// the grid's tile axis (64/GROUP tokens a tile). Each returns
+// the grid's tile axis (rows / GMAX tokens a tile). Each returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// head_dim / GQA group it has no instance for or a plan it cannot take.
+// head_dim other than 64 and 128, a GQA group (n_q / n_kv) that is not a
+// whole number from 1 to 8, or a plan it cannot take.
 //
 // paged_prefill_attention: kv_fp8 != 0: the cache holds e4m3 rows with the
 // scale lanes; else bf16. window: 0 = full causal. n_split, chunk: the split
@@ -849,21 +863,22 @@ extern "C" int paged_prefill_attention(
     int chunk, int split_rows, void* part_acc, void* part_ml, void* counters,
     int T, void* stream) {
   using namespace swiftllm;
-  const int group = n_q / n_kv;
+  const int group = n_kv > 0 ? n_q / n_kv : 0;
+  const int gmax = gqa_bound(n_q, n_kv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWIFTLLM_PREFILL_CASE(HD_, G_)                                          \
-  if (hd == HD_ && group == G_) {                                               \
+  if (hd == HD_ && gmax == G_) {                                                \
     if (kv_fp8)                                                                 \
       return launch<HD_, G_, fp8>(q, cache, page_table, q_starts, q_lens,       \
                                   seq_lens, out, T, B, q_bucket, Pg, n_kv, S,   \
                                   layer, page_size, window, sm_scale, n_split,  \
                                   chunk, split_rows, part_acc, part_ml,         \
-                                  counters, st);                                \
+                                  counters, group, st);                         \
     return launch<HD_, G_, bf16>(q, cache, page_table, q_starts, q_lens,        \
                                  seq_lens, out, T, B, q_bucket, Pg, n_kv, S,    \
                                  layer, page_size, window, sm_scale, n_split,   \
                                  chunk, split_rows, part_acc, part_ml,          \
-                                 counters, st);                                 \
+                                 counters, group, st);                          \
   }
   SWIFTLLM_PREFILL_INSTANCES(SWIFTLLM_PREFILL_CASE)
 #undef SWIFTLLM_PREFILL_CASE
@@ -880,14 +895,15 @@ extern "C" int paged_prefill_attention_bf16s(
     int B, int q_bucket, int Pg, int n_q, int n_kv, int hd, int S, int layer,
     int page_size, float sm_scale, void* stream) {
   using namespace swiftllm;
-  const int group = n_q / n_kv;
+  const int group = n_kv > 0 ? n_q / n_kv : 0;
+  const int gmax = gqa_bound(n_q, n_kv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWIFTLLM_PREFILL_CASE(HD_, G_)                                          \
-  if (hd == HD_ && group == G_)                                                 \
+  if (hd == HD_ && gmax == G_)                                                  \
     return launch<HD_, G_, bf16, true>(q, cache, page_table, q_starts, q_lens,  \
                                        seq_lens, out, 0, B, q_bucket, Pg, n_kv, \
                                        S, layer, page_size, 0, sm_scale, 1, 64, \
-                                       0, nullptr, nullptr, nullptr, st);
+                                       0, nullptr, nullptr, nullptr, group, st);
   SWIFTLLM_PREFILL_INSTANCES(SWIFTLLM_PREFILL_CASE)
 #undef SWIFTLLM_PREFILL_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -36,27 +36,39 @@ import torch
 import torch.nn.functional as F
 
 from swiftllm_tpu_torch.ops import build
-from swiftllm_tpu_torch.ops.int4_matmul import (BM, CLOCK_GHZ, LAUNCH_US,
-                                                MERGE_US, MERGE_US_PER_KB,
-                                                NT_CYCLES, PRODUCT_CYCLES,
-                                                UNIT_US, WIDE_NT, MatmulPlan,
-                                                partials, search_plan,
-                                                wide_half_sums)
+from swiftllm_tpu_torch.ops.int4_matmul import (BM, CLOCK_GHZ, WIDE_NT,
+                                                MatmulPlan, partials,
+                                                search_plan, wide_half_sums)
 from swiftllm_tpu_torch.utils import cdiv
 
 KC = 128                       # weight bytes a K chunk (csrc/int8_matmul.cu:kKC)
-HBM_BYTES_PER_US = 3.35e6      # H100 SXM HBM3 (NVIDIA data sheet)
+
+# The narrow plan's model of a launch's time on an H100 (µs), fitted to the
+# times of every (token width, splits) pair within 1.5 times the best at the
+# four 8B shapes and T = 1, 16, 128, 256 that `chip_smoke.py --sweep-int8`
+# prints beside it (its `[fit]` line; NVIDIA H100 80GB HBM3, 700 W): a fixed
+# LAUNCH_US; for each unit of the busiest block, UNIT_US (its epilogue, and
+# a split's partial, fence and arrival) and per chunk the longer of its
+# products (2 x KC / 16 of 64 x 16 weights, PRODUCT_CYCLES + NT_CYCLES x nt
+# cycles each at CLOCK_GHZ, queued back to back) and its weight bytes at
+# BYTES_PER_US shared by the blocks that stream at once; and when the tile
+# splits, the merge: MERGE_US and MERGE_US_PER_KB a KB of f32 partials the
+# last block reads.
+# The fit puts a launch's fixed cost in UNIT_US (LAUNCH_US came out 0).
+LAUNCH_US, UNIT_US = 0.0, 3.397
+PRODUCT_CYCLES, NT_CYCLES = 68.17, 0.2753
+MERGE_US, MERGE_US_PER_KB = 1.517, 0.01464
+BYTES_PER_US = 2.845e6
 
 
 def plan_us(p: MatmulPlan, n_sms: int) -> float:
     """The modelled time (µs) of a launch by plan ``p`` on ``n_sms`` SMs:
-    int4_matmul's model (``int4_matmul.plan_us``: the launch, a unit's
-    fixed cost, the merge), with 2 x kc / 16 products a chunk (one a k16
-    step and warpgroup), and no chunk faster than its BM x kc weight bytes
-    at the card's rate shared by the blocks that stream at once."""
+    the launch, each unit of the busiest block (its chunks, the longer of
+    their products and their weight bytes, and its fixed cost), and the
+    merge of a split tile (the constants above)."""
     products_us = (2 * p.kc / 16 * (PRODUCT_CYCLES + NT_CYCLES * p.nt)
                    / (CLOCK_GHZ * 1e3))
-    bytes_us = BM * p.kc * min(p.units, n_sms) / HBM_BYTES_PER_US
+    bytes_us = BM * p.kc * min(p.units, n_sms) / BYTES_PER_US
     us = LAUNCH_US + cdiv(p.units, n_sms) * (p.per * max(products_us, bytes_us)
                                              + UNIT_US)
     if p.splits > 1:

@@ -84,6 +84,12 @@ FP8_SCALE_LANES = 128   # lanes appended to an fp8 cache row (see above)
 
 _HINT = " (an unsupported head_dim / GQA group returns 1)"
 
+# GQA groups the kernels take: every group from 1 to MAX_GROUP, each run
+# under the least of GROUP_BOUNDS at or above it (csrc/common.cuh:gqa_bound).
+GROUP_BOUNDS = (1, 2, 4, 8)
+MAX_GROUP = GROUP_BOUNDS[-1]
+HEAD_DIMS = (64, 128)
+
 # Split-KV plan (csrc/splitkv.cuh): at most MAX_SPLITS splits a unit (the
 # kernels' kMaxSplits); the planner aims at SPLIT_BLOCKS_PER_SM blocks per SM
 # over the grid, in chunks that are whole key tiles and not below a floor.
@@ -165,21 +171,52 @@ def decode_split_plan(B: int, n_kv: int, Pg: int, page_size: int, n_sms: int,
                       visible=window or None)
 
 
+def group_bound(group: int) -> int:
+    """The GQA group bound a kernel runs a group under: the least of
+    GROUP_BOUNDS at or above it (the kernels take the real group as an
+    argument; csrc/common.cuh:gqa_bound). A group above MAX_GROUP gets the
+    next power of two, which the plans can count but no kernel takes
+    (``check_attention_shape`` refuses it at start-up)."""
+    return 1 << max(group - 1, 0).bit_length()
+
+
+def check_attention_shape(n_q: int, n_kv: int, hd: int) -> None:
+    """Refuse an attention shape the kernels cannot take: head_dim not in
+    HEAD_DIMS, or a GQA group n_q / n_kv that is not a whole number from 1
+    to MAX_GROUP. Raises ``ValueError`` naming n_q, n_kv, head_dim and the
+    group."""
+    group = n_q / n_kv if n_kv > 0 else float("inf")
+    if (hd not in HEAD_DIMS or n_kv < 1 or n_q % n_kv
+            or not 1 <= group <= MAX_GROUP):
+        raise ValueError(
+            f"attention shape n_q {n_q}, n_kv {n_kv}, head_dim {hd} (GQA group "
+            f"{group:g}): the attention kernels take head_dim in {HEAD_DIMS} "
+            f"and a whole GQA group from 1 to {MAX_GROUP}")
+
+
 def prefill_rows(q_bucket: int, group: int, hd: int) -> int:
-    """Query rows (GQA group x tokens) of a prefill block: 128, two
+    """Query rows (group bound x tokens) of a prefill block: 128, two
     warpgroups, at head_dim 128 when the bucket fills them, else 64
     (paged_prefill.cu:launch, the same rule)."""
-    return 128 if hd == 128 and q_bucket * group >= 128 else 64
+    return 128 if hd == 128 and q_bucket * group_bound(group) >= 128 else 64
+
+
+def prefill_tokens(q_bucket: int, group: int, hd: int) -> int:
+    """Query tokens of a prefill tile: prefill_rows / group_bound. Its
+    rows are group_bound bands of that many tokens, one a query head of
+    the kv head (row g * tokens + token); the bands from ``group`` on are
+    dead (paged_prefill.cu)."""
+    return max(prefill_rows(q_bucket, group, hd) // group_bound(group), 1)
 
 
 def prefill_split_plan(B: int, q_bucket: int, group: int, n_kv: int, Pg: int,
                        page_size: int, n_sms: int, splits: int | None = None,
                        window: int = 0, *, hd: int) -> tuple[int, int]:
     """The prefill kernel's plan: units (row, query tile of
-    prefill_rows / group tokens, kv head) over ``B`` rows (as in
+    ``prefill_tokens`` tokens, kv head) over ``B`` rows (as in
     decode_split_plan); under a window a tile's queries see
     window + tokens - 1 keys."""
-    tokens = max(prefill_rows(q_bucket, group, hd) // group, 1)
+    tokens = prefill_tokens(q_bucket, group, hd)
     visible = window + tokens - 1 if window else None
     return split_plan(B * cdiv(q_bucket, tokens) * n_kv, Pg * page_size, n_sms,
                       tile=KEY_TILE, min_chunk=PREFILL_MIN_CHUNK,
@@ -189,9 +226,8 @@ def prefill_split_plan(B: int, q_bucket: int, group: int, n_kv: int, Pg: int,
 def prefill_units(B: int, q_bucket: int, group: int, n_kv: int,
                   hd: int) -> int:
     """Attention units of a prefill launch over ``B`` rows: (row, query
-    tile of prefill_rows / group tokens, kv head)."""
-    tokens = max(prefill_rows(q_bucket, group, hd) // group, 1)
-    return B * cdiv(q_bucket, tokens) * n_kv
+    tile of ``prefill_tokens`` tokens, kv head)."""
+    return B * cdiv(q_bucket, prefill_tokens(q_bucket, group, hd)) * n_kv
 
 
 class StepPlans(NamedTuple):

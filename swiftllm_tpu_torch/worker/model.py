@@ -133,6 +133,18 @@ def check_quantized_widths(params, t_max: int) -> None:
                              f"weight kernels take {kind} only in multiples of 16")
 
 
+def check_attention_shape(mc: LlamaModelConfig, tp: int = 1,
+                          num_kv_eff: int | None = None) -> None:
+    """Refuse a model whose shard's attention the kernels cannot take: a
+    head_dim other than 64 or 128, or a GQA group above
+    ``paged_attention.MAX_GROUP`` (e.g. 128 query heads over 8 kv heads).
+    A shard holds n_q / tp query heads over ``num_kv_eff`` / tp kv heads
+    (kv heads replicated up to tp). Raises ``ValueError`` naming n_q, n_kv,
+    head_dim and the group; the card keeps no plain fallback."""
+    n_kv = mc.num_kv_heads if num_kv_eff is None else num_kv_eff
+    pa.check_attention_shape(mc.num_q_heads // tp, n_kv // tp, mc.head_dim)
+
+
 class PendingTokens:
     """A step's sampled tokens (or their logprobs) on their way to the host.
     On the GPU the copy into pinned host memory is queued behind the step
@@ -447,10 +459,12 @@ class LlamaModel:
         swap-out wrote it. The host pages' block manager is one for all dp
         groups, kept in step on every rank. On the card it first refuses
         quantized weights that the weight kernels cannot take
-        (``check_quantized_widths``)."""
+        (``check_quantized_widths``) and a shard's attention shape that the
+        attention kernels cannot take (``check_attention_shape``)."""
         cfg = self.engine_config
         if self.device.type == "cuda" and cfg.use_pallas:
             check_quantized_widths(self.params, self._max_weight_rows())
+            check_attention_shape(self.model_config, self.tp, self.num_kv_eff)
         if num_blocks_per_shard is None:
             num_blocks_per_shard = self.profile_num_blocks(graph_buckets)
         num_blocks_per_shard = distributed.agree_num_blocks(num_blocks_per_shard)

@@ -164,9 +164,11 @@ def test_int8_plan_fills_the_card(T, N, K):
             assert wide_fill_ok(p, T, N, K, n_sms, halves=1)
 
 
-# Every narrow plan (T <= 256) as the kernels chose it before the wide
-# configuration existed, "token width/splits" at T = 1, 16, 37, 128, 200,
-# 256: decode buckets keep their launches.
+# Every narrow plan (T <= 256), "token width/splits" at T = 1, 16, 37, 128,
+# 200, 256: INT4's as the kernel chose it before the wide configuration
+# existed (decode buckets keep their launches), INT8's as its model fitted to
+# the redesigned kernel chooses them (int8_matmul.py's constants, from
+# chip_smoke.py --sweep-int8).
 NARROW_PLANS = {
     ("int4", 132): {(4096, 4096): "16/4 16/4 64/4 64/2 128/2 128/2",
                     (1024, 4096): "16/16 16/16 32/8 32/4 64/4 64/4",
@@ -183,16 +185,16 @@ NARROW_PLANS = {
                     (4096, 2048): "16/3 16/3 64/3 128/3 128/1 128/1",
                     (4096, 7168): "16/3 16/3 64/3 128/3 128/3 128/3"},
     ("int8", 132): {(4096, 4096): "16/4 16/4 64/4 128/4 128/2 128/2",
-                    (1024, 4096): "16/11 16/11 16/5 32/4 64/4 64/4",
+                    (1024, 4096): "16/16 16/16 32/8 32/4 64/4 64/4",
                     (14336, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
                     (4096, 14336): "16/4 16/4 64/4 128/4 128/2 128/2",
                     (128256, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
                     (4096, 2048): "16/4 16/4 64/4 64/2 128/2 128/2",
                     (4096, 7168): "16/4 16/4 64/4 128/4 128/2 128/2"},
     ("int8", 114): {(4096, 4096): "16/3 16/3 64/3 128/3 128/3 128/3",
-                    (1024, 4096): "16/11 16/11 16/4 32/3 64/3 64/3",
+                    (1024, 4096): "16/11 16/11 32/7 64/7 64/3 64/3",
                     (14336, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
-                    (4096, 14336): "16/3 16/3 64/7 128/3 128/5 128/5",
+                    (4096, 14336): "16/7 16/7 64/7 128/7 128/5 128/5",
                     (128256, 4096): "16/1 16/1 64/1 128/1 128/1 128/1",
                     (4096, 2048): "16/3 16/3 64/3 128/3 128/1 128/1",
                     (4096, 7168): "16/3 16/3 64/3 128/3 128/3 128/3"},

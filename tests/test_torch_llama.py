@@ -128,3 +128,64 @@ def test_mixed_step_matches_jax(jax_step, use_kernels):
     np.testing.assert_allclose(m.kv_cache.numpy()[:, :-ps],
                                ref["cache_after"][:, :-ps], atol=1e-5, rtol=0)
     assert not np.array_equal(ref["cache_after"][:, :-ps], ref["cache"][:, :-ps])
+
+
+# GQA groups that do not divide the kernels' 64-row tiles (the attention
+# kernels run a group under the least of 1, 2, 4, 8 at or above it): the
+# head shape of Qwen2-0.5B (14 q / 2 kv heads, group 7, head_dim 64, q/k/v
+# biases) and a group of 3 at head_dim 128 (Llama-3.2-3B's 24 / 8), two
+# layers each, narrow elsewhere.
+GQA_SHAPES = {
+    "qwen2_0.5b_heads": dict(num_q_heads=14, num_kv_heads=2, head_dim=64,
+                             hidden_size=128, qkv_bias=True),
+    "group3_hd128": dict(num_q_heads=6, num_kv_heads=2, head_dim=128,
+                         hidden_size=128),
+}
+
+
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernel_plain", "gather_reference"])
+@pytest.mark.parametrize("shape", list(GQA_SHAPES))
+def test_gqa_group_step_matches_jax(shape, use_kernels):
+    """The mixed step above at GQA groups 7 and 3: the port against the JAX
+    package (its jnp path, which takes any group) on the same parameters
+    (biases scaled as the weights), cache, feedback buffer and batch, at the
+    same tolerance: logits atol 1e-4 / rtol 1e-4, greedy tokens equal, the
+    written cache rows within 1e-5."""
+    mc = dict(MC, num_layers=2, ffn_inter_dim=128, **GQA_SHAPES[shape])
+    rng = np.random.default_rng(7)
+    jm = JaxLlamaModel(JaxEngineConfig(**EC), JaxModelConfig(**mc))
+    jm.load_weights()
+    jm.init_kvcache_and_swap()
+    tree = scaled_params(jm.params, rng)
+    assert ("bq" in tree["layers"]) == mc.get("qkv_bias", False)
+    for b in ("bq", "bk", "bv"):
+        if b in tree["layers"]:
+            tree["layers"][b] = rng.normal(scale=0.1, size=tree["layers"][b].shape
+                                           ).astype(np.float32)
+    jm.params = jax.tree.map(lambda old, new: jax.device_put(new, old.sharding),
+                             jm.params, tree)
+    cache = rng.normal(size=jm.kv_cache.shape).astype(np.float32)
+    feedback = rng.integers(0, 128, size=jm.token_feedback.shape).astype(np.int32)
+    jm.kv_cache = jax.device_put(cache, jm.kv_cache.sharding)
+    jm.token_feedback = jax.device_put(feedback, jm.token_feedback.sharding)
+    preallocate(jm.hbm_block_mgrs[0])
+    want_tokens, want_rows, want_logits = jm.forward(schedule("jax"),
+                                                     return_logits=True)
+
+    m = LlamaModel(EngineConfig(**dict(EC, use_pallas=use_kernels)),
+                   LlamaModelConfig(**mc), device="cpu")
+    m.params = params_from_numpy(tree, "cpu")
+    m.init_kvcache_and_swap()
+    m.kv_cache.copy_(torch.from_numpy(cache))
+    m.token_feedback.copy_(torch.from_numpy(feedback))
+    preallocate(m.hbm_block_mgrs[0])
+    tokens, rows, logits = m.forward(schedule("torch"), return_logits=True)
+
+    live = np.asarray([r is not None for r in want_rows])
+    assert [r is not None for r in rows] == list(live)
+    np.testing.assert_allclose(logits[live], want_logits[live], atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(tokens[live], want_tokens[live])
+    ps = EC["block_size"]
+    np.testing.assert_allclose(m.kv_cache.numpy()[:, :-ps],
+                               np.asarray(jm.kv_cache)[:, :-ps], atol=1e-5, rtol=0)

@@ -43,7 +43,9 @@ import torch
 from swiftllm_tpu.models import llama as jax_llama
 from swiftllm_tpu.ops.paged_attention import (decode_group_geometry,
                                               ragged_paged_attention)
+from swiftllm_tpu_torch.config import LlamaModelConfig
 from swiftllm_tpu_torch.ops import paged_attention as pa
+from swiftllm_tpu_torch.utils import cdiv
 from tests import test_torch_spec as spec_tests
 from tests.test_torch_fp8_kv import fp8_case
 from tests.test_torch_paged_attention import (LAYER, _to_torch, make_case,
@@ -472,6 +474,83 @@ def test_plan_fills_the_card_and_leaves_full_grids_alone():
     assert pa.decode_split_plan(128, 8, 16, 16, 132)[0] == 1
     n, chunk = pa.decode_split_plan(1, 8, 16, 16, 132)   # 256 keys: the floor
     assert n == 1 and chunk >= pa.DECODE_MIN_CHUNK
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", range(1, 9))
+def test_prefill_tiles_cover_every_query_once(group, hd):
+    """Every GQA group from 1 to 8 (paged_prefill.cu runs a group under the
+    least of 1, 2, 4, 8 at or above it): the host's tiles are the kernel's.
+    A tile holds prefill_rows rows, group_bound bands of prefill_tokens
+    tokens (row g * tokens + token); its live rows are bands g < group and
+    tokens below the bucket. Over the bucket's tiles every (query token,
+    head of the kv head) is one live row of exactly one tile, no tile starts
+    past the bucket, prefill_units counts rows x tiles x kv heads, and the
+    split plan's partials are sized by those units and rows. The decode
+    partials are laid out by the real group."""
+    n_kv, B = 2, 3
+    gmax = pa.group_bound(group)
+    assert gmax in pa.GROUP_BOUNDS and gmax >= group and (gmax == 1 or gmax // 2 < group)
+    for qb in (2, 4, 8, 16, 64, 512, 2048, 4096):
+        rows = pa.prefill_rows(qb, group, hd)
+        tokens = pa.prefill_tokens(qb, group, hd)
+        assert rows in (64, 128) and tokens * gmax == rows
+        assert rows == (128 if hd == 128 and qb * gmax >= 128 else 64)
+        tiles = cdiv(qb, tokens)
+        assert (tiles - 1) * tokens < qb <= tiles * tokens
+        seen = np.zeros((qb, group), np.int64)
+        dead = 0
+        for t in range(tiles):
+            for r in range(rows):
+                g, tok = divmod(r, tokens)
+                if g < group and t * tokens + tok < qb:
+                    seen[t * tokens + tok, g] += 1
+                else:
+                    dead += 1
+        assert (seen == 1).all(), (qb, group, hd)
+        assert dead == tiles * rows - qb * group
+        units = pa.prefill_units(B, qb, group, n_kv, hd)
+        assert units == B * tiles * n_kv
+        n_split, chunk = pa.prefill_split_plan(B, qb, group, n_kv, 512, 16, 132,
+                                               hd=hd)
+        acc, ml, cnt = pa._split_buffers(torch.device("cpu"), units, n_split,
+                                         rows, hd)
+        if n_split > 1:
+            assert acc.numel() == units * n_split * rows * hd
+            assert ml.numel() == units * n_split * rows * 2
+        assert cnt.numel() >= units + 2
+    # The decode kernel's partials: each unit's splits hold `group` rows.
+    acc, ml, _ = pa._split_buffers(torch.device("cpu"), B * n_kv, 4, group, hd)
+    assert acc.numel() == B * n_kv * 4 * group * hd and ml.numel() == B * n_kv * 4 * group * 2
+
+
+@pytest.mark.parametrize("n_q,n_kv,hd,ok", [
+    *[(g * 2, 2, hd, True) for g in range(1, 9) for hd in (64, 128)],
+    (128, 8, 128, False),          # Llama-3.1-405B: group 16
+    (32, 2, 64, False),            # group 16
+    (14, 2, 80, False),            # head_dim 80
+])
+def test_attention_shape_checked_at_start_up(n_q, n_kv, hd, ok):
+    """LlamaModel refuses, before it serves on the card, an attention shape
+    the kernels cannot take (``worker/model.py:check_attention_shape``,
+    called beside ``check_quantized_widths``): a ValueError that names n_q,
+    n_kv, head_dim and the group. Groups 1 to 8 at head_dim 64 and 128 pass.
+    A tp shard's group is the model's (kv heads replicated up to tp)."""
+    from swiftllm_tpu_torch.worker.model import check_attention_shape
+    mc = LlamaModelConfig(num_layers=1, num_q_heads=n_q, num_kv_heads=n_kv,
+                          hidden_size=64, head_dim=hd, ffn_inter_dim=64,
+                          vocab_size=64, max_position_embeddings=64,
+                          rms_norm_eps=1e-5)
+    if ok:
+        check_attention_shape(mc)
+        check_attention_shape(mc, tp=2, num_kv_eff=n_kv)
+        if n_q % 4 == 0:
+            check_attention_shape(mc, tp=4, num_kv_eff=4)
+        return
+    group = n_q / n_kv
+    with pytest.raises(ValueError, match=rf"n_q {n_q}, n_kv {n_kv}, head_dim {hd} "
+                                         rf"\(GQA group {group:g}\)"):
+        check_attention_shape(mc)
 
 
 @pytest.mark.parametrize("bad", ["units", "max_keys", "n_sms", "splits"])
