@@ -12,6 +12,7 @@
     python3 chip_smoke.py --groups               # [groups], [step qwen2] and
                                                  # [serve qwen2]
     python3 chip_smoke.py --sweep-swap           # a measurement, not the smoke
+    python3 chip_smoke.py --compare-swap-norm    # a measurement, not the smoke
     python3 chip_smoke.py --parallel             # phase 6 alone
     python3 chip_smoke.py --quant                # the weight and fp8 row
                                                  # kernels' phases alone
@@ -69,7 +70,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      other two within one bf16 rounding, four planted faults (eps left out,
      the residual not written back, a plus in RoPE, gate and up swapped)
      that must fail, each timed beside its byte bound, its plain version and
-     (add_rms_norm) F.rms_norm; the
+     (add_rms_norm) F.rms_norm, add_rms_norm also each launch after a
+     kernel of another kind; the
      decode kernel's deferred-commit (`pend`) variant on 16 rows (3 of
      them pad rows) with histories of 1 to 2,048 keys, for npend 1, 2, 4
      and 8 of a window of 8, with a sliding
@@ -95,7 +97,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain version with the rest of cache and pool unchanged, a planted
      fault (the destination pages one further) that must fail, and one
      round trip of 128 pages timed against the host link's byte bound
-     (measured), the plain version and cudaMemcpy2DAsync per run;
+     (measured), each direction's share of the link's rate that way, the
+     plain version and cudaMemcpy2DAsync per run;
   3. one whole mixed step, kernels against plain versions, 4 layers: at 8B
      width in bf16, with INT4 and with INT8 weights in buckets of 256 and
      512 tokens (every projection and the head through the weight kernel,
@@ -221,11 +224,18 @@ configuration (T <= 256) both back to back and alone (time_alone_ms). With --swe
 times int8_matmul at each 8B shape and T = 1, 16, 128, 256 for every token
 width and split count its plan chooses from and fits the plan's model (the
 evidence for int8_matmul.py's constants). With --groups it builds the
-kernels and runs only [groups], [step qwen2] and [serve qwen2]. With --sweep-swap it builds only swap_pages and times a round trip of 128 pages
-at several grids, alone and beside a decode-like load (the evidence for
-swap_pages.py's MOVER_BLOCKS). With --parallel it builds the kernels and
-runs only phase 6. With --layer-ops it builds only the layer kernels and
-runs only the [layer_ops] phase. With --quant it builds the kernels and runs
+kernels and runs only [groups], [step qwen2] and [serve qwen2]. With
+--sweep-swap it builds only swap_pages, runs the mover's part of phase 2,
+then times 128 pages each way at several grids against cudaMemcpy2DAsync
+per run and the link's rate, and round trips at those grids alone and
+beside a decode-like load (the evidence for swap_pages.py's MOVER_BLOCKS).
+With --compare-swap-norm it builds swap_pages and add_rms_norm and times
+both through their wrappers alone (the mover's round trip each way with
+the link's shares and beside the load; add_rms_norm back to back and
+after a kernel): run it from two checkouts in turns.
+With --parallel it builds the kernels and runs only phase 6. With
+--layer-ops it builds only the layer kernels and runs only the [layer_ops]
+phase. With --quant it builds the kernels and runs
 only the [int4] and [int8] phases, both wide configurations, phase 3's INT8
 and INT4 steps, the [quantize_kv] phase and phase 3's fp8 step.
 
@@ -308,6 +318,9 @@ REPS = 20
 SLEEP_CYCLES = 20_000_000       # about 10 ms at the H100's clock
 L2_BYTES = 50 * 2**20           # H100 L2: timed weights cycle through more
 OUT_DIR = Path("chiprun_out")
+# A kernel's mean device ms a launch in the bf16 serving run's profile
+# (_profile, quant "none"), by entry: add_rms_norm's kernel row takes it.
+STEP_LAUNCH_MS: dict = {}
 DEVICE = "cuda"
 
 SOURCE_OF = {n: f"swiftllm_tpu_torch/ops/csrc/{src}"
@@ -379,14 +392,16 @@ def time_ms(fn, reps=REPS, warmup=3) -> float:
 
 
 def time_alone_ms(fn, reps=REPS) -> float:
-    """Time of fn() on the card with an empty kernel queued before each
-    call, less that kernel's own time (timed alone, the same way). An
-    int8_matmul launch is programmatic: its prologue may overlap the kernel
-    before it when that kernel allows it, as the previous int8_matmul does,
-    so back-to-back launches (time_ms) overlap each other. The empty kernel
-    is an ordinary launch: it starts after the call before it has ended,
-    and the next call's kernels start after it has ended, so each call runs
-    alone, as one after a kernel of another kind does in a step."""
+    """Time that fn() adds on the card after a kernel of another kind: an
+    empty kernel queued before each call, less that kernel's own time
+    (timed alone, the same way). A programmatic launch (int8_matmul,
+    add_rms_norm) may start before the kernel before it has completed, so
+    back-to-back launches (time_ms) overlap each other. Here each call
+    follows the empty kernel, as one follows a kernel of another kind in a
+    step; but a programmatic call may still start once the empty kernel's
+    blocks have exited, before its grid has completed, so the figure keeps
+    that overlap with the kernel before, as a step does (a kernel's records in a step's profile, STEP_LAUNCH_MS,
+    keep none of it)."""
     gap = lambda: torch.cuda._sleep(0)
     return time_ms(lambda: (gap(), fn()), reps) - time_ms(gap, reps)
 
@@ -1415,7 +1430,12 @@ def phase_layer_ops(device, smi) -> dict:
     and 128. Times each kernel, its plain version and, for add_rms_norm,
     F.rms_norm (the norm alone: no single PyTorch call adds the residual
     too; none computes rope_qkv or silu_mul) against its byte bound.
-    Returns the kernel table's rows (8B, T = LAYER_TABLE)."""
+    add_rms_norm's launch is programmatic: back to back (time_ms) each
+    launch overlaps the one before, so it is also timed after a kernel of
+    another kind (time_alone_ms), which it may still overlap; its row's ms
+    is replaced by its launches' mean in the bf16 serving run's profile
+    (STEP_LAUNCH_MS), which overlaps nothing. Returns the kernel table's
+    rows (8B, T = LAYER_TABLE)."""
     gen = torch.Generator(device=device).manual_seed(13)
     rows = {}
     for widths, name, ts in ((LLAMA3_8B, "8B", LAYER_TS),
@@ -1444,8 +1464,11 @@ def phase_layer_ops(device, smi) -> dict:
                 ms, plain_ms = time_ms(fn), time_ms(plain)
                 lib_ms = time_ms(lib) if lib else None
                 bound_ms, bound_by = bound(nbytes[kern], 0)
+                t = f"{ms:.4f} ms"
+                if kern == "add_rms_norm":
+                    t += f" back to back, {time_alone_ms(fn):.4f} after a kernel"
                 parts.append(
-                    f"{kern} {ms:.4f} ms (bound {bound_ms:.5f}, {bound_by}; "
+                    f"{kern} {t} (bound {bound_ms:.5f}, {bound_by}; "
                     f"{nbytes[kern] / 2**20:.2f} MiB; plain {plain_ms:.4f}"
                     f"{f', F.rms_norm {lib_ms:.4f}' if lib else ''}; max |err| "
                     f"{errs[kern]:.3g})")
@@ -1595,7 +1618,10 @@ def phase_groups(device, smi) -> None:
     At group 7 the planted faults (a decode row's last page skipped, each
     span's first query one position late) must fail. Then the decode and
     prefill kernels' times at group 7 against group 8 on the same kv heads
-    (Qwen2-7B's 4 at head_dim 128, Qwen2-0.5B's 2 at 64), in turns."""
+    (Qwen2-7B's 4 at head_dim 128, Qwen2-0.5B's 2 at 64), in turns, and at
+    each of those shapes the bound, the plain version's time and
+    scaled_dot_product_attention's on the same K/V gathered dense (the
+    kernel table's yardstick)."""
     gen = torch.Generator().manual_seed(11)
     for hd in (64, 128):
         for group in range(1, 9):
@@ -1648,6 +1674,24 @@ def phase_groups(device, smi) -> None:
             f"decode (16 rows to 2,048 keys) group 8 {fmt(8, 0)} ms, group 7 "
             f"{fmt(7, 0)} ms; prefill (the mixed case: 8 decode rows, chunks of 512, "
             f"512, 300) group 8 {fmt(8, 1)} ms, group 7 {fmt(7, 1)} ms ({smi})")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        parts = []
+        for group in (8, 7):
+            dec, pre, cp = cases[group]
+            cd = dec["cache"].clone()
+            for kind, case, cache, costs, plain in (
+                    ("decode", dec, dec["cache"], _decode_costs,
+                     lambda: _decode(dec, cd, pa.paged_decode_attention_plain)),
+                    ("prefill", pre, cp, _prefill_costs,
+                     lambda: _prefill(pre, cp, pa.paged_prefill_attention_plain))):
+                qd, k, v, mask = _dense_kv(case, cache, kind)   # NOT timed
+                lib = time_ms(lambda: sdpa(qd, k, v, attn_mask=mask, enable_gqa=True))
+                b_ms, b_by = bound(*costs(case))
+                parts.append(f"group {group} {kind} bound {b_ms:.4f} ms ({b_by}), "
+                             f"plain {time_ms(plain, reps=3):.4f} ms, SDPA on "
+                             f"gathered K/V {lib:.4f} ms")
+        log(f"[groups] {n_kv} kv heads of head_dim {hd}: " + "; ".join(parts)
+            + f" ({smi})")
 
 
 # ---------------------------------------------------------------------------
@@ -2796,10 +2840,11 @@ def phase_swap_mover(smi) -> dict:
     of 16 and fp8 pages of 32 (rows of 2,176 B, scale lanes included),
     scattered and consecutive page lists, out to the pinned pool and back
     in to other device pages, against the plain version; a planted fault
-    (every destination page one further) must fail. Then one round trip of
-    SWAP_N bf16 pages, timed, against the host link's byte bound (its rate
-    measured here), the plain version and cudaMemcpy2DAsync per run.
-    Returns the times (ms) by name."""
+    (every destination page one further) must fail. Then one round trip of SWAP_N bf16 pages,
+    timed, against the host link's byte bound (its rate measured here, and
+    each way's share of it), the plain version and cudaMemcpy2DAsync per
+    run, and beside a decode-like load (overlap_swap). Returns the times
+    (ms) by name."""
     rate_in, rate_out = link_rates()
     log(f"[swap] host link: pinned -> card {rate_in / 1e9:.2f} GB/s, card -> "
         f"pinned {rate_out / 1e9:.2f} GB/s (one 1 GiB copy_ each way; {smi})")
@@ -2815,11 +2860,7 @@ def phase_swap_mover(smi) -> dict:
         pool = pinned_pool((32, n_host * ps, W), dtype)      # the engines' pool
         pool.view(torch.uint8).fill_(0xA5)
         page_bytes = 32 * ps * W * cache.element_size()
-        src = rng.permutation(n_dev)[:SWAP_N]
-        lists = {"scattered": (src, rng.permutation(n_host)[:SWAP_N],
-                               rng.permutation(np.setdiff1d(np.arange(n_dev), src))[:SWAP_N]),
-                 "consecutive": (np.arange(100, 100 + SWAP_N), np.arange(SWAP_N),
-                                 np.arange(300, 300 + SWAP_N))}
+        lists = swap_lists(rng, n_dev, n_host)
         for layout, (s, h, b) in lists.items():
             before, want = check_mover(cache, pool, s, h, b, ps,
                                        f"{kv} pages of {ps} ({page_bytes} B), {layout}")
@@ -2842,11 +2883,11 @@ def phase_swap_mover(smi) -> dict:
                                          copy_page_runs(pool, cache, h, b, ps)))
                 line = (f"[swap] round trip of {SWAP_N} {layout} bf16 pages "
                         f"({moved / 2**20:.0f} MiB a way): mover {t_out + t_in:.4f} "
-                        f"ms (out {t_out:.4f}, in {t_in:.4f}: {moved / (1e-3 * t_out) / 1e9:.2f} "
-                        f"and {moved / (1e-3 * t_in) / 1e9:.2f} GB/s); the link's "
-                        f"byte bound {bound_ms:.4f} ms; cudaMemcpy2DAsync per run "
-                        f"({page_runs(s, h).shape[1]} runs out, {page_runs(h, b).shape[1]} "
-                        f"in) {t_lib:.4f} ms")
+                        f"ms ({link_shares(moved, t_out, t_in, rate_out, rate_in)}); "
+                        f"the link's byte bound {bound_ms:.4f} ms; cudaMemcpy2DAsync "
+                        f"per run ({page_runs(s, h).shape[1]} runs out, "
+                        f"{page_runs(h, b).shape[1]} in) {t_lib:.4f} ms "
+                        f"({t_out + t_in - t_lib:+.4f} ms mover - copies)")
                 if layout == "scattered":
                     t_plain = time_ms(lambda: (swap_pages_plain(cache, pool, s, h, ps),
                                                swap_pages_plain(pool, cache, h, b, ps)),
@@ -2878,43 +2919,135 @@ def decode_like_load(ms):
     return load, n, time_ms(load, reps=3, warmup=1)
 
 
-def sweep_swap(smi):
-    """--sweep-swap: the mover's grid (MOVER_BLOCKS). A round trip of SWAP_N
-    scattered 8B bf16 pages at each grid, alone and on a side stream beside
-    a decode-like load, against cudaMemcpy2DAsync per run (the evidence for
-    swap_pages.py's MOVER_BLOCKS)."""
+def link_shares(moved, t_out, t_in, rate_out, rate_in) -> str:
+    """Each direction's time, its rate and its share of the host link's rate
+    that way (link_rates, measured in the same run)."""
+    return "; ".join(
+        f"{way} {t:.4f} ms, {moved / (1e-3 * t) / 1e9:.2f} GB/s, "
+        f"{100 * moved / (1e-3 * t) / rate:.1f}% of the link's {what}"
+        for way, t, rate, what in (("out", t_out, rate_out, "card -> pinned"),
+                                   ("in", t_in, rate_in, "pinned -> card")))
+
+
+def swap_lists(rng, n_dev, n_host):
+    """SWAP_N pages out and back in to other device pages, scattered and
+    consecutive: {layout: (cache pages, pool pages, cache pages back)}."""
+    src = rng.permutation(n_dev)[:SWAP_N]
+    return {"scattered": (src, rng.permutation(n_host)[:SWAP_N],
+                          rng.permutation(np.setdiff1d(np.arange(n_dev), src))[:SWAP_N]),
+            "consecutive": (np.arange(100, 100 + SWAP_N), np.arange(SWAP_N),
+                            np.arange(300, 300 + SWAP_N))}
+
+
+def mover_setup():
+    """An 8B bf16 cache of 1,024 pages of 16 and a pinned pool of 512 (64 KiB
+    a page and layer), seeded, the page lists (swap_lists) and the bytes a
+    way of SWAP_N pages, beside the host link's rate each way (link_rates)."""
     rate_in, rate_out = link_rates()
     ps, W, n_dev, n_host = 16, 2 * 8 * 128, 1024, 512
     g = torch.Generator(device=DEVICE).manual_seed(31)
-    rng = np.random.default_rng(31)
     cache = torch.empty(32, n_dev * ps, W, dtype=torch.bfloat16, device=DEVICE)
     cache.view(torch.uint8).random_(0, 256, generator=g)
     pool = pinned_pool((32, n_host * ps, W), torch.bfloat16)
-    s = rng.permutation(n_dev)[:SWAP_N]
-    h = rng.permutation(n_host)[:SWAP_N]
-    b = rng.permutation(np.setdiff1d(np.arange(n_dev), s))[:SWAP_N]
-    moved = SWAP_N * 32 * ps * W * 2
-    bound_ms = 1e3 * (moved / rate_out + moved / rate_in)
+    pool.view(torch.uint8).random_(0, 256, generator=torch.Generator().manual_seed(3))
+    lists = swap_lists(np.random.default_rng(31), n_dev, n_host)
+    return rate_in, rate_out, ps, cache, pool, lists, SWAP_N * 32 * ps * W * 2
+
+
+def sweep_swap(smi):
+    """--sweep-swap: the page mover's grid (MOVER_BLOCKS) on SWAP_N
+    scattered 8B bf16 pages (mover_setup): each way at several grids against
+    cudaMemcpy2DAsync per run and the host link's rate measured here, every
+    swap-in's pages checked; consecutive pages in; then round trips at
+    those grids alone and on a side stream beside a decode-like load."""
+    rate_in, rate_out, ps, cache, pool, lists, moved = mover_setup()
+    s, h, b = lists["scattered"]
+    gbs = lambda t: f"{moved / (1e-3 * t) / 1e9:.2f} GB/s"  # noqa: E731
+    t_lib_out = time_ms(lambda: copy_page_runs(cache, pool, s, h, ps))
+    t_lib_in = time_ms(lambda: copy_page_runs(pool, cache, h, b, ps))
+    log(f"[sweep swap] link pinned -> card {rate_in / 1e9:.2f} GB/s, card -> "
+        f"pinned {rate_out / 1e9:.2f} GB/s; {SWAP_N} scattered pages, "
+        f"{moved / 2**20:.0f} MiB a way; cudaMemcpy2DAsync per run: out "
+        f"{t_lib_out:.4f} ms ({gbs(t_lib_out)}), in {t_lib_in:.4f} ms "
+        f"({gbs(t_lib_in)}) ({smi})")
+    want_in = _page_bytes_of(pool, h, ps).to(DEVICE)
+    rows_in = page_slots(b, ps).to(DEVICE)
+    grids = (32, 16, 8, 4)
+    for way, src, dst, sp_, dp_, rate in (("in", pool, cache, h, b, rate_in),
+                                          ("out", cache, pool, s, h, rate_out)):
+        parts = []
+        for blocks in grids:
+            if way == "in":
+                cache.index_fill_(1, rows_in, 0)
+            t = time_ms(lambda: swap_pages(src, dst, sp_, dp_, ps, blocks=blocks))
+            if way == "in":
+                assert torch.equal(_page_bytes_of(cache, b, ps), want_in), blocks
+            parts.append(f"{blocks} blocks {t:.4f} ms ({gbs(t)}, "
+                         f"{100 * moved / (1e-3 * t) / rate:.1f}%)")
+        log(f"[sweep swap] {way}: " + "; ".join(parts) + f" ({smi})")
+    sc, hc, bc = lists["consecutive"]
+    t_in = time_ms(lambda: swap_pages(pool, cache, hc, bc, ps))
+    t_lib = time_ms(lambda: copy_page_runs(pool, cache, hc, bc, ps))
+    log(f"[sweep swap] consecutive pages in: swap_pages {t_in:.4f} ms "
+        f"({gbs(t_in)}), cudaMemcpy2DAsync per run {t_lib:.4f} ms ({gbs(t_lib)}) "
+        f"({smi})")
     lib = lambda: (copy_page_runs(cache, pool, s, h, ps),  # noqa: E731
                    copy_page_runs(pool, cache, h, b, ps))
-    t_lib = time_ms(lib)
-    load, n, alone = decode_like_load(t_lib)
+    load, n, alone = decode_like_load(time_ms(lib))
     m, ld, sw = overlap_ms(load, lib)
-    log(f"[sweep swap] link {rate_in / 1e9:.2f} / {rate_out / 1e9:.2f} GB/s, "
-        f"round-trip bound {bound_ms:.4f} ms; load {n} GEMMs, {alone:.4f} ms "
-        f"alone; cudaMemcpy2DAsync per run: {t_lib:.4f} ms alone, beside the "
-        f"load makespan {m:.4f} ms, load {ld:.4f}, swap {sw:.4f} ({smi})")
-    for blocks in (0, 1056, 264, 132, 66, 32, 16, 8):
+    log(f"[sweep swap] beside a decode-like load ({n} GEMMs, {alone:.4f} ms "
+        f"alone): cudaMemcpy2DAsync per run makespan {m:.4f} ms, load {ld:.4f} "
+        f"(+{100 * (ld / alone - 1):.1f}%), swap {sw:.4f} ({smi})")
+    for blocks in grids:
         def trip():
             swap_pages(cache, pool, s, h, ps, blocks=blocks)
             swap_pages(pool, cache, h, b, ps, blocks=blocks)
-        t_out = time_ms(lambda: swap_pages(cache, pool, s, h, ps, blocks=blocks))
-        t_in = time_ms(lambda: swap_pages(pool, cache, h, b, ps, blocks=blocks))
+        t = time_ms(trip)
         m, ld, sw = overlap_ms(load, trip)
-        log(f"[sweep swap] mover, {blocks or SWAP_N * 32} blocks: round trip "
-            f"{t_out + t_in:.4f} ms alone (out {t_out:.4f}, in {t_in:.4f}); "
-            f"beside the load makespan {m:.4f} ms, load {ld:.4f} "
+        log(f"[sweep swap] mover round trip, {blocks} blocks each way: {t:.4f} ms "
+            f"alone; beside the load makespan {m:.4f} ms, load {ld:.4f} "
             f"(+{100 * (ld / alone - 1):.1f}%), swap {sw:.4f} ({smi})")
+
+
+def compare_swap_norm(smi):
+    """--compare-swap-norm: the page mover and add_rms_norm through their
+    wrappers alone (swap_pages(src, dst, src_pages, dst_pages, page_size)
+    and add_rms_norm(x, r, w, eps)), so that this script copied into an
+    earlier checkout times that checkout's kernels: run the two in turns
+    (parent, change, change, parent) to compare builds on one card. The
+    mover: a round trip of SWAP_N 8B bf16 pages (mover_setup), scattered and
+    consecutive, each direction against the host link's rate measured here
+    and cudaMemcpy2DAsync per run, then beside a decode-like load
+    (overlap_swap).
+    add_rms_norm: at 8B width T = 1, 16, 128, 2,048 and Qwen2-0.5B's T = 1,
+    128, back to back (time_ms) and after a kernel of another kind
+    (time_alone_ms)."""
+    rate_in, rate_out, ps, cache, pool, lists, moved = mover_setup()
+    for layout, (s, h, b) in lists.items():
+        t_out = time_ms(lambda: swap_pages(cache, pool, s, h, ps))
+        t_in = time_ms(lambda: swap_pages(pool, cache, h, b, ps))
+        l_out = time_ms(lambda: copy_page_runs(cache, pool, s, h, ps))
+        l_in = time_ms(lambda: copy_page_runs(pool, cache, h, b, ps))
+        log(f"[compare swap] {layout}: mover round trip {t_out + t_in:.4f} ms "
+            f"({link_shares(moved, t_out, t_in, rate_out, rate_in)}); "
+            f"cudaMemcpy2DAsync per run {l_out + l_in:.4f} ms (out {l_out:.4f}, "
+            f"in {l_in:.4f}); link {rate_in / 1e9:.2f} / {rate_out / 1e9:.2f} GB/s "
+            f"({smi})")
+        if layout == "scattered":
+            overlap_swap(cache, pool, s, h, b, ps, t_out + t_in, smi)
+    del cache, pool
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    parts = []
+    for widths, name, ts in ((LLAMA3_8B, "8B", LAYER_TS), (QWEN2_05B, "Qwen2-0.5B", (1, 128))):
+        mc = LlamaModelConfig(num_layers=1, **widths)
+        for T in ts:
+            a = layer_inputs(gen, mc, T, DEVICE)
+            x, r, w = a["x"], a["r"], a["w"]
+            fn = lambda: lo.add_rms_norm(x, r, w, mc.rms_norm_eps)  # noqa: E731
+            parts.append(f"{name} T={T} {time_ms(fn):.4f} back to back, "
+                         f"{time_alone_ms(fn):.4f} after a kernel")
+    log(f"[compare] add_rms_norm: {'; '.join(parts)} ms ({smi})")
 
 
 def overlap_swap(cache, pool, s, h, b, ps, swap_ms, smi) -> dict:
@@ -4987,6 +5120,18 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
         f"kernels (at::native): {n_at} launches, {n_at / steps:.1f} a dispatch, "
         f"{at_ms:.3f} ms, {100 * at_share:.1f}% of device time")
     seen = device_launches(events, build.launch_counts)
+    if quant == "none":
+        # A kernel record spans the launch's whole stay on the device, from
+        # its start (which a programmatic launch may bring forward, to wait
+        # there for the kernel before) to its end: it hides none of the
+        # launch's time, whatever overlaps it.
+        recs = [e for e in events if is_kernel(e, "add_rms_norm_kernel")]
+        STEP_LAUNCH_MS["add_rms_norm"] = (
+            sum(e.self_device_time_total for e in recs) / 1e3
+            / sum(e.count for e in recs))
+        log(f"[profile {quant}] add_rms_norm: {STEP_LAUNCH_MS['add_rms_norm']:.4f} "
+            f"ms a launch on the device ({sum(e.count for e in recs)} launches: "
+            f"the decode steps' 128-token bucket and one prefill step's)")
     log(f"[profile {quant}] launches counted, and kernels the profiler saw on "
         f"the device: " + ", ".join(f"{k} {n} / {d}" for k, (n, d) in seen.items()
                                     if n or d))
@@ -6360,7 +6505,16 @@ def main() -> int:
 
     if sys.argv[1:] == ["--sweep-swap"]:
         build.build_kernels(("swap_pages",))
+        phase_swap_mover(smi)
         sweep_swap(smi)
+        log(f"[total] {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--compare-swap-norm"]:
+        t0 = time.perf_counter()
+        build.build_kernels(("swap_pages", "add_rms_norm"))
+        log(f"[build] swap_pages and add_rms_norm built in "
+            f"{time.perf_counter() - t0:.1f} s ({Path.cwd()})")
+        compare_swap_norm(smi)
         return 0
     if sys.argv[1:] == ["--layer-ops"]:
         build.build_kernels(lo.KERNELS)
@@ -6504,6 +6658,9 @@ def main() -> int:
               "quantize_kv": "fp8kv", "paged_decode_attention_pend": "ms8defer",
               "paged_prefill_attention": "spec",
               "paged_prefill_attention_bf16s": "spec", "swap_pages": "swap bf16"}
+    # add_rms_norm's row: its launches in the bf16 serving run's profile,
+    # since back to back (phase_layer_ops) each overlaps the one before.
+    results["add_rms_norm"]["ms"] = STEP_LAUNCH_MS["add_rms_norm"]
     # The page mover's row: a 128-page round trip (two launches), byte-equal.
     results["swap_pages"] = dict(
         max_abs_err=0.0, bound_by="bytes",

@@ -30,14 +30,27 @@
 // the sum of squares and the scaling; rope_qkv a block a token, a thread a
 // pair of 8-lane vectors (lanes c.. of a head's two halves); silu_mul a
 // thread an 8-lane vector.
+//
+// add_rms_norm runs at every T of a decode step far above its byte bound
+// (a few KiB to 4 MiB): what it costs is its chain of dependent latencies.
+// Since its redesign for Hopper the chain is one memory round trip, one
+// barrier and the stores: w is loaded with x and r (not after the sum of
+// squares), every warp reads all the warps' partial sums after a single
+// barrier (no second one behind a thread's total), a block of 512 threads
+// holds at most two vectors a thread (faster than 256 or 128 threads at
+// 8B width, as fast at Qwen2-0.5B's), and the launch is programmatic, so
+// that its start and its w overlap the kernel before it (the ordering and
+// why it is safe: add_rms_norm_kernel). A row split over a cluster of 2 or
+// 4 blocks (the sum exchanged through distributed shared memory) was
+// slower at every T it was timed at (PERF.md).
 
 #include "common.cuh"
 
 namespace swiftllm {
 namespace {
 
-constexpr int kNormThreads = 256;
-constexpr int kNormVecs = 4;     // 8-lane vectors a thread holds: D <= 8192
+constexpr int kNormThreads = 512;
+constexpr int kNormVecs = 2;     // 8-lane vectors a thread holds: D <= 8192
 constexpr int kRopeThreads = 128;
 constexpr int kSiluThreads = 256;
 
@@ -53,19 +66,57 @@ __device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// Programmatic dependent launch: waits until the grid this one depends on
+// has completed and its writes are visible; lets the next grid launch.
+// Both are no-ops for a launch without the programmatic dependency.
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // One token row a block: x <- bf16(x + r) (when r is given, written to
-// x_out), then h = bf16(bf16(x * rsqrt(sum(x^2) / D + eps)) * w).
+// x_out), then h = bf16(bf16(x * rsqrt(sum(x^2) / D + eps)) * w). Thread t
+// holds vectors j * kNormThreads + t.
+//
+// The order of its memory operations, and why it is safe under the
+// programmatic launch (the kernel may start while the kernel before it in
+// the stream still runs):
+// - w is requested first, before the grid wait: it is a model parameter,
+//   which no kernel of a step writes (only loading the weights does, before
+//   any step), so the kernel before cannot be writing it;
+// - every read of x and r, and every write, comes after the wait, which
+//   returns once the kernel before has completed and its writes are
+//   visible; so does the reuse of memory that kernel read and PyTorch's
+//   allocator then handed to x_out or h;
+// - the next launch is allowed at once (launch_dependents): a kernel
+//   launched after this one with the programmatic dependency waits on this
+//   grid's completion before it reads h or x_out (int8_matmul does, and
+//   any such kernel must); one launched without it starts after this one
+//   has ended.
+// The sum of squares takes one barrier: each warp's sum goes to shared
+// memory, and every thread then adds the warps' sums in the same order (so
+// every thread holds the same total).
 __global__ void __launch_bounds__(kNormThreads)
 add_rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ r,
                     const bf16* __restrict__ w, bf16* __restrict__ x_out,
                     bf16* __restrict__ h, int D, float eps) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * D;
   const int vecs = D / 8;
+  uint4 g[kNormVecs];
+#pragma unroll
+  for (int j = 0; j < kNormVecs; ++j) {
+    const int i = j * kNormThreads + threadIdx.x;
+    if (i < vecs) g[j] = *reinterpret_cast<const uint4*>(w + 8 * i);
+  }
+  grid_dep_launch();
+  grid_dep_wait();
   float v[kNormVecs][8];
   float ss = 0.f;
 #pragma unroll
   for (int j = 0; j < kNormVecs; ++j) {
-    const int i = threadIdx.x + j * kNormThreads;
+    const int i = j * kNormThreads + threadIdx.x;
     if (i < vecs) {
       load8(x + row + 8 * i, v[j]);
       if (r != nullptr) {
@@ -82,25 +133,23 @@ add_rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ r,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
   __shared__ float part[kNormThreads / 32];
-  __shared__ float inv_rms;
   if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = ss;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
+  float s = 0.f;
 #pragma unroll
-    for (int k = 0; k < kNormThreads / 32; ++k) s += part[k];
-    inv_rms = rsqrtf(s / static_cast<float>(D) + eps);
-  }
-  __syncthreads();
-  const float rs = inv_rms;
+  for (int k = 0; k < kNormThreads / 32; ++k) s += part[k];
+  const float rs = rsqrtf(s / static_cast<float>(D) + eps);
 #pragma unroll
   for (int j = 0; j < kNormVecs; ++j) {
-    const int i = threadIdx.x + j * kNormThreads;
+    const int i = j * kNormThreads + threadIdx.x;
     if (i < vecs) {
-      float g[8];
-      load8(w + 8 * i, g);
+      const __nv_bfloat162* gh = reinterpret_cast<const __nv_bfloat162*>(&g[j]);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[j][e] = round_bf16(v[j][e] * rs) * g[e];
+      for (int e = 0; e < 4; ++e) {
+        const float2 t = __bfloat1622float2(gh[e]);
+        v[j][2 * e] = round_bf16(v[j][2 * e] * rs) * t.x;
+        v[j][2 * e + 1] = round_bf16(v[j][2 * e + 1] * rs) * t.y;
+      }
       store8(h + row + 8 * i, v[j]);
     }
   }
@@ -188,18 +237,28 @@ silu_mul_kernel(const bf16* __restrict__ gate, const bf16* __restrict__ up,
 // cudaGetLastError() after its launch.
 
 // x, r, x_out, h [T, D]; w [D]. r null: no add, x_out unused (may be null).
-// T >= 1, D a multiple of 8 and at most 8,192.
+// T >= 1, D a multiple of 8 and at most 8,192. Launched with the
+// programmatic dependency (see add_rms_norm_kernel).
 extern "C" int add_rms_norm(const void* x, const void* r, const void* w, void* x_out,
                             void* h, int T, int D, float eps, void* stream) {
   using namespace swiftllm;
   if (T < 1 || D < 8 || D % 8 || D > 8 * kNormVecs * kNormThreads ||
       (r != nullptr && x_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  add_rms_norm_kernel<<<T, kNormThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(r),
-      static_cast<const bf16*>(w), static_cast<bf16*>(x_out), static_cast<bf16*>(h),
-      D, eps);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(T);
+  cfg.blockDim = dim3(kNormThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, add_rms_norm_kernel, static_cast<const bf16*>(x), static_cast<const bf16*>(r),
+      static_cast<const bf16*>(w), static_cast<bf16*>(x_out), static_cast<bf16*>(h), D,
+      eps);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // q, q_out [T, n_q * hd]; k, v [T, n_kv * hd]; biases [n_q * hd], [n_kv *

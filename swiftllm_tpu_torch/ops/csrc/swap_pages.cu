@@ -19,15 +19,21 @@
 // moves whole, its scale lanes included.
 //
 // What bounds it on the H100: the host link (PCIe), not device memory: every
-// byte crosses it once. The design: a grid of `blocks` persistent blocks (at
-// most one per (page, layer) unit) that stride over the units, 16-byte loads
-// and stores by neighbouring threads on neighbouring addresses, four loads in
-// flight a thread before its stores (a read of host memory across the link
-// takes microseconds, so many bytes must be in flight), streaming cache hints
-// (the moved bytes are not read again by this launch). A few blocks keep the
-// link busy; one block a unit would fill every SM with blocks that wait on the
-// link, and a step running beside the swap would wait for them (chip_smoke.py
-// --sweep-swap). The page lists are int32 device arrays: no host work per
+// byte crosses it once. The SMs write host memory at the link's rate; how
+// fast they read it is the host's to say: on some machines at about the
+// link's pinned -> card rate, on others at only 57-65% of it, whatever
+// issues the reads (wider loads, more of them in flight, more blocks, or
+// bulk copies through shared memory all stop at the same rate; PERF.md),
+// where the copy engines read at 80-100% of it. The design: a grid of
+// `blocks` persistent blocks (at most one per (page, layer) unit) that
+// stride over the units, 16-byte loads and stores by neighbouring threads on
+// neighbouring addresses, four loads in flight a thread before its stores (a
+// read of host memory across the link takes microseconds, so many bytes must
+// be in flight), streaming cache hints (the moved bytes are not read again by
+// this launch). A few blocks keep the link busy; one block a unit would fill
+// every SM with blocks that wait on the link, and a step running beside the
+// swap would wait for them (chip_smoke.py --sweep-swap). The page lists are
+// int32 device arrays: no host work per
 // page. It runs on the caller's stream and does not synchronise, so a
 // swap-out is ordered after the steps that wrote its pages and a swap-in
 // before the step that reads them.

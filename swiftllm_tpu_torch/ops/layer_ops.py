@@ -98,7 +98,14 @@ def add_rms_norm(x: torch.Tensor, r: torch.Tensor | None, weight: torch.Tensor,
                  eps: float):
     """``add_rms_norm_plain``'s (h, x'), from the kernel for bf16 CUDA
     tensors x and r [T, D] and weight [D] (D a multiple of 8, at most
-    MAX_NORM_D), from the plain version for CPU tensors."""
+    MAX_NORM_D), from the plain version for CPU tensors.
+
+    On the card ``weight`` must not be written by the kernel launched just
+    before this call on the stream: the launch is programmatic, and the
+    kernel reads ``weight`` before it waits for that kernel to complete (x
+    and r only after; ``csrc/layer_ops.cu``). A model's norm weight is safe:
+    no kernel of a step writes a parameter, only loading the weights does,
+    before any step."""
     ins = (x, weight) if r is None else (x, r, weight)
     if build.on_cpu("add_rms_norm", *ins):
         return add_rms_norm_plain(x, r, weight, eps)

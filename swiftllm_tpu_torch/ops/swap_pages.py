@@ -96,11 +96,12 @@ def _check(src, dst, src_pages, dst_pages, page_size):
     return pages.astype(np.int32)
 
 
-# The mover's grid: 32 persistent blocks keep the host link as busy as a
-# block a page and layer does (the link, not the blocks, sets the rate), and
-# leave the other SMs to a step that runs beside a swap (chip_smoke.py
-# --sweep-swap; PERF.md, PR 8).
-MOVER_BLOCKS = 32
+# The mover's grid: 8 persistent blocks move pages each way as fast as a
+# block a page and layer does (the host link, or the host's cap on the SMs'
+# reads of pinned memory, sets the rate; 4 blocks read slower), and leave
+# the other SMs to a step that runs beside a swap (chip_smoke.py
+# --sweep-swap, --compare-swap-norm; PERF.md).
+MOVER_BLOCKS = 8
 
 
 def swap_pages(src: torch.Tensor, dst: torch.Tensor, src_pages, dst_pages,

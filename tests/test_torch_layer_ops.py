@@ -80,6 +80,22 @@ def test_add_rms_norm_plain_matches_jax(dtype, residual):
         assert x2 is x
 
 
+@pytest.mark.parametrize("D", [4096, 896], ids=["8B", "Qwen2-0.5B"])
+def test_add_rms_norm_plain_matches_jax_at_model_widths(D):
+    """The same in bf16 with the residual at the widths the card holds the
+    kernel to (chip_smoke.py --layer-ops): Llama-3-8B's 4,096 lanes, and
+    Qwen2-0.5B's 896 (112 vectors of 8, fewer than a block's threads)."""
+    rng = np.random.default_rng(2)
+    T = 3
+    mag = 10.0 ** -(np.arange(T) % 4)[:, None]
+    x, jx = pair((rng.standard_normal((T, D)) * mag).astype(np.float32), "bf16")
+    r, jr = pair((rng.standard_normal((T, D)) * mag).astype(np.float32), "bf16")
+    w, jw = pair((1 + 0.1 * rng.standard_normal(D)).astype(np.float32), "bf16")
+    h, x2 = lo.add_rms_norm_plain(x, r, w, EPS)
+    close(h, jl.rms_norm(jx + jr, jw, EPS), "bf16")
+    close(x2, jx + jr, "bf16")
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("bias", [True, False])

@@ -11,7 +11,9 @@
 - The page mover's plain version (what ``swap_pages`` runs on CPU tensors,
   and what the card holds the CUDA kernel against) against a numpy page
   copy with the semantics of ``tests/test_native_page_copy.py``: scattered
-  and consecutive pages, cache to pool and pool to cache.
+  and consecutive pages, cache to pool and pool to cache; the same at the
+  page shapes the engines swap (8B and Qwen2-0.5B widths, bf16 pages of 16
+  rows and fp8 pages of 32 with their scale lanes); no launch but on a card.
 - The default ``EngineConfig`` (swap, 2,048 host pages) builds a model and
   serves, with and without LoRA adapters.
 
@@ -263,6 +265,57 @@ def test_mover_checks_its_pages():
         swap_pages(a, b, [0, 1], [1, 1], 4)
     with pytest.raises(TypeError):
         swap_pages(a, b.float(), [0], [0], 4)
+
+
+# (row lanes, element type, rows a page) of the pages the engines swap: K
+# and V of every kv head a row (8B: 8 of 128; Qwen2-0.5B: 2 of 64), bf16
+# pages of 16 rows, fp8 rows of e4m3 bytes ending in 128 scale lanes in
+# pages of 32.
+PAGE_SHAPES = {"8B bf16": (2 * 8 * 128, torch.bfloat16, 16),
+               "8B fp8": (2 * 8 * 128 + 128, torch.float8_e4m3fn, 32),
+               "Qwen2-0.5B bf16": (2 * 2 * 64, torch.bfloat16, 16),
+               "Qwen2-0.5B fp8": (2 * 2 * 64 + 128, torch.float8_e4m3fn, 32)}
+
+
+@pytest.mark.parametrize("layout", ["scattered", "consecutive"])
+@pytest.mark.parametrize("kv", list(PAGE_SHAPES))
+def test_mover_plain_at_model_pages(kv, layout):
+    """The mover's plain version at the page shapes the card moves (what
+    chip_smoke.py holds the kernel to, byte for byte): 6 of 12 cache pages
+    out to 6 of 10 pool pages and back in to other cache pages, two layers;
+    every named page equal to its source and every other byte unchanged."""
+    lanes, dtype, spp = PAGE_SHAPES[kv]
+    rng = np.random.default_rng(7)
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    cache = torch.from_numpy(rng.integers(0, 256, (2, 12 * spp, lanes * itemsize),
+                                          dtype=np.uint8))
+    pool = torch.from_numpy(rng.integers(0, 256, (2, 10 * spp, lanes * itemsize),
+                                         dtype=np.uint8))
+    if layout == "scattered":
+        out, host = rng.permutation(12)[:6], rng.permutation(10)[:6]
+        back = rng.permutation(np.setdiff1d(np.arange(12), out))[:6]
+    else:
+        out, host, back = np.arange(1, 7), np.arange(3, 9), np.arange(6, 12)
+    want_pool = pool.numpy().copy()
+    _ref_copy(want_pool, cache.numpy(), host, out, spp)
+    want_cache = cache.numpy().copy()
+    _ref_copy(want_cache, want_pool, back, host, spp)
+    swap_pages(cache.view(dtype), pool.view(dtype), out, host, spp)
+    np.testing.assert_array_equal(pool.numpy(), want_pool)
+    swap_pages(pool.view(dtype), cache.view(dtype), host, back, spp)
+    np.testing.assert_array_equal(cache.numpy(), want_cache)
+
+
+def test_mover_launches_or_raises_off_the_cpu():
+    """Off the CPU the mover launches its kernel or raises: tensors on a
+    device it cannot launch on, or an unpinned host side beside one, are
+    refused, never moved by the plain version."""
+    a = torch.zeros(2, 8, 16, dtype=torch.bfloat16, device="meta")
+    b = torch.zeros(2, 8, 16, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="pinned"):
+        swap_pages(a, b, [0], [1], 4)
+    with pytest.raises(ValueError, match="pinned"):
+        swap_pages(torch.zeros(2, 8, 16, dtype=torch.bfloat16), b, [0], [1], 4)
 
 
 @pytest.mark.parametrize("lora", ["", "dummy:a,b"], ids=["base", "lora"])
