@@ -13,8 +13,9 @@
                                                  # [serve qwen2]
     python3 chip_smoke.py --sweep-swap           # a measurement, not the smoke
     python3 chip_smoke.py --compare-swap-norm    # a measurement, not the smoke
+    python3 chip_smoke.py --compare-rope         # a measurement, not the smoke
     python3 chip_smoke.py --parallel             # phase 6 alone
-    python3 chip_smoke.py --quant                # the weight and fp8 row
+    python3 chip_smoke.py --quant                # the weight and layer
                                                  # kernels' phases alone
     python3 chip_smoke.py --layer-ops            # the [layer_ops] phase alone
 
@@ -57,21 +58,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      dropped, INT4's halves summed before rounding, one chunk's products
      dropped at a unit's start or end, a segment of a cut unit left out
      of the merge) that must fail, and no build whose ptxas report says
-     it serialised the wide kernel's wgmmas; the fp8 KV row
-     build (quantize_kv, no Pallas kernel: XLA's fusion of the quantizing
-     kv_new build) at T = 1, 128 and 2,048, byte-equal to its plain
-     version at magnitudes that reach both ends of the scale clip and on
-     rows of zeros, with a planted fault (the scale lanes swapped) that
-     must fail, timed against the plain version's launches; the layer's
-     elementwise kernels (layer_ops: add_rms_norm, rope_qkv, silu_mul, no
-     Pallas kernel: XLA's fusions in layer_step) at 8B width and T = 1, 16,
-     128 and 2,048 and at Qwen2-0.5B's (head_dim 64, q/k/v biases) at T = 1
-     and 128, rope_qkv bit-equal to its plain version in both layouts, the
-     other two within one bf16 rounding, four planted faults (eps left out,
-     the residual not written back, a plus in RoPE, gate and up swapped)
+     it serialised the wide kernel's wgmmas; the layer's
+     elementwise kernels (layer_ops: add_rms_norm, rope_qkv, rope_qkv_fp8,
+     silu_mul, no Pallas kernel: XLA's fusions in layer_step, rope_qkv_fp8's
+     with the quantizing kv_new build of an fp8 cache) at 8B width and T =
+     1, 16, 128 and 2,048, at Qwen2-0.5B's (head_dim 64, q/k/v biases), at
+     a tp = 2 shard's of 8B (4 kv heads of 128) and at Llama-2-7B's and
+     Llama-2-13B's (32 and 40 heads of 128, two and four rope units a
+     thread) at T = 1 and 128, rope_qkv bit-equal to its plain version, rope_qkv_fp8 byte-equal to
+     its plain version (rope_qkv_plain, then quantize_kv_plain) on rows of
+     magnitudes 1e-4 to 1e7 that reach both ends of the scale clip, a row of
+     zeros, an outlier and a row whose rotated k rounds onto a scale's edge,
+     the other two within one bf16 rounding, seven planted faults (eps left
+     out, the residual not written back, a plus in RoPE, gate and up
+     swapped, the fp8 row's K and V scale lanes swapped, its K scale taken
+     before the bf16 rounding, two kv heads' rows swapped)
      that must fail, each timed beside its byte bound, its plain version and
-     (add_rms_norm) F.rms_norm, add_rms_norm also each launch after a
-     kernel of another kind; the
+     (add_rms_norm) F.rms_norm, the three programmatic launches
+     (add_rms_norm, rope_qkv, rope_qkv_fp8) also each launch after a kernel
+     of another kind; the
      decode kernel's deferred-commit (`pend`) variant on 16 rows (3 of
      them pad rows) with histories of 1 to 2,048 keys, for npend 1, 2, 4
      and 8 of a window of 8, with a sliding
@@ -103,9 +108,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      width in bf16, with INT4 and with INT8 weights in buckets of 256 and
      512 tokens (every projection and the head through the weight kernel,
      no int8 weight converted; quant.proj's plain run converts every one), with
-     an fp8 KV cache (quantize_kv once a layer), and with INT4 and fp8 (every
-     kernel run: add_rms_norm 2L + 1 times, rope_qkv and silu_mul L times;
-     the plain run none of them); at
+     an fp8 KV cache (rope_qkv_fp8 in place of rope_qkv, no other launch for
+     the rows), and with INT4 and fp8 (every kernel run: add_rms_norm 2L + 1
+     times, rope_qkv or rope_qkv_fp8 and silu_mul L times; the plain run
+     none of them); at
      Mistral-7B width with its window of 4096 and rows whose histories
      exceed it; then 8 decode steps of 8 rows at
      8B width, 4 layers, as one multi-step window (fused write, and deferred
@@ -148,8 +154,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      dequantize then F.linear, for the share of device time its copies
      took; the prefill step's device ms, TTFT and KV pages of each
      profile), 8B with an fp8 KV cache (which
-     also serves one prompt of 16,500 tokens; quantize_kv's device time a
-     step), and Mistral-7B-v0.1 width
+     also serves one prompt of 16,500 tokens; rope_qkv_fp8 once a layer in
+     every step, its device time a launch), and Mistral-7B-v0.1 width
      with its sliding window (prompts of 5,000 and 8,192 tokens among the
      8); then the bf16 8B engine three times more with logprobs on and
      three of the 8 requests sampled (temperature 0.8, top-k 20, seeded):
@@ -232,12 +238,17 @@ beside a decode-like load (the evidence for swap_pages.py's MOVER_BLOCKS).
 With --compare-swap-norm it builds swap_pages and add_rms_norm and times
 both through their wrappers alone (the mover's round trip each way with
 the link's shares and beside the load; add_rms_norm back to back and
-after a kernel): run it from two checkouts in turns.
+after a kernel): run it from two checkouts in turns. With --compare-rope
+it builds the rope kernels (and the row build where a checkout has it
+apart) and times them through their wrappers alone (8B T = 1, 16, 128,
+2,048 and Qwen2-0.5B T = 1, 128, back to back and after a kernel): run it
+from two checkouts in turns.
 With --parallel it builds the kernels and runs only phase 6. With
 --layer-ops it builds only the layer kernels and runs only the [layer_ops]
 phase. With --quant it builds the kernels and runs
 only the [int4] and [int8] phases, both wide configurations, phase 3's INT8
-and INT4 steps, the [quantize_kv] phase and phase 3's fp8 step.
+and INT4 steps, the [layer_ops] phase (the fp8 row build is rope_qkv_fp8)
+and phase 3's fp8 step.
 
 It imports nothing of JAX. Reports too long for the console (the kernels'
 ptxas report, the profiler tables) go to chiprun_out/, and so does a copy of
@@ -268,14 +279,14 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
-from swiftllm_tpu_torch.models.llama import (compute_inv_freq, quantize_kv,
-                                             rope_tables)
+from swiftllm_tpu_torch.models.llama import compute_inv_freq, rope_tables
 from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops import int4_matmul as im
 from swiftllm_tpu_torch.ops import int8_matmul as im8
 from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.ops import quantize_kv as qkv
+from swiftllm_tpu_torch.ops.quantize_kv import quantize_kv_plain
 from swiftllm_tpu_torch.ops.swap_pages import (page_slots, pinned_pool,
                                                swap_pages, swap_pages_plain)
 from swiftllm_tpu_torch.parallel.mesh import SINGLE
@@ -326,8 +337,10 @@ DEVICE = "cuda"
 SOURCE_OF = {n: f"swiftllm_tpu_torch/ops/csrc/{src}"
              for n, (src, _) in build.SOURCES.items()}
 # The kernels every step of the kernel path launches: attention and the
-# layer's elementwise work.
-PATH_KERNELS = pa.KERNELS + lo.KERNELS
+# layer's elementwise work; with an fp8 cache rope_qkv_fp8, which builds the
+# cache rows too, in place of rope_qkv.
+PATH_KERNELS = pa.KERNELS + ("add_rms_norm", "rope_qkv", "silu_mul")
+FP8_PATH_KERNELS = pa.KERNELS + ("add_rms_norm", "rope_qkv_fp8", "silu_mul")
 REPLACES = {
     "paged_decode_attention": "swiftllm_tpu/ops/paged_attention.py:248",
     "paged_decode_attention_pend": "swiftllm_tpu/ops/paged_attention.py:297",
@@ -335,15 +348,16 @@ REPLACES = {
     "paged_prefill_attention": "swiftllm_tpu/ops/paged_attention.py:843",
     "paged_prefill_attention_bf16s": "swiftllm_tpu/ops/paged_attention.py:1163",
     "int4_matmul": "swiftllm_tpu/ops/int4_matmul.py:61",
-    # No Pallas kernel: XLA's fusions, of the int8 -> bf16 convert into
-    # proj's dot, and of the quantizing kv_new build.
+    # No Pallas kernel: XLA's fusion of the int8 -> bf16 convert into
+    # proj's dot.
     "int8_matmul": "swiftllm_tpu/worker/quant.py:112",
-    "quantize_kv": "swiftllm_tpu/models/llama.py:587",
     # No Pallas kernel: XLA's fusions in layer_step (510) of rms_norm with
     # the residual add, of the bias adds, apply_rope and the kv_new
-    # concatenation, and of SiLU times up.
+    # concatenation (with an fp8 cache, the quantizing kv_new build), and
+    # of SiLU times up.
     "add_rms_norm": "swiftllm_tpu/models/llama.py:244",
     "rope_qkv": "swiftllm_tpu/models/llama.py:208",
+    "rope_qkv_fp8": "swiftllm_tpu/models/llama.py:587",
     "silu_mul": "swiftllm_tpu/models/llama.py:619",
     # No Pallas kernel: the swap's gather and device_get.
     "swap_pages": "swiftllm_tpu/worker/model.py:397",
@@ -421,7 +435,7 @@ def fp8_rows(g, n, KH, device):
     """n cache rows of N(0, 1) K and V values quantized as the model
     quantizes them (e4m3 bytes, scale lanes last), drawn from g."""
     kv = torch.randn(n, 2 * KH, generator=g, device=device)
-    return quantize_kv(kv[:, :KH], kv[:, KH:])
+    return quantize_kv_plain(kv[:, :KH], kv[:, KH:])
 
 
 def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
@@ -1229,85 +1243,6 @@ def phase_bf16s(device, smi) -> dict:
     return row
 
 
-QKV_TS = (1, 128, 2048)          # a decode step, the serving bucket, prefill
-QKV_TABLE = 128                   # the kernel table's row (PERF.md)
-
-
-def qkv_rows(gen, T, KH, device):
-    """K and V rows (bf16) of T tokens whose magnitudes run from 1e-7 to
-    1e7 over the rows (15 decades; V's 5 times K's), so that both ends of
-    the scale clip act (absmax 1e-7: e clipped at 8; 1e7: at -9, where the
-    clip to +-448 acts too), with rows of zeros in K and in V."""
-    mag = 10.0 ** ((torch.arange(T, device=device) % 15) - 7.0)[:, None]
-    k = torch.randn(T, KH, generator=gen, device=device) * mag
-    v = torch.randn(T, KH, generator=gen, device=device) * mag * 5
-    k[3::7] = 0.0
-    v[5::11] = 0.0
-    return k.to(torch.bfloat16), v.to(torch.bfloat16)
-
-
-def lanes_swapped(kf, vf):
-    """The planted fault: the plain rows with the K and V scale lanes
-    swapped."""
-    rows = qkv.quantize_kv_plain(kf, vf).view(torch.uint8).clone()
-    KH = kf.shape[1]
-    rows[:, [2 * KH, 2 * KH + 1]] = rows[:, [2 * KH + 1, 2 * KH]]
-    return rows
-
-
-def bytes_diff(got, want, k, v) -> str:
-    """Where two fp8 row builds differ: how many bytes, and the first few
-    (row, lane, got, want, the input value there)."""
-    g, w = got.view(torch.uint8), want.view(torch.uint8)
-    where = (g != w).nonzero()[:6].tolist()
-    kv = torch.cat([k, v], dim=1).float()
-    return f"{int((g != w).sum())} bytes differ: " + ", ".join(
-        f"({r}, {c}: {g[r, c].item():#04x} vs {w[r, c].item():#04x}"
-        f"{f', x {kv[r, c].item():.4g}' if c < kv.shape[1] else ''})"
-        for r, c in where)
-
-
-def phase_quantize_kv(device, smi) -> dict:
-    """quantize_kv against quantize_kv_plain at 8B width (8 kv heads of
-    128) and T in QKV_TS: the bytes equal, at magnitudes that reach both
-    ends of the scale clip and on rows of zeros (qkv_rows); the planted
-    fault (lanes_swapped) must differ. Times the kernel, the plain version
-    (some 17 launches) and the bf16 build (one cat) against the bound.
-    Returns the kernel table's row (T = QKV_TABLE)."""
-    gen = torch.Generator(device=device).manual_seed(9)
-    KH = LLAMA3_8B["num_kv_heads"] * LLAMA3_8B["head_dim"]
-    row = None
-    for T in QKV_TS:
-        k, v = qkv_rows(gen, T, KH, device)
-        got = qkv.quantize_kv(k, v)
-        want = qkv.quantize_kv_plain(k, v)
-        assert got.shape == want.shape == (T, 2 * KH + pa.FP8_SCALE_LANES)
-        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), \
-            f"quantize_kv T={T}: {bytes_diff(got, want, k, v)}"
-        scales = want[:, 2 * KH:2 * KH + 2].float()
-        clip = (want[:, :2 * KH].float().abs() == 448).sum().item()
-        if T > 1:
-            assert scales.max() == 2.0 ** 8 and scales.min() == 2.0 ** -9, scales
-            assert clip > 0
-            bad = lanes_swapped(k, v)
-            assert not torch.equal(got.view(torch.uint8), bad), \
-                "the K and V scale lanes swapped pass"
-        ms = time_ms(lambda: qkv.quantize_kv(k, v))
-        plain_ms = time_ms(lambda: qkv.quantize_kv_plain(k, v))
-        cat_ms = time_ms(lambda: torch.cat([k, v], dim=1))
-        bound_ms, bound_by = bound(T * 2 * KH * 2 + T * (2 * KH + pa.FP8_SCALE_LANES), 0)
-        log(f"[quantize_kv] T={T} (8 kv heads of 128): bytes equal to the plain "
-            f"version (scales {scales.min().item():g} to {scales.max().item():g}, "
-            f"{clip} values at the +-448 clip"
-            f"{', scale lanes swapped: rejected' if T > 1 else ''}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the bf16 build (cat) "
-            f"{cat_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) ({smi})")
-        if T == QKV_TABLE:
-            row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    return row
-
-
 LAYER_TS = (1, 16, 128, 2048)    # a decode step, a decode bucket, the serving
                                   # bucket, prefill
 LAYER_TABLE = 128                  # the kernel table's row (PERF.md)
@@ -1316,6 +1251,15 @@ QWEN2_05B = dict(num_q_heads=14, num_kv_heads=2, hidden_size=896, head_dim=64,
                  ffn_inter_dim=4864, vocab_size=151936,
                  max_position_embeddings=32768, rms_norm_eps=1e-6,
                  rope_theta=1000000.0, qkv_bias=True)
+# The layer kernels' widths: (name, Ts). A tp = 2 rank's shard of
+# Llama-3-8B holds 16 q and 4 kv heads and half the MLP. Llama-2-7B's and
+# Llama-2-13B's heads (32 and 40, no GQA) give a token 1,024 and 1,280 rope
+# units, past one a thread: the rope kernels' two- and four-unit builds.
+LAYER_WIDTHS = (("8B", LAYER_TS),
+                ("Qwen2-0.5B", (1, 128)),
+                ("8B tp=2 shard", (1, 128)),
+                ("Llama-2-7B", (1, 128)),
+                ("Llama-2-13B", (1, 128)))
 # One bf16 rounding of the output, as tests/test_torch_layer_ops.py states
 # it: add_rms_norm's h (a variance summed in another order, the card's
 # rsqrtf) and silu_mul (expf) may land a bf16 step (2^-8 to 2^-7 of the
@@ -1323,6 +1267,26 @@ QWEN2_05B = dict(num_q_heads=14, num_kv_heads=2, hidden_size=896, head_dim=64,
 # O(1): eps left out (on rows of mean square 1e-6, where eps = 1e-5
 # triples the scale), gate and up swapped.
 LAYER_RTOL = 2.0 ** -7
+# rope_qkv_fp8's rows: q, k and v scaled by these magnitudes in turn (dummy
+# weights give K/V near 1e-4; 1e7 is past the lowest scale, where the clip
+# to +-448 acts), v three times k.
+FP8_MAGNITUDES = (1e-4, 1.0, 3e4, 1e7)
+
+
+# meta-llama/Llama-2-7b-hf's and Llama-2-13b-hf's config.json.
+LLAMA2_7B = dict(num_q_heads=32, num_kv_heads=32, hidden_size=4096, head_dim=128,
+                 ffn_inter_dim=11008, vocab_size=32000,
+                 max_position_embeddings=4096, rms_norm_eps=1e-5,
+                 rope_theta=10000.0)
+LLAMA2_13B = dict(LLAMA2_7B, num_q_heads=40, num_kv_heads=40, hidden_size=5120,
+                  ffn_inter_dim=13824)
+
+
+def layer_widths(name: str) -> dict:
+    return {"8B": LLAMA3_8B, "Qwen2-0.5B": QWEN2_05B,
+            "8B tp=2 shard": dict(LLAMA3_8B, num_q_heads=16, num_kv_heads=4,
+                                  ffn_inter_dim=7168),
+            "Llama-2-7B": LLAMA2_7B, "Llama-2-13B": LLAMA2_13B}[name]
 
 
 def layer_close(got, want) -> tuple[bool, float]:
@@ -1334,11 +1298,11 @@ def layer_close(got, want) -> tuple[bool, float]:
     return ok, err.max().item()
 
 
-def rope_plus_fault(q, k, v, tables, bias=None, split=False):
+def rope_plus_fault(q, k, v, tables, bias=None):
     """The planted fault: RoPE with sin negated (x1*cos + x2*sin in place
     of the minus, and the second half's plus a minus)."""
     cos, sin = tables
-    return lo.rope_qkv_plain(q, k, v, (cos, -sin), bias, split=split)
+    return lo.rope_qkv_plain(q, k, v, (cos, -sin), bias)
 
 
 def layer_inputs(gen, mc, T, device):
@@ -1367,13 +1331,125 @@ def layer_inputs(gen, mc, T, device):
         gate=n(T, inter, std=2.0).to(bf), up=n(T, inter).to(bf))
 
 
-def check_layer_ops(a, eps, label) -> dict:
-    """The three kernels against their plain versions on inputs `a`
+TRAP_ROW = 3     # fp8_inputs' row whose rotated k rounds onto a scale's edge
+
+
+def fp8_inputs(a: dict) -> dict:
+    """rope_qkv_fp8's inputs from layer_inputs' `a`: q, k and v rows times
+    FP8_MAGNITUDES in turn (the biases as drawn), and where the rows are
+    there: row 1 of k and v all zero after the bias add (k = -bk, v = -bv),
+    row 2 of v one outlier (1,000 times its row), and, without biases, row
+    TRAP_ROW a trap for a scale taken before the bf16 rounding: its rotated
+    k's absmax is x1 * cos - x2 * sin at lane 0 with cos 1, sin 0.5, x1 =
+    1.75, x2 = -0.002, so 1.751 before the rounding (scale 64) and 1.75
+    after it (scale 128), every other value of the row below 1e-3."""
+    T = a["q"].shape[0]
+    mag = torch.tensor(FP8_MAGNITUDES, device=a["q"].device).repeat(
+        cdiv(T, len(FP8_MAGNITUDES)))[:T, None]
+    bias = a["bias"]
+    q, k, v = ((a[n].float() * mag * s).to(torch.bfloat16)
+               for n, s in (("q", 1), ("k", 1), ("v", 3)))
+    cos, sin = (t.clone() for t in a["tables"])
+    if T > 2:
+        k[1] = 0 if bias is None else -bias[1]
+        v[1] = 0 if bias is None else -bias[2]
+        v[2, 11] = 1000 * mag[2, 0]
+    if T > TRAP_ROW and bias is None:
+        half = cos.shape[-1]
+        k[TRAP_ROW] = (a["k"][TRAP_ROW].float() * 1e-4).to(torch.bfloat16)
+        k[TRAP_ROW, 0], k[TRAP_ROW, half] = 1.75, -0.002
+        cos[TRAP_ROW, 0, 0], sin[TRAP_ROW, 0, 0] = 1.0, 0.5
+    return dict(q=q, k=k, v=v, tables=(cos, sin), bias=bias)
+
+
+def fp8_row_faults(q, k, v, tables, bias, n_kv: int) -> dict:
+    """The planted faults of the fp8 row, each as its bytes: the K and V
+    scale lanes swapped; the scales taken from the rotated k before its
+    bf16 rounding (the values scaled as they should be); the first two kv
+    heads' K lanes swapped."""
+    _, want = lo.rope_qkv_fp8_plain(q, k, v, tables, bias)
+    rows = want.view(torch.uint8)
+    KH = k.shape[1]
+    hd = KH // n_kv
+    swapped = rows.clone()
+    swapped[:, [2 * KH, 2 * KH + 1]] = rows[:, [2 * KH + 1, 2 * KH]]
+    heads = rows.clone()
+    heads[:, :hd], heads[:, hd:2 * hd] = rows[:, hd:2 * hd], rows[:, :hd]
+    # The scale from the unrounded rotation, in f32 from the same bf16
+    # products as the plain version rounds them.
+    kb = k if bias is None else k + bias[1]
+    vb = v if bias is None else v + bias[2]
+    cos, sin = (t.float() for t in tables)
+    x1, x2 = kb.view(k.shape[0], n_kv, hd).float().chunk(2, dim=-1)
+    r = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    unrounded = torch.cat([r(x1 * cos) - r(x2 * sin), r(x2 * cos) + r(x1 * sin)],
+                          dim=-1).reshape(k.shape[0], KH)
+    _, kv = lo.rope_qkv_plain(q, k, v, tables, bias)
+    sk = qkv.fp8_scales(unrounded.abs().amax(dim=1))
+    sv = qkv.fp8_scales(vb.float().abs().amax(dim=1))
+    stored = torch.cat([kv[:, :KH].float() * sk[:, None], kv[:, KH:].float() * sv[:, None]],
+                       dim=1).clamp(-448.0, 448.0)
+    lanes = stored.new_zeros(k.shape[0], pa.FP8_SCALE_LANES)
+    lanes[:, 0], lanes[:, 1] = sk, sv
+    early = torch.cat([stored, lanes], dim=1).to(pa.FP8).view(torch.uint8)
+    return {"the K and V scale lanes swapped": swapped,
+            "the K scale taken before the bf16 rounding": early,
+            "two kv heads' rows swapped": heads}
+
+
+def bytes_diff(got, want) -> str:
+    """Where two fp8 row builds differ: how many bytes, and the first few
+    (row, lane, got, want)."""
+    g, w = got.view(torch.uint8), want.view(torch.uint8)
+    where = (g != w).nonzero()[:6].tolist()
+    return f"{int((g != w).sum())} bytes differ: " + ", ".join(
+        f"({r}, {c}: {g[r, c].item():#04x} vs {w[r, c].item():#04x})"
+        for r, c in where)
+
+
+def check_rope_fp8(a, n_kv: int, label: str) -> str:
+    """rope_qkv_fp8 against its plain version (rope_qkv_plain, then
+    quantize_kv_plain) on fp8_inputs(a): q_rot bit-equal, the row byte-equal;
+    where the special rows are there (T > TRAP_ROW), the planted faults
+    (fp8_row_faults) must differ from the kernel's row, the K scale's on the
+    trap row (without biases). Returns what it checked."""
+    f = fp8_inputs(a)
+    q, k, v, tables, bias = f["q"], f["k"], f["v"], f["tables"], f["bias"]
+    q2, row = lo.rope_qkv_fp8(q, k, v, tables, bias)
+    want_q, want = lo.rope_qkv_fp8_plain(q, k, v, tables, bias)
+    assert torch.equal(q2, want_q), f"{label}: rope_qkv_fp8's q_rot differs"
+    assert torch.equal(row.view(torch.uint8), want.view(torch.uint8)), \
+        f"{label}: rope_qkv_fp8's row: {bytes_diff(row, want)}"
+    T, KH = k.shape
+    scales = want[:, 2 * KH:2 * KH + 2].float()
+    clip = int((want[:, :2 * KH].float().abs() == 448).sum())
+    n_faults = 0
+    if T > TRAP_ROW:
+        assert scales.min() == 2.0 ** -9 and clip > 0, (scales, clip)
+        assert scales[1].tolist() == [256.0, 256.0], scales[1]   # the zero row
+        for fault, bad in fp8_row_faults(q, k, v, tables, bias, n_kv).items():
+            got = row.view(torch.uint8)
+            if fault.startswith("the K scale"):
+                if bias is not None:
+                    continue
+                assert scales[TRAP_ROW, 0] == 128.0, scales[TRAP_ROW]
+                got, bad = got[TRAP_ROW], bad[TRAP_ROW]
+            assert not torch.equal(got, bad), f"{label}: {fault} passes"
+            n_faults += 1
+    return (f"rope_qkv_fp8 byte-equal (scales {scales.min().item():g} to "
+            f"{scales.max().item():g}, {clip} values at the +-448 clip; "
+            f"{n_faults} planted faults rejected)")
+
+
+def check_layer_ops(a, eps, n_kv, label) -> tuple[dict, str]:
+    """The four kernels against their plain versions on inputs `a`
     (layer_inputs): add_rms_norm with and without the residual (x' bit-equal,
-    h within one rounding), rope_qkv bit-equal in both layouts, silu_mul
-    within one rounding; the planted faults (eps left out, the residual not
-    written back, the plus in RoPE, gate and up swapped) must fail the same
-    checks. Returns each kernel's max |err|."""
+    h within one rounding), rope_qkv bit-equal, rope_qkv_fp8 byte-equal on
+    its own inputs (check_rope_fp8), silu_mul within one rounding; the
+    planted faults (eps left out, the residual not written back, the plus
+    in RoPE, gate and up swapped, and rope_qkv_fp8's) must fail the same
+    checks. Returns each kernel's max |err| and what rope_qkv_fp8's check
+    saw."""
     x, r, w = a["x"], a["r"], a["w"]
     h, x2 = lo.add_rms_norm(x, r, w, eps)
     want_h, want_x = lo.add_rms_norm_plain(x, r, w, eps)
@@ -1394,12 +1470,10 @@ def check_layer_ops(a, eps, label) -> dict:
     assert torch.equal(q2, want_q) and torch.equal(kv, want_kv), \
         (f"{label}: rope_qkv differs, q {(q2.float() - want_q.float()).abs().max()}, "
          f"kv {(kv.float() - want_kv.float()).abs().max()}")
-    _, (k3, v3) = lo.rope_qkv(q, k, v, tables, bias, split=True)
-    assert torch.equal(torch.cat([k3, v3], dim=1), want_kv), \
-        f"{label}: rope_qkv's split rows differ"
     fq, fkv = rope_plus_fault(q, k, v, tables, bias)
     assert not (torch.equal(q2, fq) or torch.equal(kv, fkv)), \
         f"{label}: RoPE with the plus passes"
+    fp8_seen = check_rope_fp8(a, n_kv, label)
 
     gate, up = a["gate"], a["up"]
     out = lo.silu_mul(gate, up)
@@ -1407,65 +1481,80 @@ def check_layer_ops(a, eps, label) -> dict:
     assert ok_s, f"{label}: silu_mul off by {err_s}"
     assert not layer_close(out, lo.silu_mul_plain(up, gate))[0], \
         f"{label}: gate and up swapped passes"
-    return dict(add_rms_norm=err_h, rope_qkv=0.0, silu_mul=err_s)
+    return dict(add_rms_norm=err_h, rope_qkv=0.0, rope_qkv_fp8=0.0,
+                silu_mul=err_s), fp8_seen
 
 
 def layer_costs(a) -> dict:
     """Bytes each kernel must move (each input read once, each output
-    written once): (kernel, plain, library) calls and their byte counts."""
+    written once)."""
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
     x, r, w = a["x"], a["r"], a["w"]
     q, k, v, (cos, sin), bias = a["q"], a["k"], a["v"], a["tables"], a["bias"]
     gate, up = a["gate"], a["up"]
+    T, KH = k.shape
+    rope_in = nb(q, k, v, cos, sin, *(bias or ()))
     return {"add_rms_norm": nb(x, r, w) + 2 * nb(x),
-            "rope_qkv": 2 * nb(q, k, v) + nb(cos, sin, *(bias or ())),
+            "rope_qkv": rope_in + nb(q, k, v),
+            "rope_qkv_fp8": rope_in + nb(q) + T * (2 * KH + pa.FP8_SCALE_LANES),
             "silu_mul": 3 * nb(gate)}
 
 
+def layer_calls(a, eps) -> dict:
+    """Each layer kernel's (wrapper, plain version, library call or None)
+    on inputs `a`; rope_qkv_fp8's on fp8_inputs(a)."""
+    x, r, w = a["x"], a["r"], a["w"]
+    q, k, v, tables, bias = a["q"], a["k"], a["v"], a["tables"], a["bias"]
+    f = fp8_inputs(a)
+    fa = (f["q"], f["k"], f["v"], f["tables"], f["bias"])
+    gate, up = a["gate"], a["up"]
+    return {
+        "add_rms_norm": (lambda: lo.add_rms_norm(x, r, w, eps),
+                         lambda: lo.add_rms_norm_plain(x, r, w, eps),
+                         lambda: F.rms_norm(x, (x.shape[1],), w, eps)),
+        "rope_qkv": (lambda: lo.rope_qkv(q, k, v, tables, bias),
+                     lambda: lo.rope_qkv_plain(q, k, v, tables, bias), None),
+        "rope_qkv_fp8": (lambda: lo.rope_qkv_fp8(*fa),
+                         lambda: lo.rope_qkv_fp8_plain(*fa), None),
+        "silu_mul": (lambda: lo.silu_mul(gate, up),
+                     lambda: lo.silu_mul_plain(gate, up), None)}
+
+
 def phase_layer_ops(device, smi) -> dict:
-    """[layer_ops]: add_rms_norm, rope_qkv and silu_mul against their plain
-    versions (check_layer_ops, planted faults included) at Llama-3-8B width
-    and T in LAYER_TS, and at Qwen2-0.5B's (head_dim 64, biases) at T = 1
-    and 128. Times each kernel, its plain version and, for add_rms_norm,
+    """[layer_ops]: add_rms_norm, rope_qkv, rope_qkv_fp8 and silu_mul
+    against their plain versions (check_layer_ops, planted faults included)
+    at Llama-3-8B width and T in LAYER_TS, at Qwen2-0.5B's (head_dim 64,
+    biases), at a tp = 2 shard's of 8B (4 kv heads of 128) and at
+    Llama-2-7B's and Llama-2-13B's (the rope kernels' two- and four-unit
+    builds) at T = 1 and 128. Times each kernel, its plain version and, for add_rms_norm,
     F.rms_norm (the norm alone: no single PyTorch call adds the residual
-    too; none computes rope_qkv or silu_mul) against its byte bound.
-    add_rms_norm's launch is programmatic: back to back (time_ms) each
-    launch overlaps the one before, so it is also timed after a kernel of
-    another kind (time_alone_ms), which it may still overlap; its row's ms
-    is replaced by its launches' mean in the bf16 serving run's profile
-    (STEP_LAUNCH_MS), which overlaps nothing. Returns the kernel table's
-    rows (8B, T = LAYER_TABLE)."""
+    too; none computes the others) against its byte bound. add_rms_norm,
+    rope_qkv and rope_qkv_fp8 launch programmatically: back to back
+    (time_ms) each launch overlaps the one before, so they are also timed
+    after a kernel of another kind (time_alone_ms), which they may still
+    overlap; their rows' ms is replaced by their launches' mean in the
+    serving runs' profiles (STEP_LAUNCH_MS), which overlaps nothing.
+    Returns the kernel table's rows (8B, T = LAYER_TABLE)."""
     gen = torch.Generator(device=device).manual_seed(13)
     rows = {}
-    for widths, name, ts in ((LLAMA3_8B, "8B", LAYER_TS),
-                             (QWEN2_05B, "Qwen2-0.5B", (1, 128))):
-        mc = LlamaModelConfig(num_layers=1, **widths)
+    for name, ts in LAYER_WIDTHS:
+        mc = LlamaModelConfig(num_layers=1, **layer_widths(name))
         eps = mc.rms_norm_eps
+        units = lo.rope_units(mc.num_q_heads, mc.num_kv_heads, mc.head_dim)
         for T in ts:
             a = layer_inputs(gen, mc, T, device)
-            label = f"{name} T={T}"
-            errs = check_layer_ops(a, eps, label)
-            x, r, w = a["x"], a["r"], a["w"]
-            q, k, v, tables, bias = a["q"], a["k"], a["v"], a["tables"], a["bias"]
-            gate, up = a["gate"], a["up"]
-            calls = {
-                "add_rms_norm": (lambda: lo.add_rms_norm(x, r, w, eps),
-                                 lambda: lo.add_rms_norm_plain(x, r, w, eps),
-                                 lambda: F.rms_norm(x, (x.shape[1],), w, eps)),
-                "rope_qkv": (lambda: lo.rope_qkv(q, k, v, tables, bias),
-                             lambda: lo.rope_qkv_plain(q, k, v, tables, bias),
-                             None),
-                "silu_mul": (lambda: lo.silu_mul(gate, up),
-                             lambda: lo.silu_mul_plain(gate, up), None)}
+            label = (f"{name} T={T} ({units} rope units, "
+                     f"{next(u for u in (1, 2, 4) if units <= 512 * u)} a thread)")
+            errs, fp8_seen = check_layer_ops(a, eps, mc.num_kv_heads, label)
             nbytes = layer_costs(a)
             parts = []
-            for kern, (fn, plain, lib) in calls.items():
+            for kern, (fn, plain, lib) in layer_calls(a, eps).items():
                 ms, plain_ms = time_ms(fn), time_ms(plain)
                 lib_ms = time_ms(lib) if lib else None
                 bound_ms, bound_by = bound(nbytes[kern], 0)
                 t = f"{ms:.4f} ms"
-                if kern == "add_rms_norm":
+                if kern != "silu_mul":
                     t += f" back to back, {time_alone_ms(fn):.4f} after a kernel"
                 parts.append(
                     f"{kern} {t} (bound {bound_ms:.5f}, {bound_by}; "
@@ -1477,7 +1566,7 @@ def phase_layer_ops(device, smi) -> dict:
                                       plain_ms=plain_ms, bound_ms=bound_ms,
                                       bound_by=bound_by, library_ms=lib_ms)
             log(f"[layer_ops] {label}: within their tolerances (rope_qkv "
-                f"bit-equal), the four planted faults rejected; "
+                f"bit-equal, {fp8_seen}), the four planted faults rejected; "
                 + "; ".join(parts) + f" ({smi})")
     return rows
 
@@ -3050,6 +3139,37 @@ def compare_swap_norm(smi):
     log(f"[compare] add_rms_norm: {'; '.join(parts)} ms ({smi})")
 
 
+def compare_rope(smi):
+    """--compare-rope: the rope kernel and the fp8 row build through their
+    wrappers alone, so that this script copied into an earlier checkout
+    times that checkout's kernels: run the two in turns (parent, change,
+    change, parent) to compare builds on one card. The fp8 row is
+    rope_qkv_fp8 where the checkout has it, else the pair that built it
+    before, rope_qkv(split=True) then quantize_kv. At 8B width T = 1, 16,
+    128, 2,048, and at Qwen2-0.5B's, Llama-2-7B's and Llama-2-13B's T = 1,
+    128, back to back (time_ms) and after a kernel of another kind
+    (time_alone_ms)."""
+    fused = hasattr(lo, "rope_qkv_fp8")
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    for name, widths, ts in (("8B", LLAMA3_8B, LAYER_TS),
+                             ("Qwen2-0.5B", QWEN2_05B, (1, 128)),
+                             ("Llama-2-7B", LLAMA2_7B, (1, 128)),
+                             ("Llama-2-13B", LLAMA2_13B, (1, 128))):
+        mc = LlamaModelConfig(num_layers=1, **widths)
+        for T in ts:
+            a = layer_inputs(gen, mc, T, DEVICE)
+            args = (a["q"], a["k"], a["v"], a["tables"], a["bias"])
+            fns = {"rope_qkv": lambda: lo.rope_qkv(*args)}
+            if fused:
+                fns["rope_qkv_fp8"] = lambda: lo.rope_qkv_fp8(*args)
+            else:       # only in a checkout from before rope_qkv_fp8
+                fns["rope_qkv(split) + quantize_kv"] = lambda: qkv.quantize_kv(
+                    *lo.rope_qkv(*args, split=True)[1])
+            parts = [f"{k} {time_ms(fn):.4f} back to back, {time_alone_ms(fn):.4f} "
+                     "after a kernel" for k, fn in fns.items()]
+            log(f"[compare rope] {name} T={T}: {'; '.join(parts)} ms ({smi})")
+
+
 def overlap_swap(cache, pool, s, h, b, ps, swap_ms, smi) -> dict:
     """A round trip of pages (s -> h -> b) beside a decode-like load: bf16
     GEMMs of 16 tokens through an 8B MLP's weights ([4096, 28672], read
@@ -3159,9 +3279,11 @@ def loading(seed: int, std: float = 0.02, successor: bool = False):
         weights.load_params = real
 
 
-def layer_launches(layers: int) -> dict:
-    """The layer kernels' launches in one step of `layers` layers."""
-    return dict(add_rms_norm=2 * layers + 1, rope_qkv=layers, silu_mul=layers)
+def layer_launches(layers: int, fp8: bool = False) -> dict:
+    """The layer kernels' launches in one step of `layers` layers: with an
+    fp8 cache rope_qkv_fp8 in place of rope_qkv."""
+    return dict(add_rms_norm=2 * layers + 1, rope_qkv=0 if fp8 else layers,
+                rope_qkv_fp8=layers if fp8 else 0, silu_mul=layers)
 
 
 class WeightConversions(TorchDispatchMode):
@@ -3195,8 +3317,9 @@ def phase_step(quant="none", kv_quant="none", mistral=False, chunk=None):
     third run, the other kernels with the weight kernel's plain version,
     isolates it, under the same rule. With
     kv_quant="fp8" the cache holds quantized rows (pages of 32), and the
-    kernel runs build the step's rows with quantize_kv, once a layer. Every
-    kernel run launches add_rms_norm 2L + 1 times, rope_qkv and silu_mul L
+    kernel runs build the step's rows in rope_qkv_fp8's launch, once a layer
+    (no other launch builds them). Every kernel run launches add_rms_norm
+    2L + 1 times, rope_qkv (with an fp8 cache rope_qkv_fp8) and silu_mul L
     times (layer_launches), the plain run none of them. With
     `mistral` the widths and the window of 4096 are Mistral-7B-v0.1's, and
     three rows' histories exceed the window: decode rows of 4,097 and 5,000
@@ -3275,13 +3398,11 @@ def phase_step(quant="none", kv_quant="none", mistral=False, chunk=None):
             assert (spy.n == 0 if run == "kernels" else
                     run != "plain" or spy.n >= 7 * mc.num_layers), (run, spy.n)
             conversions[run] = spy.n
-        if kv_quant == "fp8":
-            want = mc.num_layers if use_kernels else 0
-            assert launches[run]["quantize_kv"] == want, (run, launches[run])
         # The layer's elementwise work: two norms a layer and the final
-        # one, one rope_qkv and one silu_mul a layer; none on the plain run.
-        want = layer_launches(mc.num_layers) if use_kernels else dict.fromkeys(
-            lo.KERNELS, 0)
+        # one, one rope_qkv (or rope_qkv_fp8) and one silu_mul a layer; none
+        # on the plain run. No other kernel is launched for an fp8 row.
+        want = (layer_launches(mc.num_layers, kv_quant == "fp8") if use_kernels
+                else dict.fromkeys(lo.KERNELS, 0))
         assert {k: launches[run][k] for k in lo.KERNELS} == want, (run, launches[run])
         live = [i for i, r in enumerate(rows) if r is not None]
         logits[run] = torch.from_numpy(lg[live])
@@ -3938,8 +4059,10 @@ MS_PREDICTED = {
 
 def serve_kernels(name: str) -> tuple:
     """Kernels the serving run `name` must launch."""
+    if name == "fp8kv":
+        return FP8_PATH_KERNELS
     extra = {"int4": ("int4_matmul",), "int8": ("int8_matmul",),
-             "fp8kv": ("quantize_kv",), "ms8defer": ("paged_decode_attention_pend",)}
+             "ms8defer": ("paged_decode_attention_pend",)}
     return PATH_KERNELS + extra.get(name, ())
 
 
@@ -4058,6 +4181,13 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
     for k in serve_kernels(name):
         assert launches[k] > 0, f"{k} never launched on the {name} serving path"
     engine.model.execute_packed = execute
+    if name in ("none", "fp8kv"):
+        # One rope launch a layer in every step; with the fp8 cache the
+        # launch that builds the rows, and no other.
+        rope = {"none": "rope_qkv", "fp8kv": "rope_qkv_fp8"}
+        assert launches[rope[name]] == mc.num_layers * len(keys), (
+            launches, len(keys))
+        assert launches[rope["fp8kv" if name == "none" else "none"]] == 0, launches
     if name in ("int4", "int8"):
         kernel = f"{name}_matmul"
         wide = sorted({k.tokens for k in keys if k.tokens > im.WIDE_ABOVE})
@@ -4108,7 +4238,7 @@ async def serve_engine(name: str, smi: str, pools: dict, rates: dict,
         assert len(toks) == LONG_OUT_LEN, f"long prompt: {len(toks)} tokens"
         assert all(0 <= t < mc.vocab_size for t in toks)
         long_launches = dict(build.launch_counts)
-        for k in PATH_KERNELS:
+        for k in serve_kernels(name):
             assert long_launches[k] > 0, f"{k} never launched for the long prompt"
         log(f"[serve {name}] one request of {long_prompt} prompt tokens "
             f"({cdiv(long_prompt, ec.block_size)} pages), {LONG_OUT_LEN} output "
@@ -4688,7 +4818,7 @@ async def serve_swap(smi: str, kv: str) -> dict:
     assert engine.stats.num_preemptions >= 1 and not saved, (
         engine.stats.num_preemptions, list(saved))
     assert launches["swap_pages"] == n_swaps, (launches["swap_pages"], n_swaps)
-    for k in PATH_KERNELS:
+    for k in FP8_PATH_KERNELS if kv == "fp8" else PATH_KERNELS:
         assert launches[k] > 0, f"{k} never launched on the swapping engine"
     for p, toks in zip(prompts, got):
         seq = [p[-1]] + toks
@@ -4722,7 +4852,7 @@ async def serve_swap(smi: str, kv: str) -> dict:
     await _pages_back(cpu, ec.num_cpu_blocks)
     assert engine.scheduler.num_free_cpu_blocks == ec.num_cpu_blocks
     assert swaps >= 1 and launches["swap_pages"] >= 2 * swaps, (swaps, launches)
-    for k in PATH_KERNELS:
+    for k in FP8_PATH_KERNELS if kv == "fp8" else PATH_KERNELS:
         assert launches[k] > 0, f"{k} never launched on the swapping engine"
     assert got == want, "the unwrapped swap run's tokens differ from the roomy run's"
     graph_report(engine, f"swap {kv}", since, smi)
@@ -4990,9 +5120,9 @@ DEVICE_KERNEL = {"paged_decode_attention": "paged_decode_kernel",
                  "paged_prefill_attention_bf16s": "paged_prefill_kernel",
                  "int4_matmul": "int4_matmul_kernel",
                  "int8_matmul": "int8_matmul_kernel",
-                 "quantize_kv": "quantize_kv_kernel",
                  "add_rms_norm": "add_rms_norm_kernel",
-                 "rope_qkv": "rope_qkv_kernel",
+                 "rope_qkv": "rope_qkv_kernel<false",
+                 "rope_qkv_fp8": "rope_qkv_kernel<true",
                  "silu_mul": "silu_mul_kernel",
                  "swap_pages": "swap_pages_kernel"}
 # Device kernels recorded under more than one name: the weight kernels'
@@ -5120,18 +5250,29 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
         f"kernels (at::native): {n_at} launches, {n_at / steps:.1f} a dispatch, "
         f"{at_ms:.3f} ms, {100 * at_share:.1f}% of device time")
     seen = device_launches(events, build.launch_counts)
-    if quant == "none":
-        # A kernel record spans the launch's whole stay on the device, from
-        # its start (which a programmatic launch may bring forward, to wait
-        # there for the kernel before) to its end: it hides none of the
-        # launch's time, whatever overlaps it.
-        recs = [e for e in events if is_kernel(e, "add_rms_norm_kernel")]
-        STEP_LAUNCH_MS["add_rms_norm"] = (
-            sum(e.self_device_time_total for e in recs) / 1e3
-            / sum(e.count for e in recs))
-        log(f"[profile {quant}] add_rms_norm: {STEP_LAUNCH_MS['add_rms_norm']:.4f} "
-            f"ms a launch on the device ({sum(e.count for e in recs)} launches: "
-            f"the decode steps' 128-token bucket and one prefill step's)")
+    # A kernel record spans the launch's whole stay on the device, from its
+    # start (which a programmatic launch may bring forward, to wait there
+    # for the kernel before) to its end: it hides none of the launch's time,
+    # whatever overlaps it. The programmatic launches' rows take it: the
+    # bf16 run's add_rms_norm and rope_qkv, the fp8 run's rope_qkv_fp8.
+    for entry in {"none": ("add_rms_norm", "rope_qkv"),
+                  "fp8kv": ("rope_qkv_fp8",)}.get(quant, ()):
+        recs = [e for e in events if is_kernel(e, DEVICE_KERNEL[entry])]
+        n = sum(e.count for e in recs)
+        t = sum(e.self_device_time_total for e in recs) / 1e3
+        STEP_LAUNCH_MS[entry] = t / n
+        log(f"[profile {quant}] {entry}: {STEP_LAUNCH_MS[entry]:.4f} ms a launch "
+            f"on the device ({n} launches, {n / steps:.1f} a dispatch: the decode "
+            f"steps' 128-token bucket and one prefill step's), {t:.3f} ms, "
+            f"{100 * t / (1e3 * busy):.2f}% of device time")
+    if quant in ("none", "fp8kv"):
+        ew = {k: sum(e.self_device_time_total for e in events
+                     if is_kernel(e, DEVICE_KERNEL[k])) / 1e3 for k in lo.KERNELS}
+        log(f"[profile {quant}] the layer's elementwise kernels: "
+            + ", ".join(f"{k} {t:.3f} ms ({100 * t / (1e3 * busy):.2f}%)"
+                        for k, t in ew.items() if t)
+            + f"; together {100 * sum(ew.values()) / (1e3 * busy):.2f}% of device "
+            f"time, {sum(ew.values()) / steps:.4f} ms a dispatch")
     log(f"[profile {quant}] launches counted, and kernels the profiler saw on "
         f"the device: " + ", ".join(f"{k} {n} / {d}" for k, (n, d) in seen.items()
                                     if n or d))
@@ -5178,13 +5319,6 @@ async def _profile(engine, smi: str, quant: str, n_req=8, prompt=64,
             f"records, {n_weight} of them {kern}; {span:.3f} ms between its "
             f"CUDA events); TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
             f"{1e3 * ttft[-1]:.1f} ms; {engine.model.num_hbm_blocks} KV pages ({smi})")
-    if quant == "fp8kv":
-        kern = [e for e in events if "quantize_kv_kernel" in e.key]
-        t_q = sum(e.self_device_time_total for e in kern) / 1e3
-        n_q = sum(e.count for e in kern)
-        log(f"[profile {quant}] quantize_kv: {n_q} launches ({n_q / steps:.1f} a "
-            f"dispatch, one a layer), {t_q:.3f} ms of device time, "
-            f"{100 * t_q / (1e3 * busy):.2f}%: {t_q / steps:.4f} ms a dispatch")
     return 1e3 * busy, steps
 
 
@@ -6046,8 +6180,9 @@ TP_STEP_CASES = [(v, None) for v in TP_STEP_VARIANTS] + [("int8", 300), ("int4",
 
 
 def tp_step_kernels(variant: str) -> tuple:
-    extra = {"int4": ("int4_matmul",), "int8": ("int8_matmul",),
-             "fp8": ("quantize_kv",)}
+    if variant == "fp8":
+        return FP8_PATH_KERNELS
+    extra = {"int4": ("int4_matmul",), "int8": ("int8_matmul",)}
     return PATH_KERNELS + extra.get(variant, ())
 
 
@@ -6516,6 +6651,16 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s ({Path.cwd()})")
         compare_swap_norm(smi)
         return 0
+    if sys.argv[1:] == ["--compare-rope"]:
+        # quantize_kv: a checkout from before rope_qkv_fp8 has that kernel.
+        names = [n for n in ("rope_qkv", "rope_qkv_fp8", "quantize_kv")
+                 if n in build.KERNELS]
+        t0 = time.perf_counter()
+        build.build_kernels(names)
+        log(f"[build] {', '.join(names)} built in {time.perf_counter() - t0:.1f} s "
+            f"({Path.cwd()})")
+        compare_rope(smi)
+        return 0
     if sys.argv[1:] == ["--layer-ops"]:
         build.build_kernels(lo.KERNELS)
         phase_layer_ops("cuda", smi)
@@ -6582,7 +6727,7 @@ def main() -> int:
             phase_wide(fmt, "cuda", smi)
         phase_step("int8")
         phase_step("int4")
-        phase_quantize_kv("cuda", smi)
+        phase_layer_ops("cuda", smi)
         phase_step(kv_quant="fp8")
         log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -6608,10 +6753,9 @@ def main() -> int:
     results["paged_decode_attention_pend"] = phase_pend("cuda", smi)
     phase_verify("cuda", smi)
     results["paged_prefill_attention_bf16s"] = phase_bf16s("cuda", smi)
-    results["quantize_kv"] = phase_quantize_kv("cuda", smi)
     results.update(phase_layer_ops("cuda", smi))
     time_sampler("cuda", smi)
-    mark("pend, verify, bf16 scores, quantize_kv, layer_ops, sampler")
+    mark("pend, verify, bf16 scores, layer_ops, sampler")
     torch.cuda.empty_cache()
     results["int4_matmul"] = phase_int4("cuda", smi)
     results["int8_matmul"] = phase_int8("cuda", smi)
@@ -6649,18 +6793,21 @@ def main() -> int:
     # Launches: the decode kernel's, store_kv's and the layer kernels' on the
     # bf16 serving run (the path of the slices that brought them),
     # int4_matmul's and
-    # int8_matmul's on the INT4 and INT8 runs, quantize_kv's on the fp8 KV
+    # int8_matmul's on the INT4 and INT8 runs, rope_qkv_fp8's on the fp8 KV
     # run, the `pend` variant's on the deferred multi-step run, the prefill
     # kernel's and its bf16-score variant's on the speculative-decoding
     # engine's waves, the page mover's on the bf16 swapping engine; the
     # other runs' counts are asserted and logged by their runs.
     run_of = {"int4_matmul": "int4", "int8_matmul": "int8",
-              "quantize_kv": "fp8kv", "paged_decode_attention_pend": "ms8defer",
+              "rope_qkv_fp8": "fp8kv", "paged_decode_attention_pend": "ms8defer",
               "paged_prefill_attention": "spec",
               "paged_prefill_attention_bf16s": "spec", "swap_pages": "swap bf16"}
-    # add_rms_norm's row: its launches in the bf16 serving run's profile,
-    # since back to back (phase_layer_ops) each overlaps the one before.
-    results["add_rms_norm"]["ms"] = STEP_LAUNCH_MS["add_rms_norm"]
+    # The programmatic launches' rows: their launches in the serving runs'
+    # profiles (add_rms_norm's and rope_qkv's in bf16, rope_qkv_fp8's with
+    # the fp8 cache), since back to back (phase_layer_ops) each overlaps the
+    # one before.
+    for n in ("add_rms_norm", "rope_qkv", "rope_qkv_fp8"):
+        results[n]["ms"] = STEP_LAUNCH_MS[n]
     # The page mover's row: a 128-page round trip (two launches), byte-equal.
     results["swap_pages"] = dict(
         max_abs_err=0.0, bound_by="bytes",

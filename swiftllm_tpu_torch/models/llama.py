@@ -25,7 +25,8 @@ A port of ``swiftllm_tpu/models/llama.py`` that keeps its names and layouts:
   quantized weight of every bucket (INT8: ``ops/int8_matmul.py``, INT4:
   ``ops/int4_matmul.py``; above 256 tokens in their wide configuration) and
   a quantized ``lm_head`` at any row count (B, or B·S1 in a verify step);
-  an fp8 cache's rows (``ops/quantize_kv.py``). Without ``use_kernels``
+  an fp8 cache's rows, built in the RoPE kernel's launch
+  (``ops/layer_ops.py:rope_qkv_fp8``). Without ``use_kernels``
   everything runs as the kernels' plain versions (``quant.proj`` for the
   quantized weights).
 - Multi-LoRA: a projection that an adapter targets adds each token's own
@@ -66,11 +67,10 @@ from swiftllm_tpu_torch.models.sampling import (chosen_logprobs, exact_greedy,
 from swiftllm_tpu_torch.ops import int4_matmul, int8_matmul
 from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.ops import paged_attention as pa
-from swiftllm_tpu_torch.ops import quantize_kv as qkv
-# The plain fp8 row build under its old names (tests and chip_smoke.py use
-# them); forward_shard takes the kernel's wrapper with use_kernels.
-from swiftllm_tpu_torch.ops.quantize_kv import fp8_scales  # noqa: F401
-from swiftllm_tpu_torch.ops.quantize_kv import quantize_kv_plain as quantize_kv
+# The plain fp8 row build (tests and chip_smoke.py import it from here);
+# forward_shard builds the rows with rope_qkv_fp8.
+from swiftllm_tpu_torch.ops.quantize_kv import (  # noqa: F401
+    fp8_scales, quantize_kv_plain)
 from swiftllm_tpu_torch.parallel.distributed import (all_reduce_tp, gather_dp,
                                                      gather_tp)
 from swiftllm_tpu_torch.parallel.mesh import (SINGLE, Mesh,
@@ -443,12 +443,14 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
     rope_cs = rope_tables(batch.positions, params["inv_freq"], x.dtype)
     # The layer's elementwise work: its kernels, or their plain versions.
-    if use_kernels:
-        add_rms_norm, rope_qkv, silu_mul = lo.add_rms_norm, lo.rope_qkv, lo.silu_mul
-    else:
-        add_rms_norm, rope_qkv, silu_mul = (
-            lo.add_rms_norm_plain, lo.rope_qkv_plain, lo.silu_mul_plain)
+    # With an fp8 cache the RoPE kernel also builds the cache rows.
     fp8 = kv_cache.dtype == pa.FP8
+    if use_kernels:
+        add_rms_norm, silu_mul = lo.add_rms_norm, lo.silu_mul
+        rope = lo.rope_qkv_fp8 if fp8 else lo.rope_qkv
+    else:
+        add_rms_norm, silu_mul = lo.add_rms_norm_plain, lo.silu_mul_plain
+        rope = lo.rope_qkv_fp8_plain if fp8 else lo.rope_qkv_plain
     layers = params["layers"]
     # Multi-LoRA: each token's adapter scale, once a step (lora_add).
     sel = (lora_select(batch.lora_ids, params["lora_scale"])
@@ -474,13 +476,10 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
         h, x = add_rms_norm(x, r, w["attn_norm"], eps)
         bias = (w["bq"], w["bk"], w["bv"]) if "bq" in w else None  # Qwen2
-        q, kv = rope_qkv(mproj(h, "wq"), mproj(h, "wk"), mproj(h, "wv"),
-                         rope_cs, bias, split=fp8)
+        q, kv_new = rope(mproj(h, "wq"), mproj(h, "wk"), mproj(h, "wv"),
+                         rope_cs, bias)
         q = q.view(T, -1, hd)
-        if fp8:
-            kv_new = (qkv.quantize_kv if use_kernels else quantize_kv)(*kv)
-        else:
-            kv_new = kv.to(kv_cache.dtype)
+        kv_new = kv_new.to(kv_cache.dtype)
         attn = _attention_and_store(
             q, kv_new, kv_cache, layer, batch, n_kv=n_kv,
             page_size=page_size, sm_scale=sm_scale, use_kernels=use_kernels,

@@ -6,15 +6,13 @@ variant share one, the prefill kernel and its bf16-score variant another).
 ``build_kernels`` compiles each missing source with ``nvcc`` for ``sm_90a``
 into ``_build/`` beside this file (one process per source, all started
 together, under a file lock, so that ranks started together build once),
-names the library by the hash of its source and the headers,
-and loads it with ``ctypes``. Nothing is built when a module
-is imported: the first launch builds its kernel, or a caller builds them all
-up front. The wrappers in ``paged_attention.py``, ``int4_matmul.py``,
-``int8_matmul.py``, ``quantize_kv.py``, ``layer_ops.py`` and
-``swap_pages.py`` launch through
-``launch``, which runs the C entry on the
-tensors' card and its current stream and adds one to
-``launch_counts[name]``. Under CUDA graph capture that count is what the
+names the library by the hash of its source and the headers, and loads it
+with ``ctypes``. Nothing is built when a module is imported: the first
+launch builds its kernel, or a caller builds them all up front. The
+wrappers in ``paged_attention.py``, ``int4_matmul.py``, ``int8_matmul.py``,
+``layer_ops.py`` and ``swap_pages.py`` launch through ``launch``, which
+runs the C entry on the tensors' card and its current stream and adds one
+to ``launch_counts[name]``. Under CUDA graph capture that count is what the
 capture queued; ``worker/graphs.py`` takes it back and adds it again at
 every replay, so ``launch_counts`` always counts launches queued to run.
 """
@@ -77,13 +75,12 @@ SOURCES = {
     # x, q, s, y, partials, counters, T, N, K, L, layer, NT, t_tiles,
     # splits, per, grid, stream
     "int8_matmul": ("int8_matmul.cu", [_P] * 6 + [_I] * 10 + [_P]),
-    # kf, vf, out, T, KH, stream
-    "quantize_kv": ("quantize_kv.cu", [_P] * 3 + [_I] * 2 + [_P]),
     # x, r, w, x_out, h, T, D, eps, stream
     "add_rms_norm": ("layer_ops.cu", [_P] * 5 + [_I] * 2 + [_F, _P]),
-    # q, k, v, bq, bk, bv, cos, sin, q_out, k_out, v_out, T, n_q, n_kv, hd,
-    # kv_ld, stream
-    "rope_qkv": ("layer_ops.cu", [_P] * 11 + [_I] * 5 + [_P]),
+    # q, k, v, bq, bk, bv, cos, sin, q_out, kv_new, T, n_q, n_kv, hd, stream
+    "rope_qkv": ("layer_ops.cu", [_P] * 10 + [_I] * 4 + [_P]),
+    # the same, kv_new the fp8 cache row
+    "rope_qkv_fp8": ("layer_ops.cu", [_P] * 10 + [_I] * 4 + [_P]),
     # gate, up, out, T, F, stream
     "silu_mul": ("layer_ops.cu", [_P] * 3 + [_I] * 2 + [_P]),
     # src, dst, pages, n_pages, L, src_layer_bytes, dst_layer_bytes,

@@ -1,6 +1,6 @@
-"""The layer's elementwise work for the PyTorch port: three CUDA kernels
-written by hand for Hopper (sm_90a, ``csrc/layer_ops.cu``) and their plain
-PyTorch versions.
+"""The layer's elementwise work for the PyTorch port: CUDA kernels written
+by hand for Hopper (sm_90a, ``csrc/layer_ops.cu``) and their plain PyTorch
+versions.
 
 Contract (the work that XLA fuses inside the JAX package's layer body,
 ``swiftllm_tpu/models/llama.py:layer_step`` (510), into its neighbouring
@@ -16,17 +16,22 @@ dots or a few fusions a layer):
   the half-split RoPE (``apply_rope``, 208, at 578-579) on q and k from the
   step's tables (``rope_tables``, 198: bf16 cos/sin ``[T, 1, hd/2]``), each
   product and sum rounded as ``apply_rope`` rounds it, and the cache row
-  ``kv_new = k_rot ‖ v`` (600). With ``split`` (an fp8 cache, whose row
-  ``quantize_kv`` builds) ``kv`` is the pair ``(k_rot, v)`` instead.
+  ``kv_new = k_rot ‖ v`` (600).
+- ``rope_qkv_fp8(q, k, v, tables, bias) -> (q_rot, kv_new)``: the same for
+  an fp8 cache, with the quantizing ``kv_new`` build (587-601) folded in:
+  the row ``[k_rot * sk, v * sv, sk, sv, 0 ...]`` as e4m3
+  (``ops/quantize_kv.py:quantize_kv_plain`` of the bf16 k_rot and v), in
+  the one launch.
 - ``silu_mul(gate, up)``: ``silu(f32(gate))`` cast back, times ``up``
   (619-621).
 
 The plain versions are the model's arithmetic as it stood before the
 kernels (``models/llama.py:forward_shard``), so the CPU computes exactly
 what it computed then. The kernels take bf16 only: ``rope_qkv`` is
-bit-equal to its plain version, ``add_rms_norm``'s ``h`` and ``silu_mul``
-within one bf16 rounding of it (another summation order; the card's
-``rsqrtf`` and ``expf``), and ``add_rms_norm``'s ``x'`` bit-equal.
+bit-equal to its plain version, ``rope_qkv_fp8`` byte-equal,
+``add_rms_norm``'s ``h`` and ``silu_mul`` within one bf16 rounding of it
+(another summation order; the card's ``rsqrtf`` and ``expf``), and
+``add_rms_norm``'s ``x'`` bit-equal.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 On a CUDA tensor it launches its kernel or raises; it never falls back. It
@@ -39,9 +44,14 @@ import torch
 import torch.nn.functional as F
 
 from swiftllm_tpu_torch.ops import build
+from swiftllm_tpu_torch.ops.paged_attention import FP8, FP8_SCALE_LANES
+from swiftllm_tpu_torch.ops.quantize_kv import quantize_kv_plain
 
-KERNELS = ("add_rms_norm", "rope_qkv", "silu_mul")
+KERNELS = ("add_rms_norm", "rope_qkv", "rope_qkv_fp8", "silu_mul")
 MAX_NORM_D = 8192      # csrc/layer_ops.cu: kNormVecs x kNormThreads x 8 lanes
+# A token's units (rope_units) at most: csrc/layer_ops.cu's kRopeUnits x
+# kRopeThreads. Llama-3-8B has 448, a 64-head MHA of head_dim 128 2,048.
+MAX_ROPE_UNITS = 2048
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -68,10 +78,10 @@ def add_rms_norm_plain(x: torch.Tensor, r: torch.Tensor | None,
 
 
 def rope_qkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables,
-                   bias=None, *, split: bool = False):
+                   bias=None):
     """q [T, n_q*hd], k and v [T, n_kv*hd], tables (cos, sin) [T, 1, hd/2],
     bias (bq, bk, bv) or None -> (q_rot [T, n_q*hd], k_rot ‖ v [T,
-    2*n_kv*hd]), or (q_rot, (k_rot, v)) with ``split``."""
+    2*n_kv*hd])."""
     if bias is not None:
         bq, bk, bv = bias
         q = q + bq.to(q.dtype)
@@ -80,7 +90,16 @@ def rope_qkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables,
     T, hd = q.shape[0], 2 * tables[0].shape[-1]
     q = apply_rope(q.view(T, -1, hd), tables).reshape(T, -1)
     k = apply_rope(k.view(T, -1, hd), tables).reshape(T, -1)
-    return q, ((k, v) if split else torch.cat([k, v], dim=1))
+    return q, torch.cat([k, v], dim=1)
+
+
+def rope_qkv_fp8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       tables, bias=None):
+    """``rope_qkv_plain``, then the fp8 row build of its k_rot and v:
+    (q_rot, e4m3 rows [T, 2*n_kv*hd + FP8_SCALE_LANES])."""
+    q, kv = rope_qkv_plain(q, k, v, tables, bias)
+    KH = k.shape[1]
+    return q, quantize_kv_plain(kv[:, :KH], kv[:, KH:])
 
 
 def silu_mul_plain(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -127,15 +146,20 @@ def add_rms_norm(x: torch.Tensor, r: torch.Tensor | None, weight: torch.Tensor,
     return h, x_out
 
 
-def rope_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables,
-             bias=None, *, split: bool = False):
-    """``rope_qkv_plain``'s result, from the kernel for bf16 CUDA tensors
-    (head_dim a multiple of 16), from the plain version for CPU tensors."""
+def rope_units(n_q: int, n_kv: int, hd: int) -> int:
+    """A token's units in the rope kernels: a rotated pair of 8-lane
+    vectors for each 8 lanes of a q or k head's half, 8 lanes of v."""
+    return (n_q + n_kv) * (hd // 16) + n_kv * hd // 8
+
+
+def _rope_outputs(name: str, q, k, v, tables, bias, dtype, scale_lanes: int):
+    """Checks ``name``'s inputs (bf16 CUDA tensors, head_dim a multiple of
+    16, at most MAX_ROPE_UNITS units a token); returns a fresh q_rot, a
+    fresh row [T, 2*KH + scale_lanes] of ``dtype`` and the C entry's
+    arguments that write them."""
     cos, sin = tables
     ins = (q, k, v, cos, sin) + tuple(bias or ())
-    if build.on_cpu("rope_qkv", *ins):
-        return rope_qkv_plain(q, k, v, tables, bias, split=split)
-    _bf16("rope_qkv", *ins)
+    _bf16(name, *ins)
     half = cos.shape[-1]
     hd = 2 * half
     T, QH = q.shape if q.dim() == 2 else (0, 0)
@@ -144,24 +168,50 @@ def rope_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables,
             or v.shape != (T, KH) or cos.numel() != T * half
             or sin.shape != cos.shape
             or (bias is not None and [b.shape for b in bias]
-                != [(QH,), (KH,), (KH,)])):
+                != [(QH,), (KH,), (KH,)])
+            or rope_units(QH // hd, KH // hd, hd) > MAX_ROPE_UNITS):
         raise ValueError(
-            f"rope_qkv shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{name} shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, tables {tuple(cos.shape)}, bias "
             f"{None if bias is None else [tuple(b.shape) for b in bias]} "
-            "(head_dim a multiple of 16)")
+            f"(head_dim a multiple of 16, at most {MAX_ROPE_UNITS} units a "
+            "token)")
     q_out = torch.empty_like(q)
-    if split:
-        k_out, v_out = torch.empty_like(k), torch.empty_like(v)
-        kv, kv_ptrs, ld = (k_out, v_out), (k_out.data_ptr(), v_out.data_ptr()), KH
-    else:
-        kv = torch.empty(T, 2 * KH, dtype=q.dtype, device=q.device)
-        kv_ptrs = (kv.data_ptr(), kv.data_ptr() + KH * kv.element_size())
-        ld = 2 * KH
+    kv = torch.empty(T, 2 * KH + scale_lanes, dtype=dtype, device=q.device)
     bq, bk, bv = (None,) * 3 if bias is None else (b.data_ptr() for b in bias)
-    build.launch("rope_qkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 bq, bk, bv, cos.data_ptr(), sin.data_ptr(), q_out.data_ptr(),
-                 *kv_ptrs, T, QH // hd, KH // hd, hd, ld)
+    return q_out, kv, (q.data_ptr(), k.data_ptr(), v.data_ptr(), bq, bk, bv,
+                       cos.data_ptr(), sin.data_ptr(), q_out.data_ptr(),
+                       kv.data_ptr(), T, QH // hd, KH // hd, hd)
+
+
+def rope_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables,
+             bias=None):
+    """``rope_qkv_plain``'s result, from the kernel for bf16 CUDA tensors
+    (head_dim a multiple of 16), from the plain version for CPU tensors.
+
+    On the card the biases must not be written by the kernel launched just
+    before this call on the stream: the launch is programmatic, and the
+    kernel reads them before it waits for that kernel to complete (q, k, v
+    and the tables only after; ``csrc/layer_ops.cu``). A model's biases are
+    safe: no kernel of a step writes a parameter."""
+    if build.on_cpu("rope_qkv", q, k, v, *tables, *(bias or ())):
+        return rope_qkv_plain(q, k, v, tables, bias)
+    q_out, kv, args = _rope_outputs("rope_qkv", q, k, v, tables, bias,
+                                    q.dtype, 0)
+    build.launch("rope_qkv", q.device, *args)
+    return q_out, kv
+
+
+def rope_qkv_fp8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables,
+                 bias=None):
+    """``rope_qkv_fp8_plain``'s (q_rot, fp8 row), from the kernel for bf16
+    CUDA tensors (head_dim a multiple of 16), from the plain version for
+    CPU tensors. The biases as ``rope_qkv`` takes them."""
+    if build.on_cpu("rope_qkv_fp8", q, k, v, *tables, *(bias or ())):
+        return rope_qkv_fp8_plain(q, k, v, tables, bias)
+    q_out, kv, args = _rope_outputs("rope_qkv_fp8", q, k, v, tables, bias,
+                                    FP8, FP8_SCALE_LANES)
+    build.launch("rope_qkv_fp8", q.device, *args)
     return q_out, kv
 
 

@@ -1,6 +1,5 @@
-"""The fp8 KV cache's row build for the PyTorch port: a CUDA kernel written by
-hand for Hopper (sm_90a, ``csrc/quantize_kv.cu``) and its plain PyTorch
-version, with the per-token power-of-two scales (``fp8_scales``).
+"""The fp8 KV cache's row build for the PyTorch port, in plain PyTorch, with
+the per-token power-of-two scales (``fp8_scales``).
 
 Contract (the JAX package's quantizing ``kv_new`` build,
 ``swiftllm_tpu/models/llama.py:587-601``, which XLA fuses into its
@@ -8,18 +7,18 @@ neighbours): one step's K and V rows ``[T, KH]`` become fp8 cache rows
 ``[T, 2*KH + FP8_SCALE_LANES]``: each token's K and V times its own scale
 (from the row's absmax), clipped to +-448 (e4m3fn has no inf: an
 overflowing cast would give NaN), then the scale lanes (K scale, V scale,
-zeros), all cast to e4m3 at once. The kernel writes the same bytes in one
-launch where the plain version takes some 17.
+zeros), all cast to e4m3 at once.
 
-The wrapper takes the plain version for tensors on the CPU, and only then. On
-a CUDA tensor it launches the kernel or raises; it never falls back.
+On the card the build has no kernel of its own: ``ops/layer_ops.py:
+rope_qkv_fp8`` writes the same bytes in the launch that rotates k, so that
+a layer's row costs one launch. ``quantize_kv_plain`` is that kernel's plain
+version's second half, and the CPU's row build.
 """
 
 from __future__ import annotations
 
 import torch
 
-from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops.paged_attention import FP8, FP8_SCALE_LANES
 
 
@@ -50,21 +49,3 @@ def quantize_kv_plain(kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
     lanes[:, :2] = scales
     stored = (kv * scales[:, :, None]).clamp(-448.0, 448.0)
     return torch.cat([stored.flatten(1), lanes], dim=1).to(FP8)
-
-
-def quantize_kv(kf: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
-    """``quantize_kv_plain``'s rows, from the kernel for bf16 CUDA tensors
-    [T, KH] (KH a multiple of 8), from the plain version for CPU tensors."""
-    if build.on_cpu("quantize_kv", kf, vf):
-        return quantize_kv_plain(kf, vf)
-    if kf.dtype != torch.bfloat16 or vf.dtype != torch.bfloat16:
-        raise TypeError(f"quantize_kv takes bf16 K and V rows, got {kf.dtype}, "
-                        f"{vf.dtype}")
-    T, KH = kf.shape
-    if vf.shape != (T, KH) or T < 1 or KH % 8:
-        raise ValueError(f"quantize_kv shapes: K {tuple(kf.shape)}, V "
-                         f"{tuple(vf.shape)} (rows of a multiple of 8 lanes)")
-    out = torch.empty(T, 2 * KH + FP8_SCALE_LANES, dtype=FP8, device=kf.device)
-    build.launch("quantize_kv", kf.device, kf.data_ptr(), vf.data_ptr(),
-                 out.data_ptr(), T, KH)
-    return out

@@ -13,8 +13,13 @@ tests/test_torch_paged_attention.py).
   exact floor; the test pins that (nowhere else, never another factor).
 - ``quantize_kv``: the bytes of the JAX package's quantizing ``kv_new`` build
   (``swiftllm_tpu/models/llama.py``, ``fp8_scaled``) for the same k and v,
-  from the plain version and from the kernel's wrapper
-  (``ops/quantize_kv.py``, its plain version on CPU tensors).
+  from the plain version and from the fused kernel's wrapper
+  (``ops/layer_ops.py:rope_qkv_fp8``, its plain version on CPU tensors) at
+  position 0, where RoPE leaves k as it is.
+- ``rope_qkv_fp8``: the fused row build's bytes against the JAX package's
+  biased projections, ``apply_rope`` with ``rope_tables`` and the
+  quantizing build, in bf16 (as on the card), head_dim 64 and 128, with
+  and without Qwen2's biases.
 - The kernels' plain versions against the JAX Pallas kernels in interpret
   mode on the SAME stored bytes, with and without a window: outputs within
   atol 1e-4 / rtol 1e-3 (the JAX file's own fp8 tolerance: f32 on both sides,
@@ -55,9 +60,10 @@ from swiftllm_tpu.server.structs import RawRequest as JaxRawRequest
 from swiftllm_tpu.server.structs import Request as JaxRequest
 from swiftllm_tpu.worker.model import LlamaModel as JaxLlamaModel
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
+from swiftllm_tpu.models import llama as jl
 from swiftllm_tpu_torch.models.llama import (FP8_SCALE_LANES, fp8_scales,
-                                             quantize_kv)
-from swiftllm_tpu_torch.ops import quantize_kv as qkv
+                                             quantize_kv_plain, rope_tables)
+from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.server.engine import Engine
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
 from swiftllm_tpu_torch.server.structs import RawRequest, Request
@@ -149,16 +155,24 @@ MAGNITUDES = {"tiny": 1e-4, "unit": 1.0, "large": 3e4, "past_the_clip": 1e7}
 def test_quantize_kv_bytes_match_jax(magnitude, build):
     """Rows of very different magnitudes (dummy weights give K/V near 1e-4;
     1e7 is past the lowest scale, where the clip to +-448 acts), one all-zero
-    row, one row with a single outlier; from ``models.llama.quantize_kv``
-    (the plain version) and from the kernel's wrapper."""
+    row, one row with a single outlier; from ``models.llama.quantize_kv_plain``
+    (the plain version) and from the fused kernel's wrapper
+    (``rope_qkv_fp8``, one head of 96 lanes) at position 0, where cos is 1
+    and sin 0, so the row is the build of k and v themselves."""
     rng = np.random.default_rng(3)
     k = (rng.normal(size=(64, 96)) * magnitude).astype(np.float32)
     v = (rng.normal(size=(64, 96)) * magnitude * 3).astype(np.float32)
     k[5] = 0.0
     v[7, 11] = 1000.0 * magnitude
     assert FP8_SCALE_LANES == JAX_SCALE_LANES == 128
-    fn = quantize_kv if build == "plain" else qkv.quantize_kv
-    got = fn(torch.from_numpy(k), torch.from_numpy(v))
+    if build == "plain":
+        got = quantize_kv_plain(torch.from_numpy(k), torch.from_numpy(v))
+    else:
+        T, KH = k.shape
+        tables = rope_tables(torch.zeros(T, dtype=torch.int32),
+                             torch.ones(KH // 2), torch.float32)
+        _, got = lo.rope_qkv_fp8(torch.zeros(T, KH), torch.from_numpy(k),
+                                 torch.from_numpy(v), tables)
     assert got.dtype == torch.float8_e4m3fn and got.shape == (64, 2 * 96 + 128)
     want = jax_quantize_kv(k, v)
     np.testing.assert_array_equal(fp8_to_numpy(got).view(np.uint8),
@@ -166,6 +180,55 @@ def test_quantize_kv_bytes_match_jax(magnitude, build):
     assert not np.isnan(want.astype(np.float32)).any()
     # The way there and back keeps the bytes.
     assert torch.equal(fp8_to_torch(want).view(torch.uint8), got.view(torch.uint8))
+
+
+@pytest.mark.parametrize("magnitude", list(MAGNITUDES.values()),
+                         ids=list(MAGNITUDES))
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+def test_rope_qkv_fp8_bytes_match_jax(bias, hd, magnitude):
+    """The fused wrapper's (q_rot, fp8 row) on the CPU against the JAX
+    package's ``biased``, ``apply_rope`` with ``rope_tables`` and its
+    quantizing ``kv_new`` build (jax_quantize_kv), in bf16 as on the card:
+    q_rot bit-equal, the row byte-equal. Rows of the four magnitudes, with
+    k's row 5 all zero after its bias add (k = -bk there) and v's row 7 an
+    outlier."""
+    rng = np.random.default_rng(11)
+    T, n_q, n_kv = 16, 4, 2
+    QH, KH = n_q * hd, n_kv * hd
+    positions = rng.integers(0, 32768, T).astype(np.int32)
+    inv_freq = (1.0 / 500000.0 ** (np.arange(0, hd, 2) / hd)).astype(np.float32)
+    bf = ml_dtypes.bfloat16
+
+    def draw(*shape, scale=1.0):
+        return (rng.normal(size=shape) * magnitude * scale).astype(bf)
+    q, k, v = draw(T, QH), draw(T, KH), draw(T, KH, scale=3)
+    b = (draw(QH, scale=0.5), draw(KH, scale=0.5), draw(KH, scale=0.5)) if bias else None
+    k[5] = -b[1] if bias else 0
+    v[7, 11] = 1000.0 * magnitude
+
+    def tt(x):
+        return torch.from_numpy(x.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    tables = rope_tables(torch.from_numpy(positions), torch.from_numpy(inv_freq),
+                         torch.bfloat16)
+    got_q, got = lo.rope_qkv_fp8(tt(q), tt(k), tt(v), tables,
+                                 tuple(map(tt, b)) if bias else None)
+
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    if bias:   # layer_step's ``biased``
+        jq, jk, jv = (y + jnp.asarray(c)[None, :] for y, c in zip((jq, jk, jv), b))
+    jt = jl.rope_tables(jnp.asarray(positions), jnp.asarray(inv_freq), jnp.bfloat16)
+    want_q = jl.apply_rope(jq.reshape(T, n_q, hd), None, None, tables=jt)
+    want_k = jl.apply_rope(jk.reshape(T, n_kv, hd), None, None, tables=jt)
+    want = jax_quantize_kv(want_k.reshape(T, KH), jv)
+    assert np.abs(np.asarray(want_k.reshape(T, KH)[5], np.float32)).max() == 0
+    assert got.dtype == torch.float8_e4m3fn and got.shape == (T, 2 * KH + 128)
+    np.testing.assert_array_equal(
+        got_q.view(torch.int16).numpy(),
+        np.asarray(want_q.reshape(T, QH)).view(np.int16))
+    np.testing.assert_array_equal(fp8_to_numpy(got).view(np.uint8),
+                                  want.view(np.uint8))
+    assert not np.isnan(want.astype(np.float32)).any()
 
 
 # --- the kernels' plain versions on the same stored bytes -----------------------------
@@ -178,7 +241,7 @@ def fp8_case(case):
 
     def q(rows):
         t = torch.from_numpy(rows)
-        return fp8_to_numpy(quantize_kv(t[:, :KH], t[:, KH:]))
+        return fp8_to_numpy(quantize_kv_plain(t[:, :KH], t[:, KH:]))
 
     layer = q(case["cache"][1])
     zeros = np.zeros_like(layer)
@@ -306,7 +369,7 @@ class StepCase:
             assert jm.kv_cache.dtype == jnp.float8_e4m3fn
             KH = (W - 128) // 2
             kv = torch.from_numpy(rng.normal(size=(L * S, 2 * KH)).astype(np.float32))
-            cache = fp8_to_numpy(quantize_kv(kv[:, :KH], kv[:, KH:])).reshape(L, S, W)
+            cache = fp8_to_numpy(quantize_kv_plain(kv[:, :KH], kv[:, KH:])).reshape(L, S, W)
         else:
             cache = rng.normal(size=(L, S, W)).astype(np.float32)
         feedback = rng.integers(0, 128, size=jm.token_feedback.shape).astype(np.int32)

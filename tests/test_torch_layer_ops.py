@@ -1,6 +1,6 @@
 """The layer's elementwise kernels of the PyTorch port (``ops/layer_ops.py``:
-``add_rms_norm``, ``rope_qkv``, ``silu_mul``), on the CPU, against the JAX
-package.
+``add_rms_norm``, ``rope_qkv``, ``rope_qkv_fp8``, ``silu_mul``), on the CPU,
+against the JAX package.
 
 The kernels run only on the card (``chip_smoke.py --layer-ops`` holds them
 against their plain versions there); here each wrapper takes its plain
@@ -35,6 +35,7 @@ from swiftllm_tpu_torch.models import llama
 from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.ops import quantize_kv as qkv
+from swiftllm_tpu_torch.ops.paged_attention import FP8
 from swiftllm_tpu_torch.worker.model import LlamaModel
 from tests import test_torch_llama as tl
 
@@ -102,7 +103,7 @@ def test_add_rms_norm_plain_matches_jax_at_model_widths(D):
 def test_rope_qkv_plain_matches_jax(dtype, hd, bias):
     """q_rot and the cache row k_rot ‖ v against the JAX package's biased
     projections, ``apply_rope`` with ``rope_tables`` and the ``kv_new``
-    concatenation; the split form gives the row's two halves."""
+    concatenation (the fp8 row's bytes: tests/test_torch_fp8_kv.py)."""
     rng = np.random.default_rng(2)
     T, n_q, n_kv = 5, 4, 2
     positions = np.array([0, 1, 17, 300, 4095], np.int32)
@@ -116,9 +117,6 @@ def test_rope_qkv_plain_matches_jax(dtype, hd, bias):
                                torch.from_numpy(inv_freq), DTYPES[dtype][0])
     got_q, got_kv = lo.rope_qkv_plain(
         q, k, v, tables, tuple(b for b, _ in biases) if bias else None)
-    _, (k_rot, v_out) = lo.rope_qkv_plain(
-        q, k, v, tables, tuple(b for b, _ in biases) if bias else None,
-        split=True)
 
     if bias:   # layer_step's ``biased``
         jq, jk, jv = (y + b.astype(y.dtype)[None, :]
@@ -130,7 +128,6 @@ def test_rope_qkv_plain_matches_jax(dtype, hd, bias):
     want_kv = jnp.concatenate([want_k.reshape(T, -1), jv], axis=1)
     close(got_q, want_q.reshape(T, -1), dtype)
     close(got_kv, want_kv, dtype)
-    assert torch.equal(torch.cat([k_rot, v_out], dim=1), got_kv)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -218,37 +215,51 @@ def _rope_inputs(rng, T=3, n_q=4, n_kv=2, hd=32):
     return q, k, v, tables, bias
 
 
-def test_rope_qkv_wrapper_rules(monkeypatch):
+@pytest.mark.parametrize("name", ["rope_qkv", "rope_qkv_fp8"])
+def test_rope_qkv_wrapper_rules(name, monkeypatch):
+    """Both rope wrappers: the plain version on the CPU, a raise off it;
+    on the card (stubbed) bf16 only, the shapes checked (a token's units
+    capped at MAX_ROPE_UNITS), and one launch whose arguments are the
+    inputs, the fresh outputs (the bf16 row k_rot ‖ v, or the fp8 cache
+    row with its scale lanes) and the widths."""
     rng = np.random.default_rng(5)
+    fn, plain = getattr(lo, name), getattr(lo, name + "_plain")
     q, k, v, tables, bias = _rope_inputs(rng)
-    _cpu_rules("rope_qkv", lo.rope_qkv, (q, k, v, tables, bias), lo.rope_qkv_plain)
+    _cpu_rules(name, fn, (q, k, v, tables, bias), plain)
     launched = _stub_card(monkeypatch)
     with pytest.raises(TypeError, match="bf16"):
-        lo.rope_qkv(q, k, v, tables, bias)
+        fn(q, k, v, tables, bias)
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     tb = tuple(t.to(torch.bfloat16) for t in tables)
     bb = tuple(t.to(torch.bfloat16) for t in bias)
     hd8 = tuple(t[..., :4] for t in tb)                  # head_dim 8
+    # 72 q and 72 kv heads of 128: 2,304 units a token
+    wide = (*(torch.zeros(3, 72 * 128, dtype=torch.bfloat16) for _ in range(3)),
+            tuple(torch.zeros(3, 1, 64, dtype=torch.bfloat16) for _ in range(2)),
+            None)
+    assert lo.rope_units(72, 72, 128) == 2304 > lo.MAX_ROPE_UNITS
+    assert lo.rope_units(64, 64, 128) == lo.MAX_ROPE_UNITS
     for bad in ((qb, kb, vb, hd8, None),                 # head_dim off 16
                 (qb[:, :40], kb, vb, tb, None),          # q off the head_dim
                 (qb, kb, vb[:, :32], tb, None),          # v's width
                 (qb, kb[:2], vb, tb, None),              # k's rows
                 (qb, kb, vb, tuple(t[:2] for t in tb), None),   # tables' rows
-                (qb, kb, vb, tb, bb[:2] + bb[:1])):      # bv's shape
-        with pytest.raises(ValueError, match="rope_qkv shapes"):
-            lo.rope_qkv(*bad)
+                (qb, kb, vb, tb, bb[:2] + bb[:1]),       # bv's shape
+                wide):                                   # units over the cap
+        with pytest.raises(ValueError, match=f"{name} shapes"):
+            fn(*bad)
     assert not launched
-    q2, kv = lo.rope_qkv(qb, kb, vb, tb, bb)
-    assert q2.shape == qb.shape and kv.shape == (3, 128)
-    assert launched[-1] == ("rope_qkv", (
+    q2, kv = fn(qb, kb, vb, tb, bb)
+    row = (2 * 64 + 128, FP8) if name == "rope_qkv_fp8" else (2 * 64, torch.bfloat16)
+    assert q2.shape == qb.shape and q2.dtype == torch.bfloat16
+    assert (kv.shape[1], kv.dtype) == row and kv.shape[0] == 3
+    assert launched[-1] == (name, (
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), *(b.data_ptr() for b in bb),
         tb[0].data_ptr(), tb[1].data_ptr(), q2.data_ptr(), kv.data_ptr(),
-        kv.data_ptr() + 64 * 2, 3, 4, 2, 32, 128))
-    q2, (k2, v2) = lo.rope_qkv(qb, kb, vb, tb, None, split=True)   # fp8 cache
-    assert k2.shape == v2.shape == kb.shape
+        3, 4, 2, 32))
+    q2, kv = fn(qb, kb, vb, tb, None)                    # no biases: null
     assert launched[-1][1][3:6] == (None,) * 3
-    assert launched[-1][1][8:] == (q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
-                                   3, 4, 2, 32, 64)
+    assert launched[-1][1][8:] == (q2.data_ptr(), kv.data_ptr(), 3, 4, 2, 32)
 
 
 def test_silu_mul_wrapper_rules(monkeypatch):
@@ -271,12 +282,11 @@ def test_silu_mul_wrapper_rules(monkeypatch):
 
 
 class Spy:
-    """Counts the calls of the layer kernels' wrappers and of
-    ``quantize_kv``'s in the model."""
+    """Counts the calls of the layer kernels' wrappers in the model."""
 
     def __init__(self, monkeypatch):
-        self.calls = dict.fromkeys(lo.KERNELS + ("quantize_kv",), 0)
-        for mod, name in [(lo, n) for n in lo.KERNELS] + [(qkv, "quantize_kv")]:
+        self.calls = dict.fromkeys(lo.KERNELS, 0)
+        for mod, name in [(lo, n) for n in lo.KERNELS]:
             real = getattr(mod, name)
 
             def spy(*a, _real=real, _name=name, **kw):
@@ -288,11 +298,12 @@ class Spy:
 @pytest.mark.parametrize("kind", ["bf16", "fp8_kv", "qkv_bias"])
 def test_layer_ops_dispatch(kind, monkeypatch):
     """With kernels on, a step sends the layer's elementwise work through
-    the three wrappers: add_rms_norm 2L + 1 times (the final norm takes the
-    last layer's residual), rope_qkv and silu_mul L times; with an fp8 cache
-    quantize_kv still builds the row once a layer. The plain path calls
-    none of them, and both give the same logits (the CPU runs the plain
-    versions)."""
+    the wrappers: add_rms_norm 2L + 1 times (the final norm takes the last
+    layer's residual), rope_qkv and silu_mul L times; with an fp8 cache
+    rope_qkv_fp8 L times in place of rope_qkv, the row built in its launch
+    (the stand-alone row build, quantize_kv, no longer exists). The plain
+    path calls none of them, and both give the same logits (the CPU runs
+    the plain versions)."""
     L = tl.MC["num_layers"]
     ec = dict(tl.EC, dtype="bfloat16")
     if kind == "fp8_kv":
@@ -311,10 +322,12 @@ def test_layer_ops_dispatch(kind, monkeypatch):
         tl.preallocate(m.hbm_block_mgrs[0])
         _, _, logits[use_kernels] = m.forward(tl.schedule("torch"),
                                               return_logits=True)
-        want = {"add_rms_norm": 2 * L + 1, "rope_qkv": L, "silu_mul": L,
-                "quantize_kv": L if kind == "fp8_kv" else 0}
+        fp8 = kind == "fp8_kv"
+        want = {"add_rms_norm": 2 * L + 1, "rope_qkv": 0 if fp8 else L,
+                "rope_qkv_fp8": L if fp8 else 0, "silu_mul": L}
         assert spy.calls == (want if use_kernels else dict.fromkeys(want, 0)), \
             (use_kernels, spy.calls)
         monkeypatch.undo()
     assert np.isfinite(logits[True]).all()
     np.testing.assert_array_equal(logits[True], logits[False])
+    assert not hasattr(qkv, "quantize_kv") and "quantize_kv" not in build.KERNELS

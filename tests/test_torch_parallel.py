@@ -364,13 +364,13 @@ def _random_fp8_cache(rng, L, S, W, tp):
     """Valid fp8 cache rows (per-token scales in each shard's scale lanes),
     as uint8 bytes, [L, S, W] for tp shards side by side."""
     import ml_dtypes
-    from swiftllm_tpu_torch.models.llama import quantize_kv
+    from swiftllm_tpu_torch.models.llama import quantize_kv_plain
     Wl = W // tp
     KH = (Wl - llama.FP8_SCALE_LANES) // 2
     parts = []
     for _ in range(tp):
         kv = torch.from_numpy(rng.normal(size=(L * S, 2 * KH)).astype(np.float32))
-        parts.append(quantize_kv(kv[:, :KH], kv[:, KH:]).view(torch.uint8)
+        parts.append(quantize_kv_plain(kv[:, :KH], kv[:, KH:]).view(torch.uint8)
                      .numpy().reshape(L, S, Wl))
     return np.concatenate(parts, axis=2).view(ml_dtypes.float8_e4m3fn)
 
