@@ -25,7 +25,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. each kernel against its plain PyTorch version at Llama-3-8B width
      (and two cases at Llama-3.2-1B width, one of them at q bucket 4096 in
      a bucket of 128 rows), with times and bounds, and one
-     planted fault (a decode row short of one page) that must fail; the
+     planted fault (a decode row short of one page) that must fail; in
+     every case with multi-token rows the span write first, folded into
+     the rope kernel as the model runs it (rope_qkv or rope_qkv_fp8 with
+     the step's scatter slots: the whole cache byte-equal to
+     store_kv_plain, q_rot and the unscattered kv_new rows equal, two
+     planted faults, a slot one row off and the rows left in kv_new with
+     the cache skipped, that must fail; out-of-range slots dropped, with a
+     third, a write at slot S wrapped to 0; its kernel-table row the fold
+     less the kernel without slots, in turns); the
      attention kernels' variants on the same cases (an fp8 cache, a sliding
      window of 4096 and of 50, and both), each with its times and bounds,
      with two more planted faults (the V scale left out, the window off by
@@ -69,7 +77,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      its plain version (rope_qkv_plain, then quantize_kv_plain) on rows of
      magnitudes 1e-4 to 1e7 that reach both ends of the scale clip, a row of
      zeros, an outlier and a row whose rotated k rounds onto a scale's edge,
-     the other two within one bf16 rounding, seven planted faults (eps left
+     the other two within one bf16 rounding, both with a cache and slots
+     (-1, S, a span from mid-page) byte-equal to store_kv_plain, seven
+     planted faults (eps left
      out, the residual not written back, a plus in RoPE, gate and up
      swapped, the fp8 row's K and V scale lanes swapped, its K scale taken
      before the bf16 rounding, two kv heads' rows swapped)
@@ -83,8 +93,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      window and on the long rows, the cache byte-identical afterwards, with
      two planted faults (a history one key too long, the pending slots
      shifted by one) that must fail; the verify spans of speculative
-     decoding (store_kv, then the prefill kernel at q bucket 8 over 12 spans
-     of 2 to 5 tokens that start mid-page, beside 4 decode-kind rows) in
+     decoding (the span write folded into the rope kernel, then the prefill
+     kernel at q bucket 8 over 12 spans of 2 to 5 tokens that start
+     mid-page, beside 4 decode-kind rows) in
      bf16, fp8, window 50 and on long rows with window 4096, with a planted
      fault (the spans' first query position off by one), the split path (the
      planner's split count and one split against each other and against
@@ -201,8 +212,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      tp = 1's, with wall, TTFT, decode tok/s and each rank's memory; [http tp2]: the
      api_server command line at tp = 2, /generate, then SIGTERM to rank 0
      ends both ranks;
-then one {"kernels": [...]} line (every C entry that launches a kernel, the
-page mover included) and, last, {"ok": true, "device": {...}}.
+and [examples]: examples/offline_torch.py on the card at its tiny dummy
+size, in a process of its own; then one {"kernels": [...]} line (every C
+entry that launches a kernel, the page mover included) and, last,
+{"ok": true, "device": {...}}.
 
 With --compare-graphs it builds the kernels and runs only compare_graphs:
 one full-width engine serving the same 8 requests in turns eagerly and from
@@ -239,10 +252,12 @@ With --compare-swap-norm it builds swap_pages and add_rms_norm and times
 both through their wrappers alone (the mover's round trip each way with
 the link's shares and beside the load; add_rms_norm back to back and
 after a kernel): run it from two checkouts in turns. With --compare-rope
-it builds the rope kernels (and the row build where a checkout has it
-apart) and times them through their wrappers alone (8B T = 1, 16, 128,
-2,048 and Qwen2-0.5B T = 1, 128, back to back and after a kernel): run it
-from two checkouts in turns.
+it builds the rope kernels (and the row build or the span write where a
+checkout has them apart) and times them through their wrappers alone (8B
+T = 1, 16, 128, 2,048 and Qwen2-0.5B T = 1, 128, back to back and after a
+kernel; then the span write at 8B width on FOLD_SHAPES, bf16 and fp8, the
+fold or the parent's pair rope_qkv + store_kv): run it from two checkouts
+in turns.
 With --parallel it builds the kernels and runs only phase 6. With
 --layer-ops it builds only the layer kernels and runs only the [layer_ops]
 phase. With --quant it builds the kernels and runs
@@ -261,6 +276,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import gc
+import inspect
 import itertools
 import json
 import math
@@ -344,7 +360,6 @@ FP8_PATH_KERNELS = pa.KERNELS + ("add_rms_norm", "rope_qkv_fp8", "silu_mul")
 REPLACES = {
     "paged_decode_attention": "swiftllm_tpu/ops/paged_attention.py:248",
     "paged_decode_attention_pend": "swiftllm_tpu/ops/paged_attention.py:297",
-    "store_kv": "swiftllm_tpu/ops/paged_attention.py:942",
     "paged_prefill_attention": "swiftllm_tpu/ops/paged_attention.py:843",
     "paged_prefill_attention_bf16s": "swiftllm_tpu/ops/paged_attention.py:1163",
     "int4_matmul": "swiftllm_tpu/ops/int4_matmul.py:61",
@@ -354,7 +369,8 @@ REPLACES = {
     # No Pallas kernel: XLA's fusions in layer_step (510) of rms_norm with
     # the residual add, of the bias adds, apply_rope and the kv_new
     # concatenation (with an fp8 cache, the quantizing kv_new build), and
-    # of SiLU times up.
+    # of SiLU times up. The rope kernels also take, given a step's slots,
+    # the fused span write of paged_attention.py:_tiles_kernel (942).
     "add_rms_norm": "swiftllm_tpu/models/llama.py:244",
     "rope_qkv": "swiftllm_tpu/models/llama.py:208",
     "rope_qkv_fp8": "swiftllm_tpu/models/llama.py:587",
@@ -443,7 +459,10 @@ def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
     """rows: list of (q_len, seq_len). Decode rows (q_len 1) first, packed so
     flat token b is row b; multi-token spans follow, aligned to 128 tokens as
     the batch builder aligns them. Pages are a random permutation of the pool
-    (scattered); the pool's last page is the garbage page, in no row. With
+    (scattered); the pool's last page is the garbage page, in no row. The
+    step's q and kv_new are what the model's rope kernel makes of N(0, 1)
+    q, k, v at the tokens' positions ("rope": those inputs; the plain
+    version's q_rot and rows, which the kernel matches bit for bit): with
     fp8 the cache and kv_new are quantized rows with their scale lanes. The
     page table has rows_bucket rows when that is more than the rows' own
     power of two (the engine pins it to max_batch_size); its "live_rows" is
@@ -469,6 +488,7 @@ def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
     q_lens = torch.zeros(B, dtype=torch.int32)
     seq_lens = torch.zeros(B, dtype=torch.int32)
     q_st = torch.full((B,), T, dtype=torch.int32)
+    positions = torch.zeros(T, dtype=torch.int32)
     used = 0
     for b, (ql, sl) in enumerate(rows):
         pages = perm[used:used + n_pages_row[b]]
@@ -478,6 +498,7 @@ def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
         for i in range(ql):
             pos = sl - ql + i
             slots[q_starts[b] + i] = pages[pos // page_size] * page_size + pos % page_size
+            positions[q_starts[b] + i] = pos
     # Decode-kind and prefill-kind q_lens, and the scatter slots: -1 (dropped)
     # for decode-kind tokens, whose write the decode kernel does itself, and
     # for pad tokens, as the model's unpack_step_batch gives them.
@@ -486,15 +507,18 @@ def paged_case(gen, device, *, rows, n_q, n_kv, hd, page_size, layers=2,
     scatter[:n_dec] = -1
     bf = dict(device=device, dtype=torch.bfloat16)
     g = torch.Generator(device=device).manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
-    q = torch.randn(T, n_q, hd, generator=g, **bf)
+    inv_freq = 1.0 / 500000.0 ** (torch.arange(0, hd, 2, device=device) / hd)
+    rope = (torch.randn(T, n_q * hd, generator=g, **bf),
+            *(torch.randn(T, W // 2, generator=g, **bf) for _ in range(2)),
+            rope_tables(positions.to(device), inv_freq, torch.bfloat16))
     if fp8:
         cache = fp8_rows(g, layers * S, W // 2, device).view(layers, S, -1)
-        kv_new = fp8_rows(g, T, W // 2, device)
+        q, kv_new = lo.rope_qkv_fp8_plain(*rope)
     else:
         cache = torch.randn(layers, S, W, generator=g, **bf)
-        kv_new = torch.randn(T, W, generator=g, **bf)
+        q, kv_new = lo.rope_qkv_plain(*rope)
     return dict(
-        q=q, cache=cache, kv_new=kv_new, n_kv=n_kv,
+        q=q.view(T, n_q, hd), cache=cache, kv_new=kv_new, n_kv=n_kv, rope=rope,
         page_table=pt.to(device), kv_slots=slots.to(device),
         q_starts=q_st.to(device), q_lens=q_lens.to(device),
         seq_lens=seq_lens.to(device), rows=rows, page_size=page_size,
@@ -513,8 +537,22 @@ def _decode(case, cache, impl, window=0):
                 sm_scale=case["sm_scale"], window=window)
 
 
-def _store(case, cache, impl):
-    impl(cache, case["kv_new"], case["scatter"], case["layer"])
+def _store(case, cache):
+    """The case's span write by its plain version (a set-up that fills the
+    cache for an attention kernel)."""
+    pa.store_kv_plain(cache, case["kv_new"], case["scatter"], case["layer"])
+
+
+def _fold(case, cache, slots=None):
+    """The case's span write as the model runs it: the rope kernel of its
+    cache type on its rope inputs with the scatter slots (or `slots`),
+    writing the prefill-kind rows to `cache`; returns (q_rot [T, n_q, hd],
+    the rows it left in kv_new)."""
+    rope = lo.rope_qkv_fp8 if case["cache"].dtype == pa.FP8 else lo.rope_qkv
+    q, kv = rope(*case["rope"], cache=cache,
+                 slots=case["scatter"] if slots is None else slots,
+                 layer=case["layer"])
+    return q.view(case["q"].shape), kv
 
 
 def _prefill(case, cache, impl, window=0, **extra):
@@ -622,27 +660,88 @@ def _dense_kv(case, cache, kind, window=0):
     return qd, k, v, mask
 
 
+def _bytes_equal(a, b) -> bool:
+    """Two tensors' bytes equal (of any dtype, fp8 included)."""
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def check_fold(case, c_k, c_p, name):
+    """The span write folded into the rope kernel: the case's rope inputs
+    through the kernel with the scatter slots on `c_k` and the plain rows
+    (the rope kernel's plain version) through store_kv_plain on `c_p`. The
+    whole cache byte-equal (no row of the garbage page or out of range
+    written), q_rot bit-equal and the rows left in kv_new (the unscattered
+    tokens': decode-kind and pad) byte-equal to the plain version's. The
+    planted faults must fail the same checks: each prefill-kind row written
+    one slot further, and each left in kv_new with the cache skipped.
+    Returns (q_rot, kv_new) as the kernel left them, for the attention
+    kernels that follow."""
+    before = c_k.clone()
+    q_k, kv_k = _fold(case, c_k)
+    _store(case, c_p)
+    keep = case["scatter"] < 0
+    assert _bytes_equal(c_k, c_p), f"{name}: the fold's cache differs from store_kv_plain"
+    assert torch.equal(q_k, case["q"]), f"{name}: the fold's q_rot differs"
+    assert _bytes_equal(kv_k[keep], case["kv_new"][keep]), \
+        f"{name}: the fold's unscattered kv_new rows differ"
+    off = before.clone()
+    shifted = torch.where(keep, -1, case["scatter"] + 1)
+    pa.store_kv_plain(off, case["kv_new"], shifted, case["layer"])
+    assert not _bytes_equal(c_k, off), f"{name}: a slot one row off passes"
+    assert not _bytes_equal(c_k, before), \
+        f"{name}: rows left in kv_new with the cache skipped pass"
+    return q_k, kv_k
+
+
+def check_fold_bounds(case, name):
+    """Out-of-range slots (S, S + 7, -2 and 2^31 - 1 on four prefill-kind
+    tokens) are dropped: their rows go to kv_new, and the whole cache is
+    byte-equal to store_kv_plain's with those slots. The planted fault, a
+    write at the out-of-range slot S wrapped to slot 0, must fail it."""
+    S = case["cache"].shape[1]
+    slots = case["scatter"].clone()
+    pre = (slots >= 0).nonzero().flatten()[:4]
+    slots[pre] = torch.tensor([S, S + 7, -2, 2**31 - 1], dtype=torch.int32,
+                              device=slots.device)
+    c_k, c_p = case["cache"].clone(), case["cache"].clone()
+    _, kv_k = _fold(case, c_k, slots)
+    pa.store_kv_plain(c_p, case["kv_new"], slots, case["layer"])
+    assert _bytes_equal(c_k, c_p), f"{name}: an out-of-range slot was written"
+    assert _bytes_equal(kv_k[pre], case["kv_new"][pre]), \
+        f"{name}: a dropped row is not in kv_new"
+    wrapped = c_p.clone()
+    pa.as_bytes(wrapped)[case["layer"], 0] = pa.as_bytes(case["kv_new"])[pre[0]]
+    assert not _bytes_equal(c_k, wrapped), f"{name}: a write at slot S wrapped to 0 passes"
+    log(f"[kernels] {name}: the fold drops out-of-range slots (S, S + 7, -2, "
+        f"2^31 - 1: rows in kv_new, cache byte-equal); the planted fault (slot S "
+        f"written at 0) rejected")
+
+
 def check_kernels(case, *, name, results, window=0):
     """Run the case through kernels and plain versions; check outputs and the
-    cache; time each kernel, its plain version and a library yardstick."""
+    cache; time each kernel, its plain version and a library yardstick. With
+    prefill-kind rows the span write runs first, folded into the rope kernel
+    as the model runs it (check_fold), and the attention kernels read the
+    q_rot and kv_new it left."""
     ps = case["page_size"]
     has_dec = case["n_dec"] > 0
     has_pre = any(ql > 1 for ql, _ in case["rows"])
     c_k = case["cache"].clone()
     c_p = case["cache"].clone()
+    kcase = case
+    if has_pre:
+        q_k, kv_k = check_fold(case, c_k, c_p, name)
+        kcase = dict(case, q=q_k, kv_new=kv_k)
     out = {}
     if has_dec:
-        got = _decode(case, c_k, pa.paged_decode_attention, window)
+        got = _decode(kcase, c_k, pa.paged_decode_attention, window)
         want = _decode(case, c_p, pa.paged_decode_attention_plain, window)
         idx = _valid_tokens(case, "decode")
         out["paged_decode_attention"] = _compare(got[idx], want[idx])
         if has_pre is False:
             assert torch.equal(got[len(idx):], torch.zeros_like(got[len(idx):]))
     if has_pre:
-        _store(case, c_k, pa.store_kv)
-        _store(case, c_p, pa.store_kv_plain)
-        assert _cache_equal(c_k, c_p, ps), f"{name}: store_kv cache differs"
-        got = _prefill(case, c_k, pa.paged_prefill_attention, window)
+        got = _prefill(kcase, c_k, pa.paged_prefill_attention, window)
         want = _prefill(case, c_p, pa.paged_prefill_attention_plain, window)
         idx = _valid_tokens(case, "prefill")
         out["paged_prefill_attention"] = _compare(got[idx], want[idx])
@@ -652,7 +751,7 @@ def check_kernels(case, *, name, results, window=0):
             f"{med:.3g}, worst {ratio:.3g} of the tolerance")
         assert ratio <= 1, f"{name}: {k_} disagrees with its plain version"
     log(f"[kernels] {name}: cache bit-identical after the writes (garbage "
-        f"page excluded{', store_kv checked alone too' if has_pre else ''})")
+        f"page excluded{'; the fold: whole cache byte-equal to store_kv_plain, q_rot and the unscattered kv_new rows equal, two planted faults rejected' if has_pre else ''})")
     if results is None:
         return
 
@@ -668,20 +767,7 @@ def check_kernels(case, *, name, results, window=0):
             library_ms=time_ms(lambda: sdpa(qd, k, v, attn_mask=mask, enable_gqa=True)),
             **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
     if has_pre:
-        # The work store_kv must do: one read and one write of the row of
-        # each prefill-kind token (decode-kind and pad tokens are dropped).
-        n_tok = int(case["pre_lens"].sum())
-        row_bytes = case["kv_new"].shape[1] * case["kv_new"].element_size()
-        keep = case["scatter"] >= 0                      # selection NOT timed
-        slots_l = case["scatter"][keep].long()
-        rows_l = pa.as_bytes(case["kv_new"])[keep]
-        lib_cache = pa.as_bytes(c_k)[case["layer"]]
-        results["store_kv"] = dict(
-            max_abs_err=0.0,
-            ms=time_ms(lambda: _store(case, c_k, pa.store_kv)),
-            plain_ms=time_ms(lambda: _store(case, c_p, pa.store_kv_plain), reps=3),
-            library_ms=time_ms(lambda: lib_cache.index_copy_(0, slots_l, rows_l)),
-            **dict(zip(("bound_ms", "bound_by"), bound(2 * n_tok * row_bytes, 0))))
+        results["span write"] = span_write_row(case, c_k, c_p)
         nbytes, flops = _prefill_costs(case, window)
         qd, k, v, mask = _dense_kv(case, c_k, "prefill", window)  # NOT timed
         results["paged_prefill_attention"] = dict(
@@ -694,11 +780,38 @@ def check_kernels(case, *, name, results, window=0):
     log("[time] library_ms: scaled_dot_product_attention on K/V gathered "
         "dense (and dequantized) beforehand, outside the timed region, with "
         "a band mask under a window; index_copy_ of the prefill-kind rows "
-        "for store_kv")
+        "for the span write")
     for k_, r in results.items():
         log(f"[time] {name} {k_}: " + ", ".join(
             f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
             for a, b in r.items()))
+
+
+def span_write_log(label: str, row: dict) -> None:
+    log(f"[span write] {label}: {json.dumps(row)}")
+
+
+def span_write_row(case, c_k, c_p) -> dict:
+    """The kernel table's row of the span write, which has no launch of its
+    own since it rides in the rope kernel: ms the rope kernel's launch with
+    the scatter slots less its launch without them, on the same inputs, in
+    turns (without, with, with, without); bound one write of each
+    prefill-kind row; plain store_kv_plain; library index_copy_ of the
+    prefill-kind rows (selected outside the timed region)."""
+    rope = lo.rope_qkv_fp8 if case["cache"].dtype == pa.FP8 else lo.rope_qkv
+    bare = lambda: rope(*case["rope"])                      # noqa: E731
+    t = [time_ms(bare if i in (0, 3) else lambda: _fold(case, c_k)) for i in range(4)]
+    n_tok = int(case["pre_lens"].sum())
+    row_bytes = case["kv_new"].shape[1] * case["kv_new"].element_size()
+    keep = case["scatter"] >= 0                      # selection NOT timed
+    slots_l = case["scatter"][keep].long()
+    rows_l = pa.as_bytes(case["kv_new"])[keep]
+    lib_cache = pa.as_bytes(c_k)[case["layer"]]
+    return dict(max_abs_err=0.0, ms=(t[1] + t[2] - t[0] - t[3]) / 2,
+                fold_ms=(t[1] + t[2]) / 2, rope_ms=(t[0] + t[3]) / 2,
+                plain_ms=time_ms(lambda: _store(case, c_p), reps=3),
+                library_ms=time_ms(lambda: lib_cache.index_copy_(0, slots_l, rows_l)),
+                **dict(zip(("bound_ms", "bound_by"), bound(n_tok * row_bytes, 0))))
 
 
 def check_planted_fault(case):
@@ -923,7 +1036,7 @@ def check_fault_span_start(case):
     span, which holds unrelated rows); its output must fail the comparison
     with the plain version on the true inputs."""
     c = case["cache"].clone()
-    _store(case, c, pa.store_kv)
+    _store(case, c)
     late = dict(case, seq_lens=case["seq_lens"] + (case["pre_lens"] > 0).int())
     got = _prefill(late, c, pa.paged_prefill_attention)
     want = _prefill(case, c, pa.paged_prefill_attention_plain)
@@ -956,7 +1069,7 @@ def _split_calls(case, kind, window=0):
     planner's choice) on the cache it is given."""
     c = case["cache"].clone()
     if kind == "prefill":
-        _store(case, c, pa.store_kv)
+        _store(case, c)
     kw = dict(n_kv=case["n_kv"], page_size=case["page_size"],
               sm_scale=case["sm_scale"], window=window)
     live = dict(live_rows=case["live_rows"])
@@ -1000,7 +1113,8 @@ def check_splits(case, kind, label, window=0):
 
 def phase_verify(device, smi) -> dict:
     """The unfused mode of the TPU tile kernel, as speculative verify steps
-    run it at 8B width: store_kv of the spans, then paged_prefill_attention
+    run it at 8B width: the spans' rows written by the rope kernel (the
+    span write folded in, check_fold), then paged_prefill_attention
     at q bucket 8 over spans that start and end mid-page, with the decode
     kernel on the decode-kind rows; in bf16, fp8, window 50, and on the long
     rows (20,000 and 16,385 keys) with window 4096; the planted fault; the
@@ -1083,7 +1197,7 @@ def compare_prefill(smi):
     out = []
     for label, case, window in cases:
         c = case["cache"].clone()
-        _store(case, c, pa.store_kv)
+        _store(case, c)
         for splits in ((None, 1) if label == "verify spans" else (None,)):
             t = time_ms(lambda: _bf16s(case, c, False, window=window, splits=splits))
             out.append(f"{label}{'' if splits is None else ', one split'} {t:.4f}")
@@ -1097,7 +1211,7 @@ def compare_prefill(smi):
         if group == 8:
             pre = paged_case(gen, "cuda", rows=mixed, q_bucket=512, **w)
             cp = pre["cache"].clone()
-            _store(pre, cp, pa.store_kv)
+            _store(pre, cp)
             out.append(f"mixed step, group 8 {time_ms(lambda: _bf16s(pre, cp, False)):.4f}")
     log(f"[compare] prefill kernel: {'; '.join(out)} ms ({smi})")
 
@@ -1131,7 +1245,7 @@ def check_bf16s(case, label, atol=BF16S_ATOL, rtol=BF16S_RTOL, control=False):
     plain version: the tolerance then tells the two variants apart. Returns
     (max_abs_err, the stored cache)."""
     c = case["cache"].clone()
-    _store(case, c, pa.store_kv)
+    _store(case, c)
     build.reset_launch_counts()
     got = _bf16s(case, c, True)
     torch.cuda.synchronize()
@@ -1161,7 +1275,7 @@ def pin_row_max(case, gen, gap=2.0):
     """The case with every query of kv head h along one direction (8 u_h
     plus N(0, 0.3) a dim) and key 0 of every row set to c u_h, c so that
     each query's raw score with key 0 tops its score with every key of the
-    layer and of every span row that store_kv writes by `gap` (a span that
+    layer and of every span row that the span write stores by `gap` (a span that
     starts at position 0 writes key 0 itself, so its kv_new row is set
     too): the kernel's running maximum (key 0 is in its first key tile) and
     the plain version's row maximum are then the same m, and the two round
@@ -1185,7 +1299,7 @@ def pin_row_max(case, gen, gap=2.0):
         c = ((top + gap) / (qh @ u)).amax()
         cache[layer, slots0, h * hd:(h + 1) * hd] = (c * u).bfloat16()
         kv_new[at0, h * hd:(h + 1) * hd] = (c * u).bfloat16()
-    return dict(case, q=q.bfloat16(), cache=cache, kv_new=kv_new)
+    return dict(case, q=q.bfloat16(), cache=cache, kv_new=kv_new, rope=None)
 
 
 def phase_bf16s(device, smi) -> dict:
@@ -1233,7 +1347,7 @@ def phase_bf16s(device, smi) -> dict:
     # The gate: an fp8 cache keeps f32 scores whatever the variable says.
     case = paged_case(gen, device, rows=mixed, fp8=True, **w8b)
     c = case["cache"].clone()
-    _store(case, c, pa.store_kv)
+    _store(case, c)
     build.reset_launch_counts()
     assert torch.equal(_bf16s(case, c, True), _bf16s(case, c, False))
     torch.cuda.synchronize()
@@ -1441,7 +1555,51 @@ def check_rope_fp8(a, n_kv: int, label: str) -> str:
             f"{n_faults} planted faults rejected)")
 
 
-def check_layer_ops(a, eps, n_kv, label) -> tuple[dict, str]:
+def fold_slots(gen, T: int, page_size: int = 16, edges: bool = True) -> tuple:
+    """(slots i32[T], S) for the rope kernels' cache write: a span of T
+    tokens from position 5 (mid-page) on scattered pages of a pool of S
+    slots; with `edges`, where there are tokens enough, token 0 decode-kind
+    (-1, its row left in kv_new) and token 2 at S (out of range: dropped,
+    its row left in kv_new too)."""
+    n_pages = cdiv(T + 5, page_size) + 2
+    pages = torch.randperm(n_pages, generator=gen, device=gen.device)
+    pos = torch.arange(T, device=gen.device) + 5
+    slots = (pages[pos // page_size] * page_size + pos % page_size).int()
+    S = n_pages * page_size
+    if edges and T > 2:
+        slots[0], slots[2] = -1, S
+    return slots, S
+
+
+def check_rope_fold(gen, a, label) -> str:
+    """rope_qkv on `a` and rope_qkv_fp8 on fp8_inputs(a), each with a cache
+    of 2 layers and fold_slots' slots at layer 1, against their plain
+    versions then store_kv_plain: the whole cache byte-equal, q_rot
+    bit-equal, the rows left in kv_new (the unscattered tokens') byte-equal.
+    Returns what it checked."""
+    T, KH = a["k"].shape
+    slots, S = fold_slots(gen, T)
+    f = fp8_inputs(a)
+    for fn, plain, args, cache in (
+            (lo.rope_qkv, lo.rope_qkv_plain, (a["q"], a["k"], a["v"], a["tables"], a["bias"]),
+             torch.randn(2, S, 2 * KH, generator=gen, device=gen.device).bfloat16()),
+            (lo.rope_qkv_fp8, lo.rope_qkv_fp8_plain,
+             (f["q"], f["k"], f["v"], f["tables"], f["bias"]),
+             fp8_rows(gen, 2 * S, KH, gen.device).view(2, S, -1))):
+        want_c = cache.clone()
+        q2, kv = fn(*args, cache=cache, slots=slots, layer=1)
+        want_q, want_kv = plain(*args)
+        pa.store_kv_plain(want_c, want_kv, slots, 1)
+        keep = (slots < 0) | (slots >= S)
+        assert _bytes_equal(cache, want_c), f"{label}: {fn.__name__}'s cache write differs"
+        assert torch.equal(q2, want_q), f"{label}: {fn.__name__} with slots: q_rot differs"
+        assert _bytes_equal(kv[keep], want_kv[keep]), \
+            f"{label}: {fn.__name__} with slots: the unscattered rows differ"
+    return (f"with a cache ({int((~keep).sum())} of {T} rows written from position "
+            f"5 on, {int(keep.sum())} left in kv_new) byte-equal to store_kv_plain")
+
+
+def check_layer_ops(gen, a, eps, n_kv, label) -> tuple[dict, str]:
     """The four kernels against their plain versions on inputs `a`
     (layer_inputs): add_rms_norm with and without the residual (x' bit-equal,
     h within one rounding), rope_qkv bit-equal, rope_qkv_fp8 byte-equal on
@@ -1474,6 +1632,7 @@ def check_layer_ops(a, eps, n_kv, label) -> tuple[dict, str]:
     assert not (torch.equal(q2, fq) or torch.equal(kv, fkv)), \
         f"{label}: RoPE with the plus passes"
     fp8_seen = check_rope_fp8(a, n_kv, label)
+    fp8_seen += "; both " + check_rope_fold(gen, a, label)
 
     gate, up = a["gate"], a["up"]
     out = lo.silu_mul(gate, up)
@@ -1546,7 +1705,7 @@ def phase_layer_ops(device, smi) -> dict:
             a = layer_inputs(gen, mc, T, device)
             label = (f"{name} T={T} ({units} rope units, "
                      f"{next(u for u in (1, 2, 4) if units <= 512 * u)} a thread)")
-            errs, fp8_seen = check_layer_ops(a, eps, mc.num_kv_heads, label)
+            errs, fp8_seen = check_layer_ops(gen, a, eps, mc.num_kv_heads, label)
             nbytes = layer_costs(a)
             parts = []
             for kern, (fn, plain, lib) in layer_calls(a, eps).items():
@@ -1626,9 +1785,10 @@ def phase_kernels(device) -> dict:
     mixed = ([(1, 40 + 97 * i) for i in range(8)]
              + [(512, 512), (512, 1536), (300, 812)])
     mres = {}
-    check_kernels(paged_case(gen, device, rows=mixed, q_bucket=512, **w8b),
-                  name="mixed 8B", results=mres)
-    results["store_kv"] = mres["store_kv"]
+    case = paged_case(gen, device, rows=mixed, q_bucket=512, **w8b)
+    check_kernels(case, name="mixed 8B", results=mres)
+    check_fold_bounds(case, "mixed 8B")
+    span_write_log("mixed 8B", mres["span write"])
     results["paged_prefill_attention"] = mres["paged_prefill_attention"]
 
     # The variants, on the same cases: an fp8 cache, a window, and both. A
@@ -1650,8 +1810,12 @@ def phase_kernels(device) -> dict:
                 if not fp8 and window == 0:
                     continue            # the default mode, checked above
                 timed = not (window == 4096 and max(s for _, s in rows) <= 4096)
+                res = {} if timed else None
                 check_kernels(case, name=f"{tag}window {window} {label}",
-                              results={} if timed else None, window=window)
+                              results=res, window=window)
+                if fp8 and window == 0 and label == "mixed 8B":
+                    check_fold_bounds(case, "fp8 mixed 8B")
+                    span_write_log("fp8 mixed 8B", res["span write"])
             if label == "decode 8B long rows" and fp8:
                 check_splits(case, "decode", "fp8 decode 8B long rows")
             if label == "decode 8B 16 rows":
@@ -1702,8 +1866,8 @@ def phase_groups(device, smi) -> None:
     decode kernel in bf16, fp8, window 50 and fp8 with window 50, 3 splits
     forced, and its `pend` variant (npend 1 and 8, also under window 50);
     the prefill kernel on the same rows in the same variants, 3 splits
-    forced, on verify spans that start and end mid-page (store_kv, then the
-    kernel: the unfused mode) and in its bf16-score variant on those spans.
+    forced, on verify spans that start and end mid-page (the span write
+    folded into the rope kernel, then the kernel: the unfused mode) and in its bf16-score variant on those spans.
     At group 7 the planted faults (a decode row's last page skipped, each
     span's first query one position late) must fail. Then the decode and
     prefill kernels' times at group 7 against group 8 on the same kv heads
@@ -1750,7 +1914,7 @@ def phase_groups(device, smi) -> None:
             dec = paged_case(g, device, rows=[(1, s) for s in seq], **w)
             pre = paged_case(g, device, rows=mixed, q_bucket=512, **w)
             cp = pre["cache"].clone()
-            _store(pre, cp, pa.store_kv)
+            _store(pre, cp)
             cases[group] = (dec, pre, cp)
         t = {8: [], 7: []}
         for group in (8, 7, 7, 8):
@@ -3139,17 +3303,30 @@ def compare_swap_norm(smi):
     log(f"[compare] add_rms_norm: {'; '.join(parts)} ms ({smi})")
 
 
+# --compare-rope's span-write shapes at 8B width: (label, T, spans of
+# prefill-kind tokens as (first token, tokens)); the other tokens -1. The
+# phase-2 mixed step: 8 decode rows, then chunks of 512, 512 and 300 from
+# token 128 on (the batch builder's alignment).
+FOLD_SHAPES = (("T=128 prefill-kind", 128, ((0, 128),)),
+               ("mixed step", 2048, ((128, 512), (640, 512), (1152, 300))),
+               ("T=2,048 prefill-kind", 2048, ((0, 2048),)))
+
+
 def compare_rope(smi):
-    """--compare-rope: the rope kernel and the fp8 row build through their
-    wrappers alone, so that this script copied into an earlier checkout
-    times that checkout's kernels: run the two in turns (parent, change,
-    change, parent) to compare builds on one card. The fp8 row is
-    rope_qkv_fp8 where the checkout has it, else the pair that built it
-    before, rope_qkv(split=True) then quantize_kv. At 8B width T = 1, 16,
-    128, 2,048, and at Qwen2-0.5B's, Llama-2-7B's and Llama-2-13B's T = 1,
-    128, back to back (time_ms) and after a kernel of another kind
-    (time_alone_ms)."""
+    """--compare-rope: the rope kernel, the fp8 row build and the span write
+    through their wrappers alone, so that this script copied into an
+    earlier checkout times that checkout's kernels: run the two in turns
+    (parent, change, change, parent) to compare builds on one card. The fp8
+    row is rope_qkv_fp8 where the checkout has it, else the pair that built
+    it before, rope_qkv(split=True) then quantize_kv. Without slots at 8B
+    width T = 1, 16, 128, 2,048, and at Qwen2-0.5B's, Llama-2-7B's and
+    Llama-2-13B's T = 1, 128; then the span write at 8B width on
+    FOLD_SHAPES, bf16 and fp8: the rope kernel with the slots where the
+    checkout folds it in, else the pair that wrote the rows before, the rope
+    kernel then store_kv. Back to back (time_ms) and after a kernel of
+    another kind (time_alone_ms)."""
     fused = hasattr(lo, "rope_qkv_fp8")
+    folds = "slots" in inspect.signature(lo.rope_qkv).parameters
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     for name, widths, ts in (("8B", LLAMA3_8B, LAYER_TS),
                              ("Qwen2-0.5B", QWEN2_05B, (1, 128)),
@@ -3168,6 +3345,32 @@ def compare_rope(smi):
             parts = [f"{k} {time_ms(fn):.4f} back to back, {time_alone_ms(fn):.4f} "
                      "after a kernel" for k, fn in fns.items()]
             log(f"[compare rope] {name} T={T}: {'; '.join(parts)} ms ({smi})")
+    mc = LlamaModelConfig(num_layers=1, **LLAMA3_8B)
+    KH = mc.num_kv_heads * mc.head_dim
+    for label, T, spans in FOLD_SHAPES:
+        a = layer_inputs(gen, mc, T, DEVICE)
+        args = (a["q"], a["k"], a["v"], a["tables"], None)
+        pool, S = fold_slots(gen, 2048, edges=False)
+        slots = torch.full((T,), -1, dtype=torch.int32, device=DEVICE)
+        at = 0
+        for first, n in spans:
+            slots[first:first + n] = pool[at:at + n]
+            at += n
+        parts = []
+        for rope, cache in (
+                (lo.rope_qkv, torch.zeros(2, S, 2 * KH, dtype=torch.bfloat16, device=DEVICE)),
+                (lo.rope_qkv_fp8, torch.zeros(2, S, 2 * KH + pa.FP8_SCALE_LANES,
+                                              dtype=pa.FP8, device=DEVICE))):
+            if folds:
+                fn = lambda: rope(*args, cache=cache, slots=slots, layer=1)  # noqa: E731
+                what = f"{rope.__name__} with slots"
+            else:       # only in a checkout from before the fold
+                fn = lambda: pa.store_kv(cache, rope(*args)[1], slots, 1)  # noqa: E731
+                what = f"{rope.__name__} + store_kv"
+            parts.append(f"{what} {time_ms(fn):.4f} back to back, "
+                         f"{time_alone_ms(fn):.4f} after a kernel")
+        log(f"[compare fold] 8B {label} ({int((slots >= 0).sum())} of {T} tokens "
+            f"written to the cache): {'; '.join(parts)} ms ({smi})")
 
 
 def overlap_swap(cache, pool, s, h, b, ps, swap_ms, smi) -> dict:
@@ -3465,7 +3668,8 @@ def phase_qwen2_step():
     4 layers, bf16, weights std 0.02 from a seeded generator (seeded_weights,
     biases included), a random cache. Two steps: 8 decode rows (a decode
     bucket: the decode kernel alone), then the 8 rows and two prefill
-    chunks (a prefill bucket: both attention kernels and store_kv), each
+    chunks (a prefill bucket: both attention kernels, the rows written by
+    the rope kernel), each
     with the kernels and with their plain versions from the same cache.
     Logits within CLEAR_MARGIN / 2 of the plain step's (the bound of the
     verify and graph steps), greedy tokens equal on every row whose top-2
@@ -3526,11 +3730,11 @@ def phase_qwen2_step():
             f"{b.std().item():.4g}, bound {limit}); greedy tokens agree on "
             f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{len(a)} rows; the "
             f"planted fault (each group's last head zero): {fault:.4g}")
-        want = {"paged_decode_attention": mc.num_layers}
+        want = {"paged_decode_attention": mc.num_layers, "rope_qkv": mc.num_layers}
         if name == "mixed step":
-            want.update(store_kv=mc.num_layers, paged_prefill_attention=mc.num_layers)
+            want.update(paged_prefill_attention=mc.num_layers)
         got = {k: launches["kernels"].get(k, 0) for k in
-               ("paged_decode_attention", "store_kv", "paged_prefill_attention")}
+               ("paged_decode_attention", "rope_qkv", "paged_prefill_attention")}
         assert got == dict.fromkeys(got, 0) | want, launches["kernels"]
         assert not launches["plain"], launches["plain"]
         assert diff <= limit and greedy_agrees(a, b, diff), (name, diff)
@@ -3604,7 +3808,7 @@ def phase_multi_step():
         launches = dict(build.launch_counts)
         want = {"paged_decode_attention": 0 if run == "deferred" else 4 * S,
                 "paged_decode_attention_pend": 4 * S if run == "deferred" else 0,
-                "store_kv": 0, "paged_prefill_attention": 0}
+                "paged_prefill_attention": 0}
         assert {k: launches[k] for k in want} == want, (run, launches)
         # The window's cache rows: positions hist .. hist + S - 1 of each row.
         slots = [[int(mgr.seq_block_ids(i)[p // 16]) * 16 + p % 16
@@ -3701,8 +3905,8 @@ def phase_verify_step():
                                                     drafts=drafts), return_logits=True)
         torch.cuda.synchronize()
         assert m.last_key.spec == SPEC_Q and m.last_key.q_len == SPEC_Q
-        want = (dict(paged_decode_attention=4, store_kv=4, paged_prefill_attention=4)
-                if use_kernels else dict(paged_decode_attention=0, store_kv=0,
+        want = (dict(paged_decode_attention=4, rope_qkv=4, paged_prefill_attention=4)
+                if use_kernels else dict(paged_decode_attention=0, rope_qkv=0,
                                          paged_prefill_attention=0))
         assert {k: build.launch_counts[k] for k in want} == want, build.launch_counts
         spans = [r.n_tokens for r in rows[:n]]
@@ -3825,7 +4029,7 @@ def phase_prefix_step():
     shared = [mgr.seq_block_ids(r.seq_id)[:SPEC_PREFIX // 16].tolist() for r in reqs]
     assert shared[1] == shared[2] == shared[0] == mgr.seq_block_ids(0)[:SPEC_PREFIX // 16].tolist()
     got, launches = step(reqs)
-    want = dict(paged_decode_attention=4, store_kv=4, paged_prefill_attention=4)
+    want = dict(paged_decode_attention=4, rope_qkv=4, paged_prefill_attention=4)
     assert {k: launches[k] for k in want} == want, launches
     a = torch.stack([got[4 + i] for i in range(3)])
     b = torch.stack([full[i] for i in range(3)])
@@ -4452,7 +4656,7 @@ async def serve_qwen2(smi: str) -> dict:
         n_after = sum(1 for st, _ in res for x in st if x > first)
         if use_kernels:
             graph_report(engine, "qwen2", since, smi)
-            for k in ("paged_decode_attention", "store_kv", "paged_prefill_attention"):
+            for k in ("paged_decode_attention", "rope_qkv", "paged_prefill_attention"):
                 assert launches[run][k] > 0, f"{k} never launched on the Qwen2 engine"
             assert launches[run]["paged_decode_attention"] == mc.num_layers * steps, (
                 launches[run], steps)
@@ -4488,9 +4692,9 @@ async def serve_spec(smi: str) -> dict:
     continuation and SWIFTLLM_TILE_BF16_SCORES=1; (2)-(4) with prefix
     matching off, so that none rides the pages of another. Every wave: every
     token the successor of the one before, tokens equal to the plain run's,
-    pages back, and per step one launch a layer of the decode kernel, and of
-    store_kv and the prefill kernel (or its bf16-score variant) when the q
-    bucket is above 1. The weights set the next token from the last one
+    pages back, and per step one launch a layer of the decode kernel and of
+    rope_qkv (which writes the spans' rows when the q bucket is above 1),
+    and of the prefill kernel (or its bf16-score variant) when it is. The weights set the next token from the last one
     alone, with margins in the thousands: these checks hold the paths, the
     launches and the accept loop, not attention's values, which
     phase_verify_step and phase_prefix_step hold. Returns each kernel's
@@ -4587,7 +4791,7 @@ async def serve_spec(smi: str) -> dict:
         big = sum(k.q_len > 1 for k in keys)
         verify = sum(k.spec > 0 for k in keys)
         pre = "paged_prefill_attention_bf16s" if bf16s else "paged_prefill_attention"
-        want = {"paged_decode_attention": 32 * steps, "store_kv": 32 * big,
+        want = {"paged_decode_attention": 32 * steps, "rope_qkv": 32 * steps,
                 pre: 32 * big}
         want["paged_prefill_attention" if bf16s else "paged_prefill_attention_bf16s"] = 0
         assert {k: launches[k] for k in want} == want, (name, launches, want)
@@ -4612,8 +4816,8 @@ async def serve_spec(smi: str) -> dict:
         ttft = sorted(stt[0] - t for t, stt, _ in res)
         log(f"[serve spec] {name}: {len(prompts)} requests, {SPEC_OUT_LEN} tokens "
             f"each, in {wall:.3f} s; {steps} steps ({big} with q bucket > 1, "
-            f"{verify} verify: {32 * verify} of the {32 * big} store_kv and "
-            f"prefill launches); drafted {st['num_spec_drafted']}, accepted "
+            f"{verify} verify: {32 * verify} of the {32 * big} prefill "
+            f"launches, and of the rope launches that wrote the spans); drafted {st['num_spec_drafted']}, accepted "
             f"{st['num_spec_accepted']}; TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} "
             f"ms, max {1e3 * ttft[-1]:.1f} ms; decode "
             f"{n_after / max(last - first, 1e-9):.1f} tok/s ({n_after} tokens after "
@@ -4989,6 +5193,24 @@ LLAMA3_8B_CONFIG = {
     "hidden_act": "silu", "bos_token_id": 128000, "eos_token_id": 128001}
 
 
+def phase_examples(smi: str) -> None:
+    """[examples]: the port's offline example (examples/offline_torch.py) on
+    the card at its tiny dummy size (examples/offline.py's: 4 layers, hidden
+    256, its heads as 4 / 2 of 64), in a process of its own, as a user runs
+    it: it must exit 0 and print every sequence's 20 tokens."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "examples/offline_torch.py", "--use-dummy",
+                          "true"], capture_output=True, text=True, timeout=600)
+    (OUT_DIR / "example_offline.log").write_text(out.stdout + out.stderr)
+    assert out.returncode == 0, f"examples/offline_torch.py failed: {out.stderr[-3000:]}"
+    seqs = re.findall(r"seq (\d+): \[([\d, ]+)\]", out.stdout)
+    assert [int(i) for i, _ in seqs] == [0, 1, 2, 3], out.stdout[-2000:]
+    assert all(len(t.split(", ")) == 20 for _, t in seqs), out.stdout[-2000:]
+    decode = re.search(r"decode: .*", out.stdout).group(0)
+    log(f"[examples] examples/offline_torch.py --use-dummy true on the card: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s, 4 sequences of 20 tokens; {decode} ({smi})")
+
+
 def http_cli(smi: str, tmp: Path):
     """Phase 5b: `python -m swiftllm_tpu_torch.server.api_server --model-path
     <dir> --use-dummy true --port <a free port>`, every engine flag at its
@@ -5115,7 +5337,6 @@ async def phase_serve(smi: str, adapters: dict) -> dict:
 # the profiler records it under.
 DEVICE_KERNEL = {"paged_decode_attention": "paged_decode_kernel",
                  "paged_decode_attention_pend": "paged_decode_kernel",
-                 "store_kv": "store_kv_kernel",
                  "paged_prefill_attention": "paged_prefill_kernel",
                  "paged_prefill_attention_bf16s": "paged_prefill_kernel",
                  "int4_matmul": "int4_matmul_kernel",
@@ -6576,6 +6797,35 @@ def http_tp2(smi: str, tmp: Path):
         f"ranks exited 0 in {down:.1f} s ({smi})")
 
 
+def ptxas_instances(reports: dict, checked: tuple,
+                    quiet: bool = False) -> tuple[dict, list]:
+    """From the kernels' ptxas reports: each instance of the kernels named in
+    `checked` as (report, mangled name) -> [spill store bytes, spill load
+    bytes, registers], and every line that says wgmmas were serialised in
+    one of them (named in the line, or the entry function being compiled
+    when ptxas said it). Every serialisation line is logged, unless
+    `quiet`."""
+    serial, found = [], {}
+    for k, v in reports.items():
+        fn = ""
+        for line in v.splitlines():
+            m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
+            if m:
+                fn = m.group(1)
+            if "serializ" in line.lower():
+                if not quiet:
+                    log(f"[ptxas] {k}: {line.strip()} (compiling {fn})")
+                if any(c in (line if "function '" in line else fn) for c in checked):
+                    serial.append(line.strip())
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and any(c in fn for c in checked):
+                found[(k, fn)] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and (k, fn) in found and len(found[(k, fn)]) == 2:
+                found[(k, fn)].append(int(m.group(1)))
+    return found, serial
+
+
 def check_ptxas(reports: dict) -> None:
     """Logs every line of the kernels' ptxas reports that says wgmmas were
     serialised, and each instance of the wide configuration's kernel
@@ -6585,24 +6835,7 @@ def check_ptxas(reports: dict) -> None:
     with its narrow one, and no instance of either had its wgmmas
     serialised (named in the line, or the entry function being compiled
     when ptxas said it) or spilled a register."""
-    checked = ("wide_matmul_kernel", "int8_matmul_kernel")
-    bad, wide = [], {}
-    for k, v in reports.items():
-        fn = ""
-        for line in v.splitlines():
-            m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
-            if m:
-                fn = m.group(1)
-            if "serializ" in line.lower():
-                log(f"[ptxas] {k}: {line.strip()} (compiling {fn})")
-                if any(c in (line if "function '" in line else fn) for c in checked):
-                    bad.append(line.strip())
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and any(c in fn for c in checked):
-                wide[(k, fn)] = [int(m.group(1)), int(m.group(2))]
-            m = re.search(r"Used (\d+) registers", line)
-            if m and (k, fn) in wide and len(wide[(k, fn)]) == 2:
-                wide[(k, fn)].append(int(m.group(1)))
+    wide, bad = ptxas_instances(reports, ("wide_matmul_kernel", "int8_matmul_kernel"))
     for (k, fn), r in wide.items():
         what = ("int8_matmul_kernel<" + re.search(r"Li(\d+)E", fn).group(1) + ">"
                 if "int8_matmul_kernel" in fn else
@@ -6617,6 +6850,24 @@ def check_ptxas(reports: dict) -> None:
     if sum(kk == "int8_matmul" and "int8_matmul_kernel" in fn for kk, fn in wide) != 4:
         bad.append("no ptxas report of each narrow INT8 kernel (NT = 16, 32, 64, 128)")
     assert not bad, f"ptxas report of the weight kernels: {bad}"
+
+
+def check_rope_ptxas(reports: dict) -> None:
+    """Each instance of the rope kernel (rope_qkv and rope_qkv_fp8 at one,
+    two and four units a thread, with slots and without) with its registers
+    and spills, logged; fails unless all twelve are in the report and none
+    spills (the one-unit builds are capped at 40 registers for three blocks
+    an SM)."""
+    found, _ = ptxas_instances(reports, ("rope_qkv_kernel",), quiet=True)
+    for (k, fn), r in sorted(found.items()):
+        m = re.search(r"rope_qkv_kernelILb(\d)ELi(\d)ELb(\d)E", fn)
+        log(f"[ptxas] {k}: rope_qkv_kernel<{'true' if m.group(1) == '1' else 'false'}, "
+            f"{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>: "
+            f"{r[2:] and r[2]} registers, {r[0]} bytes spill stores, {r[1]} bytes "
+            "spill loads")
+    assert len(found) == 12, f"ptxas report of the rope kernels: {sorted(found)}"
+    assert not any(r[0] or r[1] for r in found.values()), \
+        f"a rope kernel spills: {found}"
 
 
 def main() -> int:
@@ -6652,8 +6903,9 @@ def main() -> int:
         compare_swap_norm(smi)
         return 0
     if sys.argv[1:] == ["--compare-rope"]:
-        # quantize_kv: a checkout from before rope_qkv_fp8 has that kernel.
-        names = [n for n in ("rope_qkv", "rope_qkv_fp8", "quantize_kv")
+        # quantize_kv, store_kv: a checkout from before rope_qkv_fp8, or
+        # from before the span write's fold, has that kernel.
+        names = [n for n in ("rope_qkv", "rope_qkv_fp8", "quantize_kv", "store_kv")
                  if n in build.KERNELS]
         t0 = time.perf_counter()
         build.build_kernels(names)
@@ -6662,7 +6914,7 @@ def main() -> int:
         compare_rope(smi)
         return 0
     if sys.argv[1:] == ["--layer-ops"]:
-        build.build_kernels(lo.KERNELS)
+        check_rope_ptxas(build.build_kernels(lo.KERNELS))
         phase_layer_ops("cuda", smi)
         log(f"[total] {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -6689,6 +6941,7 @@ def main() -> int:
     (OUT_DIR / "ptxas.txt").write_text("\n".join(
         f"== {k}\n{v}" for k, v in reports.items()))
     check_ptxas(reports)
+    check_rope_ptxas(reports)
     if sys.argv[1:] == ["--compare-multi-step"]:
         asyncio.run(compare_multi_step(smi))
         return 0
@@ -6782,7 +7035,8 @@ def main() -> int:
     mark("swap mover, steps")
     launches = asyncio.run(phase_serve(smi, adapters))
     http_cli(smi, Path(tmp.name))
-    mark("engines, http")
+    phase_examples(smi)
+    mark("engines, http, examples")
     gc.collect()
     torch.cuda.empty_cache()
     phase_tp_step(smi, Path(tmp.name))
@@ -6790,7 +7044,7 @@ def main() -> int:
     http_tp2(smi, Path(tmp.name))
     mark("tp/dp")
     tmp.cleanup()
-    # Launches: the decode kernel's, store_kv's and the layer kernels' on the
+    # Launches: the decode kernel's and the layer kernels' on the
     # bf16 serving run (the path of the slices that brought them),
     # int4_matmul's and
     # int8_matmul's on the INT4 and INT8 runs, rope_qkv_fp8's on the fp8 KV

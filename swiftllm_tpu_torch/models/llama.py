@@ -105,7 +105,7 @@ class StepBatch:
                                #        the builder gives decode-kind and pad
                                #        tokens the garbage slot, and
                                #        unpack_step_batch gives them -1,
-                               #        which store_kv drops
+                               #        which the span write drops
 
 
 def unpack_step_batch(flat: torch.Tensor, T: int, B: int, Pg: int, *,
@@ -151,7 +151,8 @@ def unpack_step_batch(flat: torch.Tensor, T: int, B: int, Pg: int, *,
     kv_slots = torch.where(valid, slot, garbage_slot)
     # Only prefill-kind tokens are scattered (the decode kernel writes its
     # rows' KV itself). The JAX package points the rest at the garbage slot;
-    # -1 makes store_kv skip them instead of writing the garbage page.
+    # -1 makes the span write (the rope kernels' cache write) skip them
+    # instead of writing the garbage page, and leave their rows in kv_new.
     kv_slots_scatter = torch.where(valid & ~decode_row[row], slot, -1)
     feedback_read = torch.where(valid & (o == qlen - 1), frd_row[row], -1)
     lora_ids = torch.where(valid, lora_row[row], 0)
@@ -316,7 +317,10 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
                          bf16_scores: bool | None = None):
     """Store this layer's fresh K‖V (kv_new [T, W], in the cache dtype, with
     the scale lanes when the cache is fp8) into the cache [L, S, W] IN PLACE
-    and run attention; returns [T, n_q, hd].
+    and run attention; returns [T, n_q, hd]. With kernels in a mixed or
+    prefill bucket the prefill-kind rows are in the cache already: the rope
+    kernel wrote them there (``forward_shard``), and ``kv_new`` holds only
+    the decode-kind rows.
 
     Deferred commit (``kv_pend`` [L, P, B, W], multi-step windows): the
     decode entry reads the window's ``npend - 1`` completed tokens from
@@ -324,10 +328,11 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
     written; ``decode_multi_step`` commits the whole window after its loop.
 
     Kernels: decode buckets run the decode kernel, which writes its rows' KV
-    itself. Mixed buckets keep the JAX order: the decode kernel on the
-    decode-kind rows (packed first, flat token == row), then ``store_kv`` of
-    the prefill-kind spans and the prefill kernel on them; tokens below
-    n_dec take the decode output, the rest the prefill output. The kernels
+    itself. Mixed buckets run the decode kernel on the decode-kind rows
+    (packed first, flat token == row), then the prefill kernel on the
+    prefill-kind spans, whose rows the rope kernel stored (the JAX tile
+    kernel's fused span write); tokens below n_dec take the decode output,
+    the rest the prefill output. The kernels
     plan their key splits over the rows below ``live_rows`` (a host
     integer: rows from it on have no query; None: any row may).
     ``bf16_scores`` picks the prefill kernel's bf16-score variant (None:
@@ -351,7 +356,6 @@ def _attention_and_store(q, kv_new, cache, layer: int, batch: StepBatch, *,
         dec_out = pa.paged_decode_attention(
             q, cache, kv_new, batch.page_table, q_lens_dec, batch.seq_lens,
             batch.kv_slots, layer, **kern)
-        pa.store_kv(cache, kv_new, batch.kv_slots_scatter, layer)
         pre_out = pa.paged_prefill_attention(
             q, cache, batch.page_table, batch.q_starts, q_lens_pre,
             batch.seq_lens, layer, q_bucket=q_bucket, bf16_scores=bf16_scores,
@@ -443,8 +447,11 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
     rope_cs = rope_tables(batch.positions, params["inv_freq"], x.dtype)
     # The layer's elementwise work: its kernels, or their plain versions.
-    # With an fp8 cache the RoPE kernel also builds the cache rows.
+    # With an fp8 cache the RoPE kernel also builds the cache rows; in a
+    # mixed or prefill bucket it also writes the prefill-kind tokens' rows
+    # to their pages (the span write: a launch less a layer).
     fp8 = kv_cache.dtype == pa.FP8
+    span_write = use_kernels and q_bucket > 1
     if use_kernels:
         add_rms_norm, silu_mul = lo.add_rms_norm, lo.silu_mul
         rope = lo.rope_qkv_fp8 if fp8 else lo.rope_qkv
@@ -476,8 +483,10 @@ def forward_shard(params: dict, kv_cache: torch.Tensor, feedback: torch.Tensor,
 
         h, x = add_rms_norm(x, r, w["attn_norm"], eps)
         bias = (w["bq"], w["bk"], w["bv"]) if "bq" in w else None  # Qwen2
+        fold = (dict(cache=kv_cache, slots=batch.kv_slots_scatter, layer=layer)
+                if span_write else {})
         q, kv_new = rope(mproj(h, "wq"), mproj(h, "wk"), mproj(h, "wv"),
-                         rope_cs, bias)
+                         rope_cs, bias, **fold)
         q = q.view(T, -1, hd)
         kv_new = kv_new.to(kv_cache.dtype)
         attn = _attention_and_store(

@@ -57,8 +57,6 @@ SOURCES = {
     # sm_scale, n_split, chunk, split_rows, part_acc, part_ml, counters, stream
     "paged_decode_attention_pend": ("paged_decode.cu",
                                     [_P] * 8 + [_I] * 12 + [_F] + _SPLIT + [_P]),
-    # kv_new, cache, slots, T, row_bytes, S, layer, stream
-    "store_kv": ("store_kv.cu", [_P] * 3 + [_I] * 4 + [_P]),
     # q, cache, page_table, q_starts, q_lens, seq_lens, out,
     # B, q_bucket, Pg, n_q, n_kv, hd, S, layer, page_size, window, kv_fp8,
     # sm_scale, n_split, chunk, split_rows, part_acc, part_ml, counters, T,
@@ -77,10 +75,11 @@ SOURCES = {
     "int8_matmul": ("int8_matmul.cu", [_P] * 6 + [_I] * 10 + [_P]),
     # x, r, w, x_out, h, T, D, eps, stream
     "add_rms_norm": ("layer_ops.cu", [_P] * 5 + [_I] * 2 + [_F, _P]),
-    # q, k, v, bq, bk, bv, cos, sin, q_out, kv_new, T, n_q, n_kv, hd, stream
-    "rope_qkv": ("layer_ops.cu", [_P] * 10 + [_I] * 4 + [_P]),
-    # the same, kv_new the fp8 cache row
-    "rope_qkv_fp8": ("layer_ops.cu", [_P] * 10 + [_I] * 4 + [_P]),
+    # q, k, v, bq, bk, bv, cos, sin, q_out, kv_new, cache, slots,
+    # T, n_q, n_kv, hd, S, layer, row_bytes, stream
+    "rope_qkv": ("layer_ops.cu", [_P] * 12 + [_I] * 7 + [_P]),
+    # the same, kv_new and the cache's rows the fp8 cache row
+    "rope_qkv_fp8": ("layer_ops.cu", [_P] * 12 + [_I] * 7 + [_P]),
     # gate, up, out, T, F, stream
     "silu_mul": ("layer_ops.cu", [_P] * 3 + [_I] * 2 + [_P]),
     # src, dst, pages, n_pages, L, src_layer_bytes, dst_layer_bytes,

@@ -16,6 +16,18 @@
 //                 build (587-601: each token's K and V absmax, fp8_scales,
 //                 the scaled values clipped to +-448, the scale lanes, the
 //                 cast to e4m3) folded in, so that the row costs one launch;
+//   both          given a step's scatter slots, also the span write of the
+//                 prefill-kind tokens' rows into the paged cache: the fused
+//                 span write of swiftllm_tpu/ops/paged_attention.py:
+//                 _tiles_kernel (879-900, 942-960), and the XLA scatter
+//                 cache.at[layer, kv_slots_scatter].set(kv_new) of the verify
+//                 steps (swiftllm_tpu/models/llama.py:378). On the TPU the
+//                 tile kernel's grid runs in order, so a span has landed
+//                 before the next span reads it; the blocks of a GPU grid run
+//                 at once, so the write cannot ride in paged_prefill.cu. It
+//                 rides here instead, where the row is made: the row goes
+//                 from registers to its page once, and no launch of its own
+//                 reads it back from kv_new;
 //   silu_mul      bf16(bf16(silu(f32(gate))) * up) (619-621).
 //
 // What each computes is what ops/layer_ops.py's plain versions compute, with
@@ -54,7 +66,12 @@
 // outputs held as packed bf16 pairs (40 registers: three blocks an SM at
 // T = 2,048); with an fp8 cache the row's two maxima take one barrier,
 // where a separate row build cost a second launch that read k_rot and v
-// back twice. On the H100 (chip_smoke.py --compare-rope) two tokens a block
+// back twice. Given a mixed or prefill step's slots, a prefill-kind token's
+// row is stored to its page in place of kv_out: the same bytes written
+// once, where a separate span write (store_kv.cu, removed) cost a launch a
+// layer that read the row back from kv_new and wrote it again; the slot is
+// one more register, read before the grid wait at one unit a thread (still
+// 40, no spill), after the first arithmetic at two and four. On the H100 (chip_smoke.py --compare-rope) two tokens a block
 // were slower at every T timed; two or four units a thread (at 8B width)
 // were slower than one at T <= 128, and at T = 2,048 faster than the first
 // one-unit design but not timed against the kept one. Both launch
@@ -231,37 +248,53 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // v, each value taken after its bf16 rounding, as the plain version rounds
 // it (ops/layer_ops.py:rope_qkv_fp8_plain).
 //
+// With SLOTS (slots not null), a token whose slot s lies in [0, S) writes
+// its row to the cache slot instead, row s of cache_l (the layer's [S, row]
+// block), and not to kv_out: the span write of a mixed or prefill step,
+// whose slots are -1 at decode-kind and pad tokens (their rows go to kv_out
+// for the decode kernel). An out-of-range slot is dropped, as JAX drops an
+// out-of-range scatter, and its row goes to kv_out. Without SLOTS (decode
+// buckets, deferred commit) every row goes to kv_out, by the code of the
+// kernel before the fold: as a uniform branch instead, the checks and the
+// address select cost up to 2% at T = 2,048 (chip_smoke.py --compare-rope).
+//
 // A thread's units are a fixed count, the ones past the token's clamped to
 // its last and not stored, so every load of a thread is issued before its
-// first arithmetic. The order of its memory operations, and why it is safe
+// first arithmetic (in the bf16 four-unit build, every load of a group of
+// two units). The order of its memory operations, and why it is safe
 // under the programmatic launch (the kernel may start while the kernel
 // before it in the stream still runs):
 // - the biases bq, bk, bv are loaded first, before the grid wait: they are
 //   model parameters, which no kernel of a step writes (only loading the
 //   weights does, before any step), so the kernel before cannot be writing
-//   them;
+//   them; so is the token's slot: a step's slots are written by its batch
+//   unpacking, ordinary kernels that complete before the first programmatic
+//   launch of the step can start, and no kernel of the step writes them
+//   after;
 // - q, k, v and the cos/sin tables are read after the wait, which returns
 //   once the kernel before has completed and its writes are visible: the
 //   tables are written inside the step (rope_tables), and under INT8 or
 //   INT4 the projections before this kernel are programmatic launches
 //   themselves, so the tables' writer has not been shown complete when this
-//   kernel starts; every write comes after the wait too, and so does the
-//   reuse of memory that a kernel before read and PyTorch's allocator then
-//   handed to q_out or kv_out;
+//   kernel starts; every write comes after the wait too (the cache's
+//   included), and so does the reuse of memory that a kernel before read
+//   and PyTorch's allocator then handed to q_out or kv_out;
 // - the next launch is allowed at once (launch_dependents): a kernel
 //   launched after this one with the programmatic dependency waits on this
-//   grid's completion before it reads q_out or kv_out (any such kernel
-//   must); one launched without it starts after this one has ended.
+//   grid's completion before it reads q_out, kv_out or the cache (any such
+//   kernel must; the attention kernels launch without it); one launched
+//   without it starts after this one has ended.
 // The FP8 row's two maxima take one barrier: each warp's pair goes to
 // shared memory, and every thread of the token then takes the maximum over
 // its token's warps (the same on every thread: a maximum is exact).
-template <bool FP8, int U>
+template <bool FP8, int U, bool SLOTS>
 __global__ void __launch_bounds__(kRopeThreads, U == 1 ? kRopeMinBlocks : 1)
 rope_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ bq,
                 const bf16* __restrict__ bk, const bf16* __restrict__ bv,
                 const bf16* __restrict__ cos, const bf16* __restrict__ sin,
-                bf16* __restrict__ q_out, void* __restrict__ kv_out, int T,
+                bf16* __restrict__ q_out, void* __restrict__ kv_out,
+                void* __restrict__ cache_l, const int* __restrict__ slots, int S,
                 int n_q, int n_kv, int hd, int tpt) {
   const int half = hd / 2, hv = half / 8;
   const int QH = n_q * hd, KH = n_kv * hd;
@@ -292,8 +325,11 @@ rope_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       off[j] = (u - n_rot) * 8;
     }
   }
-  // The biases, before the grid wait (parameters: see above). A v unit
-  // loads its 8 lanes twice, as its second half.
+  // The slot (at one unit a thread; see below) and the biases, before the
+  // grid wait (see above). A v unit loads its 8 lanes twice, as its second
+  // half.
+  int slot = -1;
+  if (SLOTS && U == 1) slot = slots[t];
   uint4 ba[U], bb[U];
   if (bq != nullptr) {
 #pragma unroll
@@ -305,58 +341,76 @@ rope_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   grid_dep_launch();
   grid_dep_wait();
-  uint4 xa[U], xb[U], ca[U], sa[U];
-#pragma unroll
-  for (int j = 0; j < U; ++j) {
-    const bf16* src = (kind[j] == 0 ? q + t * QH : (kind[j] == 1 ? k : v) + t * KH) + off[j];
-    xa[j] = ld16(src);
-    xb[j] = ld16(src + (kind[j] < 2 ? half : 0));
-    ca[j] = ld16(cos + t * half + tc[j]);
-    sa[j] = ld16(sin + t * half + tc[j]);
-  }
-  // o1 the unit's first 8 lanes (rotated, or v's), o2 its second half's,
-  // as the bf16 pairs stored (a pair of lanes at a time, so that few
-  // registers are live beside the loads).
+  // The units are loaded and computed in groups of G, all at once but in
+  // the bf16 four-unit build, which takes two groups and stores each before
+  // loading the next (all at once it spilled at the 128 registers of 512
+  // threads). o1 holds a unit's first 8 lanes (rotated, or v's), o2 its
+  // second half's, as the bf16 pairs stored (a pair of lanes at a time, so
+  // that few registers are live beside the loads).
+  constexpr int G = !FP8 && U == 4 ? 2 : U;
+  const int64_t kv_row = 2 * static_cast<int64_t>(KH) + (FP8 ? ScaleLanes<fp8>::value : 0);
   uint32_t o1[U][4], o2[U][4];
 #pragma unroll
-  for (int j = 0; j < U; ++j) {
-    const bool rot = kind[j] < 2;
+  for (int g = 0; g < U; g += G) {
+    uint4 xa[G], xb[G], ca[G], sa[G];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t wa = word(xa[j], i), wb = word(xb[j], i);
-      const uint32_t wc = word(ca[j], i), ws = word(sa[j], i);
-      float a[2] = {lo_f(wa), hi_f(wa)}, b[2] = {lo_f(wb), hi_f(wb)};
-      const float c[2] = {lo_f(wc), hi_f(wc)}, sn[2] = {lo_f(ws), hi_f(ws)};
-      if (bq != nullptr) {
-        const uint32_t pa = word(ba[j], i), pb = word(bb[j], i);
-        a[0] = round_bf16(a[0] + lo_f(pa));
-        a[1] = round_bf16(a[1] + hi_f(pa));
-        b[0] = round_bf16(b[0] + lo_f(pb));
-        b[1] = round_bf16(b[1] + hi_f(pb));
-      }
-      float r1[2], r2[2];
+    for (int h = 0; h < G; ++h) {
+      const int j = g + h;
+      const bf16* src = (kind[j] == 0 ? q + t * QH : (kind[j] == 1 ? k : v) + t * KH) + off[j];
+      xa[h] = ld16(src);
+      xb[h] = ld16(src + (kind[j] < 2 ? half : 0));
+      ca[h] = ld16(cos + t * half + tc[j]);
+      sa[h] = ld16(sin + t * half + tc[j]);
+    }
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        r1[e] = rot ? round_bf16(a[e] * c[e]) - round_bf16(b[e] * sn[e]) : a[e];
-        r2[e] = round_bf16(b[e] * c[e]) + round_bf16(a[e] * sn[e]);
+    for (int h = 0; h < G; ++h) {
+      const int j = g + h;
+      const bool rot = kind[j] < 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t wa = word(xa[h], i), wb = word(xb[h], i);
+        const uint32_t wc = word(ca[h], i), ws = word(sa[h], i);
+        float a[2] = {lo_f(wa), hi_f(wa)}, b[2] = {lo_f(wb), hi_f(wb)};
+        const float c[2] = {lo_f(wc), hi_f(wc)}, sn[2] = {lo_f(ws), hi_f(ws)};
+        if (bq != nullptr) {
+          const uint32_t pa = word(ba[j], i), pb = word(bb[j], i);
+          a[0] = round_bf16(a[0] + lo_f(pa));
+          a[1] = round_bf16(a[1] + hi_f(pa));
+          b[0] = round_bf16(b[0] + lo_f(pb));
+          b[1] = round_bf16(b[1] + hi_f(pb));
+        }
+        float r1[2], r2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          r1[e] = rot ? round_bf16(a[e] * c[e]) - round_bf16(b[e] * sn[e]) : a[e];
+          r2[e] = round_bf16(b[e] * c[e]) + round_bf16(a[e] * sn[e]);
+        }
+        o1[j][i] = pack_bf16(r1[0], r1[1]);
+        o2[j][i] = pack_bf16(r2[0], r2[1]);
       }
-      o1[j][i] = pack_bf16(r1[0], r1[1]);
-      o2[j][i] = pack_bf16(r2[0], r2[1]);
+    }
+    if constexpr (!FP8) {
+      // The row's home: its cache slot, or kv_out's row t. At two and four
+      // units a thread the slot is read here, after the first arithmetic,
+      // so that it holds no register across the loads.
+      if (SLOTS && U > 1) slot = slots[t];
+      const bool cached = SLOTS && static_cast<unsigned>(slot) < static_cast<unsigned>(S);
+      bf16* row = static_cast<bf16*>(cached ? cache_l : kv_out) +
+                  (cached ? static_cast<int64_t>(slot) : t) * kv_row;
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        const int j = g + h;
+        if (!ok[j]) continue;
+        bf16* dst = (kind[j] == 0 ? q_out + t * QH : row + (kind[j] == 2 ? KH : 0)) + off[j];
+        *reinterpret_cast<uint4*>(dst) = make_uint4(o1[j][0], o1[j][1], o1[j][2], o1[j][3]);
+        if (kind[j] < 2)
+          *reinterpret_cast<uint4*>(dst + half) =
+              make_uint4(o2[j][0], o2[j][1], o2[j][2], o2[j][3]);
+      }
     }
   }
-  const int64_t kv_row = 2 * static_cast<int64_t>(KH) + (FP8 ? ScaleLanes<fp8>::value : 0);
-  if constexpr (!FP8) {
-    bf16* row = static_cast<bf16*>(kv_out) + t * kv_row;
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      if (!ok[j]) continue;
-      bf16* dst = (kind[j] == 0 ? q_out + t * QH : row + (kind[j] == 2 ? KH : 0)) + off[j];
-      *reinterpret_cast<uint4*>(dst) = make_uint4(o1[j][0], o1[j][1], o1[j][2], o1[j][3]);
-      if (kind[j] < 2)
-        *reinterpret_cast<uint4*>(dst + half) =
-            make_uint4(o2[j][0], o2[j][1], o2[j][2], o2[j][3]);
-    }
-  } else {
+  if constexpr (FP8) {
+    if (SLOTS && U > 1) slot = slots[t];   // (as above)
     float mk = 0.f, mv = 0.f;
 #pragma unroll
     for (int j = 0; j < U; ++j) {
@@ -392,7 +446,9 @@ rope_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mv = fmaxf(mv, p.y);
     }
     const float sk = fp8_scale(mk), sv = fp8_scale(mv);
-    fp8* row = static_cast<fp8*>(kv_out) + t * kv_row;
+    const bool cached = SLOTS && static_cast<unsigned>(slot) < static_cast<unsigned>(S);
+    fp8* row = static_cast<fp8*>(cached ? cache_l : kv_out) +
+               (cached ? static_cast<int64_t>(slot) : t) * kv_row;
 #pragma unroll
     for (int j = 0; j < U; ++j) {
       if (!ok[j] || kind[j] == 0) continue;
@@ -476,18 +532,28 @@ extern "C" int add_rms_norm(const void* x, const void* r, const void* w, void* x
 namespace swiftllm {
 namespace {
 
-// Launches rope_qkv_kernel<FP8, U> with the programmatic dependency: a
-// block a token, U the least of 1, 2, 4 units a thread that keeps a token
+// Launches rope_qkv_kernel<FP8, U, SLOTS> with the programmatic dependency:
+// a block a token, U the least of 1, 2, 4 units a thread that keeps a token
 // on at most kRopeThreads threads, the block its units over U rounded up to
-// whole warps.
+// whole warps, SLOTS whether slots are given.
+// With slots, the cache [L, S, row_bytes] must have rows of this kernel's
+// row (row_bytes), and the launch takes layer `layer`'s block of it.
 template <bool FP8>
 int launch_rope(const void* q, const void* k, const void* v, const void* bq,
                 const void* bk, const void* bv, const void* cos, const void* sin,
-                void* q_out, void* kv_out, int T, int n_q, int n_kv, int hd,
+                void* q_out, void* kv_out, void* cache, const void* slots, int T,
+                int n_q, int n_kv, int hd, int S, int layer, int row_bytes,
                 void* stream) {
+  const int64_t kv_bytes = 2 * static_cast<int64_t>(n_kv) * hd * (FP8 ? 1 : 2) +
+                           (FP8 ? ScaleLanes<fp8>::value : 0);
   if (T < 1 || n_q < 1 || n_kv < 1 || hd < 16 || hd % 16 ||
-      (bq == nullptr) != (bk == nullptr) || (bq == nullptr) != (bv == nullptr))
+      (bq == nullptr) != (bk == nullptr) || (bq == nullptr) != (bv == nullptr) ||
+      (slots != nullptr &&
+       (cache == nullptr || S < 1 || layer < 0 || row_bytes != kv_bytes)))
     return static_cast<int>(cudaErrorInvalidValue);
+  void* cache_l = slots == nullptr ? nullptr
+                  : static_cast<char*>(cache) + static_cast<int64_t>(layer) * S * row_bytes;
+  if (slots == nullptr) S = 0;
   const int units = (n_q + n_kv) * (hd / 16) + n_kv * hd / 8;
   const int U = units <= kRopeThreads ? 1 : units <= 2 * kRopeThreads ? 2
                 : units <= kRopeUnits * kRopeThreads ? kRopeUnits : 0;
@@ -495,10 +561,15 @@ int launch_rope(const void* q, const void* k, const void* v, const void* bq,
   const int tpt = ((units + U - 1) / U + 31) / 32 * 32;
   using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const bf16*,
                           const bf16*, const bf16*, const bf16*, const bf16*, bf16*,
-                          void*, int, int, int, int, int);
-  const Kernel kernel = U == 1   ? rope_qkv_kernel<FP8, 1>
-                        : U == 2 ? rope_qkv_kernel<FP8, 2>
-                                 : rope_qkv_kernel<FP8, kRopeUnits>;
+                          void*, void*, const int*, int, int, int, int, int);
+  const Kernel kernel =
+      slots != nullptr
+          ? (U == 1   ? rope_qkv_kernel<FP8, 1, true>
+             : U == 2 ? rope_qkv_kernel<FP8, 2, true>
+                      : rope_qkv_kernel<FP8, kRopeUnits, true>)
+          : (U == 1   ? rope_qkv_kernel<FP8, 1, false>
+             : U == 2 ? rope_qkv_kernel<FP8, 2, false>
+                      : rope_qkv_kernel<FP8, kRopeUnits, false>);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(T);
   cfg.blockDim = dim3(tpt);
@@ -513,7 +584,8 @@ int launch_rope(const void* q, const void* k, const void* v, const void* bq,
       static_cast<const bf16*>(v), static_cast<const bf16*>(bq),
       static_cast<const bf16*>(bk), static_cast<const bf16*>(bv),
       static_cast<const bf16*>(cos), static_cast<const bf16*>(sin),
-      static_cast<bf16*>(q_out), kv_out, T, n_q, n_kv, hd, tpt);
+      static_cast<bf16*>(q_out), kv_out, cache_l, static_cast<const int*>(slots), S,
+      n_q, n_kv, hd, tpt);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -523,24 +595,31 @@ int launch_rope(const void* q, const void* k, const void* v, const void* bq,
 // q, q_out [T, n_q * hd]; k, v [T, n_kv * hd]; biases [n_q * hd], [n_kv *
 // hd] x 2, all three or none (null); cos, sin [T, hd / 2]; kv_new [T, 2 *
 // n_kv * hd] bf16 (k_rot || v). hd a multiple of 16, at most 2,048 units a
-// token ((n_q + n_kv) * hd / 16 + n_kv * hd / 8). Launched with the
+// token ((n_q + n_kv) * hd / 16 + n_kv * hd / 8). slots i32[T] or null;
+// with slots, cache [L, S, 2 * n_kv * hd] bf16 (row_bytes its row's bytes)
+// takes at layer `layer` the row of every token whose slot lies in [0, S),
+// and kv_new only the others' rows (rope_qkv_kernel). Launched with the
 // programmatic dependency (see rope_qkv_kernel).
 extern "C" int rope_qkv(const void* q, const void* k, const void* v, const void* bq,
                         const void* bk, const void* bv, const void* cos,
-                        const void* sin, void* q_out, void* kv_new, int T, int n_q,
-                        int n_kv, int hd, void* stream) {
-  return swiftllm::launch_rope<false>(q, k, v, bq, bk, bv, cos, sin, q_out, kv_new, T,
-                                      n_q, n_kv, hd, stream);
+                        const void* sin, void* q_out, void* kv_new, void* cache,
+                        const void* slots, int T, int n_q, int n_kv, int hd, int S,
+                        int layer, int row_bytes, void* stream) {
+  return swiftllm::launch_rope<false>(q, k, v, bq, bk, bv, cos, sin, q_out, kv_new,
+                                      cache, slots, T, n_q, n_kv, hd, S, layer,
+                                      row_bytes, stream);
 }
 
-// The same, with kv_new the fp8 cache row [T, 2 * n_kv * hd + 128] e4m3:
-// [k_rot * sk, v * sv, sk, sv, 0 ...] (rope_qkv_kernel).
+// The same, with kv_new and the cache's rows the fp8 cache row [2 * n_kv *
+// hd + 128] e4m3: [k_rot * sk, v * sv, sk, sv, 0 ...] (rope_qkv_kernel).
 extern "C" int rope_qkv_fp8(const void* q, const void* k, const void* v, const void* bq,
                             const void* bk, const void* bv, const void* cos,
-                            const void* sin, void* q_out, void* kv_new, int T, int n_q,
-                            int n_kv, int hd, void* stream) {
-  return swiftllm::launch_rope<true>(q, k, v, bq, bk, bv, cos, sin, q_out, kv_new, T,
-                                     n_q, n_kv, hd, stream);
+                            const void* sin, void* q_out, void* kv_new, void* cache,
+                            const void* slots, int T, int n_q, int n_kv, int hd, int S,
+                            int layer, int row_bytes, void* stream) {
+  return swiftllm::launch_rope<true>(q, k, v, bq, bk, bv, cos, sin, q_out, kv_new,
+                                     cache, slots, T, n_q, n_kv, hd, S, layer,
+                                     row_bytes, stream);
 }
 
 // gate, up, out [T, F]; F a multiple of 8.

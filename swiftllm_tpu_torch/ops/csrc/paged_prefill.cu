@@ -2,9 +2,10 @@
 // the spans of a speculative verify step.
 //
 // Replaces: swiftllm_tpu/ops/paged_attention.py:_tiles_kernel (the
-// q_bucket > 1 branch of ragged_paged_attention). Its fused span write is the
-// separate store_kv launch (store_kv.cu), queued before this one; that split
-// is the TPU kernel's unfused mode, which its verify steps take.
+// q_bucket > 1 branch of ragged_paged_attention). Its fused span write is
+// done before this launch by the one that builds the rows (layer_ops.cu:
+// rope_qkv with the step's scatter slots); that split is the TPU kernel's
+// unfused mode, which its verify steps take.
 //
 // What it computes: row b's q_lens[b] queries are flat tokens q_starts[b] ..
 // q_starts[b]+q_lens[b]-1 and the last positions of a seq_lens[b]-long

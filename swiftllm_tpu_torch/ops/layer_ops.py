@@ -22,6 +22,17 @@ dots or a few fusions a layer):
   the row ``[k_rot * sk, v * sv, sk, sv, 0 ...]`` as e4m3
   (``ops/quantize_kv.py:quantize_kv_plain`` of the bf16 k_rot and v), in
   the one launch.
+- Both with ``cache``, ``slots`` and ``layer``: the span write of a mixed
+  or prefill step folded in as well, ``cache[layer, slots[t]] = row t`` for
+  every slot in ``[0, S)`` (``ops/paged_attention.py:store_kv_plain``; the
+  JAX package writes these rows in ``_tiles_kernel``'s fused span write,
+  and in verify steps by the scatter ``cache.at[layer,
+  kv_slots_scatter].set(kv_new)``, ``swiftllm_tpu/models/llama.py:378``).
+  The kernel writes such a row to its page instead of to ``kv_new``: those
+  rows of the ``kv_new`` it returns are left unwritten, and nothing may
+  read them. The step's slots are -1 at decode-kind and pad tokens, whose
+  rows the decode kernel reads from ``kv_new`` (only its valid rows, which
+  are packed first).
 - ``silu_mul(gate, up)``: ``silu(f32(gate))`` cast back, times ``up``
   (619-621).
 
@@ -35,7 +46,8 @@ bit-equal to its plain version, ``rope_qkv_fp8`` byte-equal,
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 On a CUDA tensor it launches its kernel or raises; it never falls back. It
-writes fresh outputs and never its inputs.
+writes fresh outputs and never its inputs, but for the cache that a rope
+wrapper is given, which it writes in place.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from swiftllm_tpu_torch.ops import build
-from swiftllm_tpu_torch.ops.paged_attention import FP8, FP8_SCALE_LANES
+from swiftllm_tpu_torch.ops.paged_attention import (FP8, FP8_SCALE_LANES,
+                                                    store_kv_plain)
 from swiftllm_tpu_torch.ops.quantize_kv import quantize_kv_plain
 
 KERNELS = ("add_rms_norm", "rope_qkv", "rope_qkv_fp8", "silu_mul")
@@ -152,11 +165,13 @@ def rope_units(n_q: int, n_kv: int, hd: int) -> int:
     return (n_q + n_kv) * (hd // 16) + n_kv * hd // 8
 
 
-def _rope_outputs(name: str, q, k, v, tables, bias, dtype, scale_lanes: int):
+def _rope_outputs(name: str, q, k, v, tables, bias, dtype, scale_lanes: int,
+                  cache, slots, layer: int):
     """Checks ``name``'s inputs (bf16 CUDA tensors, head_dim a multiple of
-    16, at most MAX_ROPE_UNITS units a token); returns a fresh q_rot, a
-    fresh row [T, 2*KH + scale_lanes] of ``dtype`` and the C entry's
-    arguments that write them."""
+    16, at most MAX_ROPE_UNITS units a token; with ``slots``, int32 [T] and
+    a cache [L, S, row] of the row's dtype and width); returns a fresh
+    q_rot, a fresh row [T, 2*KH + scale_lanes] of ``dtype`` and the C
+    entry's arguments that write them (and the cache's rows)."""
     cos, sin = tables
     ins = (q, k, v, cos, sin) + tuple(bias or ())
     _bf16(name, *ins)
@@ -164,6 +179,7 @@ def _rope_outputs(name: str, q, k, v, tables, bias, dtype, scale_lanes: int):
     hd = 2 * half
     T, QH = q.shape if q.dim() == 2 else (0, 0)
     KH = k.shape[-1]
+    W = 2 * KH + scale_lanes
     if (T < 1 or hd % 16 or QH % hd or KH % hd or k.shape != (T, KH)
             or v.shape != (T, KH) or cos.numel() != T * half
             or sin.shape != cos.shape
@@ -176,41 +192,80 @@ def _rope_outputs(name: str, q, k, v, tables, bias, dtype, scale_lanes: int):
             f"{None if bias is None else [tuple(b.shape) for b in bias]} "
             f"(head_dim a multiple of 16, at most {MAX_ROPE_UNITS} units a "
             "token)")
+    fold = (None, None, 0, 0, 0)
+    if slots is not None:
+        if slots.dtype != torch.int32 or cache.dtype != dtype:
+            raise TypeError(f"{name} writes the cache with int32 slots and a "
+                            f"{dtype} cache, got {slots.dtype} and {cache.dtype}")
+        if (slots.shape != (T,) or cache.dim() != 3 or cache.shape[2] != W
+                or not 0 <= layer < cache.shape[0]):
+            raise ValueError(f"{name} cache write: slots {tuple(slots.shape)}, "
+                             f"cache {tuple(cache.shape)}, layer {layer} (a "
+                             f"[L, S, {W}] cache, a slot a token)")
+        fold = (cache.data_ptr(), slots.data_ptr(), cache.shape[1], int(layer),
+                W * cache.element_size())
     q_out = torch.empty_like(q)
-    kv = torch.empty(T, 2 * KH + scale_lanes, dtype=dtype, device=q.device)
+    kv = torch.empty(T, W, dtype=dtype, device=q.device)
     bq, bk, bv = (None,) * 3 if bias is None else (b.data_ptr() for b in bias)
     return q_out, kv, (q.data_ptr(), k.data_ptr(), v.data_ptr(), bq, bk, bv,
                        cos.data_ptr(), sin.data_ptr(), q_out.data_ptr(),
-                       kv.data_ptr(), T, QH // hd, KH // hd, hd)
+                       kv.data_ptr(), *fold[:2], T, QH // hd, KH // hd, hd,
+                       *fold[2:])
+
+
+def _rope_on_cpu(name: str, plain, q, k, v, tables, bias, cache, slots,
+                 layer: int):
+    """``name``'s result from ``plain`` then ``store_kv_plain`` for CPU
+    tensors; None for CUDA tensors (the caller launches the kernel)."""
+    if (slots is None) != (cache is None):
+        raise ValueError(f"{name} writes the cache given both cache and slots")
+    fold = () if slots is None else (cache, slots)
+    if not build.on_cpu(name, q, k, v, *tables, *(bias or ()), *fold):
+        return None
+    q_out, kv = plain(q, k, v, tables, bias)
+    if slots is not None:
+        store_kv_plain(cache, kv, slots, layer)
+    return q_out, kv
 
 
 def rope_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables,
-             bias=None):
+             bias=None, cache=None, slots=None, layer: int = 0):
     """``rope_qkv_plain``'s result, from the kernel for bf16 CUDA tensors
     (head_dim a multiple of 16), from the plain version for CPU tensors.
+    With ``cache`` [L, S, 2*n_kv*hd] and ``slots`` i32[T], each row whose
+    slot lies in [0, S) is written to ``cache[layer, slot]`` in place (the
+    span write), and on the card not to the returned rows (see the module's
+    contract); without them, to the returned rows only.
 
     On the card the biases must not be written by the kernel launched just
     before this call on the stream: the launch is programmatic, and the
-    kernel reads them before it waits for that kernel to complete (q, k, v
-    and the tables only after; ``csrc/layer_ops.cu``). A model's biases are
-    safe: no kernel of a step writes a parameter."""
-    if build.on_cpu("rope_qkv", q, k, v, *tables, *(bias or ())):
-        return rope_qkv_plain(q, k, v, tables, bias)
+    kernel reads them, and the slots, before it waits for that kernel to
+    complete (q, k, v and the tables only after, and it writes the cache
+    only after; ``csrc/layer_ops.cu``). A model's biases are safe: no kernel
+    of a step writes a parameter; and so are a step's slots, written before
+    its layers."""
+    out = _rope_on_cpu("rope_qkv", rope_qkv_plain, q, k, v, tables, bias,
+                       cache, slots, layer)
+    if out is not None:
+        return out
     q_out, kv, args = _rope_outputs("rope_qkv", q, k, v, tables, bias,
-                                    q.dtype, 0)
+                                    q.dtype, 0, cache, slots, layer)
     build.launch("rope_qkv", q.device, *args)
     return q_out, kv
 
 
 def rope_qkv_fp8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables,
-                 bias=None):
+                 bias=None, cache=None, slots=None, layer: int = 0):
     """``rope_qkv_fp8_plain``'s (q_rot, fp8 row), from the kernel for bf16
     CUDA tensors (head_dim a multiple of 16), from the plain version for
-    CPU tensors. The biases as ``rope_qkv`` takes them."""
-    if build.on_cpu("rope_qkv_fp8", q, k, v, *tables, *(bias or ())):
-        return rope_qkv_fp8_plain(q, k, v, tables, bias)
+    CPU tensors. The biases, and an fp8 ``cache`` [L, S, 2*n_kv*hd + 128]
+    with its ``slots`` and ``layer``, as ``rope_qkv`` takes them."""
+    out = _rope_on_cpu("rope_qkv_fp8", rope_qkv_fp8_plain, q, k, v, tables,
+                       bias, cache, slots, layer)
+    if out is not None:
+        return out
     q_out, kv, args = _rope_outputs("rope_qkv_fp8", q, k, v, tables, bias,
-                                    FP8, FP8_SCALE_LANES)
+                                    FP8, FP8_SCALE_LANES, cache, slots, layer)
     build.launch("rope_qkv_fp8", q.device, *args)
     return q_out, kv
 

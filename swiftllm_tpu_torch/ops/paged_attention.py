@@ -29,11 +29,14 @@ their scale, and ``kv_new`` rows come in the same form. Every entry takes
   is ``seq_lens[b] - npend`` keys; the window's ``npend - 1`` completed tokens
   come from ``kv_pend[layer, j, b]`` and the current one from ``kv_new[b]``.
   It writes nothing: the caller commits the window afterwards.
-- ``store_kv`` + ``paged_prefill_attention`` (TPU: ``_tiles_kernel`` with its
-  fused span write): the write is a launch of its own, before the attention,
-  because the blocks of one GPU grid run at once (see ``csrc/store_kv.cu``).
-  The pair is also the TPU kernel's unfused mode, which speculative verify
-  steps take: their spans start and end anywhere in a page.
+- ``paged_prefill_attention`` (TPU: ``_tiles_kernel``): the spans' new KV
+  is already in the cache. The TPU kernel's fused span write cannot ride in
+  this kernel, because the blocks of one GPU grid run at once; it rides in
+  the launch that builds the rows, ``ops/layer_ops.py:rope_qkv`` (and
+  ``rope_qkv_fp8``) with the step's scatter slots, whose plain version is
+  ``store_kv_plain`` here. That is also the TPU kernel's unfused mode, which
+  speculative verify steps take: their spans start and end anywhere in a
+  page.
 - ``paged_prefill_attention_bf16s`` (TPU: ``_tiles_kernel`` under
   ``SWIFTLLM_TILE_BF16_SCORES=1``): the same attention with the scores, the
   exp2 pass and P in bf16. ``paged_prefill_attention`` takes it, at each
@@ -77,7 +80,7 @@ from swiftllm_tpu_torch.utils import cdiv
 # The C entries every serving step of this module's path can launch (sources
 # in build.SOURCES). The deferred-commit and bf16-score variants run only
 # when their environment variable asks for them.
-KERNELS = ("paged_decode_attention", "store_kv", "paged_prefill_attention")
+KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 
 FP8 = torch.float8_e4m3fn
 FP8_SCALE_LANES = 128   # lanes appended to an fp8 cache row (see above)
@@ -543,8 +546,9 @@ def _check_pend(cache, kv_new, kv_pend, npend: int, n_kv: int, hd: int,
 
 
 def store_kv_plain(cache, kv_new, kv_slots, layer: int) -> None:
-    """Plain version of ``store_kv``: cache[layer, kv_slots[t]] = kv_new[t]
-    for every in-range slot (in place)."""
+    """Plain version of the span write that ``ops/layer_ops.py:rope_qkv``
+    and ``rope_qkv_fp8`` fold in: cache[layer, kv_slots[t]] = kv_new[t] for
+    every in-range slot (in place)."""
     keep = (kv_slots >= 0) & (kv_slots < cache.shape[1])
     as_bytes(cache)[layer, kv_slots[keep].long()] = as_bytes(kv_new)[keep]
 
@@ -683,26 +687,6 @@ def paged_decode_attention_pend(q, cache, kv_new, kv_pend, page_table, q_lens,
         int(window), int(npend), kv_pend.shape[1], float(sm_scale), n_split,
         chunk, R, *_ptrs(bufs), hint=_HINT)
     return out
-
-
-def store_kv(cache, kv_new, kv_slots, layer: int) -> None:
-    """cache[layer, kv_slots[t]] = kv_new[t] for every in-range slot, in
-    place. cache [L, S, W], kv_new [T, W], kv_slots i32[T]."""
-    if _on_cpu(cache, kv_new, kv_slots):
-        store_kv_plain(cache, kv_new, kv_slots, layer)
-        return
-    _check_types((), (cache, kv_new), (kv_slots,))
-    T, W = kv_new.shape
-    row_bytes = W * kv_new.element_size()
-    if cache.shape[2] != W or row_bytes % 16 or kv_slots.shape != (T,):
-        raise ValueError(f"store_kv shapes: cache {tuple(cache.shape)}, "
-                         f"kv_new {tuple(kv_new.shape)}, "
-                         f"kv_slots {tuple(kv_slots.shape)}")
-    if T == 0:
-        return
-    build.launch("store_kv", cache.device, kv_new.data_ptr(), cache.data_ptr(),
-                 kv_slots.data_ptr(), T, row_bytes, cache.shape[1], int(layer),
-                 hint=_HINT)
 
 
 def paged_prefill_attention(q, cache, page_table, q_starts, q_lens, seq_lens,

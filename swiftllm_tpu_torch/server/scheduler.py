@@ -494,7 +494,7 @@ class Scheduler:
         """Round a prefill chunk DOWN to a page multiple unless it finishes
         the request's uncached prefill. Keeps every chunk's START page-aligned
         — the contract of the JAX package's tile kernel (its fused span-KV
-        write). The port's store_kv kernel writes any slot, but the policy
+        write). The port's span write writes any slot, but the policy
         is kept so that both packages schedule alike. The final (any-length)
         chunk never misaligns a successor."""
         if n >= r.num_uncached_tokens():

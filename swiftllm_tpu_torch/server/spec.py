@@ -20,8 +20,9 @@ loops.
 
 Copied from ``swiftllm_tpu/server/spec.py``: the scheduler's drafting path
 calls ``sync_state`` and ``propose``, and the engine's EOS rollback
-``rollback_state``. The verify step runs on the port's ``store_kv`` and
-``paged_prefill_attention`` kernels, whose spans may start anywhere.
+``rollback_state``. The verify step runs on the port's rope kernel's span
+write and its ``paged_prefill_attention`` kernel, whose spans may start
+anywhere.
 """
 
 from __future__ import annotations

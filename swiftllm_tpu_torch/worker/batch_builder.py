@@ -242,8 +242,8 @@ def build_step_batch(
             n = s.n_tokens
             start, end = r.num_cached_tokens, r.num_cached_tokens + n
             # (The JAX package asserts page-aligned span starts here for its
-            # tile kernel's in-kernel write; the port's store_kv kernel
-            # writes any slot, so it needs no such contract.)
+            # tile kernel's in-kernel write; the port's span write (in the
+            # rope kernel) writes any slot, so it needs no such contract.)
             mgr.allocate_for_seq(r.seq_id, end)
             if mgr.prefix_caching and end <= r.prompt_len:
                 # Prompt pages this chunk fills become matchable by requests

@@ -89,7 +89,7 @@ def test_packed_buffers_equal(specs):
 def test_unpacked_fields_match_jax(specs):
     """The fields the step derives on the device from the packed buffer equal
     the JAX package's, bit for bit, with one intended difference: tokens that
-    store_kv must skip (decode-kind and pad) get slot -1 in the port's
+    the span write must skip (decode-kind and pad) get slot -1 in the port's
     kv_slots_scatter, where the JAX package names the garbage slot."""
     flat, key, _ = build("torch", specs)
     garbage = 64 * CFG["block_size"]

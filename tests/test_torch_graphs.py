@@ -48,6 +48,7 @@ import tests.conftest  # noqa: F401  (forces the JAX CPU backend)
 from swiftllm_tpu_torch.config import EngineConfig, LlamaModelConfig
 from swiftllm_tpu_torch.models.llama import StepSwitches, make_step_fn
 from swiftllm_tpu_torch.ops import build, int4_matmul
+from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.server.engine import Engine
 from swiftllm_tpu_torch.server.scheduler import ScheduledSeq
@@ -100,14 +101,18 @@ def _no_host(*a, **kw):
 
 class StandIns:
     """Shape-true stand-ins for the kernel wrappers (no host reads), and
-    how often each ran."""
+    how often each ran. The rope wrappers' stand-ins run their plain
+    versions (no host reads) and count as "store" each call that writes the
+    cache (the span write folded into them), which on the CPU would run
+    ``store_kv_plain``, a boolean-mask scatter."""
 
     def __init__(self, monkeypatch):
         self.calls = dict.fromkeys(
             ("decode", "pend", "store", "prefill", "int4"), 0)
         monkeypatch.setattr(pa, "paged_decode_attention", self.decode)
         monkeypatch.setattr(pa, "paged_decode_attention_pend", self.pend)
-        monkeypatch.setattr(pa, "store_kv", self.store)
+        monkeypatch.setattr(lo, "rope_qkv", self.rope(lo.rope_qkv_plain))
+        monkeypatch.setattr(lo, "rope_qkv_fp8", self.rope(lo.rope_qkv_fp8_plain))
         monkeypatch.setattr(pa, "paged_prefill_attention", self.prefill)
         monkeypatch.setattr(int4_matmul, "int4_proj_stacked", self.int4)
 
@@ -125,9 +130,15 @@ class StandIns:
         self.calls["pend"] += 1
         return q * 0.5
 
-    def store(self, cache, kv_new, kv_slots, layer):
-        assert kv_new.shape == (kv_slots.shape[0], cache.shape[2])
-        self.calls["store"] += 1
+    def rope(self, plain):
+        def fn(q, k, v, tables, bias=None, cache=None, slots=None, layer=0):
+            q_rot, kv_new = plain(q, k, v, tables, bias)
+            if slots is not None:
+                assert kv_new.shape == (slots.shape[0], cache.shape[2])
+                assert 0 <= layer < cache.shape[0]
+                self.calls["store"] += 1
+            return q_rot, kv_new
+        return fn
 
     def prefill(self, q, cache, page_table, q_starts, q_lens, seq_lens, layer,
                 **kw):

@@ -27,6 +27,7 @@ import tests.conftest  # noqa: F401  (forces the JAX CPU backend)
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import torch
 
 from swiftllm_tpu.models import llama as jl
@@ -35,9 +36,11 @@ from swiftllm_tpu_torch.models import llama
 from swiftllm_tpu_torch.ops import build
 from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.ops import quantize_kv as qkv
-from swiftllm_tpu_torch.ops.paged_attention import FP8
+from swiftllm_tpu_torch.ops.paged_attention import FP8, FP8_SCALE_LANES
 from swiftllm_tpu_torch.worker.model import LlamaModel
 from tests import test_torch_llama as tl
+from tests.test_torch_fp8_kv import jax_quantize_kv
+from tests.test_torch_paged_attention import fp8_to_torch
 
 EPS = 1e-5
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -128,6 +131,94 @@ def test_rope_qkv_plain_matches_jax(dtype, hd, bias):
     want_kv = jnp.concatenate([want_k.reshape(T, -1), jv], axis=1)
     close(got_q, want_q.reshape(T, -1), dtype)
     close(got_kv, want_kv, dtype)
+
+
+# name -> (n_q, n_kv, head_dim, q/k/v biases, fp8 cache)
+SPAN_WRITE_CASES = {
+    "bf16": (4, 2, 64, False, False),
+    "fp8": (4, 2, 64, False, True),
+    "group7_bias_bf16": (14, 2, 64, True, False),
+    "group7_bias_fp8": (14, 2, 64, True, True),
+}
+
+
+@pytest.mark.parametrize("name", list(SPAN_WRITE_CASES))
+def test_span_write_matches_jax_scatter(name):
+    """The span write folded into ``rope_qkv`` / ``rope_qkv_fp8`` (given a
+    cache, the step's scatter slots and a layer) against the JAX package's
+    scatter ``cache.at[layer, kv_slots_scatter].set(kv_new)``
+    (``swiftllm_tpu/models/llama.py:378``) of JAX's own ``kv_new``
+    (``biased``, ``apply_rope`` with ``rope_tables``, then the concatenation
+    or the quantizing build) from the same numpy inputs, in bf16 as on the
+    card. The slots are a mixed step's: two decode-kind tokens and a pad
+    token (-1 in the port, the garbage slot in JAX), a token at S (both drop
+    it), and a span from position 5 (mid-page) over scattered pages of 16.
+    The cache bit-equal (bf16) or byte-equal (fp8) to JAX's but for its
+    garbage page, which the port leaves untouched; the rows the port leaves
+    in kv_new (the unscattered tokens') equal JAX's kv_new there; q_rot
+    bit-equal."""
+    n_q, n_kv, hd, bias, fp8 = SPAN_WRITE_CASES[name]
+    rng = np.random.default_rng(19)
+    T, ps, L, layer, n_pages = 24, 16, 2, 1, 4
+    QH, KH = n_q * hd, n_kv * hd
+    W = 2 * KH + (FP8_SCALE_LANES if fp8 else 0)
+    S = (n_pages + 1) * ps
+    garbage = S - ps
+    pages = rng.permutation(n_pages)
+    port_slots = np.full(T, -1, np.int32)
+    jax_slots = np.full(T, garbage, np.int32)
+    positions = np.zeros(T, np.int32)
+    positions[:2] = (40, 77)                        # the decode-kind tokens
+    for i in range(T - 4):                          # the span, tokens 2 .. T - 3
+        pos, t = 5 + i, 2 + i
+        positions[t] = pos
+        port_slots[t] = jax_slots[t] = pages[pos // ps] * ps + pos % ps
+    port_slots[T - 2] = jax_slots[T - 2] = S        # out of range; T - 1 a pad
+    inv_freq = (1.0 / 500000.0 ** (np.arange(0, hd, 2) / hd)).astype(np.float32)
+    bf = ml_dtypes.bfloat16
+
+    def draw(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(bf)
+
+    def tt(x):
+        return torch.from_numpy(x.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    q, k, v = draw(T, QH), draw(T, KH), draw(T, KH, scale=3)
+    b = (draw(QH, scale=0.5), draw(KH, scale=0.5), draw(KH, scale=0.5)) if bias else None
+    if fp8:
+        cache = rng.normal(size=(L, S, W)).astype(ml_dtypes.float8_e4m3fn)
+        cache_t = fp8_to_torch(cache)
+    else:
+        cache = draw(L, S, W)
+        cache_t = tt(cache)
+    before = cache_t.clone()
+    tables = llama.rope_tables(torch.from_numpy(positions), torch.from_numpy(inv_freq),
+                               torch.bfloat16)
+    rope = lo.rope_qkv_fp8 if fp8 else lo.rope_qkv
+    got_q, got_kv = rope(tt(q), tt(k), tt(v), tables, tuple(map(tt, b)) if bias else None,
+                         cache=cache_t, slots=torch.from_numpy(port_slots), layer=layer)
+
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    if bias:   # layer_step's ``biased``
+        jq, jk, jv = (y + jnp.asarray(c)[None, :] for y, c in zip((jq, jk, jv), b))
+    jt = jl.rope_tables(jnp.asarray(positions), jnp.asarray(inv_freq), jnp.bfloat16)
+    want_q = jl.apply_rope(jq.reshape(T, n_q, hd), None, None, tables=jt)
+    want_k = jl.apply_rope(jk.reshape(T, n_kv, hd), None, None, tables=jt).reshape(T, KH)
+    kv_new = (jax_quantize_kv(want_k, jv) if fp8
+              else np.asarray(jnp.concatenate([want_k, jv], axis=1)))
+    want = np.asarray(jnp.asarray(cache).at[layer, jnp.asarray(jax_slots)].set(
+        jnp.asarray(kv_new)))
+
+    def raw(x):     # a torch tensor's or a numpy array's bytes
+        return (x.view(torch.uint8).numpy() if torch.is_tensor(x)
+                else np.ascontiguousarray(x).view(np.uint8))
+    np.testing.assert_array_equal(raw(cache_t)[:, :garbage], raw(want)[:, :garbage])
+    np.testing.assert_array_equal(raw(cache_t)[:, garbage:], raw(before)[:, garbage:])
+    assert not np.array_equal(raw(cache_t), raw(before))
+    kept = (port_slots < 0) | (port_slots >= S)
+    assert kept.sum() == 4
+    np.testing.assert_array_equal(raw(got_kv)[kept], raw(kv_new)[kept])
+    np.testing.assert_array_equal(got_q.view(torch.int16).numpy(),
+                                  np.asarray(want_q.reshape(T, QH)).view(np.int16))
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -221,7 +312,9 @@ def test_rope_qkv_wrapper_rules(name, monkeypatch):
     on the card (stubbed) bf16 only, the shapes checked (a token's units
     capped at MAX_ROPE_UNITS), and one launch whose arguments are the
     inputs, the fresh outputs (the bf16 row k_rot ‖ v, or the fp8 cache
-    row with its scale lanes) and the widths."""
+    row with its scale lanes) and the widths; with a cache and slots (the
+    span write) also the cache, the slots, its slot count, the layer and
+    its row's bytes, the cache's type and width and the slots' checked."""
     rng = np.random.default_rng(5)
     fn, plain = getattr(lo, name), getattr(lo, name + "_plain")
     q, k, v, tables, bias = _rope_inputs(rng)
@@ -256,10 +349,28 @@ def test_rope_qkv_wrapper_rules(name, monkeypatch):
     assert launched[-1] == (name, (
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), *(b.data_ptr() for b in bb),
         tb[0].data_ptr(), tb[1].data_ptr(), q2.data_ptr(), kv.data_ptr(),
-        3, 4, 2, 32))
+        None, None, 3, 4, 2, 32, 0, 0, 0))
     q2, kv = fn(qb, kb, vb, tb, None)                    # no biases: null
     assert launched[-1][1][3:6] == (None,) * 3
-    assert launched[-1][1][8:] == (q2.data_ptr(), kv.data_ptr(), 3, 4, 2, 32)
+    assert launched[-1][1][8:] == (q2.data_ptr(), kv.data_ptr(), None, None,
+                                   3, 4, 2, 32, 0, 0, 0)
+    # The span write: a cache of the row's type and width, int32 slots.
+    cache = torch.zeros(2, 40, row[0], dtype=row[1])
+    slots = torch.tensor([5, -1, 40], dtype=torch.int32)
+    n = len(launched)
+    for bad, err in (((cache, slots.long(), 1), TypeError),
+                     ((cache.to(torch.float32), slots, 1), TypeError),
+                     ((cache[..., :-16], slots, 1), ValueError),   # the width
+                     ((cache, slots[:2], 1), ValueError),          # a slot a token
+                     ((cache, slots, 2), ValueError),              # the layer
+                     ((cache, None, 1), ValueError)):              # both or none
+        with pytest.raises(err):
+            fn(qb, kb, vb, tb, None, cache=bad[0], slots=bad[1], layer=bad[2])
+    assert len(launched) == n
+    q2, kv = fn(qb, kb, vb, tb, None, cache=cache, slots=slots, layer=1)
+    assert launched[-1][1][8:] == (
+        q2.data_ptr(), kv.data_ptr(), cache.data_ptr(), slots.data_ptr(), 3, 4, 2,
+        32, 40, 1, row[0] * cache.element_size())
 
 
 def test_silu_mul_wrapper_rules(monkeypatch):

@@ -130,6 +130,52 @@ def test_mixed_step_matches_jax(jax_step, use_kernels):
     assert not np.array_equal(ref["cache_after"][:, :-ps], ref["cache"][:, :-ps])
 
 
+def test_mixed_step_writes_its_spans_in_the_rope_launch(jax_step, monkeypatch):
+    """The mixed step on the kernel path (``forward_shard`` with
+    ``use_kernels``), each layer's rope call watched: every one is given
+    the cache, the step's scatter slots and its layer, and so writes the
+    prefill-kind rows itself (the span write folded in; on the CPU its
+    plain version, ``store_kv_plain``, runs once a layer and nowhere else);
+    the decode-kind and pad tokens' slots are -1. Logits, tokens and the
+    cache against the JAX step at the tolerance above."""
+    from swiftllm_tpu_torch.ops import layer_ops as lo
+    from swiftllm_tpu_torch.ops import paged_attention as pa
+    ref = jax_step
+    m = LlamaModel(EngineConfig(**dict(EC, use_pallas=True)),
+                   LlamaModelConfig(**MC), device="cpu")
+    m.params = params_from_numpy(ref["tree"], "cpu")
+    m.init_kvcache_and_swap()
+    m.kv_cache.copy_(torch.from_numpy(ref["cache"]))
+    m.token_feedback.copy_(torch.from_numpy(ref["feedback"]))
+    preallocate(m.hbm_block_mgrs[0])
+    calls, stores = [], []
+    rope, store = lo.rope_qkv, lo.store_kv_plain
+
+    def watched(*a, cache=None, slots=None, layer=0, **kw):
+        calls.append((cache is m.kv_cache, None if slots is None else slots.clone(), layer))
+        return rope(*a, cache=cache, slots=slots, layer=layer, **kw)
+    monkeypatch.setattr(lo, "rope_qkv", watched)
+    monkeypatch.setattr(lo, "store_kv_plain",
+                        lambda *a: stores.append(a[3]) or store(*a))
+    tokens, rows, logits = m.forward(schedule("torch"), return_logits=True)
+
+    L = MC["num_layers"]
+    assert [(c, lyr) for c, _, lyr in calls] == [(True, i) for i in range(L)]
+    assert stores == list(range(L))
+    slots = calls[0][1]
+    assert all(torch.equal(s, slots) for _, s, _ in calls)
+    n_dec = sum(n == 1 for *_, n in ROWS)
+    n_pre = sum(n for *_, n in ROWS if n > 1)
+    assert (slots[:n_dec] == -1).all() and int((slots >= 0).sum()) == n_pre
+    assert not hasattr(pa, "store_kv")
+    live = np.asarray(ref["rows"])
+    np.testing.assert_allclose(logits[live], ref["logits"][live], atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(tokens[live], ref["tokens"][live])
+    ps = EC["block_size"]
+    np.testing.assert_allclose(m.kv_cache.numpy()[:, :-ps],
+                               ref["cache_after"][:, :-ps], atol=1e-5, rtol=0)
+
+
 # GQA groups that do not divide the kernels' 64-row tiles (the attention
 # kernels run a group under the least of 1, 2, 4, 8 at or above it): the
 # head shape of Qwen2-0.5B (14 q / 2 kv heads, group 7, head_dim 64, q/k/v

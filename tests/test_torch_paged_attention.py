@@ -28,7 +28,8 @@ import torch
 from swiftllm_tpu.models.llama import StepBatch as JaxStepBatch
 from swiftllm_tpu.models.llama import _attention_and_store as jax_attention_and_store
 from swiftllm_tpu_torch.models.llama import StepBatch
-from swiftllm_tpu_torch.models.llama import _attention_and_store
+from swiftllm_tpu_torch.models.llama import _attention_and_store, rope_tables
+from swiftllm_tpu_torch.ops import layer_ops as lo
 from swiftllm_tpu_torch.ops import paged_attention as pa
 from swiftllm_tpu_torch.utils import cdiv, next_power_of_2, tile_q_for
 
@@ -123,12 +124,19 @@ def _to_numpy(t):
 
 
 def run_torch(case, use_kernels, window=0):
+    """The port's ``_attention_and_store`` on the case. On the kernel path
+    in a mixed or prefill bucket the prefill-kind rows are stored first, as
+    the step's rope kernel stores them before attention (its span write;
+    here its plain version, ``store_kv_plain``)."""
     batch = StepBatch(token_ids=torch.zeros(len(case["positions"]), dtype=torch.int32),
                       sample_mask=torch.zeros(len(case["q_lens"]), dtype=torch.bool),
                       **{f: torch.from_numpy(case[f]) for f in BATCH_FIELDS})
     cache = _to_torch(case["cache"])
+    kv_new = _to_torch(case["kv_new"])
+    if use_kernels and case["q_bucket"] > 1:
+        pa.store_kv_plain(cache, kv_new, batch.kv_slots_scatter, LAYER)
     out = _attention_and_store(
-        torch.from_numpy(case["q"]), _to_torch(case["kv_new"]), cache,
+        torch.from_numpy(case["q"]), kv_new, cache,
         LAYER, batch, n_kv=case["n_kv"], page_size=case["page_size"],
         sm_scale=case["sm_scale"], use_kernels=use_kernels,
         q_bucket=case["q_bucket"], window=window)
@@ -201,7 +209,9 @@ def test_matches_pallas_interpret(monkeypatch):
 
 def test_wrappers_write_in_place_and_zero_other_tokens():
     """Direct wrapper calls: the decode wrapper writes only valid rows' slots
-    and returns zeros for the other tokens; store_kv drops out-of-range slots."""
+    and returns zeros for the other tokens; the span write, folded into the
+    rope wrapper (``ops/layer_ops.py:rope_qkv`` with a cache and slots),
+    drops out-of-range slots and leaves those rows in its kv_new."""
     case = make_case(np.random.default_rng(3), [(1, 9), (1, 3)])
     cache = torch.from_numpy(case["cache"].copy())
     t = {k: torch.from_numpy(case[k]) for k in
@@ -215,5 +225,11 @@ def test_wrappers_write_in_place_and_zero_other_tokens():
         assert torch.equal(cache[LAYER, int(t["kv_slots"][b])], t["kv_new"][b])
     before = cache.clone()
     bad = torch.tensor([-1, cache.shape[1]], dtype=torch.int32)
-    pa.store_kv(cache, t["kv_new"][:2], bad, LAYER)
+    hd, n_kv = case["q"].shape[2], case["n_kv"]
+    q, k, v = (t["q"][:2].reshape(2, -1), t["kv_new"][:2, :n_kv * hd],
+               t["kv_new"][:2, n_kv * hd:])
+    tables = rope_tables(torch.tensor([3, 40]), torch.ones(hd // 2) * 0.1,
+                         torch.float32)
+    q_rot, kv = lo.rope_qkv(q, k, v, tables, cache=cache, slots=bad, layer=LAYER)
     assert torch.equal(cache, before)
+    assert torch.equal(kv, lo.rope_qkv_plain(q, k, v, tables)[1])

@@ -772,14 +772,14 @@ def test_launch_runs_on_the_tensors_card(monkeypatch):
             return seen[-1][2][0]           # the first argument: its error code
         return fn
     monkeypatch.setattr(build, "entry", entry_of)
-    monkeypatch.setitem(build.launch_counts, "store_kv", 0)
-    build.launch("store_kv", torch.device("cuda:1"), 0, 7)
+    monkeypatch.setitem(build.launch_counts, "silu_mul", 0)
+    build.launch("silu_mul", torch.device("cuda:1"), 0, 7)
     assert seen == [(torch.device("cuda:1"), 1001, (0, 7))]
     assert cards.current() == torch.device("cuda:0")    # the guard is undone
-    assert build.launch_counts["store_kv"] == 1
+    assert build.launch_counts["silu_mul"] == 1
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        build.launch("store_kv", torch.device("cuda:2"), 700, hint="")
-    assert build.launch_counts["store_kv"] == 1         # a failure is no launch
+        build.launch("silu_mul", torch.device("cuda:2"), 700, hint="")
+    assert build.launch_counts["silu_mul"] == 1         # a failure is no launch
     assert isinstance(build.stream(torch.device("cuda:3")), ctypes.c_void_p)
     assert build.stream(torch.device("cuda:3")).value == 1003
 
