@@ -1,0 +1,9 @@
+"""95th percentile over every request due in the window of the time from
+its due time to its first token; a request that never finished counts as
+missing."""
+
+from harness.stats import percentile, ttft_ms
+
+
+def read(run):
+    return percentile(ttft_ms(run.reqs), 95)
